@@ -99,15 +99,19 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def tie_aware_equal(kd_a, ki_a, kd_b, ki_b) -> bool:
-    """Distances within tolerance everywhere; an index may differ only where
-    both results hold (near-)equal distances at that slot."""
-    import torch
+def need_topk(kd, ki, kd_ref, ki_ref, dist_of, what: str) -> None:
+    """``(kd, ki)`` answers as ``(kd_ref, ki_ref)`` does: distances within
+    tolerance, and an index differs only at a real distance tie, where it
+    must be a point at its distance (``repro_torch.core.topk.topk_mismatch``)."""
+    from repro_torch.core import topk
 
-    close = torch.isclose(kd_a, kd_b, rtol=RTOL, atol=ATOL) | (
-        torch.isinf(kd_a) & torch.isinf(kd_b)
-    )
-    return bool(close.all()) and bool(((ki_a == ki_b) | close).all())
+    why = topk.topk_mismatch(kd, ki, kd_ref, ki_ref, dist_of, rtol=RTOL, atol=ATOL)
+    need(why is None, f"{what}: {why}")
+
+
+def point_dist_of(data, queries):
+    """L1 distance of query ``rows`` to data points ``idx``."""
+    return lambda rows, idx: (data[idx.long()] - queries[rows]).abs().sum(-1)
 
 
 def synth(n: int, nq: int):
@@ -150,7 +154,8 @@ def kernels_phase(data, queries, cfg, flush) -> list[dict]:
         name="bitsample_pack", route="cuda", source="src/repro_torch/csrc/hash_pack.cu",
         replaces="src/repro/kernels/hash_pack/hash_pack.py:112",
         also_replaces="src/repro/kernels/hash_pack/hash_pack.py:139",
-        shape=f"x ({t}, {d}), {m_cols} columns, margins", exact=True, max_abs_err=0.0,
+        shape=f"x ({t}, {d}), {m_cols} columns, margins", exact=True,
+        max_abs_err=float((mk - mr)[torch.isfinite(mr)].abs().max()),  # padded columns hold inf
         ms=timed_ms(lambda: hp.bitsample_pack(cell, dims, thrs, margins=True), 50, flush),
         plain_ms=timed_ms(lambda: hp_ref.bitsample_pack_ref(cell, dims, thrs, margins=True), 10, flush),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -163,8 +168,11 @@ def kernels_phase(data, queries, cfg, flush) -> list[dict]:
     proj = torch.nn.functional.pad(inner.proj, (0, m_pad - m_in)).permute(1, 0, 2)
     cols = proj.reshape(d, n_tab * m_pad).contiguous()
     bias = torch.zeros(n_tab * m_pad, device=data.device)
-    wk = hp.proj_sign_pack(cell, cols, bias, m_in, m_pad)
-    wr = hp_ref.proj_sign_pack_ref(cell, cols, bias, m_in, m_pad)
+    wk, mk = hp.proj_sign_pack(cell, cols, bias, m_in, m_pad, margins=True)
+    wr, mr = hp_ref.proj_sign_pack_ref(cell, cols, bias, m_in, m_pad, margins=True)
+    need(torch.equal(hp.proj_sign_pack(cell, cols, bias, m_in, m_pad), wk), "proj_sign_pack words depend on the margins mode")
+    real = (torch.arange(cols.shape[1], device=data.device) % m_pad) < m_in
+    margin_err = float((mk - mr)[:, real].abs().max())
     s = cell @ cols
     bits_k = (wk[:, :, None] >> torch.arange(32, device=data.device)) & 1
     bits_r = (wr[:, :, None] >> torch.arange(32, device=data.device)) & 1
@@ -178,13 +186,20 @@ def kernels_phase(data, queries, cfg, flush) -> list[dict]:
     tie_words = ties.reshape(t, l_loc, -1, 32).any(dim=-1)
     need(torch.equal(om, am), "one-hot proj_sign_pack margins differ from bitsample_pack")
     need(torch.equal(ow[~tie_words], aw[~tie_words]), "one-hot proj_sign_pack words differ from bitsample_pack")
-    b_ms, b_by = bound(t * d * 4 + cols.numel() * 4 + bias.numel() * 4 + t * cols.shape[1] // 8, 2 * t * d * cols.shape[1])
+    # the words-only launch: x read once, P and bias once, one word per 32
+    # columns; the function needs 2*d flops for each of the L_in*m_in real
+    # columns (padded columns pack a 0 bit whatever s is)
+    b_ms, b_by = bound(
+        t * d * 4 + cols.numel() * 4 + bias.numel() * 4 + t * cols.shape[1] // 8,
+        2 * t * d * n_tab * m_in,
+    )
     rows.append(dict(
         name="proj_sign_pack", route="cuda", source="src/repro_torch/csrc/hash_pack.cu",
         replaces="src/repro/kernels/hash_pack/hash_pack.py:210",
         also_replaces="src/repro/kernels/hash_pack/hash_pack.py:175",
-        shape=f"x ({t}, {d}), proj ({d}, {cols.shape[1]})", exact=bool(not diff.any()),
-        max_abs_err=0.0, disagreeing_bits=int(diff.sum()),
+        shape=f"x ({t}, {d}), proj ({d}, {cols.shape[1]}), {n_tab * m_in} real columns",
+        exact=bool(not diff.any()), disagreeing_bits=int(diff.sum()),
+        max_abs_err=margin_err, max_abs_err_of="margins |s| against the float32 matmul",
         onehot_vs_bitsample=dict(margins_equal=True, words_equal_off_ties=True, tie_columns=int(ties.sum())),
         ms=timed_ms(lambda: hp.proj_sign_pack(cell, cols, bias, m_in, m_pad), 50, flush),
         plain_ms=timed_ms(lambda: hp_ref.proj_sign_pack_ref(cell, cols, bias, m_in, m_pad), 10, flush),
@@ -211,7 +226,8 @@ def kernels_phase(data, queries, cfg, flush) -> list[dict]:
     valid = valid.contiguous()
     dk, pk_ = l1.l1_topk(qs, pts, valid, k)
     dr, pr = l1_ref.l1_topk_ref(qs, pts, valid, k)
-    need(tie_aware_equal(dk, pk_, dr, pr), "l1_topk differs from its plain version")
+    need_topk(dk, pk_, dr, pr, lambda rows, pos: (pts[rows, pos.long()] - qs[rows]).abs().sum(-1),
+              "l1_topk differs from its plain version")
     n_valid = int(valid.sum())
     b_ms, b_by = bound(n_valid * d * 4 + valid.numel() + q_n * d * 4 + q_n * k * 8, 3 * n_valid * d)
     rows.append(dict(
@@ -228,7 +244,7 @@ def kernels_phase(data, queries, cfg, flush) -> list[dict]:
     out_k = qf.query_tail(cell, qs, cand, run=run, c_comp=cc, k=k)
     out_r = qf_ref.query_tail_ref(cell, qs, cand, c_comp=cc, k=k)
     need(torch.equal(out_k[2], out_r[2]) and torch.equal(out_k[3], out_r[3]), "query_tail counters differ")
-    need(tie_aware_equal(out_k[0], out_k[1], out_r[0], out_r[1]), "query_tail top-k differs")
+    need_topk(out_k[0], out_k[1], out_r[0], out_r[1], point_dist_of(cell, qs), "query_tail top-k differs")
     gathered = int(out_r[2].clamp(max=cc).sum())
     c_pad = qf._run_padded_width(c_w, run)  # run is a power of two here
     sizes = [run << e for e in range(1, (c_pad // run).bit_length())]
@@ -367,18 +383,23 @@ def run(dev, n: int, nq: int) -> None:
     # multiprobe: the words+margins launch on the query path
     n_mp = min(131_072, n)
     cfg_mp = cfg.replace(multiprobe=2)
-    _build.reset_launches()
+    nq_mp = 500
     single = dslsh.build(SEED, pts[:n_mp], cfg_mp, dslsh.single(), dev)
-    res_mp = single.query(qx[:500])
+    sync(dev)
+    _build.reset_launches()  # count the query's launches only
+    res_mp = single.query(qx[:nq_mp])
     sync(dev)
     mp_launches = dict(_build.LAUNCHES)
     ref_mp = pipeline.query_batch(
-        single.pipeline_index, single._state["data"], queries[:500], cfg_mp.replace(backend="torch")
+        single.pipeline_index, single._state["data"], queries[:nq_mp], cfg_mp.replace(backend="torch")
     )
-    need(mp_launches.get("bitsample_pack", 0) > 0, "multiprobe path never launched bitsample_pack")
+    chunks = -(-nq_mp // cfg_mp.query_chunk)
+    need(mp_launches.get("bitsample_pack.margins", 0) == chunks,
+         f"multiprobe query made {mp_launches.get('bitsample_pack.margins', 0)} words+margins launches, not one per chunk ({chunks})")
     need(torch.equal(res_mp.comparisons[0, 0], ref_mp.comparisons), "multiprobe comparisons differ")
-    need(tie_aware_equal(res_mp.knn_dist, res_mp.knn_idx, ref_mp.knn_dist, ref_mp.knn_idx), "multiprobe top-k differs")
-    emit("multiprobe", n=n_mp, queries=500, launches=mp_launches,
+    need_topk(res_mp.knn_dist, res_mp.knn_idx, ref_mp.knn_dist, ref_mp.knn_idx,
+              point_dist_of(single._state["data"], queries), "multiprobe top-k differs")
+    emit("multiprobe", n=n_mp, queries=nq_mp, query_launches=mp_launches,
          mean_comparisons=float(res_mp.comparisons.to(torch.float32).mean()))
 
     # backends agree on the card: the plain path on the same grid index
@@ -389,13 +410,14 @@ def run(dev, n: int, nq: int) -> None:
     )
     need(torch.equal(ref.comparisons, res.comparisons[:, :, :nq_b]), "torch/cuda comparisons differ")
     need(torch.equal(ref.compaction_overflow, res.compaction_overflow[:, :, :nq_b]), "torch/cuda overflow differs")
-    need(tie_aware_equal(res.knn_dist[:nq_b], res.knn_idx[:nq_b], ref.knn_dist, ref.knn_idx), "torch/cuda top-k differs")
+    need_topk(res.knn_dist[:nq_b], res.knn_idx[:nq_b], ref.knn_dist, ref.knn_idx,
+              point_dist_of(index._state["data"], queries), "torch/cuda top-k differs")
     emit("backends_agree", queries=nq_b, knn_idx_identical=bool(torch.equal(ref.knn_idx, res.knn_idx[:nq_b])),
          max_abs_dist_err=float((ref.knn_dist - res.knn_dist[:nq_b]).abs().nan_to_num(0.0).max()))
 
     for r in rows:
         r["launches"] = main_launches.get(r["name"], 0)
-        r["multiprobe_launches"] = mp_launches.get(r["name"], 0)
+        r["multiprobe_query_launches"] = mp_launches.get(r["name"], 0)
     print(json.dumps({"kernels": rows}), flush=True)
 
 

@@ -33,6 +33,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import device as device_mod
+
 FNV_PRIME = 16777619
 FNV_BASIS = 2166136261
 MASK32 = 0xFFFFFFFF
@@ -83,10 +85,12 @@ HashParams = BitSampleParams | SignRPParams
 
 def make_bitsample(
     gen: torch.Generator, L: int, m: int, d: int, lo: float, hi: float,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> BitSampleParams:
     """Sample an l1 bit-sampling family from ``gen`` (drawn on the CPU, then
-    moved, so a seed gives the same family on every device)."""
+    moved, so a seed gives the same family on every device) onto ``device``
+    (the card unless told otherwise, see :func:`repro_torch.device.resolve`)."""
+    device = device_mod.resolve(device)
     dims = torch.randint(0, d, (L, m), generator=gen, dtype=torch.int32)
     thrs = lo + (hi - lo) * torch.rand((L, m), generator=gen, dtype=torch.float32)
     salts = torch.randint(0, 2**31 - 1, (L,), generator=gen, dtype=torch.int64)
@@ -95,10 +99,11 @@ def make_bitsample(
 
 def make_signrp(
     gen: torch.Generator, L: int, m: int, d: int,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> SignRPParams:
     """Sample a cosine sign-random-projection family: L tables, m gaussian
-    projections each (``bit_j = (x . proj[:, j]) >= 0``)."""
+    projections each (``bit_j = (x . proj[:, j]) >= 0``), on ``device``."""
+    device = device_mod.resolve(device)
     proj = torch.randn((L, d, m), generator=gen, dtype=torch.float32)
     salts = torch.randint(0, 2**31 - 1, (L,), generator=gen, dtype=torch.int64)
     return SignRPParams(proj.to(device), salts.to(device))

@@ -158,9 +158,9 @@ class RuntimeConfig:
     """The execution half of an SLSH configuration.
 
     ``backend`` selects the compute (``"cuda"`` the hand-written kernels,
-    the default; ``"torch"`` plain PyTorch, the oracle). ``interpret`` is
-    kept for parity with the JAX configuration and read by nothing: the
-    port has no interpret mode. ``build_chunk``/``query_chunk`` bound
+    the default; ``"torch"`` plain PyTorch, the oracle). ``interpret``
+    keeps the JAX configuration's fields; the port has no interpret mode, so
+    any value but ``None`` is refused. ``build_chunk``/``query_chunk`` bound
     per-step memory; ``build_mode`` picks the index-construction schedule
     (``"monolithic"`` full sort, ``"chunked"`` sorted runs merged by the
     ladder, ``"auto"`` chunked once ``n > build_chunk``). ``payload`` takes
@@ -184,6 +184,12 @@ class RuntimeConfig:
             self.backend in _BACKENDS,
             f"unknown SLSH backend {self.backend!r}; registered:"
             f" {sorted(_BACKENDS)}",
+        )
+        _require(
+            self.interpret is None,
+            f"interpret={self.interpret!r}: the PyTorch port has no interpret"
+            " mode; a CPU tensor takes each kernel's plain version, so leave"
+            " interpret=None and pass device='cpu' (or backend='torch')",
         )
         _require(
             self.build_mode in ("auto", "monolithic", "chunked"),
@@ -430,10 +436,12 @@ def get_backend(name: str) -> BackendOps:
 
 
 def make_family(
-    gen: torch.Generator, d: int, cfg: SLSHConfig, device: torch.device | str = "cpu"
+    gen: torch.Generator, d: int, cfg: SLSHConfig,
+    device: torch.device | str | None = None,
 ) -> tuple[hashing.BitSampleParams, hashing.SignRPParams]:
     """The full (outer, inner) hash family for dimensionality ``d``, drawn
-    from ``gen``. Inner instances are shared across heavy buckets."""
+    from ``gen``, on ``device`` (the card unless told otherwise). Inner
+    instances are shared across heavy buckets."""
     outer = hashing.make_bitsample(
         gen, cfg.L_out, cfg.m_out, d, cfg.val_lo, cfg.val_hi, device
     )

@@ -6,6 +6,8 @@ here is a stable ascending sort cut to ``k``.
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
 INF = float("inf")
@@ -77,4 +79,57 @@ def masked_l1_topk_batch(
     dists = torch.where(mask, dists, INF)
     pos = torch.arange(dists.shape[1], dtype=torch.int32, device=dists.device)
     return masked_topk_smallest(dists, pos.expand(dists.shape), k)
+
+
+def topk_mismatch(
+    dist: torch.Tensor, idx: torch.Tensor,
+    ref_dist: torch.Tensor, ref_idx: torch.Tensor,
+    dist_of: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    rtol: float = 1e-5, atol: float = 1e-5,
+) -> str | None:
+    """Why the top-k result ``(dist, idx)`` (Q, k) is not an equal answer to
+    ``(ref_dist, ref_idx)``, or ``None`` when it is.
+
+    Distances must agree within ``rtol``/``atol`` at every slot (inf with
+    inf), since two implementations may sum over d in another order. An
+    index may differ from the reference only at a real tie: where the
+    reference's distance at that slot equals its distance at a neighbouring
+    slot, or at the last slot, whose tie may be with the unseen (k+1)-th
+    neighbour. There the index must still be a point at the reported
+    distance, which ``dist_of(rows, idx) -> (N,)`` recomputes from the data.
+    No row may repeat an index more often than the reference's row does (a
+    grid's Reducer keeps a point that two cells of one node both found).
+    """
+    if dist.shape != ref_dist.shape or idx.shape != ref_idx.shape:
+        return f"shapes {tuple(dist.shape)}/{tuple(idx.shape)} differ from the reference"
+
+    def close(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return torch.isclose(a, b, rtol=rtol, atol=atol) | (torch.isinf(a) & torch.isinf(b))
+
+    off = ~close(dist, ref_dist)
+    if off.any():
+        return f"{int(off.sum())} distances differ beyond rtol={rtol}, atol={atol}"
+    tie = torch.zeros_like(off)
+    tie[:, -1] = True
+    level = close(ref_dist[:, 1:], ref_dist[:, :-1])
+    tie[:, 1:] |= level
+    tie[:, :-1] |= level
+    diff = idx != ref_idx
+    if (diff & ~tie).any():
+        return f"{int((diff & ~tie).sum())} indices differ at slots without a distance tie"
+    rows, slots = diff.nonzero(as_tuple=True)
+    moved = idx[rows, slots]
+    if (moved < 0).any():
+        return "padding where the reference holds a point"
+    if rows.numel() and not close(dist_of(rows, moved), dist[rows, slots]).all():
+        return "a tied index is not a point at its reported distance"
+    if (_repeats(idx) > _repeats(ref_idx)).any():
+        return "a row repeats an index more often than the reference's row does"
+    return None
+
+
+def _repeats(idx: torch.Tensor) -> torch.Tensor:
+    """Per row, how many entries repeat an earlier index (-1 pads aside)."""
+    srt = idx.sort(dim=1).values
+    return ((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).sum(dim=1)
 

@@ -14,7 +14,8 @@ and spill report lands in ``<name>-<hash>.log`` beside the library.
 
 Every wrapper counts its launches in :data:`LAUNCHES` (one per launch of its
 kernel, nowhere else), so a run can show which kernels its path went
-through.
+through. A launch in a mode of its own (``bitsample_pack`` with margins)
+also counts under ``"<kernel>.<mode>"``.
 """
 from __future__ import annotations
 

@@ -71,6 +71,8 @@ def bitsample_pack(
         _build.stream_ptr(x),
     )
     _build.check(lib, err, "bitsample_pack")
+    if mg is not None:  # the multiprobe mode's launches, counted apart too
+        _build.count_launch("bitsample_pack.margins")
     return _finish(words, mg)
 
 

@@ -13,6 +13,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from repro_torch import device as device_mod
 from repro_torch.core import hashing, pipeline, tables
 
 
@@ -30,10 +31,12 @@ def _t(a, dtype: torch.dtype, device) -> torch.Tensor:
 def from_jax_params(
     outer: Mapping[str, np.ndarray],
     inner: Mapping[str, np.ndarray],
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> tuple[hashing.BitSampleParams, hashing.SignRPParams]:
     """``outer`` {dims, thrs, salts} and ``inner`` {proj, salts} arrays (or
-    NamedTuples with those fields) -> the port's parameter pair."""
+    NamedTuples with those fields) -> the port's parameter pair on
+    ``device`` (the card unless told otherwise)."""
+    device = device_mod.resolve(device)
     o, i = _fields(outer), _fields(inner)
     dims = _t(o["dims"], torch.int32, device)
     d = int(np.asarray(i["proj"]).shape[1])
@@ -49,9 +52,11 @@ def from_jax_params(
     )
 
 
-def index_from_numpy(ix: Any, device: torch.device | str = "cpu") -> pipeline.SLSHIndex:
+def index_from_numpy(ix: Any, device: torch.device | str | None = None) -> pipeline.SLSHIndex:
     """An ``SLSHIndex`` from any object with the same leaves (for instance
-    the JAX package's index), read through ``np.asarray``."""
+    the JAX package's index), read through ``np.asarray``, on ``device``
+    (the card unless told otherwise)."""
+    device = device_mod.resolve(device)
     outer, inner = from_jax_params(ix.outer_params, ix.inner_params, device)
     hv = ix.heavy
     return pipeline.SLSHIndex(

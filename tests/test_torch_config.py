@@ -3,7 +3,8 @@
 The one deliberate difference is the backend: the JAX package registers
 ``"reference"``/``"pallas"`` and defaults to ``"reference"``; the port
 registers ``"torch"``/``"cuda"`` and defaults to ``"cuda"``. ``payload``
-accepts only ``"f32"`` in the port so far.
+accepts only ``"f32"`` in the port so far, and ``interpret`` only ``None``:
+the port keeps the field but has no interpret mode.
 """
 from __future__ import annotations
 
@@ -78,6 +79,15 @@ def test_backends_and_payload_of_the_port():
         tp.RuntimeConfig(backend="pallas")
     with pytest.raises(tp.ConfigError, match="payload='f16'"):
         tp.RuntimeConfig(payload="f16")
+
+
+@pytest.mark.parametrize("value", [True, False])
+def test_interpret_is_refused_by_the_port(value):
+    assert tp.RuntimeConfig().interpret is None
+    with pytest.raises(tp.ConfigError, match="no interpret mode"):
+        tp.RuntimeConfig(interpret=value)
+    with pytest.raises(tp.ConfigError, match="no interpret mode"):
+        tp.SLSHConfig.compose(interpret=value)
 
 
 @pytest.mark.parametrize(

@@ -4,8 +4,9 @@
 makes the beats in this process), AHE-51-5c windows, the quickstart's
 family/budget configs on ``grid(nu=2, p=8)``, and the JAX family from
 ``PRNGKey(1)`` carried across. Per-cell comparisons, the per-processor
-maximum and the overflow counters must be equal; neighbours tie-aware
-within rtol = atol = 1e-5; predictions, DSLSH MCC and PKNN MCC equal.
+maximum and the overflow counters must be equal; neighbour distances
+within rtol = atol = 1e-5 and indices tie-aware (``core.topk.topk_mismatch``);
+predictions, DSLSH MCC and PKNN MCC equal.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from repro.data import abp
 from repro.data import windows as jwin
 from repro_torch import api
 from repro_torch.core import predict as tpred
+from repro_torch.core import topk as ttopk
 from repro_torch.data import windows as twin
 
 RTOL = ATOL = 1e-5
@@ -33,11 +35,13 @@ def _np(a) -> np.ndarray:
     return np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a)
 
 
-def _assert_topk(jd, ji, td, ti):
-    jd, ji, td, ti = map(_np, (jd, ji, td, ti))
-    np.testing.assert_allclose(td, jd, rtol=RTOL, atol=ATOL)
-    close = np.isclose(td, jd, rtol=RTOL, atol=ATOL) | (np.isinf(td) & np.isinf(jd))
-    assert ((ti == ji) | close).all()
+def _assert_topk(jd, ji, td, ti, pts, qx):
+    jd, ji, td, ti, pts, qx = (torch.tensor(_np(a)) for a in (jd, ji, td, ti, pts, qx))
+    why = ttopk.topk_mismatch(
+        td, ti, jd, ji, lambda rows, idx: (pts[idx.long()] - qx[rows]).abs().sum(-1),
+        rtol=RTOL, atol=ATOL,
+    )
+    assert why is None, why
 
 
 @pytest.fixture(scope="module")
@@ -76,7 +80,7 @@ def test_grid_matches_jax_quickstart(quickstart, backend):
     np.testing.assert_array_equal(_np(res.compaction_overflow), _np(jres.compaction_overflow))
     assert res.overflow_cells == jres.overflow_cells
     assert res.routed_frac == 1.0
-    _assert_topk(jres.knn_dist, jres.knn_idx, res.knn_dist, res.knn_idx)
+    _assert_topk(jres.knn_dist, jres.knn_idx, res.knn_dist, res.knn_idx, qs["pts"], qs["qx"])
     labs = torch.as_tensor(qs["labs"])
     pred = tpred.predict_batch(labs, res.knn_idx, res.knn_dist)
     np.testing.assert_array_equal(_np(pred), _np(qs["pred"]))
@@ -93,7 +97,7 @@ def test_pknn_matches_jax(quickstart):
     pkd, pki, pcomps = api.pknn_query(torch.as_tensor(qs["pts"]), torch.as_tensor(qs["qx"]), 10, grid)
     jkd, jki, jcomps = qs["pknn"]
     np.testing.assert_array_equal(_np(pcomps), _np(jcomps))
-    _assert_topk(jkd, jki, pkd, pki)
+    _assert_topk(jkd, jki, pkd, pki, qs["pts"], qs["qx"])
     pred = tpred.predict_batch(torch.as_tensor(qs["labs"]), pki, pkd)
     assert float(tpred.mcc(pred, torch.as_tensor(qs["qy"]))) == pytest.approx(qs["mcc_p"], abs=1e-6)
 

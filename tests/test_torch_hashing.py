@@ -44,7 +44,7 @@ def _family(L=6, m=20, L_in=4, m_in=12, key=1):
     ko, ki = jax.random.split(jax.random.PRNGKey(key))
     outer = jh.make_bitsample(ko, L, m, D, 20.0, 180.0)
     inner = jh.make_signrp(ki, L_in, m_in, D)
-    return (outer, inner), tparams.from_jax_params(outer, inner)
+    return (outer, inner), tparams.from_jax_params(outer, inner, "cpu")
 
 
 @pytest.mark.parametrize("m", [12, 32, 45])

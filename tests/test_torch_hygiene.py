@@ -77,6 +77,35 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
     assert index.device == torch.device("cpu")
 
 
+def _family_calls():
+    from repro_torch import params
+    from repro_torch.core import hashing, pipeline
+
+    gen = torch.Generator().manual_seed(0)
+    cfg = pipeline.SLSHConfig.compose(m_out=8, L_out=4, m_in=4, L_in=2, h_max=2)
+    outer = dict(dims=np.zeros((4, 8), np.int32), thrs=np.zeros((4, 8), np.float32),
+                 salts=np.zeros((4,), np.uint32))
+    inner = dict(proj=np.zeros((2, 8, 4), np.float32), salts=np.zeros((2,), np.uint32))
+    return {
+        "make_family": lambda dev: pipeline.make_family(gen, 8, cfg, dev),
+        "make_bitsample": lambda dev: hashing.make_bitsample(gen, 4, 8, 8, 0.0, 1.0, dev),
+        "make_signrp": lambda dev: hashing.make_signrp(gen, 2, 4, 8, dev),
+        "from_jax_params": lambda dev: params.from_jax_params(outer, inner, dev),
+    }
+
+
+@pytest.mark.parametrize("name", ["make_family", "make_bitsample", "make_signrp", "from_jax_params"])
+def test_family_constructors_refuse_to_fall_back_to_cpu(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the no-card behaviour cannot show")
+    call = _family_calls()[name]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call(None)
+    leaves = call("cpu")
+    leaves = [t for part in (leaves if name in ("make_family", "from_jax_params") else [leaves]) for t in part]
+    assert all(t.device == torch.device("cpu") for t in leaves)
+
+
 def test_unported_deployments_raise_not_implemented():
     from repro_torch import api
 

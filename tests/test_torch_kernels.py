@@ -6,10 +6,11 @@ these same plain versions there). The JAX side runs its Pallas kernels in
 interpret mode, as the JAX package's own tests do on the CPU.
 
 Integer outputs must be exact. Distances agree within rtol = atol = 1e-5,
-since sums over d may run in another order; indices are compared
-tie-aware: a mismatch is allowed only where the two distances agree within
-that tolerance. Integer-valued data makes every distance exact, so there
-the tie rule (lowest position wins) is held exactly.
+since sums over d may run in another order. Indices are compared
+tie-aware (``core.topk.topk_mismatch``): one may differ only at a real tie
+of the reference's distances, and must then be a point at that distance.
+Integer-valued data makes every distance exact, so there the tie rule
+(lowest position wins) is held exactly.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from repro.kernels.l1_topk import ref as jl1_ref
 from repro.kernels.query_fused import ops as jqf
 from repro.kernels.query_fused import ref as jqf_ref
 from repro_torch import params as tparams
+from repro_torch.core import topk as ttopk
 from repro_torch.kernels import _build
 from repro_torch.kernels.hash_pack import ops as thp
 from repro_torch.kernels.hash_pack import ref as thp_ref
@@ -45,12 +47,22 @@ def _eq(jax_out, torch_out):
     np.testing.assert_array_equal(_np(torch_out), _np(jax_out))
 
 
-def _topk_close(jd, ji, td, ti):
-    """Distances within tolerance; indices equal except at near-ties."""
-    jd, ji, td, ti = map(_np, (jd, ji, td, ti))
-    np.testing.assert_allclose(td, jd, rtol=RTOL, atol=ATOL)
-    close = np.isclose(td, jd, rtol=RTOL, atol=ATOL) | (np.isinf(td) & np.isinf(jd))
-    assert ((ti == ji) | close).all()
+def _topk_close(jd, ji, td, ti, dist_of):
+    """Distances within tolerance; indices equal except at real ties, where
+    ``dist_of(rows, idx)`` must place the port's index at its distance."""
+    jd, ji, td, ti = (torch.tensor(_np(a)) for a in (jd, ji, td, ti))
+    why = ttopk.topk_mismatch(td, ti, jd, ji, dist_of, rtol=RTOL, atol=ATOL)
+    assert why is None, why
+
+
+def _l1_dist_of(q, cands):
+    q, cands = torch.as_tensor(q), torch.as_tensor(cands)
+    return lambda rows, pos: (cands[rows, pos.long()] - q[rows]).abs().sum(-1)
+
+
+def _point_dist_of(data, queries):
+    data, queries = torch.as_tensor(data), torch.as_tensor(queries)
+    return lambda rows, idx: (data[idx.long()] - queries[rows]).abs().sum(-1)
 
 
 @pytest.fixture(autouse=True)
@@ -68,7 +80,7 @@ def _families(L=5, m=20, m_in=12):
     ko, ki = jax.random.split(jax.random.PRNGKey(3))
     outer = jh.make_bitsample(ko, L, m, D, 20.0, 180.0)
     inner = jh.make_signrp(ki, 4, m_in, D)
-    return (outer, inner), tparams.from_jax_params(outer, inner)
+    return (outer, inner), tparams.from_jax_params(outer, inner, "cpu")
 
 
 @pytest.mark.parametrize("m", [20, 32, 40])
@@ -151,7 +163,7 @@ def test_l1_topk(integer, k):
             _eq(jd, td)
             _eq(jp, tp)
         else:
-            _topk_close(jd, jp, td, tp)
+            _topk_close(jd, jp, td, tp, _l1_dist_of(q, cands))
 
 
 def _run_rows(q_n, runs, run, n, seed):
@@ -200,7 +212,7 @@ def test_query_tail(run, runs, c_comp, integer):
             _eq(jkd, tout[0])
             _eq(jki, tout[1])
         else:
-            _topk_close(jkd, jki, tout[0], tout[1])
+            _topk_close(jkd, jki, tout[0], tout[1], _point_dist_of(data, queries))
     if c_comp == 20:
         assert int(tout[3].max()) > 0
     assert int(tout[2][0]) == 0 and (tout[1][0] == -1).all()
@@ -211,3 +223,55 @@ def test_query_tail_pads_to_a_power_of_two_run_count():
     assert tqf._run_padded_width(48, 12) == 48
     assert tqf._run_padded_width(1024, 16) == 1024
     assert tqf._run_padded_width(130, 16) == 256
+
+
+def _tie_case():
+    """Points with an exact tie at the top of query 0 (point 7 copies point
+    3) and one past the k-th neighbour of query 2 (the last point copies
+    that neighbour), and the exact top-k of every query."""
+    rng = np.random.default_rng(9)
+    data = rng.random((60, 5), dtype=np.float32)
+    data[7] = data[3]
+    queries = data[[3, 20, 40]] + np.float32(0.01)
+    k = 6
+    kd, ki = ttopk.masked_l1_topk_batch(
+        torch.as_tensor(queries), torch.as_tensor(data).expand(3, -1, -1),
+        torch.ones((3, 60), dtype=torch.bool), k,
+    )
+    data = np.concatenate([data, data[int(ki[2, k - 1])][None]])
+    return data, queries, kd, ki
+
+
+def _edit_slots(ki, edits):
+    ki = ki.clone()
+    for (row, slot), value in edits.items():
+        ki[row, slot] = value
+    return ki
+
+
+_TOPK_EDITS = {
+    "equal": (lambda kd, ki: (kd, ki), None),
+    "swap_at_tie": (lambda kd, ki: (kd, _edit_slots(ki, {(0, 0): ki[0, 1], (0, 1): ki[0, 0]})), None),
+    "tie_past_k": (lambda kd, ki: (kd, _edit_slots(ki, {(2, 5): 60})), None),
+    "swap_without_tie": (lambda kd, ki: (kd, _edit_slots(ki, {(1, 2): ki[1, 3], (1, 3): ki[1, 2]})),
+                         "without a distance tie"),
+    "positions_for_indices": (lambda kd, ki: (kd, torch.arange(6, dtype=ki.dtype).expand(3, -1).clone()),
+                              "without a distance tie"),
+    "wrong_point_at_last_slot": (lambda kd, ki: (kd, _edit_slots(ki, {(1, 5): ki[1, 0]})),
+                                 "not a point at its reported distance"),
+    "index_twice": (lambda kd, ki: (kd, _edit_slots(ki, {(0, 1): ki[0, 0]})), "repeats an index"),
+    "distance_off": (lambda kd, ki: (kd + 1e-3, ki), "distances differ"),
+}
+
+
+@pytest.mark.parametrize("case", list(_TOPK_EDITS))
+def test_topk_mismatch_allows_only_real_ties(case):
+    data, queries, kd, ki = _tie_case()
+    assert {int(ki[0, 0]), int(ki[0, 1])} == {3, 7}
+    edit, expected = _TOPK_EDITS[case]
+    td, ti = edit(kd, ki)
+    why = ttopk.topk_mismatch(td, ti, kd, ki, _point_dist_of(data, queries), rtol=RTOL, atol=ATOL)
+    if expected is None:
+        assert why is None, why
+    else:
+        assert why is not None and expected in why, why
