@@ -2,14 +2,17 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs five
+Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs six
 phases, printing one JSON line each; any failed check raises, so the script
 exits non-zero:
 
 1. ``device``     the card's name and power limit (``nvidia-smi``).
 2. ``kernels``    each hand-written kernel against its plain PyTorch version
                   on the card, at the shapes the main path gives it, timed
-                  with CUDA events (cold L2) beside its bound.
+                  with CUDA events (cold L2) beside its bound: A, B (words,
+                  and apart its margins mode), C and D on one grid cell's
+                  shapes, and E (the payload tail, f16 and i8) on the first
+                  50-query chunk of a single shard over every point.
 3. ``main_path``  the paper's scale: 1,370,000 synthetic ABP windows (d=30)
                   on the 40-cell ``grid(nu=10, p=4)`` with the ``"cuda"``
                   backend, 2000 out-of-sample queries, DSLSH against the
@@ -20,10 +23,21 @@ exits non-zero:
                   words+margins kernel runs on the query path.
 5. ``backends_agree`` the ``"torch"`` backend on the card answers the first
                   256 queries as the ``"cuda"`` backend does.
+6. ``payload``    the compressed-payload path: ``single()`` over all
+                  1,370,000 windows with ``c_rerank=32``, built and queried
+                  (the same 2000 queries) as f32, f16 and i8 in turn; one
+                  payload-tail launch per 50-query chunk, every query with
+                  no rerank miss equal to the f32 shard's answer, and each
+                  compressed MCC within 0.01 of the f32 shard's.
+   ``payload_profile`` per format, a profiled 200-query single-shard query,
+                  as ``query_profile``.
 
-The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
-or without the repository's ``src/`` beside it, the script exits non-zero
-before printing any result.
+The ``kernels`` line comes last but two, then the ``nvidia-smi`` line, and
+the last line is ``{"ok": true, "device": {...}}``. A kernel's ``launches``
+counts the path it belongs to: the main path for A-D, the payload phase's
+two compressed queries for E. Without a CUDA device, or without the
+repository's ``src/`` beside it, the script exits non-zero before printing
+any result.
 """
 from __future__ import annotations
 
@@ -48,6 +62,7 @@ CFG = dict(
     build_chunk=4096, query_chunk=50,
 )
 N, NQ, NU, P, SEED = 1_370_000, 2_000, 10, 4, 0
+C_RERANK = 32  # the payload shortlist of benchmarks/scale_bench.py:48
 
 
 def emit(phase: str, **fields) -> None:
@@ -92,6 +107,32 @@ def profile_activities(dev) -> list:
     if dev.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     return acts
+
+
+def profile_query(dev, fn, queries: int = 200) -> dict:
+    """Wall time of ``fn()`` under the profiler, the summed time of its
+    kernels on the card (device busy) and the device's idle share."""
+    import torch
+
+    with torch.profiler.profile(activities=profile_activities(dev)) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        wall = time.perf_counter() - t0
+    # device-side events only: a CPU op's self device time repeats the time
+    # of the kernels it launched
+    events = [
+        e for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    return dict(
+        queries=queries, wall_s=wall,
+        device_busy_s=busy if events else None,
+        device_idle_share=1.0 - busy / wall if events else None,
+        top_kernels=[dict(name=e.key[:90], ms=e.self_device_time_total / 1e3, calls=e.count) for e in top],
+    )
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -193,6 +234,11 @@ def kernels_phase(data, queries, cfg, flush) -> list[dict]:
         t * d * 4 + cols.numel() * 4 + bias.numel() * 4 + t * cols.shape[1] // 8,
         2 * t * d * n_tab * m_in,
     )
+    # the margins launch (#4) also writes t * cols f32 margins
+    bm_ms, bm_by = bound(
+        t * d * 4 + cols.numel() * 4 + bias.numel() * 4 + t * cols.shape[1] // 8 + t * cols.shape[1] * 4,
+        2 * t * d * n_tab * m_in,
+    )
     rows.append(dict(
         name="proj_sign_pack", route="cuda", source="src/repro_torch/csrc/hash_pack.cu",
         replaces="src/repro/kernels/hash_pack/hash_pack.py:210",
@@ -204,6 +250,11 @@ def kernels_phase(data, queries, cfg, flush) -> list[dict]:
         ms=timed_ms(lambda: hp.proj_sign_pack(cell, cols, bias, m_in, m_pad), 50, flush),
         plain_ms=timed_ms(lambda: hp_ref.proj_sign_pack_ref(cell, cols, bias, m_in, m_pad), 10, flush),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        margins_replaces="src/repro/kernels/hash_pack/hash_pack.py:175",
+        margins_ms=timed_ms(lambda: hp.proj_sign_pack(cell, cols, bias, m_in, m_pad, margins=True), 50, flush),
+        margins_plain_ms=timed_ms(
+            lambda: hp_ref.proj_sign_pack_ref(cell, cols, bias, m_in, m_pad, margins=True), 10, flush),
+        margins_bound_ms=bm_ms, margins_bound_by=bm_by, margins_library_ms=None,
     ))
 
     # the main path's candidates for one 50-query chunk of cell (0, 0),
@@ -247,10 +298,7 @@ def kernels_phase(data, queries, cfg, flush) -> list[dict]:
     need_topk(out_k[0], out_k[1], out_r[0], out_r[1], point_dist_of(cell, qs), "query_tail top-k differs")
     gathered = int(out_r[2].clamp(max=cc).sum())
     c_pad = qf._run_padded_width(c_w, run)  # run is a power of two here
-    sizes = [run << e for e in range(1, (c_pad // run).bit_length())]
-    # compare-exchanges of the run-merge network: log2(size) steps of
-    # c_pad/2 each per merge level
-    merge_cx = q_n * (c_pad // 2) * sum(s_.bit_length() - 1 for s_ in sizes)
+    merge_cx = q_n * merge_exchanges(c_pad, run)
     b_ms, b_by = bound(
         cand.numel() * 4 + q_n * d * 4 + gathered * d * 4 + q_n * (k * 8 + 8),
         3 * gathered * d + merge_cx,
@@ -266,6 +314,82 @@ def kernels_phase(data, queries, cfg, flush) -> list[dict]:
         plain_ms=timed_ms(lambda: qf_ref.query_tail_ref(cell, qs, cand, c_comp=cc, k=k), 10, flush),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
     ))
+    del index, cand, pts
+    rows += payload_kernel_rows(data, queries, cfg, (outer, inner), flush)
+    return rows
+
+
+def merge_exchanges(c_pad: int, run: int) -> int:
+    """Compare-exchanges of one row's merge network from the run width up
+    (a full bitonic sort when ``run`` is 1): log2(size) steps of
+    ``c_pad / 2`` for each merge level."""
+    sizes = [run << e for e in range(1, (c_pad // run).bit_length())]
+    return (c_pad // 2) * sum(s_.bit_length() - 1 for s_ in sizes)
+
+
+def payload_kernel_rows(data, queries, cfg, family, flush) -> list[dict]:
+    """Kernel E, per payload format, against its plain version on the first
+    50-query chunk of a plain-backend single shard over every point."""
+    import torch
+
+    from repro_torch.core import pipeline
+    from repro_torch.kernels.blocking import next_pow2
+    from repro_torch.kernels.query_fused import ops as qf, ref as qf_ref
+    from repro_torch.runtime import payload as payload_mod
+
+    n, d = data.shape
+    cfg_t = cfg.replace(backend="torch", c_rerank=C_RERANK)
+    index = pipeline.build_from_params(data, *family, cfg_t)
+    qs = queries[: cfg.query_chunk].contiguous()
+    pk, ik = pipeline._stage_hash(index, qs, cfg_t, pipeline.get_backend("torch"))
+    cand, _ = pipeline._stage_gather_fast(index, cfg_t, pk, ik)
+    del index
+    cand = cand.contiguous()
+    run, c_w, k = pipeline._fused_run(cfg), cand.shape[1], cfg.k
+    cc = pipeline._compact_width(cfg, c_w, n)
+    q_n = qs.shape[0]
+    out_d = qf.query_tail(data, qs, cand, run=run, c_comp=cc, k=k)  # kernel D on the same rows
+    rows = []
+    for fmt in ("f16", "i8"):
+        pl = payload_mod.make_payload(data, fmt)
+        args = (data, pl.qdata, pl.meta, qs, cand)
+        kw = dict(c_comp=cc, c_rerank=C_RERANK, k=k)
+        out_k = qf.query_tail_payload(*args, run=run, **kw)
+        out_r = qf_ref.query_tail_payload_ref(*args, **kw)
+        for i, what in ((2, "comparisons"), (3, "overflow"), (4, "rerank_misses")):
+            need(torch.equal(out_k[i], out_r[i]), f"query_tail_payload ({fmt}) {what} differ from its plain version")
+        exact = bool(torch.equal(out_k[0], out_r[0]) and torch.equal(out_k[1], out_r[1]))
+        if not exact:
+            need_topk(out_k[0], out_k[1], out_r[0], out_r[1], point_dist_of(data, qs),
+                      f"query_tail_payload ({fmt}) top-k differs")
+        # the certificate at kernel level: a row with no miss equals kernel D's bit for bit
+        ok = out_k[4] == 0
+        need(torch.equal(out_k[0][ok], out_d[0][ok]) and torch.equal(out_k[1][ok], out_d[1][ok]),
+             f"query_tail_payload ({fmt}) rows with no miss differ from query_tail")
+        gathered = int(out_r[2].clamp(max=cc).sum())
+        shortlisted = int(out_r[2].clamp(max=min(C_RERANK, cc)).sum())
+        c_pad = qf._run_padded_width(c_w, run)
+        cx = q_n * (merge_exchanges(c_pad, run) + merge_exchanges(next_pow2(cc), 1))
+        itemsize = payload_mod.payload_itemsize(fmt)
+        b_ms, b_by = bound(
+            cand.numel() * 4 + q_n * d * 4 + gathered * (d * itemsize + 8) + shortlisted * d * 4
+            + q_n * (k * 8 + 12),
+            3 * d * (gathered + shortlisted) + cx,
+        )
+        rows.append(dict(
+            name=f"query_tail_payload.{fmt}", kernel="query_tail_payload", route="cuda",
+            source="src/repro_torch/csrc/query_payload.cu",
+            replaces="src/repro/kernels/query_fused/query_fused.py:592",
+            also_replaces="src/repro/kernels/query_fused/query_fused.py:564",
+            shape=(f"cand ({q_n}, {c_w}), run {run}, c_comp {cc}, c_rerank {C_RERANK}, k {k}, {fmt} rows,"
+                   f" {gathered} rows gathered, {shortlisted} reranked"),
+            exact=exact, rerank_misses=int(out_k[4].sum()), zero_miss_rows_equal_to_query_tail=int(ok.sum()),
+            max_abs_err=float((out_k[0] - out_r[0]).abs().nan_to_num(0.0).max()),
+            ms=timed_ms(lambda: qf.query_tail_payload(*args, run=run, **kw), 50, flush),
+            plain_ms=timed_ms(lambda: qf_ref.query_tail_payload_ref(*args, **kw), 10, flush),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        ))
+        del pl, args
     return rows
 
 
@@ -359,26 +483,8 @@ def run(dev, n: int, nq: int) -> None:
     need(mcc >= mcc_p - 0.1, f"DSLSH MCC {mcc} below PKNN's {mcc_p} by more than 0.1")
 
     # where the query time goes: a profiled grid query of 200 queries
-    # (40 cells x 4 chunks); device busy = summed kernel time on the card
-    with torch.profiler.profile(activities=profile_activities(dev)) as prof:
-        t0 = time.perf_counter()
-        index.query(qx[:200])
-        sync(dev)
-        wall = time.perf_counter() - t0
-    # device-side events only: a CPU op's self device time repeats the time
-    # of the kernels it launched
-    events = [
-        e for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-    ]
-    busy = sum(e.self_device_time_total for e in events) / 1e6
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
-    emit(
-        "query_profile", queries=200, wall_s=wall,
-        device_busy_s=busy if events else None,
-        device_idle_share=1.0 - busy / wall if events else None,
-        top_kernels=[dict(name=e.key[:90], ms=e.self_device_time_total / 1e3, calls=e.count) for e in top],
-    )
+    # (40 cells x 4 chunks)
+    emit("query_profile", **profile_query(dev, lambda: index.query(qx[:200])))
 
     # multiprobe: the words+margins launch on the query path
     n_mp = min(131_072, n)
@@ -415,10 +521,90 @@ def run(dev, n: int, nq: int) -> None:
     emit("backends_agree", queries=nq_b, knn_idx_identical=bool(torch.equal(ref.knn_idx, res.knn_idx[:nq_b])),
          max_abs_dist_err=float((ref.knn_dist - res.knn_dist[:nq_b]).abs().nan_to_num(0.0).max()))
 
+    del index, res, ref
+    payload_launches = payload_phase(dev, pts, qx, labels, truth, cfg, mcc_p)
+
     for r in rows:
-        r["launches"] = main_launches.get(r["name"], 0)
-        r["multiprobe_query_launches"] = mp_launches.get(r["name"], 0)
+        if r.get("kernel") == "query_tail_payload":  # runs on the payload path only
+            r["launches"] = payload_launches.get(r["name"], 0)
+        else:
+            r["launches"] = main_launches.get(r["name"], 0)
+            r["multiprobe_query_launches"] = mp_launches.get(r["name"], 0)
+        r["payload_query_launches"] = payload_launches.get(r["name"], 0)
     print(json.dumps({"kernels": rows}), flush=True)
+
+
+def payload_phase(dev, pts, qx, labels, truth, cfg, mcc_pknn: float) -> dict:
+    """The compressed-payload path on the user's entry points: one shard over
+    every point, built and queried as f32, f16 and i8 in turn (each index
+    freed before the next). A query with no rerank miss must equal the f32
+    handle's answer bit for bit, and each compressed MCC may fall at most
+    0.01 below the f32 shard's. Returns the payload tail's launches over
+    both compressed queries."""
+    import torch
+
+    from repro_torch import dslsh
+    from repro_torch.core import pipeline, predict
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import payload as payload_mod
+
+    n, nq = pts.shape[0], qx.shape[0]
+    chunks = -(-nq // cfg.query_chunk)
+    launches: dict[str, int] = {}
+    f32 = None
+    for fmt in ("f32", "f16", "i8"):
+        cfg_p = cfg.replace(payload=fmt, c_rerank=C_RERANK)
+        sync(dev)
+        t0 = time.perf_counter()
+        index = dslsh.build(SEED, pts, cfg_p, dslsh.single(), dev)
+        index._payload()  # quantize once, as part of the build
+        sync(dev)
+        build_s = time.perf_counter() - t0
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = index.query(qx)
+        sync(dev)
+        query_s = time.perf_counter() - t0
+        got = dict(_build.LAUNCHES)
+        fused = "query_tail" if fmt == "f32" else f"query_tail_payload.{fmt}"
+        need(got.get(fused, 0) == chunks, f"payload {fmt}: {got.get(fused, 0)} launches of {fused}, not one per chunk ({chunks})")
+        need(res.knn_idx.shape == (nq, cfg.k) and bool((res.knn_idx < n).all()), f"payload {fmt}: result shape or values")
+        found = res.knn_idx >= 0
+        need(bool(torch.isfinite(res.knn_dist[found]).all()), f"payload {fmt}: non-finite distances")
+        mcc = float(predict.mcc(predict.predict_batch(labels, res.knn_idx, res.knn_dist), truth))
+        cc = pipeline._compact_width(cfg_p, cfg_p.L_out * cfg_p.slot, n)
+        fields = dict(
+            format=fmt, n=n, queries=nq, c_rerank=C_RERANK, c_comp=cc, build_s=build_s, query_s=query_s,
+            us_per_query=query_s / nq * 1e6,
+            median_comparisons=float(res.comparisons.to(torch.float32).median()),
+            overflow_queries=int((res.compaction_overflow > 0).sum()),
+            rerank_miss_total=res.rerank_miss_total,
+            tail_gather_bytes_per_query=payload_mod.tail_gather_bytes(cc, C_RERANK, pts.shape[1], fmt),
+            payload_bytes=index.memory_report().components["payload"],
+            mcc=mcc, mcc_pknn=mcc_pknn, launches=got,
+        )
+        if fmt == "f32":
+            need(res.rerank_misses is None, "the f32 shard reports rerank misses")
+            f32 = (res.knn_idx, res.knn_dist, mcc)
+        else:
+            for name, c in got.items():
+                if name.startswith("query_tail_payload"):
+                    launches[name] = launches.get(name, 0) + c
+            ok = res.rerank_misses[0, 0] == 0
+            same = bool(torch.equal(res.knn_idx[ok], f32[0][ok]) and torch.equal(res.knn_dist[ok], f32[1][ok]))
+            need(same, f"payload {fmt}: a query with no rerank miss differs from the f32 shard")
+            need(mcc >= f32[2] - 0.01, f"payload {fmt}: MCC {mcc} more than 0.01 below the f32 shard's {f32[2]}")
+            fields.update(
+                certified_queries=int(ok.sum()), mcc_f32=f32[2],
+                knn_idx_identical_to_f32=bool(torch.equal(res.knn_idx, f32[0])),
+            )
+        emit("payload", **fields)
+        # where this query's time goes: a profiled 200-query window
+        emit("payload_profile", format=fmt, **profile_query(dev, lambda: index.query(qx[:200])))
+        del index, res
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return launches
 
 
 if __name__ == "__main__":

@@ -8,9 +8,11 @@ one handle runs the lifecycle::
     index = dslsh.build(seed, data, cfg, dslsh.grid(nu=2, p=8))
     res = index.query(queries)          # one typed DistributedQueryResult
 
-Everything runs on the CUDA card unless ``device="cpu"`` is passed. Routed
-and replicated grids, the mesh and streaming deployments, and persistence
-are not ported yet; they raise ``NotImplementedError`` (see ROADMAP.md).
+Everything runs on the CUDA card unless ``device="cpu"`` is passed. A
+compressed payload (``payload="f16"``/``"i8"``) rides the single-shard
+fused tail; a grid refuses it. Routed and replicated grids, the mesh and
+streaming deployments, and persistence are not ported yet; they raise
+``NotImplementedError`` (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -35,6 +37,8 @@ from repro_torch.core.pipeline import (  # noqa: F401  (re-exported public API)
     RuntimeConfig,
     SLSHConfig,
 )
+from repro_torch.runtime import memory as memory_mod
+from repro_torch.runtime import payload as payload_mod
 
 __all__ = [
     "BudgetConfig",
@@ -149,6 +153,7 @@ class Index:
         self.deploy = deploy
         self.cfg = cfg
         self._state = state
+        self._cached_payload: payload_mod.Payload | None = None
 
     @property
     def grid(self) -> Grid:
@@ -166,6 +171,24 @@ class Index:
         indexes in flat (node, core) order (grid)."""
         return self._state["index"]
 
+    def memory_report(self) -> memory_mod.MemoryReport:
+        """Per-cell byte accounting of the resident index (DESIGN.md §13):
+        tables, heavy, inner, data and payload bytes from tensor shapes
+        alone, with no sync."""
+        cells = (1, 1) if self.deploy.kind == "single" else (self.deploy.nu, self.deploy.p)
+        return memory_mod.index_report(
+            self._state["index"], self._state["data"], self.cfg.payload, cells
+        )
+
+    def _payload(self) -> payload_mod.Payload | None:
+        """The handle's quantized candidate payload, made once and cached
+        (None for ``payload='f32'``: the exact rows serve directly)."""
+        if self.cfg.payload == "f32":
+            return None
+        if self._cached_payload is None:
+            self._cached_payload = payload_mod.make_payload(self._state["data"], self.cfg.payload)
+        return self._cached_payload
+
     def query(self, queries, *, drop_mask=None, drop_cells=None) -> DistributedQueryResult:
         """Resolve a query batch -> one :class:`DistributedQueryResult`.
 
@@ -180,13 +203,14 @@ class Index:
                 "drop_mask / drop_cells only apply to grid deployments (a"
                 " single shard has no nodes or cells to drop)",
             )
-            res = pipeline.query_batch(index, data, queries, self.cfg)
+            res = pipeline.query_batch(index, data, queries, self.cfg, self._payload())
             return DistributedQueryResult(
                 res.knn_dist,
                 res.knn_idx,
                 res.comparisons[None, None],
                 res.compaction_overflow[None, None],
                 torch.ones((1, 1, queries.shape[0]), dtype=torch.bool, device=self.device),
+                None if res.rerank_misses is None else res.rerank_misses[None, None],
             )
         return D.grid_query(
             index, data, queries, self.cfg, self.grid,
@@ -236,6 +260,12 @@ def build(
     if deploy.kind == "single":
         index = pipeline.build_from_params(data, *family, cfg)
         return Index(deploy, cfg, {"index": index, "data": data})
+    pipeline._require(
+        cfg.payload == "f32",
+        f"payload={cfg.payload!r} (compressed candidate payload) rides"
+        " the single-shard fused tail — grid/mesh/streaming"
+        " deployments need payload='f32' (DESIGN.md §13)",
+    )
     pipeline._require(
         cfg.L_out % deploy.p == 0,
         f"L_out={cfg.L_out} does not divide across p={deploy.p} cores"

@@ -81,11 +81,25 @@ class DistributedQueryResult(NamedTuple):
     comparisons: torch.Tensor  # (nu, p, Q) unique candidates scanned per cell
     compaction_overflow: torch.Tensor  # (nu, p, Q) survivors beyond c_comp
     routed: torch.Tensor  # (nu, p, Q) bool — (cell, query) pairs visited
+    # compressed-payload deployments only (None on the f32 path and on
+    # grids): candidates left out of the c_rerank shortlist whose
+    # approximate distance came within the quantization error bound of the
+    # k-th exact distance — counted, never silent; 0 everywhere certifies
+    # knn_idx identical to the f32 tail
+    rerank_misses: torch.Tensor | None = None  # (nu, p, Q) int32
 
     @property
     def routed_frac(self) -> float:
         """Fraction of (cell, query) pairs visited (1.0 = broadcast)."""
         return float(self.routed.to(torch.float32).mean())
+
+    @property
+    def rerank_miss_total(self) -> int:
+        """Total rerank-margin misses across cells and queries (0 for the
+        f32 payload path, which has no shortlist)."""
+        if self.rerank_misses is None:
+            return 0
+        return int(self.rerank_misses.sum())
 
     @property
     def overflow_cells(self) -> int:

@@ -17,13 +17,16 @@ in explicit batched stages (DESIGN.md §3):
 plain PyTorch (the port's oracle, as ``"reference"`` is the JAX package's);
 ``"cuda"`` runs the signatures through the hand-written ``hash_pack``
 kernels and stages 3-5 as the fused ``query_fused`` kernel, with
-``l1_topk`` registered for the staged form. A kernel wrapper given CPU
+``l1_topk`` registered for the staged form. With a compressed
+``RuntimeConfig.payload`` (``"f16"``/``"i8"``) the ``"cuda"`` backend runs
+stages 3-5 as the payload tail instead: approximate distances over
+quantized rows, an exact f32 rerank of a ``c_rerank`` shortlist, and
+``QueryResult.rerank_misses`` (DESIGN.md §13). A kernel wrapper given CPU
 tensors runs its plain version, so the ``"cuda"`` backend's control flow
 also runs (and is tested) on the CPU.
 
 Left out against the JAX package: the per-stage jit schedule and its obs
-spans, the traced paths, the delta (streaming) gather and the compressed
-payload tail.
+spans, the traced paths and the delta (streaming) gather.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.core import hashing, merge, tables, topk
+from repro_torch.runtime.payload import PAYLOAD_FORMATS, Payload, make_payload
 
 # ------------------------------------------------------------ configuration
 
@@ -108,9 +112,8 @@ class BudgetConfig:
     ``k`` neighbours per query; ``c_max``/``c_in`` candidates gathered per
     outer/inner bucket probe; ``h_max`` heavy buckets indexed per table;
     ``p_max`` inner-layer population cap; ``c_comp`` the compacted distance
-    buffer (<= 0 disables the cap); ``c_rerank`` is kept for parity with the
-    JAX configuration and read only by the compressed-payload tail, which
-    this port does not have yet.
+    buffer (<= 0 disables the cap); ``c_rerank`` the exact-rerank shortlist
+    of the compressed-payload tail (read only when ``payload != "f32"``).
     """
 
     k: int = 10
@@ -163,8 +166,10 @@ class RuntimeConfig:
     any value but ``None`` is refused. ``build_chunk``/``query_chunk`` bound
     per-step memory; ``build_mode`` picks the index-construction schedule
     (``"monolithic"`` full sort, ``"chunked"`` sorted runs merged by the
-    ladder, ``"auto"`` chunked once ``n > build_chunk``). ``payload`` takes
-    only ``"f32"`` in this port so far.
+    ladder, ``"auto"`` chunked once ``n > build_chunk``). ``payload`` picks
+    the candidate rows the fused tail reads: ``"f32"`` the exact rows,
+    ``"f16"``/``"i8"`` a quantized copy with an exact f32 rerank
+    (``runtime/payload.py``, DESIGN.md §13).
     """
 
     build_chunk: int = 4096
@@ -197,10 +202,10 @@ class RuntimeConfig:
             " n > build_chunk), 'monolithic', or 'chunked'",
         )
         _require(
-            self.payload == "f32",
-            f"payload={self.payload!r}: the PyTorch port runs only the"
-            " uncompressed 'f32' payload so far (the compressed tail is"
-            " still to port, see ROADMAP.md)",
+            self.payload in PAYLOAD_FORMATS,
+            f"payload={self.payload!r}: expected 'f32' (uncompressed),"
+            " 'f16', or 'i8' (compressed candidate rows + exact f32"
+            " rerank, DESIGN.md §13)",
         )
 
 
@@ -275,6 +280,19 @@ class SLSHConfig:
             " but the heavy-bucket registry holds zero buckets, so the"
             " inner layer would silently never fire — set h_max >= 1 or"
             " use_inner=False",
+        )
+        _require(
+            self.payload == "f32" or self.backend == "cuda",
+            f"payload={self.payload!r} with backend={self.backend!r}: the"
+            " compressed candidate payload is a fused-tail feature — set"
+            " backend='cuda' or payload='f32'",
+        )
+        _require(
+            self.payload == "f32" or self.c_rerank >= self.k,
+            f"c_rerank={self.c_rerank} < k={self.k} with"
+            f" payload={self.payload!r}: the exact-rerank shortlist cannot"
+            " hold k candidates, so every query would return approximate"
+            " neighbours — raise c_rerank to at least k",
         )
 
     @classmethod
@@ -366,6 +384,11 @@ class QueryResult(NamedTuple):
     # unique survivors beyond the c_comp budget, excluded from the distance
     # stage (0 everywhere means the compacted result is exact)
     compaction_overflow: torch.Tensor  # (Q,) int32
+    # compressed-payload tail only (None on the f32 path): candidates whose
+    # approximate distance came within the quantization error bound of the
+    # k-th exact distance but missed the c_rerank shortlist — counted,
+    # never silent; 0 everywhere certifies knn_idx identical to f32
+    rerank_misses: torch.Tensor | None = None  # (Q,) int32
 
 
 _IDX_SENTINEL = 2**31 - 1  # sorts after any index
@@ -390,12 +413,18 @@ class BackendOps(NamedTuple):
         ``(data, queries, cand (Q, C), run=, c_comp=, k=) -> (kd, ki,
         comparisons, overflow)``: stages 3-5 fused; ``None`` keeps the
         staged stages.
+    query_tail_payload (optional)
+        ``(data, qdata, meta, queries, cand, run=, c_comp=, c_rerank=, k=)
+        -> (kd, ki, comparisons, overflow, rerank_misses)``: the fused tail
+        over quantized candidate rows with an exact f32 rerank of the
+        ``c_rerank`` shortlist; used only when ``cfg.payload != "f32"``.
     """
 
     signature_words: Callable[..., torch.Tensor]
     l1_topk: Callable[..., tuple[torch.Tensor, torch.Tensor]]
     probe_words: Callable[..., tuple[torch.Tensor, torch.Tensor]] | None = None
     query_tail: Callable[..., tuple[torch.Tensor, ...]] | None = None
+    query_tail_payload: Callable[..., tuple[torch.Tensor, ...]] | None = None
 
 
 def _torch_signature_words(params: hashing.HashParams, x: torch.Tensor) -> torch.Tensor:
@@ -412,6 +441,7 @@ def _cuda_ops() -> BackendOps:
         l1_ops.l1_topk,
         probe_words=hp_ops.probe_words,
         query_tail=qf_ops.query_tail,
+        query_tail_payload=qf_ops.query_tail_payload,
     )
 
 
@@ -777,18 +807,38 @@ def _fused_run(cfg: SLSHConfig) -> int:
     return run
 
 
+def _use_payload(cfg: SLSHConfig, backend: BackendOps) -> bool:
+    """Whether this config runs the compressed-payload fused tail."""
+    return cfg.payload != "f32" and backend.query_tail_payload is not None
+
+
 def query_chunk(
-    index: SLSHIndex, data: torch.Tensor, queries: torch.Tensor, cfg: SLSHConfig
+    index: SLSHIndex,
+    data: torch.Tensor,
+    queries: torch.Tensor,
+    cfg: SLSHConfig,
+    payload: Payload | None = None,
 ) -> QueryResult:
     """Run the pipeline for one (Q, d) chunk of queries.
 
     Backends with ``query_tail`` (``"cuda"``) run stages 3-5 as one fused
-    launch; the staged form below is the oracle.
+    launch; the staged form below is the oracle. With a compressed
+    ``cfg.payload`` the tail reads the quantized rows of ``payload`` (made
+    here from ``data`` when the caller holds none) and reranks exactly in
+    f32.
     """
     backend = get_backend(cfg.backend)
     probe_keys, inner_keys = _stage_hash(index, queries, cfg, backend)
     cand, bucket_total = _stage_gather_fast(index, cfg, probe_keys, inner_keys)
     cc = _compact_width(cfg, cand.shape[1], data.shape[0])
+    if _use_payload(cfg, backend):
+        if payload is None:
+            payload = make_payload(data, cfg.payload)
+        kd, ki, comparisons, overflow, misses = backend.query_tail_payload(
+            data, payload.qdata, payload.meta, queries, cand.contiguous(),
+            run=_fused_run(cfg), c_comp=cc, c_rerank=cfg.c_rerank, k=cfg.k,
+        )
+        return QueryResult(ki, kd, comparisons, bucket_total, overflow, misses)
     if backend.query_tail is not None:
         kd, ki, comparisons, overflow = backend.query_tail(
             data, queries, cand.contiguous(), run=_fused_run(cfg), c_comp=cc, k=cfg.k
@@ -801,14 +851,26 @@ def query_chunk(
 
 
 def query_batch(
-    index: SLSHIndex, data: torch.Tensor, queries: torch.Tensor, cfg: SLSHConfig
+    index: SLSHIndex,
+    data: torch.Tensor,
+    queries: torch.Tensor,
+    cfg: SLSHConfig,
+    payload: Payload | None = None,
 ) -> QueryResult:
-    """Chunked pipeline over queries -> stacked QueryResult (Q, ...)."""
+    """Chunked pipeline over queries -> stacked QueryResult (Q, ...).
+
+    A compressed ``cfg.payload`` reads ``payload``, made once for the whole
+    batch when the caller holds none (handles cache theirs).
+    """
     queries = queries.to(torch.float32)
+    if payload is None and _use_payload(cfg, get_backend(cfg.backend)):
+        payload = make_payload(data, cfg.payload)
     outs = [
-        query_chunk(index, data, queries[lo : lo + cfg.query_chunk], cfg)
+        query_chunk(index, data, queries[lo : lo + cfg.query_chunk], cfg, payload)
         for lo in range(0, queries.shape[0], cfg.query_chunk)
     ]
     if len(outs) == 1:
         return outs[0]
-    return QueryResult(*(torch.cat(parts, dim=0) for parts in zip(*outs)))
+    return QueryResult(*(
+        None if parts[0] is None else torch.cat(parts, dim=0) for parts in zip(*outs)
+    ))

@@ -66,6 +66,11 @@ def l1_distances(q: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     return (pts - q[None, :]).abs().sum(dim=-1)
 
 
+def l1_distances_batch(q: torch.Tensor, cands: torch.Tensor) -> torch.Tensor:
+    """q: (Q, d), cands: (Q, C, d) -> (Q, C) l1 distances."""
+    return (cands - q[:, None, :]).abs().sum(dim=-1)
+
+
 def masked_l1_topk_batch(
     q: torch.Tensor, cands: torch.Tensor, mask: torch.Tensor, k: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -75,8 +80,7 @@ def masked_l1_topk_batch(
     Returns dists (Q, k) ascending (inf where fewer than k valid) and int32
     positions (Q, k) into C (-1 pad); ties go to the lower position.
     """
-    dists = (cands - q[:, None, :]).abs().sum(dim=-1)
-    dists = torch.where(mask, dists, INF)
+    dists = torch.where(mask, l1_distances_batch(q, cands), INF)
     pos = torch.arange(dists.shape[1], dtype=torch.int32, device=dists.device)
     return masked_topk_smallest(dists, pos.expand(dists.shape), k)
 

@@ -24,40 +24,10 @@
 // lane-per-coordinate loads and a butterfly sum, and warp 0 selects the top-k
 // with the device function the l1_topk kernel uses (topk.cuh). Candidate
 // vectors therefore touch device memory exactly once and no (Q, c_comp, d)
-// block is ever written. cp.async staging of the gather is later work.
-#include "topk.cuh"
-
-constexpr int QT_THREADS = 256;
-constexpr int SENT = INT_MAX;  // sorts after any real index
-
-__device__ __forceinline__ bool first_occurrence(const int* s, int i) {
-  return s[i] != SENT && (i == 0 || s[i] != s[i - 1]);
-}
-
-// Exclusive prefix sum of v over the block in thread order; the block total
-// is left in warp_sums[nwarps - 1]. Ends with __syncthreads().
-__device__ int block_exclusive_scan(int v, int* warp_sums) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  int incl = v;
-  for (int off = 1; off < 32; off <<= 1) {
-    const int t = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += t;
-  }
-  if (lane == 31) warp_sums[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    int s = lane < nw ? warp_sums[lane] : 0;
-    for (int off = 1; off < 32; off <<= 1) {
-      const int t = __shfl_up_sync(0xffffffffu, s, off);
-      if (lane >= off) s += t;
-    }
-    if (lane < nw) warp_sums[lane] = s;  // inclusive warp totals
-  }
-  __syncthreads();
-  return (warp > 0 ? warp_sums[warp - 1] : 0) + incl - v;
-}
+// block is ever written. cp.async staging of the gather is later work. The
+// merge, scan, compaction and per-row L1 live in tail_common.cuh, shared
+// with the compressed-payload tail (query_payload.cu).
+#include "tail_common.cuh"
 
 __global__ void __launch_bounds__(QT_THREADS)
 query_tail_kernel(const float* __restrict__ data,
@@ -75,55 +45,9 @@ query_tail_kernel(const float* __restrict__ data,
   __shared__ int top_p[TOPK_MAX];
 
   const int qi = blockIdx.x;
-  const int* row = cand + static_cast<size_t>(qi) * C;
-  for (int i = threadIdx.x; i < Cp; i += blockDim.x) {
-    const int v = i < C ? row[i] : -1;
-    s[i] = v < 0 ? SENT : v;
-  }
-  __syncthreads();
-
-  // Merge ascending blocks of `size / 2` into ascending blocks of `size`:
-  // compare each element with its mirror in the partner block, then
-  // half-clean with halving strides. Starting from width 1 this is a full
-  // bitonic sort; starting from the run width it only merges the runs.
-  const int half_n = Cp >> 1;
-  for (int size = start_width << 1; size <= Cp; size <<= 1) {
-    const int half = size >> 1;
-    for (int i = threadIdx.x; i < half_n; i += blockDim.x) {
-      const int blk = i / half;
-      const int j = i - blk * half;
-      const int a = blk * size + j;
-      const int b = blk * size + size - 1 - j;
-      const int va = s[a], vb = s[b];
-      if (va > vb) { s[a] = vb; s[b] = va; }
-    }
-    __syncthreads();
-    for (int stride = half >> 1; stride > 0; stride >>= 1) {
-      for (int i = threadIdx.x; i < half_n; i += blockDim.x) {
-        const int a = (i / stride) * 2 * stride + i % stride;
-        const int b = a + stride;
-        const int va = s[a], vb = s[b];
-        if (va > vb) { s[a] = vb; s[b] = va; }
-      }
-      __syncthreads();
-    }
-  }
-
-  // Rank first occurrences: each thread owns a contiguous slice of the row.
-  const int per = (Cp + blockDim.x - 1) / blockDim.x;
-  const int lo = min(static_cast<int>(threadIdx.x) * per, Cp);
-  const int hi = min(lo + per, Cp);
-  int local = 0;
-  for (int i = lo; i < hi; ++i) local += first_occurrence(s, i);
-  int rank = block_exclusive_scan(local, warp_sums);
-  const int total = warp_sums[(blockDim.x >> 5) - 1];
-  for (int i = lo; i < hi; ++i) {
-    if (first_occurrence(s, i)) {
-      if (rank < c_comp) comp[rank] = s[i];
-      ++rank;
-    }
-  }
-  __syncthreads();
+  const int total =
+      dedup_compact(cand + static_cast<size_t>(qi) * C, C, Cp, start_width,
+                    c_comp, s, comp, warp_sums);
   const int nc = min(total, c_comp);
 
   const int lane = threadIdx.x & 31;
@@ -131,11 +55,7 @@ query_tail_kernel(const float* __restrict__ data,
   const float* qv = queries + static_cast<size_t>(qi) * d;
   for (int r = warp; r < nc; r += blockDim.x >> 5) {
     const int idx = min(max(comp[r], 0), n - 1);
-    const float* x = data + static_cast<size_t>(idx) * d;
-    float acc = 0.0f;
-    for (int j = lane; j < d; j += 32) acc += fabsf(x[j] - qv[j]);
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    const float acc = warp_l1_row(data + static_cast<size_t>(idx) * d, qv, d);
     if (lane == 0) dist[r] = acc;
   }
   __syncthreads();

@@ -14,8 +14,9 @@ and spill report lands in ``<name>-<hash>.log`` beside the library.
 
 Every wrapper counts its launches in :data:`LAUNCHES` (one per launch of its
 kernel, nowhere else), so a run can show which kernels its path went
-through. A launch in a mode of its own (``bitsample_pack`` with margins)
-also counts under ``"<kernel>.<mode>"``.
+through. A launch in a mode of its own (``bitsample_pack`` with margins,
+``query_tail_payload`` per payload format) also counts under
+``"<kernel>.<mode>"``.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("hash_pack", "l1_topk", "query_fused")
+SOURCES = ("hash_pack", "l1_topk", "query_fused", "query_payload")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

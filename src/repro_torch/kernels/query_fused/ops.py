@@ -1,12 +1,18 @@
-"""Wrapper of the fused query-tail kernel (``csrc/query_fused.cu``, kernel D).
+"""Wrappers of the fused query-tail kernels.
 
-Replaces the JAX package's ``query_tail_pallas``
-(``repro/kernels/query_fused/query_fused.py``) as the ``"cuda"`` backend's
-``BackendOps.query_tail``: pipeline stages 3-5 (dedup -> compact -> gather +
-L1 + top-k) in one launch, equal to the staged ``ref.query_tail_ref``. The
-wrapper owns the launch shape: it pads the candidate width with ``-1``
+``query_tail`` (``csrc/query_fused.cu``, kernel D) replaces the JAX
+package's ``query_tail_pallas`` (``repro/kernels/query_fused/query_fused.py``)
+as the ``"cuda"`` backend's ``BackendOps.query_tail``: pipeline stages 3-5
+(dedup -> compact -> gather + L1 + top-k) in one launch, equal to the staged
+``ref.query_tail_ref``. ``query_tail_payload`` (``csrc/query_payload.cu``,
+kernel E) replaces ``query_tail_payload_pallas`` as
+``BackendOps.query_tail_payload``: the same stages 3-4, an approximate L1
+over f16/i8 payload rows, a ``c_rerank`` shortlist reranked exactly in f32,
+and the rerank-margin miss count, equal to ``ref.query_tail_payload_ref``.
+
+The wrappers own the launch shape: they pad the candidate width with ``-1``
 columns to a multiple of ``run`` holding a power-of-two number of runs, as
-``repro/kernels/query_fused/ops.py`` does, and the kernel merges runs from
+``repro/kernels/query_fused/ops.py`` does, and the kernels merge runs from
 the run width up when the run is a power of two (a full in-block sort
 otherwise).
 """
@@ -21,11 +27,27 @@ from repro_torch.kernels.query_fused import ref
 TOPK_MAX = 32  # csrc/topk.cuh
 _SMEM_MAX = 200 * 1024  # dynamic shared memory a block may ask for here
 _SIGNATURES = {"query_tail_launch": [_build.PTR] * 3 + [_build.INT] * 8 + [_build.PTR] * 5}
+_PAYLOAD_LAUNCH = [_build.PTR] * 5 + [_build.INT] * 10 + [_build.PTR] * 6
+_PAYLOAD_SIGNATURES = {
+    "query_tail_payload_f16_launch": _PAYLOAD_LAUNCH,
+    "query_tail_payload_i8_launch": _PAYLOAD_LAUNCH,
+}
+_PAYLOAD_DTYPES = {torch.float16: "f16", torch.int8: "i8"}
 
 
 def _run_padded_width(c: int, run: int) -> int:
     """The next multiple of ``run`` holding a power-of-two number of runs."""
     return run * next_pow2(round_up(max(c, 1), run) // run)
+
+
+def _launch_rows(cand: torch.Tensor, run: int) -> tuple[torch.Tensor, int, int, int]:
+    """``cand`` padded to the run-padded width ``c_pad``, the merge width
+    ``cp`` (a power of two) and the run width the merge starts from."""
+    c_pad = _run_padded_width(cand.shape[1], run)
+    cand = pad_axis(cand, 1, c_pad, value=-1).contiguous()
+    cp = next_pow2(c_pad)
+    start = run if (run & (run - 1)) == 0 and cp == c_pad else 1
+    return cand, c_pad, cp, start
 
 
 def query_tail(
@@ -56,10 +78,7 @@ def query_tail(
         raise ValueError("data, queries and cand must be contiguous on one device")
     if not (1 <= k <= TOPK_MAX and c_comp >= 1 and run >= 1 and n >= 1):
         raise ValueError(f"bad launch: k={k}, c_comp={c_comp}, run={run}, n={n}")
-    c_pad = _run_padded_width(c, run)
-    cand = pad_axis(cand, 1, c_pad, value=-1).contiguous()
-    cp = next_pow2(c_pad)
-    start = run if (run & (run - 1)) == 0 and cp == c_pad else 1
+    cand, c_pad, cp, start = _launch_rows(cand, run)
     if (cp + 2 * c_comp) * 4 > _SMEM_MAX:
         raise ValueError(f"candidate width {cp} with c_comp={c_comp} exceeds shared memory")
     kd = torch.empty((q_n, k), dtype=torch.float32, device=data.device)
@@ -74,3 +93,80 @@ def query_tail(
     )
     _build.check(lib, err, "query_tail")
     return kd, ki, comparisons, overflow
+
+
+def payload_smem_bytes(cp: int, c_comp: int, d: int) -> int:
+    """Dynamic shared memory of one kernel-E block: the 64-bit shortlist keys
+    over ``next_pow2(c_comp)`` entries, the candidate row, five ``c_comp``
+    arrays (comp, ad, qerr, exact distances, shortlist flags) and the query
+    (``payload_smem_bytes`` in ``csrc/query_payload.cu``)."""
+    return next_pow2(c_comp) * 8 + (cp + 5 * c_comp + d) * 4
+
+
+def query_tail_payload(
+    data: torch.Tensor,  # (n, d) f32 exact rows (rerank only)
+    qdata: torch.Tensor,  # (n, d) float16 | int8 quantized rows
+    meta: torch.Tensor,  # (n, 2) f32 [dequant scale, L1 error bound]
+    queries: torch.Tensor,  # (Q, d)
+    cand: torch.Tensor,  # (Q, C) int32, run-sorted, -1 where masked
+    *,
+    run: int,
+    c_comp: int,
+    c_rerank: int,
+    k: int,
+) -> tuple[torch.Tensor, ...]:
+    """Compressed-payload fused tail -> ``(kd, ki, comparisons, overflow,
+    rerank_misses)``.
+
+    Same candidate contract as :func:`query_tail`. The shortlist holds
+    ``min(c_rerank, c_comp)`` rows. ``rerank_misses`` counts candidates left
+    out of it whose approximate distance came within their quantization
+    error bound of the k-th exact distance; zero certifies ``kd``/``ki``
+    equal to :func:`query_tail`'s.
+    """
+    if data.device.type == "cpu":
+        return ref.query_tail_payload_ref(
+            data, qdata, meta, queries, cand, c_comp=c_comp, c_rerank=c_rerank, k=k
+        )
+    q_n, c = cand.shape
+    n, d = data.shape
+    queries = queries.to(torch.float32).contiguous()
+    fmt = _PAYLOAD_DTYPES.get(qdata.dtype)
+    if fmt is None:
+        raise ValueError(f"qdata must be float16 or int8, not {qdata.dtype}")
+    if not (data.dtype == meta.dtype == torch.float32 and cand.dtype == torch.int32):
+        raise ValueError("data and meta must be float32 and cand int32")
+    if qdata.shape != (n, d) or meta.shape != (n, 2) or queries.shape != (q_n, d):
+        raise ValueError(
+            f"qdata {tuple(qdata.shape)}, meta {tuple(meta.shape)} and queries"
+            f" {tuple(queries.shape)} do not match data ({n}, {d}) and {q_n} rows"
+        )
+    tensors = (data, qdata, meta, queries, cand)
+    if not all(t.is_contiguous() and t.device == data.device for t in tensors):
+        raise ValueError("data, qdata, meta, queries and cand must be contiguous on one device")
+    if not (1 <= k <= TOPK_MAX and c_comp >= 1 and c_rerank >= 1 and run >= 1 and n >= 1):
+        raise ValueError(
+            f"bad launch: k={k}, c_comp={c_comp}, c_rerank={c_rerank}, run={run}, n={n}"
+        )
+    cr = min(c_rerank, c_comp)
+    cand, c_pad, cp, start = _launch_rows(cand, run)
+    smem = payload_smem_bytes(cp, c_comp, d)
+    if smem > _SMEM_MAX:
+        raise ValueError(
+            f"candidate width {cp} with c_comp={c_comp}, d={d} needs {smem} bytes"
+            f" of shared memory, over the {_SMEM_MAX} budget"
+        )
+    kd = torch.empty((q_n, k), dtype=torch.float32, device=data.device)
+    ki = torch.empty((q_n, k), dtype=torch.int32, device=data.device)
+    counts = torch.empty((3, q_n), dtype=torch.int32, device=data.device)
+    lib = _build.library("query_payload", _PAYLOAD_SIGNATURES)
+    launch = getattr(lib, f"query_tail_payload_{fmt}_launch")
+    err = launch(
+        data.data_ptr(), qdata.data_ptr(), meta.data_ptr(), queries.data_ptr(),
+        cand.data_ptr(), n, d, q_n, c_pad, cp, start, c_comp, next_pow2(c_comp),
+        cr, k, kd.data_ptr(), ki.data_ptr(), counts[0].data_ptr(),
+        counts[1].data_ptr(), counts[2].data_ptr(), _build.stream_ptr(data),
+    )
+    _build.check(lib, err, "query_tail_payload")
+    _build.count_launch(f"query_tail_payload.{fmt}")
+    return kd, ki, counts[0], counts[1], counts[2]

@@ -3,8 +3,9 @@
 JAX and PyTorch cannot draw the same numbers from one seed, so the tests —
 and ``api.build(..., params=...)`` — take a hash family as numpy arrays
 (for instance the JAX package's ``make_family`` output) and turn it into
-the port's parameter types. Unsigned 32-bit values (salts, keys) become
-int64 holding the same values.
+the port's parameter types; a quantized payload crosses the same way, so
+both packages can run the payload tail on the same rows. Unsigned 32-bit
+values (salts, keys) become int64 holding the same values.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 
 from repro_torch import device as device_mod
 from repro_torch.core import hashing, pipeline, tables
+from repro_torch.runtime import payload as payload_mod
 
 
 def _fields(obj: Any) -> Mapping[str, Any]:
@@ -78,3 +80,18 @@ def index_from_numpy(ix: Any, device: torch.device | str | None = None) -> pipel
         int(np.asarray(ix.n)),
     )
 
+
+
+def payload_from_numpy(qdata, meta, device: torch.device | str | None = None) -> payload_mod.Payload:
+    """A :class:`~repro_torch.runtime.payload.Payload` from ``qdata`` (n, d)
+    float16 or int8 and ``meta`` (n, 2) float32 arrays (for instance the
+    JAX package's payload), read through ``np.asarray``, on ``device`` (the
+    card unless told otherwise)."""
+    device = device_mod.resolve(device)
+    q = np.array(qdata)
+    if q.dtype not in (np.float16, np.int8):
+        raise ValueError(f"payload rows must be float16 or int8, not {q.dtype}")
+    m = np.array(meta, dtype=np.float32)
+    if m.shape != (q.shape[0], 2):
+        raise ValueError(f"meta {m.shape} does not match ({q.shape[0]}, 2)")
+    return payload_mod.Payload(torch.as_tensor(q, device=device), torch.as_tensor(m, device=device))

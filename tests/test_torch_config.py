@@ -2,9 +2,12 @@
 
 The one deliberate difference is the backend: the JAX package registers
 ``"reference"``/``"pallas"`` and defaults to ``"reference"``; the port
-registers ``"torch"``/``"cuda"`` and defaults to ``"cuda"``. ``payload``
-accepts only ``"f32"`` in the port so far, and ``interpret`` only ``None``:
-the port keeps the field but has no interpret mode.
+registers ``"torch"``/``"cuda"`` and defaults to ``"cuda"``, so a message
+naming a backend reads ``'torch'``/``'cuda'`` where the JAX package's reads
+``'reference'``/``'pallas'``. ``payload`` takes ``"f32"``, ``"f16"`` and
+``"i8"`` in both, with the compressed formats on the fused backend only.
+``interpret`` takes only ``None``: the port keeps the field but has no
+interpret mode.
 """
 from __future__ import annotations
 
@@ -50,6 +53,8 @@ _INVALID = [
     ("BudgetConfig", dict(c_rerank=0)),
     ("RuntimeConfig", dict(query_chunk=0)),
     ("RuntimeConfig", dict(build_mode="eager")),
+    ("RuntimeConfig", dict(payload="f64")),
+    ("RuntimeConfig", dict(payload="bf16")),
 ]
 
 
@@ -73,12 +78,48 @@ def test_same_compose_error_text(kw):
     assert str(te.value) == str(je.value)
 
 
+_BACKEND_NAMES = {"reference": "torch", "pallas": "cuda"}
+
+
+def _port_text(jax_text: str) -> str:
+    """A JAX message with its backend names turned into the port's."""
+    for jname, tname in _BACKEND_NAMES.items():
+        jax_text = jax_text.replace(f"'{jname}'", f"'{tname}'")
+    return jax_text
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
+        dict(payload="f16", backend="reference"),
+        dict(payload="i8", backend="reference"),
+        dict(payload="f16", backend="pallas", c_rerank=3, k=5),
+        dict(payload="i8", backend="pallas", c_rerank=9),
+    ],
+    ids=["f16_staged", "i8_staged", "f16_short_rerank", "i8_short_rerank"],
+)
+def test_same_payload_rule_text(kw):
+    tkw = {**kw, "backend": _BACKEND_NAMES[kw["backend"]]}
+    with pytest.raises(jp.ConfigError) as je:
+        jp.SLSHConfig.compose(**kw)
+    with pytest.raises(tp.ConfigError) as te:
+        tp.SLSHConfig.compose(**tkw)
+    assert str(te.value) == _port_text(str(je.value))
+
+
 def test_backends_and_payload_of_the_port():
     assert tp.SLSHConfig.compose(backend="torch").backend == "torch"
     with pytest.raises(tp.ConfigError, match=r"\['cuda', 'torch'\]"):
         tp.RuntimeConfig(backend="pallas")
-    with pytest.raises(tp.ConfigError, match="payload='f16'"):
-        tp.RuntimeConfig(payload="f16")
+    for fmt in ("f32", "f16", "i8"):
+        assert tp.RuntimeConfig(payload=fmt).payload == fmt
+        assert tp.SLSHConfig.compose(payload=fmt).payload == fmt  # "cuda" by default
+    with pytest.raises(tp.ConfigError, match="set backend='cuda' or payload='f32'"):
+        tp.SLSHConfig.compose(payload="f16", backend="torch")
+    with pytest.raises(tp.ConfigError, match="raise c_rerank to at least k"):
+        tp.SLSHConfig.compose(payload="i8", c_rerank=4, k=5)
+    # the f32 tail reads no shortlist, so a short c_rerank is no fault there
+    assert tp.SLSHConfig.compose(payload="f32", backend="torch", c_rerank=4, k=5).c_rerank == 4
 
 
 @pytest.mark.parametrize("value", [True, False])
