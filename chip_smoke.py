@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs six
+Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs eight
 phases, printing one JSON line each; any failed check raises, so the script
 exits non-zero:
 
@@ -31,16 +31,37 @@ exits non-zero:
                   compressed MCC within 0.01 of the f32 shard's.
    ``payload_profile`` per format, a profiled 200-query single-shard query,
                   as ``query_profile``.
+7. ``knn_lm``     the kNN-LM serving path of examples/serve_knn_lm.py
+                  steps 2-3 at granite-8b's full width and depth (36 layers,
+                  d_model 4,096, weights from a seeded generator): kernel F
+                  (flash attention) first against its plain version at the
+                  path's five shapes; then a datastore of 65,536 hidden
+                  states (64 sequences in chunks of 8), DSLSH over it on
+                  ``grid(nu=2, p=4)`` with the ``"cuda"`` backend, and 4
+                  requests (128-token prompts, 8 new tokens) served with
+                  lmbda 0 and 0.3 through the kNN-LM hook. Checks: at least
+                  36 flash launches per forward pass, the model with F
+                  against the same model with the plain attention (logits
+                  and greedy tokens), the hook against ``knn_interpolate`` on
+                  the ``"torch"`` backend's neighbours, and kernels A and B
+                  at d = 4,096 (the datastore's keys) and d = 18,432 against
+                  their plain versions.
+   ``knn_lm_profile`` one request served with the hook, profiled.
+8. ``serve``      ``repro_torch.launch.serve.main --arch granite-8b`` with
+                  its defaults: 4 requests through ``ServeEngine`` on the
+                  card.
 
 The ``kernels`` line comes last but two, then the ``nvidia-smi`` line, and
 the last line is ``{"ok": true, "device": {...}}``. A kernel's ``launches``
 counts the path it belongs to: the main path for A-D, the payload phase's
-two compressed queries for E. Without a CUDA device, or without the
-repository's ``src/`` beside it, the script exits non-zero before printing
-any result.
+two compressed queries for E, the ``knn_lm`` phase for F; every row also
+gives its launches on the ``knn_lm`` and ``serve`` paths. Without a CUDA
+device, or without the repository's ``src/`` beside it, the script exits
+non-zero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -52,6 +73,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
 RTOL = ATOL = 1e-5  # distances: the kernels sum over d in another order
 
 # the paper-scale configuration of benchmarks/scale_bench.py and
@@ -63,6 +85,26 @@ CFG = dict(
 )
 N, NQ, NU, P, SEED = 1_370_000, 2_000, 10, 4, 0
 C_RERANK = 32  # the payload shortlist of benchmarks/scale_bench.py:48
+
+# the kNN-LM slice
+LM_ARCH = "granite-8b"  # d_model 4,096, 32/8 heads, head_dim 128, 36 layers
+DS_SEQS, DS_LEN, DS_CHUNK = 64, 1025, 8  # examples/serve_knn_lm.py step 2, at full width
+PROMPT_LEN, MAX_NEW, N_REQ = 128, 8, 4  # step 3's serving, with 128-token prompts
+KNN_FAMILY = dict(m_out=24, L_out=8, m_in=12, L_in=4, alpha=0.02)  # step 2's FamilyConfig
+KNN_BUDGET = dict(k=8, c_max=64, c_in=16, h_max=4, p_max=128)  # step 2's BudgetConfig
+WIDE_D = 18_432  # the widest d_model of the repo's configs (nemotron-4-340b)
+# Kernel F against its plain version: both accumulate in float32 and round
+# once to bf16, so an element may land one bf16 ulp apart (at most 2^-7 of
+# its size) where the float32 sums, taken in another order, straddle a
+# rounding boundary.
+FA_RTOL, FA_ATOL = 2.0**-7, 1e-3
+# The model with kernel F against the same model with the plain attention:
+# each layer's attention output may differ by such one-ulp flips, which
+# every later bf16 matmul and residual add carries on over 36 layers. The
+# logits (bf16 products, up to about 6 in size here) are held to twice the
+# gap between two plain models that differ only in float32 rounding, plus
+# one bf16 ulp at 4-8.
+LOGIT_ATOL = 2.0**-5
 
 
 def emit(phase: str, **fields) -> None:
@@ -135,8 +177,8 @@ def profile_query(dev, fn, queries: int = 200) -> dict:
     )
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+def bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -415,9 +457,11 @@ def main() -> int:
     return 0
 
 
-def run(dev, n: int, nq: int) -> None:
+def run(dev, n: int, nq: int, lm_smoke: bool = False, ds_seqs: int = DS_SEQS) -> None:
     """Every phase after the device check, on ``dev`` at ``n`` points and
-    ``nq`` queries; prints the kernels line last."""
+    ``nq`` queries, the kNN-LM phases on granite-8b (its smoke config with
+    ``lm_smoke``) over ``ds_seqs`` datastore sequences; prints the kernels
+    line last."""
     import torch
 
     from repro_torch import dslsh
@@ -523,14 +567,27 @@ def run(dev, n: int, nq: int) -> None:
 
     del index, res, ref
     payload_launches = payload_phase(dev, pts, qx, labels, truth, cfg, mcc_p)
+    del data, queries, labels, truth
+
+    scratch = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    f_row, a_wide, b_wide, lm_launches = knn_lm_phase(dev, lm_smoke, ds_seqs, lambda: scratch.zero_())
+    del scratch
+    serve_launches = serve_phase(["--arch", LM_ARCH] + (["--smoke", "--device", dev.type] if lm_smoke else []))
+    for r in rows:
+        r.update({"bitsample_pack": a_wide, "proj_sign_pack": b_wide}.get(r["name"], {}))
+    rows.append(f_row)
 
     for r in rows:
         if r.get("kernel") == "query_tail_payload":  # runs on the payload path only
             r["launches"] = payload_launches.get(r["name"], 0)
+        elif r["name"] == "flash_attention":  # runs on the kNN-LM path only
+            r["launches"] = lm_launches.get(r["name"], 0)
         else:
             r["launches"] = main_launches.get(r["name"], 0)
             r["multiprobe_query_launches"] = mp_launches.get(r["name"], 0)
         r["payload_query_launches"] = payload_launches.get(r["name"], 0)
+        r["knn_lm_launches"] = lm_launches.get(r["name"], 0)
+        r["serve_launches"] = serve_launches.get(r["name"], 0)
     print(json.dumps({"kernels": rows}), flush=True)
 
 
@@ -604,6 +661,447 @@ def payload_phase(dev, pts, qx, labels, truth, cfg, mcc_pknn: float) -> dict:
         del index, res
         if dev.type == "cuda":
             torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------- the kNN-LM slice
+
+
+def flash_row(dev, cfg, max_len: int, flush) -> dict:
+    """Kernel F against its plain version (float32, cast once to bf16) at the
+    slice's shapes, in the model's layouts: q, k, v are transposed views of
+    (B, S, H, dh) activations or of the (B, S_max, Hkv, dh) cache. The
+    row's own numbers are the datastore pass's shape; ``cases`` holds all
+    five. ``library_ms`` is one ``scaled_dot_product_attention`` call
+    (``enable_gqa``), timed here only."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa, ref as fa_ref
+
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    ragged = torch.tensor([max_len - 15, max_len - 7, max_len - 3, max_len], dtype=torch.int32, device=dev)
+    cases = [
+        dict(case="datastore", b=DS_CHUNK, sq=DS_LEN - 1, skv=DS_LEN - 1, causal=True),
+        dict(case="prefill", b=1, sq=PROMPT_LEN, skv=PROMPT_LEN, causal=True),
+        dict(case="decode", b=N_REQ, sq=1, skv=max_len, causal=False, q_offset=ragged - 1, kv_len=ragged),
+        dict(case="window", b=1, sq=DS_LEN - 1, skv=DS_LEN - 1, causal=True, window=256),
+        dict(case="q_offset", b=1, sq=64, skv=max_len, causal=True, q_offset=max_len - 64),
+    ]
+    g = torch.Generator(dev).manual_seed(SEED)
+    out = []
+    for c in cases:
+        b, sq, skv = c["b"], c["sq"], c["skv"]
+        kw = dict(causal=c["causal"], window=c.get("window"), q_offset=c.get("q_offset", 0), kv_len=c.get("kv_len"))
+        q = torch.randn((b, sq, hq, dh), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+        k, v = (torch.randn((b, skv, hkv, dh), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+                for _ in range(2))
+        o = fa.flash_attention(q, k, v, **kw)
+        r = fa_ref.attention_ref(q, k, v, **kw)
+        err = (o.float() - r.float()).abs()
+        need(bool((err <= FA_RTOL * r.float().abs() + FA_ATOL).all()),
+             f"flash_attention ({c['case']}) differs from its plain version by {float(err.max())}")
+        ok = fa_ref.visible(b, sq, skv, device=dev, **kw)
+        pairs = int(ok.sum())
+        keys_read = int(ok.any(dim=1).sum())  # per batch row, the keys any query row sees
+        nbytes = 2 * (2 * b * hq * sq * dh + 2 * keys_read * hkv * dh) + 8 * b
+        b_ms, b_by = bound(nbytes, 4 * pairs * hq * dh, BF16_OPS_PER_S)
+        plain_causal = kw["causal"] and sq == skv and c.get("q_offset") is None and kw["window"] is None
+        mask = None if plain_causal else ok[:, None]
+
+        def lib(q=q, k=k, v=v, mask=mask, plain_causal=plain_causal):
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, is_causal=plain_causal, enable_gqa=True)
+
+        lib_err = float((lib().float() - r.float()).abs().nan_to_num(0.0).max())
+        out.append(dict(
+            case=c["case"],
+            shape=(f"q ({b}, {hq}, {sq}, {dh}), k/v ({b}, {hkv}, {skv}, {dh}) bf16, causal={kw['causal']},"
+                   f" window={kw['window']}, q_offset={_show(kw['q_offset'])}, kv_len={_show(kw['kv_len'])}"),
+            visible_pairs=pairs, max_abs_err=float(err.max()), library_max_abs_err=lib_err,
+            ms=timed_ms(lambda: fa.flash_attention(q, k, v, **kw), 20, flush),
+            plain_ms=timed_ms(lambda: fa_ref.attention_ref(q, k, v, **kw), 5, flush),
+            bound_ms=b_ms, bound_by=b_by, library_ms=timed_ms(lib, 20, flush),
+        ))
+        del q, k, v, o, r, ok, mask
+    head = out[0]
+    return dict(
+        name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:125",
+        shape=head["shape"], max_abs_err=head["max_abs_err"], tolerance=f"{FA_RTOL}*|plain| + {FA_ATOL}",
+        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+        library_ms=head["library_ms"], library="torch.nn.functional.scaled_dot_product_attention",
+        cases=out,
+    )
+
+
+def _show(v):
+    return v.tolist() if hasattr(v, "tolist") else v
+
+
+def wide_a_check(x, outer, cfg, p: int, flush) -> dict:
+    """Kernel A (words, and its margins mode) on rows ``x`` (T, d) of a wide
+    row width with one cell's outer tables, bit-exact against its plain
+    version."""
+    import torch
+
+    from repro_torch.core import hashing
+    from repro_torch.kernels.hash_pack import ops as hp, ref as hp_ref
+
+    t, d = x.shape
+    l_loc = cfg.L_out // p
+    outer0 = hashing.BitSampleParams(outer.dims[:l_loc], outer.thrs[:l_loc], outer.salts[:l_loc])
+    dims, thrs = hp.bitsample_columns(outer0)
+    m_cols = dims.shape[0]
+    wk, mk = hp.bitsample_pack(x, dims, thrs, margins=True)
+    wr, mr = hp_ref.bitsample_pack_ref(x, dims, thrs, margins=True)
+    need(torch.equal(hp.bitsample_pack(x, dims, thrs), wr) and torch.equal(wk, wr) and torch.equal(mk, mr),
+         f"bitsample_pack differs from its plain version at d={d}")
+    # the function reads only the sampled coordinates of each row
+    b_ms, b_by = bound(t * min(d, m_cols) * 4 + m_cols * 8 + t * m_cols // 8, t * m_cols)
+    return dict(d=d, shape=f"x ({t}, {d}), {m_cols} columns", exact=True,
+                ms=timed_ms(lambda: hp.bitsample_pack(x, dims, thrs), 20, flush),
+                plain_ms=timed_ms(lambda: hp_ref.bitsample_pack_ref(x, dims, thrs), 5, flush),
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def wide_b_check(x, inner, flush) -> dict:
+    """Kernel B on rows ``x`` (T, d) of a wide row width with the inner
+    family, against its plain version (a full-float32 matmul): no bit may
+    differ where |s| is beyond float32 rounding of 0, and the bits that
+    differ at all are counted."""
+    import torch
+
+    from repro_torch.kernels.hash_pack import ops as hp, ref as hp_ref
+
+    t, d = x.shape
+    n_tab, _, m_in = inner.proj.shape
+    m_pad = 32 * -(-m_in // 32)
+    proj = torch.nn.functional.pad(inner.proj, (0, m_pad - m_in)).permute(1, 0, 2)
+    cols = proj.reshape(d, n_tab * m_pad).contiguous()
+    bias = torch.zeros(n_tab * m_pad, device=x.device)
+    bk = hp.proj_sign_pack(x, cols, bias, m_in, m_pad)
+    br = hp_ref.proj_sign_pack_ref(x, cols, bias, m_in, m_pad)
+    bits = torch.arange(32, device=x.device)
+    diff = (((bk[:, :, None] >> bits) & 1) != ((br[:, :, None] >> bits) & 1)).reshape(t, -1)
+    scale = 1e-5 * x.norm(dim=1, keepdim=True) * cols.norm(dim=0, keepdim=True)
+    need(not bool((diff & ((x @ cols).abs() > scale)).any()), f"proj_sign_pack flips a bit far from zero at d={d}")
+    b_ms, b_by = bound(t * d * 4 + cols.numel() * 4 + bias.numel() * 4 + t * cols.shape[1] // 8,
+                       2 * t * d * n_tab * m_in)
+    return dict(d=d, shape=f"x ({t}, {d}), proj ({d}, {cols.shape[1]}), {n_tab * m_in} real columns",
+                exact=bool(not diff.any()), disagreeing_bits=int(diff.sum()),
+                ms=timed_ms(lambda: hp.proj_sign_pack(x, cols, bias, m_in, m_pad), 20, flush),
+                plain_ms=timed_ms(lambda: hp_ref.proj_sign_pack_ref(x, cols, bias, m_in, m_pad), 5, flush),
+                bound_ms=b_ms, bound_by=b_by)
+
+
+@contextlib.contextmanager
+def attention_ref_model():
+    """Run the model's attention through ``attention_ref`` (the scores
+    scaled after the dot, as the Pallas kernel does, and an exact softmax):
+    a second plain version, which differs from the plain chunked attention
+    only in float32 rounding."""
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.models import common
+
+    saved = common.chunked_attention, common.decode_attention_cp
+
+    def chunked(q, k, v, *, causal=True, window=None, q_offset=0, kv_len=None, q_chunk=512, plain=False):
+        return fa_ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal,
+                                    window=window, q_offset=q_offset, kv_len=kv_len).transpose(1, 2)
+
+    def decode(q, k_cache, v_cache, cur_len, *, plain=False):
+        cl = fa_ref.per_row(cur_len, q.shape[0], q.device)
+        return chunked(q, k_cache, v_cache, causal=False, q_offset=cl - 1, kv_len=cl)
+
+    common.chunked_attention, common.decode_attention_cp = chunked, decode
+    try:
+        yield
+    finally:
+        common.chunked_attention, common.decode_attention_cp = saved
+
+
+def continuation_accuracy(stream, prompts, gens) -> float:
+    """examples/serve_knn_lm.py's accuracy: the share of generated tokens
+    equal to the noise-free motif's continuation, its phase read from the
+    prompt's last four tokens."""
+    acc = []
+    per = stream.period
+    for p, g in zip(prompts, gens):
+        ctx = list(p)
+        phase = int(np.argmax([np.array_equal(stream.motif[(np.arange(len(ctx)) + ph) % per][-4:], ctx[-4:])
+                               for ph in range(per)]))
+        want = [stream.motif[(phase + len(ctx) + t) % per] for t in range(len(g))]
+        acc.append(np.mean(np.asarray(g) == np.asarray(want)))
+    return float(np.mean(acc))
+
+
+def knn_lm_phase(dev, smoke: bool, ds_seqs: int, flush) -> tuple[dict, dict, dict, dict]:
+    """The kNN-LM serving path of examples/serve_knn_lm.py steps 2-3 at
+    granite-8b's full width and depth, weights from a seeded generator:
+    a datastore of hidden states (``_run_layers`` over ``ds_seqs``
+    sequences in chunks of 8), DSLSH over it on ``grid(nu=2, p=4)`` with
+    the ``"cuda"`` backend, then 4 requests served with lmbda 0 and 0.3
+    through the hook. The model with kernel F is then held against the same
+    model with the plain attention (teacher-forced on the tokens served),
+    and the hook's output against ``knn_interpolate`` on the ``"torch"``
+    backend's answer. Returns F's row, A's and B's wide-row checks, and the
+    path's launch counts."""
+    import torch
+
+    from repro_torch import configs, dslsh
+    from repro_torch.core import distributed as D
+    from repro_torch.core import pipeline
+    from repro_torch.data.lm_data import TokenStream
+    from repro_torch.kernels import _build
+    from repro_torch.models import api as mapi
+    from repro_torch.models import dense
+    from repro_torch.serve import engine
+
+    cfg = configs.get(LM_ARCH, smoke=smoke)
+    max_len = PROMPT_LEN + MAX_NEW + 8  # as the serving launcher sizes its cache
+    f_row = flash_row(dev, cfg, max_len, flush)
+
+    model = mapi.build_model(cfg)
+    sync(dev)
+    t0 = time.perf_counter()
+    lm = model.init(SEED, dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    stream = TokenStream(cfg.vocab, seed=3)
+    ds_tokens = torch.as_tensor(stream.batch(ds_seqs, DS_LEN), device=dev)
+    prompts = [stream.batch(1, PROMPT_LEN)[0] for _ in range(N_REQ)]
+    passes = 0  # forward passes of the model on the path
+
+    def hidden_states(tokens):
+        nonlocal passes
+        passes += 1
+        x, _ = dense._embed_inputs(cfg, lm, {"tokens": tokens})
+        return dense._run_layers(cfg, lm, x, torch.arange(tokens.shape[1], device=dev))
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    sync(dev)
+    _build.reset_launches()
+    # 1. the datastore: keys are the hidden states at positions t, labels
+    # the tokens at t + 1; with causal attention the first 1,024 hidden
+    # states do not depend on the 1,025th token, which only labels, so each
+    # chunk runs 1,024 tokens
+    t0 = time.perf_counter()
+    n_keys = ds_seqs * (DS_LEN - 1)
+    keys = torch.empty((n_keys, cfg.d_model), dtype=torch.float32, device=dev)
+    for c0 in range(0, ds_seqs, DS_CHUNK):
+        h = hidden_states(ds_tokens[c0 : c0 + DS_CHUNK, : DS_LEN - 1])
+        keys[c0 * (DS_LEN - 1) : c0 * (DS_LEN - 1) + h.shape[0] * h.shape[1]] = h.reshape(-1, cfg.d_model)
+    labels = ds_tokens[:, 1:].reshape(-1)
+    sync(dev)
+    hidden_s = time.perf_counter() - t0
+    # 2. DSLSH over the hidden states
+    deploy = dslsh.grid(nu=2, p=4)
+    scfg = dslsh.make_config(
+        dslsh.FamilyConfig(**KNN_FAMILY, val_lo=float(keys.min()), val_hi=float(keys.max())),
+        dslsh.BudgetConfig(**KNN_BUDGET), backend="cuda",
+    )
+    t0 = time.perf_counter()
+    index = dslsh.build(SEED, keys, scfg, deploy, dev)
+    sync(dev)
+    build_s = time.perf_counter() - t0
+
+    # 3. serving, as step 3 does: per request a prefill, then greedy decode
+    # steps; with lmbda > 0 the hook re-runs the model over the running
+    # tokens for the query hidden state and retrieves from the datastore
+    first = {}
+    hook_log = dict(hq=[], calls=[])
+
+    def hidden_fn(cur):
+        hq = hidden_states(cur)[:, -1]
+        hook_log["hq"].append(hq)
+        return hq
+
+    def serve(lmbda: float, reqs=prompts):
+        nonlocal passes
+        hook = engine.make_knn_lm_hook(index, labels, hidden_fn=hidden_fn, vocab=cfg.vocab, lmbda=lmbda)
+        gens, prefill_ms, decode_ms, hook_ms = [], [], [], []
+        for p in reqs:
+            toks = torch.as_tensor(p[None, :], device=dev)
+            sync(dev)
+            t0 = time.perf_counter()
+            logits, cache = model.prefill(lm, {"tokens": toks}, max_len)
+            sync(dev)
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+            passes += 1
+            first.setdefault(("prefill", lmbda), logits)
+            cur, gen = toks, []
+            for _ in range(MAX_NEW):
+                if lmbda > 0:
+                    t0 = time.perf_counter()
+                    mixed = hook(logits, cur)
+                    sync(dev)
+                    hook_ms.append((time.perf_counter() - t0) * 1e3)
+                    if not hook_log["calls"]:
+                        hook_log["calls"].append((logits, mixed))
+                    logits = mixed
+                nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+                gen.append(int(nxt[0, 0]))
+                t0 = time.perf_counter()
+                logits, cache = model.decode_step(lm, cache, nxt)
+                sync(dev)
+                decode_ms.append((time.perf_counter() - t0) * 1e3)
+                passes += 1
+                first.setdefault(("decode", lmbda), logits)
+                cur = torch.cat([cur, nxt], dim=1)
+            gens.append(gen)
+        return gens, prefill_ms, decode_ms, hook_ms
+
+    served = {lmbda: serve(lmbda) for lmbda in (0.0, 0.3)}
+    sync(dev)
+    launches = dict(_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None
+    f_launches, path_passes = launches.get("flash_attention", 0), passes
+    checks = [(f_launches >= cfg.n_layers * path_passes,
+               f"knn_lm: {f_launches} flash_attention launches, fewer than {cfg.n_layers} per forward pass"
+               f" ({path_passes})")]
+    checks += [(launches.get(name, 0) > 0, f"knn_lm never launched {name}")
+               for name in ("bitsample_pack", "proj_sign_pack", "query_tail")]
+
+    # the datastore query time and its overflow, on every query the hook made
+    hq_all = torch.cat(hook_log["hq"])
+    index.query(hq_all[:1])  # warm
+    sync(dev)
+    t0 = time.perf_counter()
+    res_all = index.query(hq_all)
+    sync(dev)
+    query_ms = (time.perf_counter() - t0) * 1e3
+    overflow_cells = int(res_all.overflow_cells)
+    del res_all
+    # where a request's time goes: one request served with the hook, profiled
+    emit("knn_lm_profile", request_tokens=PROMPT_LEN + MAX_NEW,
+         **profile_query(dev, lambda: serve(0.3, prompts[:1]), queries=MAX_NEW))
+
+    # the model with kernel F against the plain attention. The tolerance on
+    # the first prefill's and first decode step's logits is twice the gap
+    # between two plain models that differ only in float32 rounding (the
+    # chunked attention, which scales q before the dot, against
+    # attention_ref, which scales the scores after it, as the Pallas kernel
+    # does), plus LOGIT_ATOL; greedy tokens (teacher-forced on the tokens
+    # served) must agree wherever the plain top-2 margin exceeds twice it
+    gens0 = served[0.0][0]
+    p0 = torch.as_tensor(prompts[0][None, :], device=dev)
+    tok0 = torch.tensor([[gens0[0][0]]], dtype=torch.int32, device=dev)
+
+    def first_logits():
+        lg, cache = model.prefill(lm, {"tokens": p0}, max_len)
+        return lg, model.decode_step(lm, cache, tok0)[0]
+
+    lm.plain_attention = True
+    plain = first_logits()
+    with attention_ref_model():
+        alt = first_logits()
+    kern = (first[("prefill", 0.0)], first[("decode", 0.0)])
+    logit_err = [float((a - b).abs().max()) for a, b in zip(kern, plain)]
+    logit_floor = [float((a - b).abs().max()) for a, b in zip(alt, plain)]
+    logit_tol = 2 * max(logit_floor) + LOGIT_ATOL
+    checks.append((max(logit_err) <= logit_tol,
+                   f"knn_lm: logits differ from the plain model's by {max(logit_err)} > {logit_tol}"))
+    checked, skipped, token_diffs, tokens_equal = 0, 0, [], 0
+    for r, (p, gen) in enumerate(zip(prompts, gens0)):
+        logits, cache = model.prefill(lm, {"tokens": torch.as_tensor(p[None, :], device=dev)}, max_len)
+        for t, tok in enumerate(gen):
+            tokens_equal += int(logits[0].argmax()) == tok
+            top2 = torch.topk(logits[0], 2).values
+            if float(top2[0] - top2[1]) > 2 * logit_tol:
+                checked += 1
+                if int(logits[0].argmax()) != tok:
+                    token_diffs.append([r, t])
+            else:
+                skipped += 1
+            logits, cache = model.decode_step(lm, cache, torch.tensor([[tok]], dtype=torch.int32, device=dev))
+    lm.plain_attention = False
+    checks.append((not token_diffs, f"knn_lm: greedy tokens {token_diffs} (request, step) differ from the plain model's"))
+
+    # the hook against knn_interpolate on the "torch" backend's answer
+    logits_in, mixed = hook_log["calls"][0]
+    hq = hook_log["hq"][0]
+    res_c = index.query(hq)
+    res_t = D.grid_query(index.pipeline_index, index._state["data"], hq.float(),
+                         scfg.replace(backend="torch"), deploy.grid)
+    need_topk(res_c.knn_dist, res_c.knn_idx, res_t.knn_dist, res_t.knn_idx,
+              point_dist_of(index._state["data"], hq.float()), "knn_lm: cuda and torch retrieval differ")
+    want = engine.knn_interpolate(logits_in, res_t.knn_idx, res_t.knn_dist, labels, cfg.vocab, 0.3)
+    same = (res_c.knn_idx == res_t.knn_idx).all(dim=1)
+    checks.append((bool(torch.allclose(mixed[same], want[same], rtol=1e-5, atol=1e-5)),
+                   "knn_lm: the hook's output differs from knn_interpolate on the torch backend's neighbours"))
+
+    # A and B at the datastore's width (one cell's keys for A, the first
+    # 1,024 for B, whose inner layer hashes only heavy-bucket points, and
+    # the index's own family) and at the widest d_model of the repo's configs
+    outer, inner = pipeline.make_family(torch.Generator().manual_seed(SEED), cfg.d_model, scfg, dev)
+    cell = keys[: n_keys // deploy.nu]
+    wide_a = [wide_a_check(cell, outer, scfg, deploy.p, flush)]
+    wide_b = [wide_b_check(cell[:1024].contiguous(), inner, flush)]
+    del index, keys, lm, cell
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    wide = 2 * cfg.d_model if smoke else WIDE_D
+    xw = torch.rand((256 if smoke else 8192, wide), generator=torch.Generator(dev).manual_seed(SEED), device=dev)
+    outer_w, inner_w = pipeline.make_family(torch.Generator().manual_seed(SEED), wide, scfg, dev)
+    wide_a.append(wide_a_check(xw, outer_w, scfg, deploy.p, flush))
+    wide_b.append(wide_b_check(xw[:1024].contiguous(), inner_w, flush))
+    del xw
+
+    gens3 = served[0.3][0]
+    emit(
+        "knn_lm", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
+        head_dim=cfg.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab, n_params=model.n_params, init_s=init_s,
+        datastore=dict(sequences=ds_seqs, tokens_per_sequence=DS_LEN, keys=n_keys, key_width=cfg.d_model,
+                       cut=None if ds_seqs == DS_SEQS else f"{ds_seqs} of {DS_SEQS} sequences"),
+        hidden_pass_s=hidden_s, dslsh_build_s=build_s, grid=[deploy.nu, deploy.p],
+        datastore_query_ms=query_ms, datastore_queries=int(hq_all.shape[0]),
+        overflow_cells=overflow_cells,
+        prefill_ms=float(np.mean(served[0.0][1])), decode_step_ms=float(np.mean(served[0.0][2])),
+        decode_step_ms_with_hook=float(np.mean(np.add(served[0.3][2], served[0.3][3]))),
+        hook_ms=float(np.mean(served[0.3][3])),
+        peak_mem_gb=peak_gb, forward_passes=path_passes, flash_attention_launches=f_launches,
+        flash_attention_launches_per_pass=f_launches / path_passes, launches=launches,
+        logits_max_abs=[float(x.abs().max()) for x in plain],
+        logits_max_abs_err_vs_plain=logit_err, logits_plain_vs_attention_ref=logit_floor,
+        logit_tolerance=logit_tol, greedy_tokens_checked=checked,
+        greedy_tokens_within_tolerance_margin=skipped, greedy_tokens_equal_to_plain=tokens_equal,
+        hook_rows_identical_to_torch_backend=int(same.sum()), hook_rows=int(same.numel()),
+        accuracy_lm_only=continuation_accuracy(stream, prompts, gens0),
+        accuracy_with_knn=continuation_accuracy(stream, prompts, gens3),
+        tokens_lmbda_0=gens0, tokens_lmbda_03=gens3,
+    )
+    for ok, msg in checks:
+        need(ok, msg)
+    return f_row, dict(wide=wide_a), dict(wide=wide_b), launches
+
+
+def serve_phase(argv: list[str]) -> dict:
+    """``repro_torch.launch.serve.main`` as a user runs it: the arch's
+    weights from a seeded generator, 4 requests through ``ServeEngine``."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve as launch_serve
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    done = launch_serve.main(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    cfg = configs.get(argv[argv.index("--arch") + 1], smoke="--smoke" in argv)
+    max_new = max(len(r.result) for r in done)
+    need(all(r.done and not r.timed_out and len(r.result) == max_new for r in done), "serve: a request did not finish")
+    need(all(0 <= t < cfg.vocab for r in done for t in r.result), "serve: a token outside the vocabulary")
+    passes = len(done) + max_new  # one prefill per request, one batched decode per step
+    need(launches.get("flash_attention", 0) >= cfg.n_layers * passes,
+         f"serve: {launches.get('flash_attention', 0)} flash_attention launches for {passes} forward passes")
+    emit("serve", argv=argv, arch=cfg.name, requests=len(done), new_tokens=max_new, seconds=seconds,
+         latency_ms=[r.latency_s * 1e3 for r in done], tokens=[r.result for r in done],
+         forward_passes=passes, launches=launches)
     return launches
 
 

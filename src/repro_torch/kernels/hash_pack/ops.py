@@ -18,8 +18,6 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.blocking import pad_axis, round_up
 from repro_torch.kernels.hash_pack import ref
 
-_ROWS = 32  # HP_ROWS in hash_pack.cu: x rows staged in shared memory per block
-_SMEM_MAX = 227 * 1024
 _SIGNATURES = {
     "bitsample_pack_launch": [_build.PTR] * 3 + [_build.INT] * 3 + [_build.PTR] * 3,
     "proj_sign_pack_launch": [_build.PTR] * 3 + [_build.INT] * 5 + [_build.PTR] * 3,
@@ -37,8 +35,6 @@ def _check_common(x: torch.Tensor, cols: int, *others: torch.Tensor) -> None:
     _require(all(t.device == x.device and t.is_contiguous() for t in others),
              "all inputs must be contiguous and on x's device")
     _require(cols % 32 == 0, f"column count {cols} must be a multiple of 32")
-    _require(_ROWS * x.shape[1] * 4 <= _SMEM_MAX,
-             f"d={x.shape[1]} too wide for the staged row tile")
 
 
 def _outputs(x: torch.Tensor, cols: int, margins: bool):

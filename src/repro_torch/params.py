@@ -4,8 +4,9 @@ JAX and PyTorch cannot draw the same numbers from one seed, so the tests —
 and ``api.build(..., params=...)`` — take a hash family as numpy arrays
 (for instance the JAX package's ``make_family`` output) and turn it into
 the port's parameter types; a quantized payload crosses the same way, so
-both packages can run the payload tail on the same rows. Unsigned 32-bit
-values (salts, keys) become int64 holding the same values.
+both packages can run the payload tail on the same rows, and so does a dense
+LM's parameter tree, so both packages compute with the same weights.
+Unsigned 32-bit values (salts, keys) become int64 holding the same values.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch
 
 from repro_torch import device as device_mod
 from repro_torch.core import hashing, pipeline, tables
+from repro_torch.models import dense
 from repro_torch.runtime import payload as payload_mod
 
 
@@ -95,3 +97,21 @@ def payload_from_numpy(qdata, meta, device: torch.device | str | None = None) ->
     if m.shape != (q.shape[0], 2):
         raise ValueError(f"meta {m.shape} does not match ({q.shape[0]}, 2)")
     return payload_mod.Payload(torch.as_tensor(q, device=device), torch.as_tensor(m, device=device))
+
+
+def model_params_from_numpy(cfg, tree: Mapping[str, Any], device: torch.device | str | None = None) -> dense.DenseLM:
+    """A :class:`~repro_torch.models.dense.DenseLM` for ``cfg`` from the JAX
+    package's dense parameter tree (nested mappings with stacked ``(L, ...)``
+    layer leaves, for instance ``repro.models.api.build_model(cfg).init(key)``),
+    read through ``np.asarray`` as float32 and cast to the port's storage
+    dtypes, on ``device`` (the card unless told otherwise)."""
+    device = device_mod.resolve(device)
+
+    def conv(node):
+        if isinstance(node, Mapping):
+            return {k: conv(v) for k, v in node.items()}
+        return torch.as_tensor(np.array(node, dtype=np.float32), device=device)
+
+    if cfg.family != "dense":
+        raise NotImplementedError(f"the {cfg.family!r} model family is not ported yet (see ROADMAP.md, Queue 1)")
+    return dense.DenseLM(cfg, conv(tree))
