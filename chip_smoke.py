@@ -42,8 +42,10 @@ exits non-zero:
                   lmbda 0 and 0.3 through the kNN-LM hook. Checks: at least
                   36 flash launches per forward pass, the model with F
                   against the same model with the plain attention (logits
-                  and greedy tokens), the hook against ``knn_interpolate`` on
-                  the ``"torch"`` backend's neighbours, and kernels A and B
+                  and greedy tokens), the logit gate against faults planted
+                  in F, the hook on every call against
+                  ``knn_interpolate`` on the index's and on the ``"torch"``
+                  backend's neighbours, and kernels A and B
                   at d = 4,096 (the datastore's keys) and d = 18,432 against
                   their plain versions.
    ``knn_lm_profile`` one request served with the hook, profiled.
@@ -103,7 +105,8 @@ FA_RTOL, FA_ATOL = 2.0**-7, 1e-3
 # every later bf16 matmul and residual add carries on over 36 layers. The
 # logits (bf16 products, up to about 6 in size here) are held to twice the
 # gap between two plain models that differ only in float32 rounding, plus
-# one bf16 ulp at 4-8.
+# one bf16 ulp at 4-8. The tight gate on F is flash_row's, per element at
+# each shape; this one must still catch the GATED_FAULTS the phase plants.
 LOGIT_ATOL = 2.0**-5
 
 
@@ -713,6 +716,12 @@ def flash_row(dev, cfg, max_len: int, flush) -> dict:
             return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, is_causal=plain_causal, enable_gqa=True)
 
         lib_err = float((lib().float() - r.float()).abs().nan_to_num(0.0).max())
+        fault = {}
+        if c["case"] == "decode":  # a dropped newest key, which the model-level gate misses
+            ferr = (fa.flash_attention(q, k, v, **{**kw, "kv_len": kw["kv_len"] - 1}).float() - r.float()).abs()
+            need(bool((ferr > FA_RTOL * r.float().abs() + FA_ATOL).any()),
+                 "flash_attention (decode): the tolerance misses a dropped newest key")
+            fault = dict(planted_last_key_max_abs_err=float(ferr.max()))
         out.append(dict(
             case=c["case"],
             shape=(f"q ({b}, {hq}, {sq}, {dh}), k/v ({b}, {hkv}, {skv}, {dh}) bf16, causal={kw['causal']},"
@@ -720,7 +729,7 @@ def flash_row(dev, cfg, max_len: int, flush) -> dict:
             visible_pairs=pairs, max_abs_err=float(err.max()), library_max_abs_err=lib_err,
             ms=timed_ms(lambda: fa.flash_attention(q, k, v, **kw), 20, flush),
             plain_ms=timed_ms(lambda: fa_ref.attention_ref(q, k, v, **kw), 5, flush),
-            bound_ms=b_ms, bound_by=b_by, library_ms=timed_ms(lib, 20, flush),
+            bound_ms=b_ms, bound_by=b_by, library_ms=timed_ms(lib, 20, flush), **fault,
         ))
         del q, k, v, o, r, ok, mask
     head = out[0]
@@ -794,24 +803,46 @@ def wide_b_check(x, inner, flush) -> dict:
                 bound_ms=b_ms, bound_by=b_by)
 
 
+# The model's attention for the logit gate: "plain" is the port's plain
+# version run on the card; "attention_ref" a second plain version, which
+# scales the scores after the dot as the Pallas kernel does and differs from
+# the first only in float32 rounding; each "fault_*" is kernel F with one
+# planted fault: the causal edge moved by one (a row no longer sees its own
+# key), scores scaled by 1/dh instead of 1/sqrt(dh), and decode dropping the
+# newest key (kv_len - 1). The gate must catch the first two. The third
+# moves the logits by about twice the rounding gap, too little for this
+# gate: flash_row's decode case is the check that catches it, per element.
+ATTENTION_FAULTS = ("fault_causal_edge", "fault_scale", "fault_last_key")
+GATED_FAULTS = ATTENTION_FAULTS[:2]
+
+
 @contextlib.contextmanager
-def attention_ref_model():
-    """Run the model's attention through ``attention_ref`` (the scores
-    scaled after the dot, as the Pallas kernel does, and an exact softmax):
-    a second plain version, which differs from the plain chunked attention
-    only in float32 rounding."""
+def model_attention(kind: str):
+    """Swap the model's attention (``common.chunked_attention`` and
+    ``common.decode_attention_cp``) for ``kind`` while the block runs."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.models import common
 
     saved = common.chunked_attention, common.decode_attention_cp
+    attend = fa_ref.attention_ref if kind == "attention_ref" else fa_ops.flash_attention
 
-    def chunked(q, k, v, *, causal=True, window=None, q_offset=0, kv_len=None, q_chunk=512, plain=False):
-        return fa_ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal,
-                                    window=window, q_offset=q_offset, kv_len=kv_len).transpose(1, 2)
+    def chunked(q, k, v, *, causal=True, window=None, q_offset=0, kv_len=None, q_chunk=512):
+        if kind == "plain":
+            return common._chunked_attention_plain(q, k, v, causal, window, q_offset, kv_len, q_chunk)
+        if kind == "fault_causal_edge" and causal:
+            q_offset = q_offset - 1
+        if kind == "fault_scale":
+            q = q * q.shape[-1] ** -0.5
+        return attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal,
+                      window=window, q_offset=q_offset, kv_len=kv_len).transpose(1, 2)
 
-    def decode(q, k_cache, v_cache, cur_len, *, plain=False):
+    def decode(q, k_cache, v_cache, cur_len):
         cl = fa_ref.per_row(cur_len, q.shape[0], q.device)
-        return chunked(q, k_cache, v_cache, causal=False, q_offset=cl - 1, kv_len=cl)
+        if kind == "plain":
+            return common._decode_attention_plain(q, k_cache, v_cache, cl)
+        kl = cl - 1 if kind == "fault_last_key" else cl
+        return chunked(q, k_cache, v_cache, causal=False, q_offset=cl - 1, kv_len=kl)
 
     common.chunked_attention, common.decode_attention_cp = chunked, decode
     try:
@@ -910,7 +941,7 @@ def knn_lm_phase(dev, smoke: bool, ds_seqs: int, flush) -> tuple[dict, dict, dic
     # steps; with lmbda > 0 the hook re-runs the model over the running
     # tokens for the query hidden state and retrieves from the datastore
     first = {}
-    hook_log = dict(hq=[], calls=[])
+    hook_log = dict(hq=[], calls=[])  # calls: (logits in, logits out, query hidden state)
 
     def hidden_fn(cur):
         hq = hidden_states(cur)[:, -1]
@@ -937,8 +968,7 @@ def knn_lm_phase(dev, smoke: bool, ds_seqs: int, flush) -> tuple[dict, dict, dic
                     mixed = hook(logits, cur)
                     sync(dev)
                     hook_ms.append((time.perf_counter() - t0) * 1e3)
-                    if not hook_log["calls"]:
-                        hook_log["calls"].append((logits, mixed))
+                    hook_log["calls"].append((logits, mixed, hook_log["hq"][-1]))
                     logits = mixed
                 nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
                 gen.append(int(nxt[0, 0]))
@@ -992,44 +1022,70 @@ def knn_lm_phase(dev, smoke: bool, ds_seqs: int, flush) -> tuple[dict, dict, dic
         lg, cache = model.prefill(lm, {"tokens": p0}, max_len)
         return lg, model.decode_step(lm, cache, tok0)[0]
 
-    lm.plain_attention = True
-    plain = first_logits()
-    with attention_ref_model():
+    with model_attention("plain"):
+        plain = first_logits()
+    with model_attention("attention_ref"):
         alt = first_logits()
     kern = (first[("prefill", 0.0)], first[("decode", 0.0)])
-    logit_err = [float((a - b).abs().max()) for a, b in zip(kern, plain)]
-    logit_floor = [float((a - b).abs().max()) for a, b in zip(alt, plain)]
+
+    def logit_errs(got):
+        return [float((a - b).abs().max()) for a, b in zip(got, plain)]
+
+    logit_err, logit_floor = logit_errs(kern), logit_errs(alt)
     logit_tol = 2 * max(logit_floor) + LOGIT_ATOL
     checks.append((max(logit_err) <= logit_tol,
                    f"knn_lm: logits differ from the plain model's by {max(logit_err)} > {logit_tol}"))
+    # the gate against faults planted in kernel F
+    fault_err = {}
+    for kind in ATTENTION_FAULTS:
+        with model_attention(kind):
+            fault_err[kind] = logit_errs(first_logits())
+    checks += [(max(fault_err[kind]) > logit_tol,
+                f"knn_lm: the logit gate {logit_tol} misses {kind} (errors {fault_err[kind]})")
+               for kind in GATED_FAULTS]
     checked, skipped, token_diffs, tokens_equal = 0, 0, [], 0
-    for r, (p, gen) in enumerate(zip(prompts, gens0)):
-        logits, cache = model.prefill(lm, {"tokens": torch.as_tensor(p[None, :], device=dev)}, max_len)
-        for t, tok in enumerate(gen):
-            tokens_equal += int(logits[0].argmax()) == tok
-            top2 = torch.topk(logits[0], 2).values
-            if float(top2[0] - top2[1]) > 2 * logit_tol:
-                checked += 1
-                if int(logits[0].argmax()) != tok:
-                    token_diffs.append([r, t])
-            else:
-                skipped += 1
-            logits, cache = model.decode_step(lm, cache, torch.tensor([[tok]], dtype=torch.int32, device=dev))
-    lm.plain_attention = False
+    with model_attention("plain"):
+        for r, (p, gen) in enumerate(zip(prompts, gens0)):
+            logits, cache = model.prefill(lm, {"tokens": torch.as_tensor(p[None, :], device=dev)}, max_len)
+            for t, tok in enumerate(gen):
+                tokens_equal += int(logits[0].argmax()) == tok
+                top2 = torch.topk(logits[0], 2).values
+                if float(top2[0] - top2[1]) > 2 * logit_tol:
+                    checked += 1
+                    if int(logits[0].argmax()) != tok:
+                        token_diffs.append([r, t])
+                else:
+                    skipped += 1
+                logits, cache = model.decode_step(lm, cache, torch.tensor([[tok]], dtype=torch.int32, device=dev))
     checks.append((not token_diffs, f"knn_lm: greedy tokens {token_diffs} (request, step) differ from the plain model's"))
 
-    # the hook against knn_interpolate on the "torch" backend's answer
-    logits_in, mixed = hook_log["calls"][0]
-    hq = hook_log["hq"][0]
-    res_c = index.query(hq)
+    # the hook on every call it made: against knn_interpolate on the cuda
+    # index's own answer for its query (every row), and on the "torch"
+    # backend's answer where both backends return the same neighbours
+    # (need_topk holds the two answers together on every row, ties included).
+    # There the distances still differ by float32 rounding (the backends sum
+    # over d in another order), which the softmax weights carry on: with
+    # z = -dist / T (T = 1, the hook's default), ||dw||_1 <= 2 max|dz| and
+    # so each probability moves by at most lmbda * 2 max|d dist|. The mixed
+    # probabilities are held to that, plus 1e-6 for their own rounding.
+    logits_in, mixed, hq = (torch.cat(t) for t in zip(*hook_log["calls"]))
+    res_c = [index.query(h[None]) for h in hq]
+    idx_c, dist_c = torch.cat([r.knn_idx for r in res_c]), torch.cat([r.knn_dist for r in res_c])
+    want_c = engine.knn_interpolate(logits_in, idx_c, dist_c, labels, cfg.vocab, 0.3)
+    checks.append((bool(torch.allclose(mixed, want_c, rtol=1e-5, atol=1e-5)),
+                   "knn_lm: the hook's output differs from knn_interpolate on the index's answer"))
     res_t = D.grid_query(index.pipeline_index, index._state["data"], hq.float(),
                          scfg.replace(backend="torch"), deploy.grid)
-    need_topk(res_c.knn_dist, res_c.knn_idx, res_t.knn_dist, res_t.knn_idx,
+    need_topk(dist_c, idx_c, res_t.knn_dist, res_t.knn_idx,
               point_dist_of(index._state["data"], hq.float()), "knn_lm: cuda and torch retrieval differ")
-    want = engine.knn_interpolate(logits_in, res_t.knn_idx, res_t.knn_dist, labels, cfg.vocab, 0.3)
-    same = (res_c.knn_idx == res_t.knn_idx).all(dim=1)
-    checks.append((bool(torch.allclose(mixed[same], want[same], rtol=1e-5, atol=1e-5)),
-                   "knn_lm: the hook's output differs from knn_interpolate on the torch backend's neighbours"))
+    want_t = engine.knn_interpolate(logits_in, res_t.knn_idx, res_t.knn_dist, labels, cfg.vocab, 0.3)
+    same = (idx_c == res_t.knn_idx).all(dim=1)
+    real = same[:, None] & (idx_c >= 0)
+    dist_gap = float((dist_c - res_t.knn_dist).abs()[real].max()) if real.any() else 0.0
+    p_err = float((mixed[same].exp() - want_t[same].exp()).abs().max()) if same.any() else 0.0
+    p_tol = 0.3 * 2 * dist_gap + 1e-6
+    checks.append((p_err <= p_tol, f"knn_lm: the hook's probabilities differ from knn_interpolate on the torch"
+                                   f" backend's neighbours by {p_err} > {p_tol}"))
 
     # A and B at the datastore's width (one cell's keys for A, the first
     # 1,024 for B, whose inner layer hashes only heavy-bucket points, and
@@ -1064,9 +1120,10 @@ def knn_lm_phase(dev, smoke: bool, ds_seqs: int, flush) -> tuple[dict, dict, dic
         flash_attention_launches_per_pass=f_launches / path_passes, launches=launches,
         logits_max_abs=[float(x.abs().max()) for x in plain],
         logits_max_abs_err_vs_plain=logit_err, logits_plain_vs_attention_ref=logit_floor,
-        logit_tolerance=logit_tol, greedy_tokens_checked=checked,
+        logit_tolerance=logit_tol, logits_planted_fault_err=fault_err, greedy_tokens_checked=checked,
         greedy_tokens_within_tolerance_margin=skipped, greedy_tokens_equal_to_plain=tokens_equal,
-        hook_rows_identical_to_torch_backend=int(same.sum()), hook_rows=int(same.numel()),
+        hook_calls=int(same.numel()), hook_rows_identical_to_torch_backend=int(same.sum()),
+        hook_torch_backend_dist_gap=dist_gap, hook_torch_backend_p_err=p_err, hook_torch_backend_p_tol=p_tol,
         accuracy_lm_only=continuation_accuracy(stream, prompts, gens0),
         accuracy_with_knn=continuation_accuracy(stream, prompts, gens3),
         tokens_lmbda_0=gens0, tokens_lmbda_03=gens3,

@@ -46,16 +46,7 @@ constexpr int FA_BK = 64;        // keys per tile
 constexpr int FA_THREADS = 256;  // 16 x 16 threads: ty owns rows, tx columns
 constexpr int FA_DH_MAX = 256;
 
-__device__ inline float to_float(float x) { return x; }
-__device__ inline float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <class T>
-__device__ inline T from_float(float x);
-template <>
-__device__ inline float from_float<float>(float x) { return x; }
-template <>
-__device__ inline __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+using T = __nv_bfloat16;  // q, k, v and o: bf16 in, bf16 out, as on the model path
 
 // Shared-memory row strides: odd strides for Q and K, whose columns are read
 // by 16 rows at once, keep those reads free of bank conflicts.
@@ -73,7 +64,7 @@ struct Strides {
   long long b, h, s;  // elements; the last (dh) axis is contiguous
 };
 
-template <class T, int NJ>  // NJ = dh rounded up to 16, over 16
+template <int NJ>  // NJ = dh rounded up to 16, over 16
 __global__ void __launch_bounds__(FA_THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
@@ -117,7 +108,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = tid; i < FA_BQ * dh; i += FA_THREADS) {
     const int r = i / dh;
     const int c = i - r * dh;
-    Qs[r * ld + c] = r < rows ? to_float(qb[(q0 + r) * qs.s + c]) * scale : 0.0f;
+    Qs[r * ld + c] = r < rows ? __bfloat162float(qb[(q0 + r) * qs.s + c]) * scale : 0.0f;
   }
   for (int i = tid; i < FA_BK * DHP; i += FA_THREADS) Vs[i] = 0.0f;
   if (tid < FA_BQ) {
@@ -138,8 +129,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int c = i - r * dh;
       const int key = k0 + r;
       const bool in = key < Skv;
-      Ks[r * ld + c] = in ? to_float(kb[key * ks.s + c]) : 0.0f;
-      Vs[r * DHP + c] = in ? to_float(vb[key * vs.s + c]) : 0.0f;
+      Ks[r * ld + c] = in ? __bfloat162float(kb[key * ks.s + c]) : 0.0f;
+      Vs[r * DHP + c] = in ? __bfloat162float(vb[key * vs.s + c]) : 0.0f;
     }
     __syncthreads();
 
@@ -239,52 +230,32 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int c = tx + 16 * j;
-      if (c < dh) ob[(q0 + r) * os.s + c] = from_float<T>(acc[i][j] * inv);
+      if (c < dh) ob[(q0 + r) * os.s + c] = __float2bfloat16_rn(acc[i][j] * inv);
     }
   }
 }
 
-template <class T, int NJ>
+template <int NJ>
 static int launch_nj(const void* q, const void* k, const void* v, void* o,
                      Strides qs, Strides ks, Strides vs, Strides os, int B,
                      int Hq, int Hkv, int Sq, int Skv, int dh, float scale,
                      int causal, int window, const int* q_offset,
                      const int* kv_len, cudaStream_t stream) {
   const size_t smem = fa_smem_floats(dh, 16 * NJ) * sizeof(float);
-  const int err = allow_dynamic_smem(flash_attention_kernel<T, NJ>, smem);
+  const int err = allow_dynamic_smem(flash_attention_kernel<NJ>, smem);
   if (err != 0) return err;
   const dim3 grid((Sq + FA_BQ - 1) / FA_BQ, Hq, B);
-  flash_attention_kernel<T, NJ><<<grid, FA_THREADS, smem, stream>>>(
+  flash_attention_kernel<NJ><<<grid, FA_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), qs, ks, vs, os, Hq, Hkv,
       Sq, Skv, dh, scale, causal, window, q_offset, kv_len);
   return 0;
 }
 
-template <class T>
-static int launch_t(const void* q, const void* k, const void* v, void* o,
-                    Strides qs, Strides ks, Strides vs, Strides os, int B,
-                    int Hq, int Hkv, int Sq, int Skv, int dh, float scale,
-                    int causal, int window, const int* q_offset,
-                    const int* kv_len, cudaStream_t stream) {
-  const int nj = (dh + 15) / 16;
-  if (nj <= 2)
-    return launch_nj<T, 2>(q, k, v, o, qs, ks, vs, os, B, Hq, Hkv, Sq, Skv, dh,
-                           scale, causal, window, q_offset, kv_len, stream);
-  if (nj <= 4)
-    return launch_nj<T, 4>(q, k, v, o, qs, ks, vs, os, B, Hq, Hkv, Sq, Skv, dh,
-                           scale, causal, window, q_offset, kv_len, stream);
-  if (nj <= 8)
-    return launch_nj<T, 8>(q, k, v, o, qs, ks, vs, os, B, Hq, Hkv, Sq, Skv, dh,
-                           scale, causal, window, q_offset, kv_len, stream);
-  return launch_nj<T, 16>(q, k, v, o, qs, ks, vs, os, B, Hq, Hkv, Sq, Skv, dh,
-                          scale, causal, window, q_offset, kv_len, stream);
-}
-
-// dtype: 0 = bfloat16, 1 = float32 (q, k, v and o share it). Strides are in
-// elements, (b, h, s) for each operand. Returns the CUDA error code.
+// Strides are in elements, (b, h, s) for each operand. Returns the CUDA
+// error code.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B,
+    const void* q, const void* k, const void* v, void* o, int B,
     int Hq, int Hkv, int Sq, int Skv, int dh, long long qsb, long long qsh,
     long long qss, long long ksb, long long ksh, long long kss, long long vsb,
     long long vsh, long long vss, long long osb, long long osh, long long oss,
@@ -296,13 +267,17 @@ extern "C" int flash_attention_launch(
     const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
         os{osb, osh, oss};
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int nj = (dh + 15) / 16;
     const int err =
-        dtype == 0
-            ? launch_t<__nv_bfloat16>(q, k, v, o, qs, ks, vs, os, B, Hq, Hkv,
-                                      Sq, Skv, dh, scale, causal, window,
-                                      q_offset, kv_len, st)
-            : launch_t<float>(q, k, v, o, qs, ks, vs, os, B, Hq, Hkv, Sq, Skv,
-                              dh, scale, causal, window, q_offset, kv_len, st);
+        nj <= 2   ? launch_nj<2>(q, k, v, o, qs, ks, vs, os, B, Hq, Hkv, Sq, Skv,
+                                 dh, scale, causal, window, q_offset, kv_len, st)
+        : nj <= 4 ? launch_nj<4>(q, k, v, o, qs, ks, vs, os, B, Hq, Hkv, Sq, Skv,
+                                 dh, scale, causal, window, q_offset, kv_len, st)
+        : nj <= 8 ? launch_nj<8>(q, k, v, o, qs, ks, vs, os, B, Hq, Hkv, Sq, Skv,
+                                 dh, scale, causal, window, q_offset, kv_len, st)
+                  : launch_nj<16>(q, k, v, o, qs, ks, vs, os, B, Hq, Hkv, Sq,
+                                  Skv, dh, scale, causal, window, q_offset,
+                                  kv_len, st);
     if (err != 0) return err;
   }
   return static_cast<int>(cudaGetLastError());

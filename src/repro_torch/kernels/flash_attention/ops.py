@@ -23,10 +23,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ref
 
 DH_MAX = 256  # FA_DH_MAX in flash_attention.cu
-_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _I64 = ctypes.c_longlong
 _SIGNATURES = {
-    "flash_attention_launch": [_build.PTR] * 4 + [_build.INT] * 7 + [_I64] * 12
+    "flash_attention_launch": [_build.PTR] * 4 + [_build.INT] * 6 + [_I64] * 12
     + [ctypes.c_float] + [_build.INT] * 2 + [_build.PTR] * 3,
 }
 
@@ -45,7 +44,9 @@ def flash_attention(
     with q-head ``h`` reading kv-head ``h // (Hq / Hkv)``; query row ``i``
     of batch row ``b`` sits at ``q_offset[b] + i`` and sees keys below
     ``kv_len[b]`` (default Skv), at or before it when ``causal``, and within
-    ``window`` of it. Float32 accumulation; output in q's dtype."""
+    ``window`` of it. Float32 accumulation; output in q's dtype. The kernel
+    takes bfloat16, the model path's dtype; the plain version on a CPU
+    tensor takes any float dtype."""
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window, kv_len=kv_len, q_offset=q_offset)
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
@@ -57,8 +58,8 @@ def flash_attention(
         raise ValueError(f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
     if not 1 <= dh <= DH_MAX:
         raise ValueError(f"head_dim {dh} outside [1, {DH_MAX}]")
-    if q.dtype not in _DTYPES or not q.dtype == k.dtype == v.dtype:
-        raise ValueError(f"q, k, v must share bfloat16 or float32, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not torch.bfloat16 == q.dtype == k.dtype == v.dtype:
+        raise ValueError(f"the kernel takes bfloat16 q, k, v, got {q.dtype}, {k.dtype}, {v.dtype}")
     if not q.device == k.device == v.device:
         raise ValueError("q, k and v must be on one device")
     if any(t.stride(3) != 1 for t in (q, k, v)):
@@ -70,8 +71,7 @@ def flash_attention(
     out = torch.empty_like(q)  # q's strides, so a transposed view stays one
     lib = _build.library("flash_attention", _SIGNATURES)
     err = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
-        b, hq, hkv, sq, skv, dh,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, sq, skv, dh,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         1.0 / dh**0.5, int(causal), 0 if window is None else int(window),
         qo.data_ptr(), kl.data_ptr(), _build.stream_ptr(q),

@@ -100,5 +100,5 @@ def build_model(cfg: ModelConfig) -> SimpleNamespace:
         n_params=PM.count_params(defs),
         prefill=lambda params, batch, max_len: mod.prefill(cfg, params, batch, max_len),
         decode_step=lambda params, cache, tokens: mod.decode_step(cfg, params, cache, tokens),
-        init_cache=lambda b, s, device=None: mod.init_cache(cfg, b, s, device=device),
+        init_cache=lambda b, s, device=None: mod.init_cache(cfg, b, s, device=device_mod.resolve(device)),
     )

@@ -9,8 +9,7 @@ have nothing to do on one card.
 Both attention functions run the flash kernel (kernel F,
 ``kernels/flash_attention``) on a CUDA tensor. Their plain versions,
 direct ports of ``chunked_attention``'s and ``_partial_attn_local``'s
-arithmetic, run on a CPU tensor, or on the card when the caller asks for
-them with ``plain=True`` to hold the kernel against them.
+arithmetic, run on a CPU tensor.
 """
 from __future__ import annotations
 
@@ -61,14 +60,13 @@ def chunked_attention(
     q_offset=0,
     kv_len=None,
     q_chunk: int = 512,
-    plain: bool = False,
 ) -> torch.Tensor:
     """Online-softmax attention -> (B, Sq, Hq, dh) in q's dtype.
 
     ``q_offset`` and ``kv_len`` are ints or per-row ``(B,)`` tensors. On a
     CUDA tensor one flash-kernel launch computes it (``q_chunk`` is the
     plain version's chunking and has no effect there)."""
-    if q.device.type == "cuda" and not plain:
+    if q.device.type == "cuda":
         out = fa_ops.flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=causal, window=window, q_offset=q_offset, kv_len=kv_len,
@@ -118,20 +116,25 @@ def decode_attention_cp(
     k_cache: torch.Tensor,  # (B, S_max, Hkv, dh)
     v_cache: torch.Tensor,
     cur_len: torch.Tensor,  # () or (B,) int — number of valid cache positions
-    *,
-    plain: bool = False,
 ) -> torch.Tensor:
     """One query token per row over its first ``cur_len[b]`` cache
     positions -> (B, 1, Hq, dh). On a CUDA tensor: one flash-kernel launch
     with ``q_offset = cur_len - 1`` and ``kv_len = cur_len`` per row."""
     b, _, hq, dh = q.shape
     cl = fa_ref.per_row(cur_len, b, q.device)
-    if q.device.type == "cuda" and not plain:
+    if q.device.type == "cuda":
         out = fa_ops.flash_attention(
             q.transpose(1, 2), k_cache.transpose(1, 2), v_cache.transpose(1, 2),
             causal=False, q_offset=cl - 1, kv_len=cl,
         )
         return out.transpose(1, 2)
+    return _decode_attention_plain(q, k_cache, v_cache, cl)
+
+
+def _decode_attention_plain(q, k_cache, v_cache, cl):
+    """``repro.models.common._partial_attn_local``'s arithmetic over the
+    first ``cl[b]`` cache positions of each row (q scaled before the dot)."""
+    b, _, hq, dh = q.shape
     s_max, hkv = k_cache.shape[1], k_cache.shape[2]
     group = hq // hkv
     scale = 1.0 / (dh**0.5)

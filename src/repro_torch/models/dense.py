@@ -105,9 +105,7 @@ class DenseLM(_Weights):
 
     ``tree`` is the JAX package's parameter layout with stacked ``(L, ...)``
     layer leaves; each leaf is cast to its storage dtype (bf16 for matmul
-    weights) and layer ``i`` holds views of row ``i``. ``plain_attention``
-    runs the plain attention on the card instead of the flash kernel, to
-    hold one against the other."""
+    weights) and layer ``i`` holds views of row ``i``."""
 
     def __init__(self, cfg, tree: dict):
         dtypes = _storage_dtype(model_defs(cfg))
@@ -117,7 +115,6 @@ class DenseLM(_Weights):
         self.layers = nn.ModuleList(
             DenseBlock({k: t[i] for k, t in layers.items()}) for i in range(cfg.n_layers)
         )
-        self.plain_attention = False
 
     @property
     def device(self) -> torch.device:
@@ -137,7 +134,7 @@ def _qkv(cfg, p, h):
     return q, k, v
 
 
-def _block(cfg, p, x, positions, plain: bool):
+def _block(cfg, p, x, positions):
     """Full-sequence block -> (x, k, v); k and v are the rotated keys and
     the values, the cache's entries."""
     h = C.rms_norm(x, p["ln1"])
@@ -145,7 +142,7 @@ def _block(cfg, p, x, positions, plain: bool):
     q = C.apply_rope(q, positions, cfg.rope_theta)
     k = C.apply_rope(k, positions, cfg.rope_theta)
     attn = C.chunked_attention(
-        q, k, v, causal=cfg.causal, window=cfg.window, q_chunk=cfg.q_chunk, plain=plain
+        q, k, v, causal=cfg.causal, window=cfg.window, q_chunk=cfg.q_chunk
     )
     attn = attn.reshape(x.shape[0], x.shape[1], -1)
     x = x + (attn.to(BF16) @ p["wo"]).to(x.dtype)
@@ -154,12 +151,12 @@ def _block(cfg, p, x, positions, plain: bool):
     return x, k, v
 
 
-def block_train(cfg, p, x, positions, plain: bool = False):
+def block_train(cfg, p, x, positions):
     """Full-sequence block (encoding; forward only). x: (B, S, D)."""
-    return _block(cfg, p, x, positions, plain)[0]
+    return _block(cfg, p, x, positions)[0]
 
 
-def block_decode(cfg, p, x, k_cache, v_cache, cur_len, plain: bool = False):
+def block_decode(cfg, p, x, k_cache, v_cache, cur_len):
     """One-token block. x: (B, 1, D); caches (B, S_max, Hkv, dh), written in
     place at each row's ``cur_len``."""
     b = x.shape[0]
@@ -171,7 +168,7 @@ def block_decode(cfg, p, x, k_cache, v_cache, cur_len, plain: bool = False):
     rows = torch.arange(b, device=x.device)
     k_cache[rows, cur_len.long()] = k[:, 0].to(k_cache.dtype)
     v_cache[rows, cur_len.long()] = v[:, 0].to(v_cache.dtype)
-    attn = C.decode_attention_cp(q, k_cache, v_cache, cur_len + 1, plain=plain)
+    attn = C.decode_attention_cp(q, k_cache, v_cache, cur_len + 1)
     attn = attn.reshape(b, 1, -1)
     x = x + (attn.to(BF16) @ p["wo"]).to(x.dtype)
     h2 = C.rms_norm(x, p["ln2"])
@@ -193,7 +190,7 @@ def _embed_inputs(cfg, model, batch):
 def _run_layers(cfg, model, x, positions):
     """Every block, then the final norm: the hidden states (B, S, D)."""
     for p in model.layers:
-        x = block_train(cfg, p, x, positions, model.plain_attention)
+        x = block_train(cfg, p, x, positions)
     return C.rms_norm(x, model["final_norm"])
 
 
@@ -220,7 +217,7 @@ def prefill(cfg, model, batch, max_len: int):
     positions = torch.arange(s, device=x.device)
     cache = init_cache(cfg, b, max_len, device=x.device)
     for i, p in enumerate(model.layers):
-        x, k, v = _block(cfg, p, x, positions, model.plain_attention)
+        x, k, v = _block(cfg, p, x, positions)
         cache["k"][i, :, :s] = k.to(BF16)
         cache["v"][i, :, :s] = v.to(BF16)
     x = C.rms_norm(x, model["final_norm"])
@@ -240,7 +237,7 @@ def decode_step(cfg, model, cache, tokens):
         raise ValueError(f"a row's cache is full ({cache['k'].shape[2]} positions)")
     x = C.embed_tokens(model["embed"], tokens)
     for i, p in enumerate(model.layers):
-        x = block_decode(cfg, p, x, cache["k"][i], cache["v"][i], cur, model.plain_attention)
+        x = block_decode(cfg, p, x, cache["k"][i], cache["v"][i], cur)
     x = C.rms_norm(x, model["final_norm"])
     logits = (x[:, 0].to(BF16) @ _lm_head(cfg, model)).to(F32)
     return logits, {"k": cache["k"], "v": cache["v"], "len": cur + 1}

@@ -120,6 +120,16 @@ def test_init_defaults_to_the_card():
     assert model.init(0, "cpu").device == torch.device("cpu")
 
 
+def test_init_cache_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the no-card behaviour cannot show")
+    model = tapi.build_model(tconfigs.get("granite-8b", smoke=True))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init_cache(2, 16)
+    cache = model.init_cache(2, 16, device="cpu")
+    assert {t.device for t in cache.values()} == {torch.device("cpu")}
+
+
 def test_init_follows_the_jax_init_rules():
     cfg = tconfigs.get("granite-8b", smoke=True)
     lm = tapi.build_model(cfg).init(0, "cpu")
