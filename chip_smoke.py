@@ -10,9 +10,12 @@ exits non-zero:
 2. ``kernels``    each hand-written kernel against its plain PyTorch version
                   on the card, at the shapes the main path gives it, timed
                   with CUDA events (cold L2) beside its bound: A, B (words,
-                  and apart its margins mode), C and D on one grid cell's
-                  shapes, and E (the payload tail, f16 and i8) on the first
-                  50-query chunk of a single shard over every point.
+                  and apart its margins mode; also on one 50-query chunk,
+                  and its words for 64 rows equal whether hashed in one
+                  launch, one row per launch, in launches of 50 or through
+                  either path), C and D on one grid cell's shapes, and E
+                  (the payload tail, f16 and i8) on the first 50-query
+                  chunk of a single shard over every point.
 3. ``main_path``  the paper's scale: 1,370,000 synthetic ABP windows (d=30)
                   on the 40-cell ``grid(nu=10, p=4)`` with the ``"cuda"``
                   backend, 2000 out-of-sample queries, DSLSH against the
@@ -35,7 +38,8 @@ exits non-zero:
                   steps 2-3 at granite-8b's full width and depth (36 layers,
                   d_model 4,096, weights from a seeded generator): kernel F
                   (flash attention) first against its plain version at the
-                  path's five shapes; then a datastore of 65,536 hidden
+                  path's five shapes and two at nemotron-4-340b's heads;
+                  then a datastore of 65,536 hidden
                   states (64 sequences in chunks of 8), DSLSH over it on
                   ``grid(nu=2, p=4)`` with the ``"cuda"`` backend, and 4
                   requests (128-token prompts, 8 new tokens) served with
@@ -46,8 +50,11 @@ exits non-zero:
                   in F, the hook on every call against
                   ``knn_interpolate`` on the index's and on the ``"torch"``
                   backend's neighbours, and kernels A and B
-                  at d = 4,096 (the datastore's keys) and d = 18,432 against
-                  their plain versions.
+                  at d = 4,096 (the datastore's keys; B also on the hook's
+                  one row, with its one-order check and both paths timed at
+                  1-2,048 rows) and d = 18,432 against their plain versions.
+                  Kernel B's calls on the main and kNN-LM paths are counted
+                  by shape.
    ``knn_lm_profile`` one request served with the hook, profiled.
 8. ``serve``      ``repro_torch.launch.serve.main --arch granite-8b`` with
                   its defaults: 4 requests through ``ServeEngine`` on the
@@ -94,7 +101,8 @@ DS_SEQS, DS_LEN, DS_CHUNK = 64, 1025, 8  # examples/serve_knn_lm.py step 2, at f
 PROMPT_LEN, MAX_NEW, N_REQ = 128, 8, 4  # step 3's serving, with 128-token prompts
 KNN_FAMILY = dict(m_out=24, L_out=8, m_in=12, L_in=4, alpha=0.02)  # step 2's FamilyConfig
 KNN_BUDGET = dict(k=8, c_max=64, c_in=16, h_max=4, p_max=128)  # step 2's BudgetConfig
-WIDE_D = 18_432  # the widest d_model of the repo's configs (nemotron-4-340b)
+WIDE_ARCH = "nemotron-4-340b"  # the widest d_model (18,432) and head_dim (192) of the repo's configs
+WIDE_D = 18_432  # its d_model
 # Kernel F against its plain version: both accumulate in float32 and round
 # once to bf16, so an element may land one bf16 ulp apart (at most 2^-7 of
 # its size) where the float32 sums, taken in another order, straddle a
@@ -136,6 +144,26 @@ def timed_ms(fn, iters: int, flush) -> float:
         torch.cuda.synchronize()
         total += a.elapsed_time(b)
     return total / iters
+
+
+def device_ms(fn, iters: int = 10) -> float | None:
+    """Device time of one ``fn()``: the summed time of the kernels it
+    launches on the card, from the profiler, over ``iters`` warm calls.
+    Unlike ``timed_ms`` it leaves out the host's dispatch, which sets the
+    event time of a short launch. None on the CPU."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return None
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total / iters / 1e3
 
 
 def sync(dev) -> None:
@@ -249,11 +277,8 @@ def kernels_phase(data, queries, cfg, flush) -> list[dict]:
 
     # B: proj_sign_pack on the inner family, every point of one cell; the
     # plain version is a full-float32 matmul (TF32 off)
-    n_tab, _, m_in = inner.proj.shape
-    m_pad = 32 * -(-m_in // 32)
-    proj = torch.nn.functional.pad(inner.proj, (0, m_pad - m_in)).permute(1, 0, 2)
-    cols = proj.reshape(d, n_tab * m_pad).contiguous()
-    bias = torch.zeros(n_tab * m_pad, device=data.device)
+    n_tab = inner.proj.shape[0]
+    cols, bias, m_in, m_pad = inner_columns(inner)
     wk, mk = hp.proj_sign_pack(cell, cols, bias, m_in, m_pad, margins=True)
     wr, mr = hp_ref.proj_sign_pack_ref(cell, cols, bias, m_in, m_pad, margins=True)
     need(torch.equal(hp.proj_sign_pack(cell, cols, bias, m_in, m_pad), wk), "proj_sign_pack words depend on the margins mode")
@@ -293,6 +318,7 @@ def kernels_phase(data, queries, cfg, flush) -> list[dict]:
         max_abs_err=margin_err, max_abs_err_of="margins |s| against the float32 matmul",
         onehot_vs_bitsample=dict(margins_equal=True, words_equal_off_ties=True, tie_columns=int(ties.sum())),
         ms=timed_ms(lambda: hp.proj_sign_pack(cell, cols, bias, m_in, m_pad), 50, flush),
+        device_ms=device_ms(lambda: hp.proj_sign_pack(cell, cols, bias, m_in, m_pad)),
         plain_ms=timed_ms(lambda: hp_ref.proj_sign_pack_ref(cell, cols, bias, m_in, m_pad), 10, flush),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         margins_replaces="src/repro/kernels/hash_pack/hash_pack.py:175",
@@ -300,6 +326,8 @@ def kernels_phase(data, queries, cfg, flush) -> list[dict]:
         margins_plain_ms=timed_ms(
             lambda: hp_ref.proj_sign_pack_ref(cell, cols, bias, m_in, m_pad, margins=True), 10, flush),
         margins_bound_ms=bm_ms, margins_bound_by=bm_by, margins_library_ms=None,
+        query_chunk=b_query_chunk(queries[: cfg.query_chunk].contiguous(), cols, bias, m_in, m_pad, flush),
+        one_order=[b_order_check(cell, inner)],
     ))
 
     # the main path's candidates for one 50-query chunk of cell (0, 0),
@@ -362,6 +390,31 @@ def kernels_phase(data, queries, cfg, flush) -> list[dict]:
     del index, cand, pts
     rows += payload_kernel_rows(data, queries, cfg, (outer, inner), flush)
     return rows
+
+
+def b_query_chunk(qs, cols, bias, m: int, m_pad: int, flush) -> dict:
+    """Kernel B on one query chunk (the inner layer hashes a query chunk at
+    every grid query): no bit far from zero may differ from the plain
+    version, and the bits that differ at all are counted."""
+    import torch
+
+    from repro_torch.kernels.hash_pack import ops as hp, ref as hp_ref
+
+    t, d = qs.shape
+    wk = hp.proj_sign_pack(qs, cols, bias, m, m_pad)
+    wr = hp_ref.proj_sign_pack_ref(qs, cols, bias, m, m_pad)
+    bits = torch.arange(32, device=qs.device)
+    diff = (((wk[:, :, None] >> bits) & 1) != ((wr[:, :, None] >> bits) & 1)).reshape(t, -1)
+    scale = 1e-5 * qs.norm(dim=1, keepdim=True) * cols.norm(dim=0, keepdim=True)
+    need(not bool((diff & ((qs @ cols).abs() > scale)).any()), "proj_sign_pack flips a bit far from zero on a query chunk")
+    real = int(((torch.arange(cols.shape[1], device=qs.device) % m_pad) < m).sum())
+    b_ms, b_by = bound(t * d * 4 + real * d * 4 + t * cols.shape[1] // 8, 2 * t * d * real)
+    return dict(shape=f"x ({t}, {d}), proj ({d}, {cols.shape[1]}), {real} real columns",
+                exact=bool(not diff.any()), disagreeing_bits=int(diff.sum()),
+                ms=timed_ms(lambda: hp.proj_sign_pack(qs, cols, bias, m, m_pad), 50, flush),
+                device_ms=device_ms(lambda: hp.proj_sign_pack(qs, cols, bias, m, m_pad)),
+                plain_ms=timed_ms(lambda: hp_ref.proj_sign_pack_ref(qs, cols, bias, m, m_pad), 10, flush),
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def merge_exchanges(c_pad: int, run: int) -> int:
@@ -494,16 +547,18 @@ def run(dev, n: int, nq: int, lm_smoke: bool = False, ds_seqs: int = DS_SEQS) ->
     # main path: build + query through the user's entry points
     deploy = dslsh.grid(nu=NU, p=P)
     sync(dev)
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    index = dslsh.build(SEED, pts, cfg, deploy, dev)
-    sync(dev)
-    build_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    res = index.query(qx)
-    sync(dev)
-    query_s = time.perf_counter() - t0
-    main_launches = dict(_build.LAUNCHES)
+    main_b_shapes: dict = {}
+    with b_launch_shapes(main_b_shapes):
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        index = dslsh.build(SEED, pts, cfg, deploy, dev)
+        sync(dev)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = index.query(qx)
+        sync(dev)
+        query_s = time.perf_counter() - t0
+        main_launches = dict(_build.LAUNCHES)
     for name in ("bitsample_pack", "proj_sign_pack", "query_tail"):
         need(main_launches.get(name, 0) > 0, f"main path never launched {name}")
     need(res.knn_idx.shape == (nq, cfg.k) and res.knn_dist.shape == (nq, cfg.k), "result shape")
@@ -576,7 +631,10 @@ def run(dev, n: int, nq: int, lm_smoke: bool = False, ds_seqs: int = DS_SEQS) ->
     f_row, a_wide, b_wide, lm_launches = knn_lm_phase(dev, lm_smoke, ds_seqs, lambda: scratch.zero_())
     del scratch
     serve_launches = serve_phase(["--arch", LM_ARCH] + (["--smoke", "--device", dev.type] if lm_smoke else []))
+    b_wide["main_launch_shapes"] = main_b_shapes
     for r in rows:
+        if r["name"] == "proj_sign_pack":  # the order checks at d = 30 and at the datastore's width
+            b_wide["one_order"] = r["one_order"] + b_wide["one_order"]
         r.update({"bitsample_pack": a_wide, "proj_sign_pack": b_wide}.get(r["name"], {}))
     rows.append(f_row)
 
@@ -670,19 +728,22 @@ def payload_phase(dev, pts, qx, labels, truth, cfg, mcc_pknn: float) -> dict:
 # ---------------------------------------------------------------- the kNN-LM slice
 
 
-def flash_row(dev, cfg, max_len: int, flush) -> dict:
+def flash_row(dev, cfg, wide_cfg, max_len: int, flush) -> dict:
     """Kernel F against its plain version (float32, cast once to bf16) at the
     slice's shapes, in the model's layouts: q, k, v are transposed views of
     (B, S, H, dh) activations or of the (B, S_max, Hkv, dh) cache. The
     row's own numbers are the datastore pass's shape; ``cases`` holds all
-    five. ``library_ms`` is one ``scaled_dot_product_attention`` call
-    (``enable_gqa``), timed here only."""
+    seven: five at ``cfg``'s heads and two at ``wide_cfg``'s (head_dim 192,
+    a GQA group of 12: the widest ring and a packed decode tile).
+    ``library_ms`` is one ``scaled_dot_product_attention`` call
+    (``enable_gqa``), timed here only; ``library_ratio`` is ms over it."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as fa, ref as fa_ref
 
-    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    wide = (wide_cfg.n_heads, wide_cfg.n_kv_heads, wide_cfg.head_dim)
     ragged = torch.tensor([max_len - 15, max_len - 7, max_len - 3, max_len], dtype=torch.int32, device=dev)
     cases = [
         dict(case="datastore", b=DS_CHUNK, sq=DS_LEN - 1, skv=DS_LEN - 1, causal=True),
@@ -690,11 +751,14 @@ def flash_row(dev, cfg, max_len: int, flush) -> dict:
         dict(case="decode", b=N_REQ, sq=1, skv=max_len, causal=False, q_offset=ragged - 1, kv_len=ragged),
         dict(case="window", b=1, sq=DS_LEN - 1, skv=DS_LEN - 1, causal=True, window=256),
         dict(case="q_offset", b=1, sq=64, skv=max_len, causal=True, q_offset=max_len - 64),
+        dict(case="dh192_prefill", b=1, sq=256, skv=256, causal=True, heads=wide),
+        dict(case="dh192_decode", b=1, sq=1, skv=256, causal=False, q_offset=255, kv_len=256, heads=wide),
     ]
     g = torch.Generator(dev).manual_seed(SEED)
     out = []
     for c in cases:
         b, sq, skv = c["b"], c["sq"], c["skv"]
+        hq, hkv, dh = c.get("heads", heads)
         kw = dict(causal=c["causal"], window=c.get("window"), q_offset=c.get("q_offset", 0), kv_len=c.get("kv_len"))
         q = torch.randn((b, sq, hq, dh), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
         k, v = (torch.randn((b, skv, hkv, dh), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
@@ -730,7 +794,9 @@ def flash_row(dev, cfg, max_len: int, flush) -> dict:
             ms=timed_ms(lambda: fa.flash_attention(q, k, v, **kw), 20, flush),
             plain_ms=timed_ms(lambda: fa_ref.attention_ref(q, k, v, **kw), 5, flush),
             bound_ms=b_ms, bound_by=b_by, library_ms=timed_ms(lib, 20, flush), **fault,
+            device_ms=device_ms(lambda: fa.flash_attention(q, k, v, **kw)), library_device_ms=device_ms(lib),
         ))
+        out[-1]["library_ratio"] = out[-1]["ms"] / out[-1]["library_ms"]
         del q, k, v, o, r, ok, mask
     head = out[0]
     return dict(
@@ -783,11 +849,8 @@ def wide_b_check(x, inner, flush) -> dict:
     from repro_torch.kernels.hash_pack import ops as hp, ref as hp_ref
 
     t, d = x.shape
-    n_tab, _, m_in = inner.proj.shape
-    m_pad = 32 * -(-m_in // 32)
-    proj = torch.nn.functional.pad(inner.proj, (0, m_pad - m_in)).permute(1, 0, 2)
-    cols = proj.reshape(d, n_tab * m_pad).contiguous()
-    bias = torch.zeros(n_tab * m_pad, device=x.device)
+    n_tab = inner.proj.shape[0]
+    cols, bias, m_in, m_pad = inner_columns(inner)
     bk = hp.proj_sign_pack(x, cols, bias, m_in, m_pad)
     br = hp_ref.proj_sign_pack_ref(x, cols, bias, m_in, m_pad)
     bits = torch.arange(32, device=x.device)
@@ -799,8 +862,96 @@ def wide_b_check(x, inner, flush) -> dict:
     return dict(d=d, shape=f"x ({t}, {d}), proj ({d}, {cols.shape[1]}), {n_tab * m_in} real columns",
                 exact=bool(not diff.any()), disagreeing_bits=int(diff.sum()),
                 ms=timed_ms(lambda: hp.proj_sign_pack(x, cols, bias, m_in, m_pad), 20, flush),
+                device_ms=device_ms(lambda: hp.proj_sign_pack(x, cols, bias, m_in, m_pad)),
                 plain_ms=timed_ms(lambda: hp_ref.proj_sign_pack_ref(x, cols, bias, m_in, m_pad), 5, flush),
                 bound_ms=b_ms, bound_by=b_by)
+
+
+def inner_columns(inner):
+    """The inner family as kernel B's flat columns: proj (d, L*m_pad), a
+    zero bias, m and m_pad."""
+    import torch
+
+    n_tab, d, m_in = inner.proj.shape
+    m_pad = 32 * -(-m_in // 32)
+    proj = torch.nn.functional.pad(inner.proj, (0, m_pad - m_in)).permute(1, 0, 2)
+    cols = proj.reshape(d, n_tab * m_pad).contiguous()
+    return cols, torch.zeros(n_tab * m_pad, device=cols.device), m_in, m_pad
+
+
+def b_path(x, cols, bias, m: int, m_pad: int, path: int):
+    """Kernel B's words with its path forced (1 the batch path, 2 the
+    few-row path), launched straight from the library: these launches are
+    not counted."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.hash_pack import ops as hp
+
+    if x.device.type == "cpu":  # a rehearsal on the CPU: the plain version, no path to force
+        return hp.proj_sign_pack(x, cols, bias, m, m_pad)
+    lib = _build.library("hash_pack", hp._SIGNATURES)
+    words = torch.empty((x.shape[0], cols.shape[1] // 32), dtype=torch.int32, device=x.device)
+    err = lib.proj_sign_pack_path_launch(
+        x.data_ptr(), cols.data_ptr(), bias.data_ptr(), x.shape[0], x.shape[1], cols.shape[1], m, m_pad,
+        words.data_ptr(), None, path, _build.stream_ptr(x))
+    need(err == 0, f"proj_sign_pack path {path}: CUDA error {err}")
+    return words.to(torch.int64) & 0xFFFFFFFF
+
+
+def b_order_check(x, inner) -> dict:
+    """Kernel B's one summation order: the words of 64 rows hashed in one
+    launch equal those of the same rows hashed one row per launch, in
+    launches of 50 (and 14), and through each path forced."""
+    import torch
+
+    from repro_torch.kernels.hash_pack import ops as hp
+
+    cols, bias, m, m_pad = inner_columns(inner)
+    rows = x[:64].contiguous()
+    whole = hp.proj_sign_pack(rows, cols, bias, m, m_pad)
+    per_row = torch.cat([hp.proj_sign_pack(rows[i : i + 1], cols, bias, m, m_pad) for i in range(64)])
+    by_50 = torch.cat([hp.proj_sign_pack(rows[i : i + 50].contiguous(), cols, bias, m, m_pad) for i in (0, 50)])
+    forced = {path: b_path(rows, cols, bias, m, m_pad, path) for path in (1, 2)}
+    same = dict(one_row_per_launch=bool(torch.equal(whole, per_row)), launches_of_50=bool(torch.equal(whole, by_50)),
+                batch_path=bool(torch.equal(whole, forced[1])), few_row_path=bool(torch.equal(whole, forced[2])))
+    need(all(same.values()), f"proj_sign_pack words depend on the batch at d={x.shape[1]}: {same}")
+    return dict(d=x.shape[1], rows=64, **same)
+
+
+def b_crossover(x, inner, flush) -> list[dict]:
+    """Kernel B's two paths timed on the same rows of width d at several
+    batch sizes: where the few-row path stops winning is the crossover the
+    entry point uses (HP_FEW_MAX_T in hash_pack.cu)."""
+    cols, bias, m, m_pad = inner_columns(inner)
+    out = []
+    for t in (1, 16, 64, 256, 1024, 2048):
+        rows = x[:t].contiguous()
+        out.append(dict(d=x.shape[1], rows=t,
+                        batch_ms=timed_ms(lambda: b_path(rows, cols, bias, m, m_pad, 1), 10, flush),
+                        few_ms=timed_ms(lambda: b_path(rows, cols, bias, m, m_pad, 2), 10, flush),
+                        batch_device_ms=device_ms(lambda: b_path(rows, cols, bias, m, m_pad, 1)),
+                        few_device_ms=device_ms(lambda: b_path(rows, cols, bias, m, m_pad, 2))))
+    return out
+
+
+@contextlib.contextmanager
+def b_launch_shapes(log: dict):
+    """Count kernel B's calls by shape ("rows x d") while the block runs."""
+    from repro_torch.kernels.hash_pack import ops as hp
+
+    wrapped = hp.proj_sign_pack
+
+    def counted(x, *args, **kw):
+        key = f"{x.shape[0]}x{x.shape[1]}"
+        log[key] = log.get(key, 0) + 1
+        return wrapped(x, *args, **kw)
+
+    hp.proj_sign_pack = counted
+    try:
+        yield log
+    finally:
+        hp.proj_sign_pack = wrapped
 
 
 # The model's attention for the logit gate: "plain" is the port's plain
@@ -890,7 +1041,7 @@ def knn_lm_phase(dev, smoke: bool, ds_seqs: int, flush) -> tuple[dict, dict, dic
 
     cfg = configs.get(LM_ARCH, smoke=smoke)
     max_len = PROMPT_LEN + MAX_NEW + 8  # as the serving launcher sizes its cache
-    f_row = flash_row(dev, cfg, max_len, flush)
+    f_row = flash_row(dev, cfg, configs.get(WIDE_ARCH, smoke=smoke), max_len, flush)
 
     model = mapi.build_model(cfg)
     sync(dev)
@@ -912,6 +1063,9 @@ def knn_lm_phase(dev, smoke: bool, ds_seqs: int, flush) -> tuple[dict, dict, dic
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     sync(dev)
+    b_shapes: dict = {}
+    shapes = contextlib.ExitStack()
+    shapes.enter_context(b_launch_shapes(b_shapes))
     _build.reset_launches()
     # 1. the datastore: keys are the hidden states at positions t, labels
     # the tokens at t + 1; with causal attention the first 1,024 hidden
@@ -985,6 +1139,7 @@ def knn_lm_phase(dev, smoke: bool, ds_seqs: int, flush) -> tuple[dict, dict, dic
     served = {lmbda: serve(lmbda) for lmbda in (0.0, 0.3)}
     sync(dev)
     launches = dict(_build.LAUNCHES)
+    shapes.close()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None
     f_launches, path_passes = launches.get("flash_attention", 0), passes
     checks = [(f_launches >= cfg.n_layers * path_passes,
@@ -1093,7 +1248,10 @@ def knn_lm_phase(dev, smoke: bool, ds_seqs: int, flush) -> tuple[dict, dict, dic
     outer, inner = pipeline.make_family(torch.Generator().manual_seed(SEED), cfg.d_model, scfg, dev)
     cell = keys[: n_keys // deploy.nu]
     wide_a = [wide_a_check(cell, outer, scfg, deploy.p, flush)]
-    wide_b = [wide_b_check(cell[:1024].contiguous(), inner, flush)]
+    wide_b = [wide_b_check(cell[:1024].contiguous(), inner, flush),
+              wide_b_check(cell[:1].contiguous(), inner, flush)]  # the hook's one row
+    b_order = [b_order_check(cell, inner)]
+    b_cross = b_crossover(cell, inner, flush)
     del index, keys, lm, cell
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -1130,7 +1288,8 @@ def knn_lm_phase(dev, smoke: bool, ds_seqs: int, flush) -> tuple[dict, dict, dic
     )
     for ok, msg in checks:
         need(ok, msg)
-    return f_row, dict(wide=wide_a), dict(wide=wide_b), launches
+    return f_row, dict(wide=wide_a), dict(wide=wide_b, one_order=b_order, crossover=b_cross,
+                                          knn_lm_launch_shapes=b_shapes), launches
 
 
 def serve_phase(argv: list[str]) -> dict:
