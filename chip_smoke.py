@@ -213,6 +213,16 @@ def bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tuple
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def b_words_bound(t: int, d: int, cols, m: int, m_pad: int) -> tuple[float, str]:
+    """Kernel B's bound in words mode on rows x (t, d): x read once, the P
+    and bias entries of the real columns (only they can set a bit; padded
+    columns pack 0 whatever s is), one word per 32 columns written, and
+    2*d flops for each (row, real column)."""
+    n_cols = cols.shape[1]
+    real = (n_cols // m_pad) * m
+    return bound(t * d * 4 + real * d * 4 + real * 4 + t * n_cols // 8, 2 * t * d * real)
+
+
 def need_topk(kd, ki, kd_ref, ki_ref, dist_of, what: str) -> None:
     """``(kd, ki)`` answers as ``(kd_ref, ki_ref)`` does: distances within
     tolerance, and an index differs only at a real distance tie, where it
@@ -297,13 +307,7 @@ def kernels_phase(data, queries, cfg, flush) -> list[dict]:
     tie_words = ties.reshape(t, l_loc, -1, 32).any(dim=-1)
     need(torch.equal(om, am), "one-hot proj_sign_pack margins differ from bitsample_pack")
     need(torch.equal(ow[~tie_words], aw[~tie_words]), "one-hot proj_sign_pack words differ from bitsample_pack")
-    # the words-only launch: x read once, P and bias once, one word per 32
-    # columns; the function needs 2*d flops for each of the L_in*m_in real
-    # columns (padded columns pack a 0 bit whatever s is)
-    b_ms, b_by = bound(
-        t * d * 4 + cols.numel() * 4 + bias.numel() * 4 + t * cols.shape[1] // 8,
-        2 * t * d * n_tab * m_in,
-    )
+    b_ms, b_by = b_words_bound(t, d, cols, m_in, m_pad)
     # the margins launch (#4) also writes t * cols f32 margins
     bm_ms, bm_by = bound(
         t * d * 4 + cols.numel() * 4 + bias.numel() * 4 + t * cols.shape[1] // 8 + t * cols.shape[1] * 4,
@@ -407,9 +411,8 @@ def b_query_chunk(qs, cols, bias, m: int, m_pad: int, flush) -> dict:
     diff = (((wk[:, :, None] >> bits) & 1) != ((wr[:, :, None] >> bits) & 1)).reshape(t, -1)
     scale = 1e-5 * qs.norm(dim=1, keepdim=True) * cols.norm(dim=0, keepdim=True)
     need(not bool((diff & ((qs @ cols).abs() > scale)).any()), "proj_sign_pack flips a bit far from zero on a query chunk")
-    real = int(((torch.arange(cols.shape[1], device=qs.device) % m_pad) < m).sum())
-    b_ms, b_by = bound(t * d * 4 + real * d * 4 + t * cols.shape[1] // 8, 2 * t * d * real)
-    return dict(shape=f"x ({t}, {d}), proj ({d}, {cols.shape[1]}), {real} real columns",
+    b_ms, b_by = b_words_bound(t, d, cols, m, m_pad)
+    return dict(shape=f"x ({t}, {d}), proj ({d}, {cols.shape[1]}), {cols.shape[1] // m_pad * m} real columns",
                 exact=bool(not diff.any()), disagreeing_bits=int(diff.sum()),
                 ms=timed_ms(lambda: hp.proj_sign_pack(qs, cols, bias, m, m_pad), 50, flush),
                 device_ms=device_ms(lambda: hp.proj_sign_pack(qs, cols, bias, m, m_pad)),
@@ -857,8 +860,7 @@ def wide_b_check(x, inner, flush) -> dict:
     diff = (((bk[:, :, None] >> bits) & 1) != ((br[:, :, None] >> bits) & 1)).reshape(t, -1)
     scale = 1e-5 * x.norm(dim=1, keepdim=True) * cols.norm(dim=0, keepdim=True)
     need(not bool((diff & ((x @ cols).abs() > scale)).any()), f"proj_sign_pack flips a bit far from zero at d={d}")
-    b_ms, b_by = bound(t * d * 4 + cols.numel() * 4 + bias.numel() * 4 + t * cols.shape[1] // 8,
-                       2 * t * d * n_tab * m_in)
+    b_ms, b_by = b_words_bound(t, d, cols, m_in, m_pad)
     return dict(d=d, shape=f"x ({t}, {d}), proj ({d}, {cols.shape[1]}), {n_tab * m_in} real columns",
                 exact=bool(not diff.any()), disagreeing_bits=int(diff.sum()),
                 ms=timed_ms(lambda: hp.proj_sign_pack(x, cols, bias, m_in, m_pad), 20, flush),
@@ -879,60 +881,30 @@ def inner_columns(inner):
     return cols, torch.zeros(n_tab * m_pad, device=cols.device), m_in, m_pad
 
 
-def b_path(x, cols, bias, m: int, m_pad: int, path: int):
-    """Kernel B's words with its path forced (1 the batch path, 2 the
-    few-row path), launched straight from the library: these launches are
-    not counted."""
-    import torch
-
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.hash_pack import ops as hp
-
-    if x.device.type == "cpu":  # a rehearsal on the CPU: the plain version, no path to force
-        return hp.proj_sign_pack(x, cols, bias, m, m_pad)
-    lib = _build.library("hash_pack", hp._SIGNATURES)
-    words = torch.empty((x.shape[0], cols.shape[1] // 32), dtype=torch.int32, device=x.device)
-    err = lib.proj_sign_pack_path_launch(
-        x.data_ptr(), cols.data_ptr(), bias.data_ptr(), x.shape[0], x.shape[1], cols.shape[1], m, m_pad,
-        words.data_ptr(), None, path, _build.stream_ptr(x))
-    need(err == 0, f"proj_sign_pack path {path}: CUDA error {err}")
-    return words.to(torch.int64) & 0xFFFFFFFF
-
-
 def b_order_check(x, inner) -> dict:
-    """Kernel B's one summation order: the words of 64 rows hashed in one
-    launch equal those of the same rows hashed one row per launch, in
-    launches of 50 (and 14), and through each path forced."""
+    """Kernel B's one summation order: the words of up to 512 rows hashed in
+    one launch (where d spans several slices, the batch path from 512 rows
+    on) equal those of the same rows hashed 64 in one launch, one row per
+    launch and in launches of 50 (the few-row path)."""
     import torch
 
     from repro_torch.kernels.hash_pack import ops as hp
 
     cols, bias, m, m_pad = inner_columns(inner)
-    rows = x[:64].contiguous()
-    whole = hp.proj_sign_pack(rows, cols, bias, m, m_pad)
-    per_row = torch.cat([hp.proj_sign_pack(rows[i : i + 1], cols, bias, m, m_pad) for i in range(64)])
-    by_50 = torch.cat([hp.proj_sign_pack(rows[i : i + 50].contiguous(), cols, bias, m, m_pad) for i in (0, 50)])
-    forced = {path: b_path(rows, cols, bias, m, m_pad, path) for path in (1, 2)}
-    same = dict(one_row_per_launch=bool(torch.equal(whole, per_row)), launches_of_50=bool(torch.equal(whole, by_50)),
-                batch_path=bool(torch.equal(whole, forced[1])), few_row_path=bool(torch.equal(whole, forced[2])))
+    n = min(512, x.shape[0])
+    rows = x[:n].contiguous()
+
+    def words(lo: int, hi: int):
+        return hp.proj_sign_pack(rows[lo:hi].contiguous(), cols, bias, m, m_pad)
+
+    whole = words(0, n)
+    same = dict(
+        rows_64_in_one_launch=bool(torch.equal(whole[:64], words(0, 64))),
+        one_row_per_launch=bool(torch.equal(whole, torch.cat([words(i, i + 1) for i in range(n)]))),
+        launches_of_50=bool(torch.equal(whole, torch.cat([words(i, min(i + 50, n)) for i in range(0, n, 50)]))),
+    )
     need(all(same.values()), f"proj_sign_pack words depend on the batch at d={x.shape[1]}: {same}")
-    return dict(d=x.shape[1], rows=64, **same)
-
-
-def b_crossover(x, inner, flush) -> list[dict]:
-    """Kernel B's two paths timed on the same rows of width d at several
-    batch sizes: where the few-row path stops winning is the crossover the
-    entry point uses (HP_FEW_MAX_T in hash_pack.cu)."""
-    cols, bias, m, m_pad = inner_columns(inner)
-    out = []
-    for t in (1, 16, 64, 256, 1024, 2048):
-        rows = x[:t].contiguous()
-        out.append(dict(d=x.shape[1], rows=t,
-                        batch_ms=timed_ms(lambda: b_path(rows, cols, bias, m, m_pad, 1), 10, flush),
-                        few_ms=timed_ms(lambda: b_path(rows, cols, bias, m, m_pad, 2), 10, flush),
-                        batch_device_ms=device_ms(lambda: b_path(rows, cols, bias, m, m_pad, 1)),
-                        few_device_ms=device_ms(lambda: b_path(rows, cols, bias, m, m_pad, 2))))
-    return out
+    return dict(d=x.shape[1], rows=n, **same)
 
 
 @contextlib.contextmanager
@@ -1251,7 +1223,6 @@ def knn_lm_phase(dev, smoke: bool, ds_seqs: int, flush) -> tuple[dict, dict, dic
     wide_b = [wide_b_check(cell[:1024].contiguous(), inner, flush),
               wide_b_check(cell[:1].contiguous(), inner, flush)]  # the hook's one row
     b_order = [b_order_check(cell, inner)]
-    b_cross = b_crossover(cell, inner, flush)
     del index, keys, lm, cell
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -1288,7 +1259,7 @@ def knn_lm_phase(dev, smoke: bool, ds_seqs: int, flush) -> tuple[dict, dict, dic
     )
     for ok, msg in checks:
         need(ok, msg)
-    return f_row, dict(wide=wide_a), dict(wide=wide_b, one_order=b_order, crossover=b_cross,
+    return f_row, dict(wide=wide_a), dict(wide=wide_b, one_order=b_order,
                                           knn_lm_launch_shapes=b_shapes), launches
 
 

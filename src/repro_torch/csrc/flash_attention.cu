@@ -280,32 +280,10 @@ __device__ inline void fa_stage(T* dst, int dh, bool vec, RowPtr src) {
 }
 
 // The same layout for a K or V tile of 64 keys from k0 (row key at
-// base + key * stride), by cp.async: where a row's chunks divide evenly
-// among the threads, each thread keeps one chunk column and steps over
-// rows, with its offsets computed once.
+// base + key * stride); keys from kl on are zero-filled.
 template <int DHP>
 __device__ inline void fa_stage_kv(T* dst, const T* base, long long stride, int k0, int kl,
                                    int dh, bool vec) {
-  constexpr int CH = DHP / 8;
-  if constexpr (FA_THREADS % (8 * CH) == 0 && FA_BK * CH % FA_THREADS == 0) {
-    if (vec) {
-      constexpr int PER = FA_BK * CH / FA_THREADS;  // chunks per thread
-      constexpr int BSTEP = FA_THREADS / (8 * CH);  // bands between them
-      const int q = threadIdx.x & 7;
-      const int c = (threadIdx.x >> 3) % CH;
-      const int band0 = (threadIdx.x >> 3) / CH;
-      const bool col_in = c * 8 < dh;
-#pragma unroll
-      for (int i = 0; i < PER; ++i) {
-        const int band = band0 + i * BSTEP;
-        const int key = k0 + band * 8 + q;
-        const bool in = col_in && key < kl;
-        cp_async16(smem_addr(dst + band * DHP * 8 + c * 64 + q * 8),
-                   in ? base + key * stride + c * 8 : base, in ? 16 : 0);
-      }
-      return;
-    }
-  }
   fa_stage<DHP, FA_BK>(dst, dh, vec, [&](int r) -> const T* {
     return k0 + r < kl ? base + (k0 + r) * stride : nullptr;
   });

@@ -61,7 +61,7 @@
 // Both end with s in shared memory and each warp packing a row's words by
 // __ballot_sync; columns that are not real give 0 bits. The entry point
 // takes the few-row path below HP_FEW_MAX_T rows when d spans more than one
-// slice: the crossover that chip_smoke.py's b_crossover measures (at
+// slice: the crossover measured on the card (PERF.md, section 6: at
 // d = 4,096 the two paths' device times meet between 256 and 1,024 rows).
 #include "common.cuh"
 
@@ -453,13 +453,13 @@ extern "C" int bitsample_pack_launch(const float* x, const int* dims,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Kernel B with its path chosen: 0 by the rule above, 1 the batch path,
-// 2 the few-row path (all give the same bits; the forced paths serve the
-// measurement of the crossover). Returns the CUDA error code.
-extern "C" int proj_sign_pack_path_launch(const float* x, const float* P,
-                                          const float* bias, int T, int d, int M,
-                                          int m, int m_pad, uint32_t* words,
-                                          float* margins, int path, void* stream) {
+// Kernel B: the few-row path below HP_FEW_MAX_T rows when d spans more
+// than one slice and the partials fit, else the batch path (both give the
+// same bits). Returns the CUDA error code.
+extern "C" int proj_sign_pack_launch(const float* x, const float* P,
+                                     const float* bias, int T, int d, int M,
+                                     int m, int m_pad, uint32_t* words,
+                                     float* margins, void* stream) {
   if (T > 0) {
     if (d < 1 || M % 32 != 0 || m_pad % 32 != 0 || M % m_pad != 0 || m < 1 || m > m_pad)
       return static_cast<int>(cudaErrorInvalidValue);
@@ -481,10 +481,9 @@ extern "C" int proj_sign_pack_path_launch(const float* x, const float* P,
     const int n_cg = std::max(1, (cb_max + 31) / 32);
     const bool wide = T >= HP_FEW_ROWS_WIDE && few_smem<HP_FEW_ROWS_WIDE>(per, n_cg) <= HP_FEW_SMEM;
     const bool fits = wide || few_smem<HP_FEW_ROWS>(per, n_cg) <= HP_FEW_SMEM;
-    const bool few = fits && (path == 2 || (path == 0 && T < HP_FEW_MAX_T && n_sl > 1));
-    if (path == 2 && !fits) return static_cast<int>(cudaErrorInvalidValue);
+    const bool few = fits && T < HP_FEW_MAX_T && n_sl > 1;
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int err = few  ? (wide ? launch_few_cg<HP_FEW_ROWS_WIDE>(a, per, n_cg, chunks, st)
+    const int err = few ? (wide ? launch_few_cg<HP_FEW_ROWS_WIDE>(a, per, n_cg, chunks, st)
                                  : launch_few_cg<HP_FEW_ROWS>(a, per, n_cg, chunks, st))
                     : (T + 63) / 64 >= HP_BATCH_TALL_BLOCKS
                         ? launch_batch_cc<4>(a, std::max(1, (cb_max + 15) / 16), chunks, st)
@@ -492,11 +491,4 @@ extern "C" int proj_sign_pack_path_launch(const float* x, const float* P,
     if (err != 0) return err;
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int proj_sign_pack_launch(const float* x, const float* P,
-                                     const float* bias, int T, int d, int M,
-                                     int m, int m_pad, uint32_t* words,
-                                     float* margins, void* stream) {
-  return proj_sign_pack_path_launch(x, P, bias, T, d, M, m, m_pad, words, margins, 0, stream);
 }

@@ -21,10 +21,6 @@ from repro_torch.kernels.hash_pack import ref
 _SIGNATURES = {
     "bitsample_pack_launch": [_build.PTR] * 3 + [_build.INT] * 3 + [_build.PTR] * 3,
     "proj_sign_pack_launch": [_build.PTR] * 3 + [_build.INT] * 5 + [_build.PTR] * 3,
-    # the same launch with its path forced (1 batch, 2 few-row): chip_smoke.py
-    # times both to place the crossover
-    "proj_sign_pack_path_launch": [_build.PTR] * 3 + [_build.INT] * 5 + [_build.PTR] * 2
-    + [_build.INT, _build.PTR],
 }
 
 
