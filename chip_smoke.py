@@ -1,10 +1,13 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --shapes [SRC [OUT]]
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs eight
 phases, printing one JSON line each; any failed check raises, so the script
-exits non-zero:
+exits non-zero. With ``--shapes`` it runs only kernels A and D at the
+paths' shapes (below) with the package under SRC, so that one call can
+measure two trees on one card:
 
 1. ``device``     the card's name and power limit (``nvidia-smi``).
 2. ``kernels``    each hand-written kernel against its plain PyTorch version
@@ -15,7 +18,12 @@ exits non-zero:
                   launch, one row per launch, in launches of 50 or through
                   either path), C and D on one grid cell's shapes, and E
                   (the payload tail, f16 and i8) on the first 50-query
-                  chunk of a single shard over every point.
+                  chunk of a single shard over every point. A and D also
+                  at every shape the DSLSH paths give them
+                  (``path_shapes``, with the profiler's device time and
+                  kernels per call), and D's one-order check: each query
+                  of a 50-query chunk, alone and in launches of 7, gets
+                  the chunk's bits.
 3. ``main_path``  the paper's scale: 1,370,000 synthetic ABP windows (d=30)
                   on the 40-cell ``grid(nu=10, p=4)`` with the ``"cuda"``
                   backend, 2000 out-of-sample queries, DSLSH against the
@@ -51,10 +59,13 @@ exits non-zero:
                   ``knn_interpolate`` on the index's and on the ``"torch"``
                   backend's neighbours, and kernels A and B
                   at d = 4,096 (the datastore's keys; B also on the hook's
-                  one row, with its one-order check and both paths timed at
-                  1-2,048 rows) and d = 18,432 against their plain versions.
-                  Kernel B's calls on the main and kNN-LM paths are counted
-                  by shape.
+                  one row, with its one-order check over both of its
+                  paths) and d = 18,432 against their plain versions;
+                  A and D at the path's shapes on one cell of the
+                  datastore (the hook's row and query, a build chunk, a
+                  50-query chunk, D's one-order check at d = 4,096).
+                  Kernels A's, B's and D's calls on the main and kNN-LM
+                  paths are counted by shape.
    ``knn_lm_profile`` one request served with the hook, profiled.
 8. ``serve``      ``repro_torch.launch.serve.main --arch granite-8b`` with
                   its defaults: 4 requests through ``ServeEngine`` on the
@@ -84,6 +95,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
 RTOL = ATOL = 1e-5  # distances: the kernels sum over d in another order
+# the port's kernels by their CUDA function names (csrc/*.cu), whose share of
+# a profiled window's device time the profiles report
+PORT_KERNELS = ("bitsample_pack_kernel", "proj_sign_batch_kernel", "proj_sign_few_kernel", "l1_topk_kernel",
+                "query_tail_kernel", "query_tail_payload_kernel", "flash_attention_kernel")
 
 # the paper-scale configuration of benchmarks/scale_bench.py and
 # benchmarks/common.py (slsh_cfg)
@@ -146,24 +161,40 @@ def timed_ms(fn, iters: int, flush) -> float:
     return total / iters
 
 
-def device_ms(fn, iters: int = 10) -> float | None:
-    """Device time of one ``fn()``: the summed time of the kernels it
-    launches on the card, from the profiler, over ``iters`` warm calls.
+def device_profile(fn, iters: int = 10) -> dict:
+    """The profiler's view of one ``fn()``: ``device_ms``, the summed time
+    of the kernels it launches on the card, and ``kernels_per_call``, how
+    many it launches, over ``iters`` warm calls recorded after ``iters``
+    calls of the profiler's warm-up step. The profiler can lose a kernel's
+    record, so the window runs three times and the fullest record is kept.
     Unlike ``timed_ms`` it leaves out the host's dispatch, which sets the
-    event time of a short launch. None on the CPU."""
+    event time of a short launch. Both None on the CPU."""
     import torch
 
     if not torch.cuda.is_available():
-        return None
+        return dict(device_ms=None, kernels_per_call=None)
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    return total / iters / 1e3
+    best = None
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
+                                    schedule=torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):  # the warm-up step, then the recorded one
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        got = dict(device_ms=sum(e.self_device_time_total for e in events) / iters / 1e3,
+                   kernels_per_call=sum(e.count for e in events) / iters)
+        if best is None or got["kernels_per_call"] > best["kernels_per_call"]:
+            best = got
+    return best
+
+
+def device_ms(fn, iters: int = 10) -> float | None:
+    """``device_profile``'s device time alone."""
+    return device_profile(fn, iters)["device_ms"]
 
 
 def sync(dev) -> None:
@@ -184,7 +215,9 @@ def profile_activities(dev) -> list:
 
 def profile_query(dev, fn, queries: int = 200) -> dict:
     """Wall time of ``fn()`` under the profiler, the summed time of its
-    kernels on the card (device busy) and the device's idle share."""
+    kernels on the card (device busy), the device's idle share, the eight
+    longest kernels and the port's own, each with its share of the busy
+    time."""
     import torch
 
     with torch.profiler.profile(activities=profile_activities(dev)) as prof:
@@ -200,11 +233,14 @@ def profile_query(dev, fn, queries: int = 200) -> dict:
     ]
     busy = sum(e.self_device_time_total for e in events) / 1e6
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    port = [e for e in events if (e.key.split("(")[0].split("<")[0].split() or [""])[-1] in PORT_KERNELS]
     return dict(
         queries=queries, wall_s=wall,
         device_busy_s=busy if events else None,
         device_idle_share=1.0 - busy / wall if events else None,
         top_kernels=[dict(name=e.key[:90], ms=e.self_device_time_total / 1e3, calls=e.count) for e in top],
+        port_kernels=[dict(name=e.key[:60], ms=e.self_device_time_total / 1e3, calls=e.count,
+                           share_of_busy=e.self_device_time_total / 1e6 / busy) for e in port],
     )
 
 
@@ -258,8 +294,8 @@ def kernels_phase(data, queries, cfg, flush) -> list[dict]:
     from repro_torch.core import hashing, pipeline
     from repro_torch.kernels.hash_pack import ops as hp, ref as hp_ref
     from repro_torch.kernels.l1_topk import ops as l1, ref as l1_ref
-    from repro_torch.kernels.query_fused import ops as qf, ref as qf_ref
 
+    shapes = dslsh_path_cases(data, queries, cfg, flush)
     n_loc = data.shape[0] // NU
     cell = data[:n_loc].contiguous()  # node 0's slice: one cell's points
     outer, inner = pipeline.make_family(torch.Generator().manual_seed(SEED), data.shape[1], cfg, data.device)
@@ -273,7 +309,7 @@ def kernels_phase(data, queries, cfg, flush) -> list[dict]:
     wk, mk = hp.bitsample_pack(cell, dims, thrs, margins=True)
     wr, mr = hp_ref.bitsample_pack_ref(cell, dims, thrs, margins=True)
     need(torch.equal(wk, wr) and torch.equal(mk, mr), "bitsample_pack differs from its plain version")
-    b_ms, b_by = bound(t * d * 4 + m_cols * 8 + t * m_cols // 8 + t * m_cols * 4, 3 * t * m_cols)
+    b_ms, b_by = bound(t * d * 4 + m_cols * 8 + t * (m_cols // 32) * 8 + t * m_cols * 4, 2 * t * m_cols)
     rows.append(dict(
         name="bitsample_pack", route="cuda", source="src/repro_torch/csrc/hash_pack.cu",
         replaces="src/repro/kernels/hash_pack/hash_pack.py:112",
@@ -281,8 +317,9 @@ def kernels_phase(data, queries, cfg, flush) -> list[dict]:
         shape=f"x ({t}, {d}), {m_cols} columns, margins", exact=True,
         max_abs_err=float((mk - mr)[torch.isfinite(mr)].abs().max()),  # padded columns hold inf
         ms=timed_ms(lambda: hp.bitsample_pack(cell, dims, thrs, margins=True), 50, flush),
+        device_ms=device_ms(lambda: hp.bitsample_pack(cell, dims, thrs, margins=True)),
         plain_ms=timed_ms(lambda: hp_ref.bitsample_pack_ref(cell, dims, thrs, margins=True), 10, flush),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, path_shapes=shapes["a"],
     ))
 
     # B: proj_sign_pack on the inner family, every point of one cell; the
@@ -336,14 +373,9 @@ def kernels_phase(data, queries, cfg, flush) -> list[dict]:
 
     # the main path's candidates for one 50-query chunk of cell (0, 0),
     # from a plain-backend build of that cell
-    cfg_t = cfg.replace(backend="torch")
-    index = pipeline.build_from_params(cell, outer0, inner, cfg_t)
     qs = queries[: cfg.query_chunk].contiguous()
-    backend = pipeline.get_backend("torch")
-    pk, ik = pipeline._stage_hash(index, qs, cfg_t, backend)
-    cand, _ = pipeline._stage_gather_fast(index, cfg_t, pk, ik)
-    cand = cand.contiguous()
-    run, c_w = pipeline._fused_run(cfg), cand.shape[1]
+    cand = shapes["cell_cand"]
+    c_w = cand.shape[1]
     cc = pipeline._compact_width(cfg, c_w, n_loc)
     cs, uniq, comparisons = pipeline._stage_dedup(cand)
     comp, valid, _ = pipeline._stage_compact(cs, uniq, comparisons, cc)
@@ -364,35 +396,24 @@ def kernels_phase(data, queries, cfg, flush) -> list[dict]:
         shape=f"cands ({q_n}, {cc}, {d}), {n_valid} valid", exact=bool(torch.equal(pk_, pr)),
         max_abs_err=float((dk - dr).abs().nan_to_num(0.0).max()),
         ms=timed_ms(lambda: l1.l1_topk(qs, pts, valid, k), 50, flush),
+        device_ms=device_ms(lambda: l1.l1_topk(qs, pts, valid, k)),
         plain_ms=timed_ms(lambda: l1_ref.l1_topk_ref(qs, pts, valid, k), 10, flush),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
     ))
 
-    # D: the fused tail on the chunk's raw (Q, C) candidate rows
-    out_k = qf.query_tail(cell, qs, cand, run=run, c_comp=cc, k=k)
-    out_r = qf_ref.query_tail_ref(cell, qs, cand, c_comp=cc, k=k)
-    need(torch.equal(out_k[2], out_r[2]) and torch.equal(out_k[3], out_r[3]), "query_tail counters differ")
-    need_topk(out_k[0], out_k[1], out_r[0], out_r[1], point_dist_of(cell, qs), "query_tail top-k differs")
-    gathered = int(out_r[2].clamp(max=cc).sum())
-    c_pad = qf._run_padded_width(c_w, run)  # run is a power of two here
-    merge_cx = q_n * merge_exchanges(c_pad, run)
-    b_ms, b_by = bound(
-        cand.numel() * 4 + q_n * d * 4 + gathered * d * 4 + q_n * (k * 8 + 8),
-        3 * gathered * d + merge_cx,
-    )
+    # D: the fused tail on the chunk's raw (Q, C) candidate rows (the grid
+    # chunk of the path shapes)
+    grid = shapes["d"][0]
     rows.append(dict(
         name="query_tail", route="cuda", source="src/repro_torch/csrc/query_fused.cu",
         replaces="src/repro/kernels/query_fused/query_fused.py:496",
         also_replaces="src/repro/kernels/query_fused/query_fused.py:467",
-        shape=f"cand ({q_n}, {c_w}), run {run}, c_comp {cc}, k {k}, {gathered} rows gathered",
-        exact=bool(torch.equal(out_k[1], out_r[1])),
-        max_abs_err=float((out_k[0] - out_r[0]).abs().nan_to_num(0.0).max()),
-        ms=timed_ms(lambda: qf.query_tail(cell, qs, cand, run=run, c_comp=cc, k=k), 50, flush),
-        plain_ms=timed_ms(lambda: qf_ref.query_tail_ref(cell, qs, cand, c_comp=cc, k=k), 10, flush),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        **{key: grid[key] for key in ("shape", "exact", "max_abs_err", "ms", "device_ms", "kernels_per_call",
+                                      "plain_ms", "bound_ms", "bound_by")},
+        library_ms=None, path_shapes=shapes["d"], one_order=shapes["order"],
     ))
-    del index, cand, pts
-    rows += payload_kernel_rows(data, queries, cfg, (outer, inner), flush)
+    del pts
+    rows += payload_kernel_rows(data, queries, cfg, shapes["full_cand"], flush)
     return rows
 
 
@@ -428,9 +449,224 @@ def merge_exchanges(c_pad: int, run: int) -> int:
     return (c_pad // 2) * sum(s_.bit_length() - 1 for s_ in sizes)
 
 
-def payload_kernel_rows(data, queries, cfg, family, flush) -> list[dict]:
+def merge_width(c: int, run: int) -> tuple[int, int]:
+    """The least merge network for a row of ``c`` candidates in runs of
+    ``run``: its power-of-two width and the run width it starts from (1, a
+    full sort, when the run is not a power of two)."""
+    cp = 1 << max(0, c - 1).bit_length()
+    return cp, (min(run, cp) if run & (run - 1) == 0 else 1)
+
+
+# ------------------------------------------- kernels A and D at the paths' shapes
+
+
+def a_case(case: str, x, dims, thrs, flush, margins: bool = False) -> dict:
+    """Kernel A on rows ``x`` against flat columns ``dims``/``thrs``,
+    bit-exact against its plain version (words and margins), timed by
+    events and by the profiler. The bound reads each row's distinct sampled
+    coordinates (not the whole row), the columns, and writes the int64
+    words (and the margins)."""
+    import torch
+
+    from repro_torch.kernels.hash_pack import ops as hp, ref as hp_ref
+
+    t, d = x.shape
+    m_cols = dims.shape[0]
+
+    def fn():
+        return hp.bitsample_pack(x, dims, thrs, margins=margins)
+
+    got, want = fn(), hp_ref.bitsample_pack_ref(x, dims, thrs, margins=margins)
+    got, want = (got, want) if margins else ((got,), (want,))
+    need(all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want)),
+         f"bitsample_pack ({case}) differs from its plain version")
+    sampled = int(torch.unique(dims[torch.isfinite(thrs)]).numel())
+    nbytes = t * sampled * 4 + m_cols * 8 + t * (m_cols // 32) * 8 + (t * m_cols * 4 if margins else 0)
+    b_ms, b_by = bound(nbytes, t * m_cols * (2 if margins else 1))
+    return dict(case=case, shape=f"x ({t}, {d}), {m_cols} columns" + (", margins" if margins else ""),
+                exact=True, ms=timed_ms(fn, 30, flush), **device_profile(fn),
+                plain_ms=timed_ms(lambda: hp_ref.bitsample_pack_ref(x, dims, thrs, margins=margins), 5, flush),
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def tail_candidates(data, outer_l, inner, cfg, qs):
+    """The gather's (Q, C) candidate rows for queries ``qs`` on an index of
+    ``data`` with outer tables ``outer_l``, built on the plain backend."""
+    from repro_torch.core import pipeline
+
+    cfg_t = cfg.replace(backend="torch")
+    index = pipeline.build_from_params(data, outer_l, inner, cfg_t)
+    pk, ik = pipeline._stage_hash(index, qs, cfg_t, pipeline.get_backend("torch"))
+    cand, _ = pipeline._stage_gather_fast(index, cfg_t, pk, ik)
+    return cand.contiguous()
+
+
+def d_case(case: str, data, qs, cand, cfg, flush) -> dict:
+    """Kernel D on a chunk's raw (Q, C) candidate rows against its plain
+    version (counters equal, top-k tie-aware within RTOL/ATOL), timed by
+    events and by the profiler, with its bound: the candidate rows, the
+    queries, the gathered data rows and the outputs, and 3 operations per
+    gathered coordinate plus the merge network's compare-exchanges."""
+    import torch
+
+    from repro_torch.core import pipeline
+    from repro_torch.kernels.query_fused import ops as qf, ref as qf_ref
+
+    run, k = pipeline._fused_run(cfg), cfg.k
+    (q_n, c_w), d = cand.shape, data.shape[1]
+    cc = pipeline._compact_width(cfg, c_w, data.shape[0])
+
+    def fn():
+        return qf.query_tail(data, qs, cand, run=run, c_comp=cc, k=k)
+
+    out_k, out_r = fn(), qf_ref.query_tail_ref(data, qs, cand, c_comp=cc, k=k)
+    need(torch.equal(out_k[2], out_r[2]) and torch.equal(out_k[3], out_r[3]), f"query_tail ({case}) counters differ")
+    need_topk(out_k[0], out_k[1], out_r[0], out_r[1], point_dist_of(data, qs), f"query_tail ({case}) top-k differs")
+    gathered = int(out_r[2].clamp(max=cc).sum())
+    cp, start = merge_width(c_w, run)
+    b_ms, b_by = bound(cand.numel() * 4 + q_n * d * 4 + gathered * d * 4 + q_n * (k * 8 + 8),
+                       3 * gathered * d + q_n * merge_exchanges(cp, start))
+    return dict(case=case, shape=f"cand ({q_n}, {c_w}), d {d}, run {run}, c_comp {cc}, k {k}, {gathered} rows gathered",
+                exact=bool(torch.equal(out_k[1], out_r[1])),
+                max_abs_err=float((out_k[0] - out_r[0]).abs().nan_to_num(0.0).max()),
+                ms=timed_ms(fn, 30, flush), **device_profile(fn),
+                plain_ms=timed_ms(lambda: qf_ref.query_tail_ref(data, qs, cand, c_comp=cc, k=k), 5, flush),
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def d_order_check(data, qs, cand, cfg) -> dict:
+    """Kernel D's one summation order: each query of a chunk, run alone and
+    in launches of 7, gives the chunk's ``kd``/``ki`` bit for bit."""
+    import torch
+
+    from repro_torch.core import pipeline
+    from repro_torch.kernels.query_fused import ops as qf
+
+    run, k = pipeline._fused_run(cfg), cfg.k
+    cc = pipeline._compact_width(cfg, cand.shape[1], data.shape[0])
+    q_n = qs.shape[0]
+
+    def tail(lo: int, hi: int):
+        return qf.query_tail(data, qs[lo:hi].contiguous(), cand[lo:hi].contiguous(), run=run, c_comp=cc, k=k)[:2]
+
+    kd, ki = tail(0, q_n)
+    same = {}
+    for name, step in (("one_query_per_launch", 1), ("launches_of_7", 7)):
+        parts = [tail(i, min(i + step, q_n)) for i in range(0, q_n, step)]
+        same[name] = bool(torch.equal(kd, torch.cat([p[0] for p in parts]))
+                          and torch.equal(ki, torch.cat([p[1] for p in parts])))
+    need(all(same.values()), f"query_tail answers depend on the launch at d={data.shape[1]}: {same}")
+    return dict(d=data.shape[1], queries=q_n, **same)
+
+
+def dslsh_path_cases(data, queries, cfg, flush) -> dict:
+    """Kernels A and D at the DSLSH paths' shapes: A on a build chunk
+    (4,096 rows of one grid cell, its 4 tables' 128 columns), a 50-query
+    chunk (words) and the multiprobe query's chunk (words and margins over a
+    single shard's 16 tables); D on a grid cell's 50-query chunk and the
+    f32 single shard's (every point), with D's one-order check on the
+    grid chunk. Returns the cases (``a``, ``d``, ``order``) and the two
+    chunks' candidate rows (``cell_cand``, ``full_cand``)."""
+    import torch
+
+    from repro_torch.core import hashing, pipeline
+    from repro_torch.kernels.hash_pack import ops as hp
+
+    n_loc = data.shape[0] // NU
+    cell = data[:n_loc].contiguous()
+    outer, inner = pipeline.make_family(torch.Generator().manual_seed(SEED), data.shape[1], cfg, data.device)
+    l_loc = cfg.L_out // P
+    outer0 = hashing.BitSampleParams(outer.dims[:l_loc], outer.thrs[:l_loc], outer.salts[:l_loc])
+    qs = queries[: cfg.query_chunk].contiguous()
+    dims0, thrs0 = hp.bitsample_columns(outer0)
+    dims_all, thrs_all = hp.bitsample_columns(outer)
+    a = [a_case("build_chunk", cell[: cfg.build_chunk].contiguous(), dims0, thrs0, flush),
+         a_case("query_chunk", qs, dims0, thrs0, flush),
+         a_case("multiprobe_query_chunk", qs, dims_all, thrs_all, flush, margins=True)]
+    cell_cand = tail_candidates(cell, outer0, inner, cfg, qs)
+    d = [d_case("grid_chunk", cell, qs, cell_cand, cfg, flush)]
+    order = [d_order_check(cell, qs, cell_cand, cfg)]
+    full_cand = tail_candidates(data, outer, inner, cfg, qs)
+    d.append(d_case("f32_payload_chunk", data, qs, full_cand, cfg, flush))
+    return dict(a=a, d=d, order=order, cell_cand=cell_cand, full_cand=full_cand)
+
+
+def knn_path_cases(keys, hq, scfg, p: int, flush, hook: str = "first") -> tuple[list, list, list]:
+    """Kernels A and D at the kNN-LM path's shapes, on ``keys``, one grid
+    cell's datastore keys (d = 4,096), and query rows ``hq`` (at least 50):
+    A on the hook's one row and a build chunk of 4,096 keys (the cell's 2
+    tables' 64 columns); D on the hook's one query (the first of ``hq``, or
+    with ``hook="fullest"`` the one with the most candidates) and on a
+    50-query chunk, with D's one-order check on that chunk. Returns (A
+    cases, D cases, D order checks)."""
+    import torch
+
+    from repro_torch.core import hashing, pipeline
+    from repro_torch.kernels.hash_pack import ops as hp
+
+    outer, inner = pipeline.make_family(torch.Generator().manual_seed(SEED), keys.shape[1], scfg, keys.device)
+    l_loc = scfg.L_out // p
+    outer0 = hashing.BitSampleParams(outer.dims[:l_loc], outer.thrs[:l_loc], outer.salts[:l_loc])
+    dims, thrs = hp.bitsample_columns(outer0)
+    a = [a_case("hook_row", hq[:1].contiguous(), dims, thrs, flush),
+         a_case("knn_build_chunk", keys[: scfg.build_chunk].contiguous(), dims, thrs, flush)]
+    qs = hq[:50].contiguous()
+    cand = tail_candidates(keys, outer0, inner, scfg, qs)
+    h = 0 if hook == "first" else int((cand >= 0).sum(dim=1).argmax())
+    d = [d_case("hook_query", keys, qs[h : h + 1], cand[h : h + 1].contiguous(), scfg, flush),
+         d_case("knn_chunk", keys, qs, cand, scfg, flush)]
+    return a, d, [d_order_check(keys, qs, cand, scfg)]
+
+
+def shapes_main(src: str, out: str | None) -> int:
+    """``--shapes``: kernels A and D alone at every path shape, with the
+    package under ``src`` (a checkout's ``src/``, so one call can measure
+    two trees on one card). The kNN-LM shapes run on seeded Gaussian keys
+    in place of the model's hidden states. Prints one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(src))
+    from repro_torch import dslsh
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    _build.build(("hash_pack", "query_fused"))
+    dev = torch.device("cuda")
+    pts, _, qx, _ = synth(N, NQ)
+    data, queries = torch.as_tensor(pts, device=dev), torch.as_tensor(qx, device=dev)
+    cfg = dslsh.make_config(**CFG, backend="cuda")
+    scratch = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    flush = scratch.zero_
+    cases = dslsh_path_cases(data, queries, cfg, flush)
+    a, d, order = cases["a"], cases["d"], cases["order"]
+    del data, queries, cases
+    g = torch.Generator(dev).manual_seed(SEED)
+    n_cell, width = DS_SEQS * (DS_LEN - 1) // 2, 4096  # one grid(nu=2, p=4) cell of the datastore
+    keys = torch.randn((n_cell, width), generator=g, device=dev)
+    hq = keys[:: n_cell // 64][:64] + 0.05 * torch.randn((64, width), generator=g, device=dev)
+    scfg = dslsh.make_config(
+        dslsh.FamilyConfig(**KNN_FAMILY, val_lo=float(keys.min()), val_hi=float(keys.max())),
+        dslsh.BudgetConfig(**KNN_BUDGET), backend="cuda",
+    )
+    ka, kd_, korder = knn_path_cases(keys, hq, scfg, 4, flush, hook="fullest")
+    result = dict(src=src, nvidia_smi=smi, bitsample_pack=a + ka, query_tail=d + kd_, query_tail_one_order=order + korder)
+    line = json.dumps(result)
+    if out:
+        with open(out, "w") as f:
+            f.write(line + "\n")
+    print(line, flush=True)
+    return 0
+
+
+def payload_kernel_rows(data, queries, cfg, cand, flush) -> list[dict]:
     """Kernel E, per payload format, against its plain version on the first
-    50-query chunk of a plain-backend single shard over every point."""
+    50-query chunk of a plain-backend single shard over every point (its
+    candidate rows ``cand``)."""
     import torch
 
     from repro_torch.core import pipeline
@@ -439,13 +675,7 @@ def payload_kernel_rows(data, queries, cfg, family, flush) -> list[dict]:
     from repro_torch.runtime import payload as payload_mod
 
     n, d = data.shape
-    cfg_t = cfg.replace(backend="torch", c_rerank=C_RERANK)
-    index = pipeline.build_from_params(data, *family, cfg_t)
     qs = queries[: cfg.query_chunk].contiguous()
-    pk, ik = pipeline._stage_hash(index, qs, cfg_t, pipeline.get_backend("torch"))
-    cand, _ = pipeline._stage_gather_fast(index, cfg_t, pk, ik)
-    del index
-    cand = cand.contiguous()
     run, c_w, k = pipeline._fused_run(cfg), cand.shape[1], cfg.k
     cc = pipeline._compact_width(cfg, c_w, n)
     q_n = qs.shape[0]
@@ -469,8 +699,7 @@ def payload_kernel_rows(data, queries, cfg, family, flush) -> list[dict]:
              f"query_tail_payload ({fmt}) rows with no miss differ from query_tail")
         gathered = int(out_r[2].clamp(max=cc).sum())
         shortlisted = int(out_r[2].clamp(max=min(C_RERANK, cc)).sum())
-        c_pad = qf._run_padded_width(c_w, run)
-        cx = q_n * (merge_exchanges(c_pad, run) + merge_exchanges(next_pow2(cc), 1))
+        cx = q_n * (merge_exchanges(*merge_width(c_w, run)) + merge_exchanges(next_pow2(cc), 1))
         itemsize = payload_mod.payload_itemsize(fmt)
         b_ms, b_by = bound(
             cand.numel() * 4 + q_n * d * 4 + gathered * (d * itemsize + 8) + shortlisted * d * 4
@@ -487,6 +716,7 @@ def payload_kernel_rows(data, queries, cfg, family, flush) -> list[dict]:
             exact=exact, rerank_misses=int(out_k[4].sum()), zero_miss_rows_equal_to_query_tail=int(ok.sum()),
             max_abs_err=float((out_k[0] - out_r[0]).abs().nan_to_num(0.0).max()),
             ms=timed_ms(lambda: qf.query_tail_payload(*args, run=run, **kw), 50, flush),
+            device_ms=device_ms(lambda: qf.query_tail_payload(*args, run=run, **kw)),
             plain_ms=timed_ms(lambda: qf_ref.query_tail_payload_ref(*args, **kw), 10, flush),
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
         ))
@@ -550,8 +780,8 @@ def run(dev, n: int, nq: int, lm_smoke: bool = False, ds_seqs: int = DS_SEQS) ->
     # main path: build + query through the user's entry points
     deploy = dslsh.grid(nu=NU, p=P)
     sync(dev)
-    main_b_shapes: dict = {}
-    with b_launch_shapes(main_b_shapes):
+    main_shapes: dict = {}
+    with launch_shapes(main_shapes):
         _build.reset_launches()
         t0 = time.perf_counter()
         index = dslsh.build(SEED, pts, cfg, deploy, dev)
@@ -631,14 +861,18 @@ def run(dev, n: int, nq: int, lm_smoke: bool = False, ds_seqs: int = DS_SEQS) ->
     del data, queries, labels, truth
 
     scratch = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
-    f_row, a_wide, b_wide, lm_launches = knn_lm_phase(dev, lm_smoke, ds_seqs, lambda: scratch.zero_())
+    f_row, knn, lm_launches = knn_lm_phase(dev, lm_smoke, ds_seqs, lambda: scratch.zero_())
     del scratch
     serve_launches = serve_phase(["--arch", LM_ARCH] + (["--smoke", "--device", dev.type] if lm_smoke else []))
-    b_wide["main_launch_shapes"] = main_b_shapes
     for r in rows:
-        if r["name"] == "proj_sign_pack":  # the order checks at d = 30 and at the datastore's width
-            b_wide["one_order"] = r["one_order"] + b_wide["one_order"]
-        r.update({"bitsample_pack": a_wide, "proj_sign_pack": b_wide}.get(r["name"], {}))
+        extra = knn.get(r["name"])
+        if extra is None:
+            continue
+        for key in ("path_shapes", "one_order"):  # DSLSH shapes first, then the datastore's width
+            if key in extra:
+                extra[key] = r.get(key, []) + extra[key]
+        extra["main_launch_shapes"] = main_shapes.get(r["name"], {})
+        r.update(extra)
     rows.append(f_row)
 
     for r in rows:
@@ -908,22 +1142,35 @@ def b_order_check(x, inner) -> dict:
 
 
 @contextlib.contextmanager
-def b_launch_shapes(log: dict):
-    """Count kernel B's calls by shape ("rows x d") while the block runs."""
+def launch_shapes(logs: dict):
+    """Count kernel A's, B's and D's calls by shape while the block runs:
+    ``logs[name][shape]``, A's shape "rows x d, columns" (", margins" in
+    its margins mode), B's "rows x d", D's "Q x C x d"."""
     from repro_torch.kernels.hash_pack import ops as hp
+    from repro_torch.kernels.query_fused import ops as qf
 
-    wrapped = hp.proj_sign_pack
+    keys = {
+        (hp, "bitsample_pack"): lambda x, dims, *a, margins=False, **kw:
+            f"{x.shape[0]}x{x.shape[1]}, {dims.shape[0]} columns" + (", margins" if margins else ""),
+        (hp, "proj_sign_pack"): lambda x, *a, **kw: f"{x.shape[0]}x{x.shape[1]}",
+        (qf, "query_tail"): lambda data, queries, cand, **kw: f"{cand.shape[0]}x{cand.shape[1]}x{data.shape[1]}",
+    }
+    saved = {}
+    for (mod, name), key in keys.items():
+        wrapped = saved[(mod, name)] = getattr(mod, name)
+        log = logs.setdefault(name, {})
 
-    def counted(x, *args, **kw):
-        key = f"{x.shape[0]}x{x.shape[1]}"
-        log[key] = log.get(key, 0) + 1
-        return wrapped(x, *args, **kw)
+        def counted(*args, _wrapped=wrapped, _key=key, _log=log, **kw):
+            shape = _key(*args, **kw)
+            _log[shape] = _log.get(shape, 0) + 1
+            return _wrapped(*args, **kw)
 
-    hp.proj_sign_pack = counted
+        setattr(mod, name, counted)
     try:
-        yield log
+        yield logs
     finally:
-        hp.proj_sign_pack = wrapped
+        for (mod, name), wrapped in saved.items():
+            setattr(mod, name, wrapped)
 
 
 # The model's attention for the logit gate: "plain" is the port's plain
@@ -998,8 +1245,9 @@ def knn_lm_phase(dev, smoke: bool, ds_seqs: int, flush) -> tuple[dict, dict, dic
     through the hook. The model with kernel F is then held against the same
     model with the plain attention (teacher-forced on the tokens served),
     and the hook's output against ``knn_interpolate`` on the ``"torch"``
-    backend's answer. Returns F's row, A's and B's wide-row checks, and the
-    path's launch counts."""
+    backend's answer. Returns F's row, the fields this phase adds to A's,
+    B's and D's rows (wide-row checks, path shapes, one-order checks and
+    launches by shape), and the path's launch counts."""
     import torch
 
     from repro_torch import configs, dslsh
@@ -1035,9 +1283,9 @@ def knn_lm_phase(dev, smoke: bool, ds_seqs: int, flush) -> tuple[dict, dict, dic
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     sync(dev)
-    b_shapes: dict = {}
+    lm_shapes: dict = {}
     shapes = contextlib.ExitStack()
-    shapes.enter_context(b_launch_shapes(b_shapes))
+    shapes.enter_context(launch_shapes(lm_shapes))
     _build.reset_launches()
     # 1. the datastore: keys are the hidden states at positions t, labels
     # the tokens at t + 1; with causal attention the first 1,024 hidden
@@ -1216,13 +1464,19 @@ def knn_lm_phase(dev, smoke: bool, ds_seqs: int, flush) -> tuple[dict, dict, dic
 
     # A and B at the datastore's width (one cell's keys for A, the first
     # 1,024 for B, whose inner layer hashes only heavy-bucket points, and
-    # the index's own family) and at the widest d_model of the repo's configs
+    # the index's own family) and at the widest d_model of the repo's
+    # configs; A and D at the path's shapes on that cell, with the hook's
+    # queries (and perturbed keys to fill a 50-query chunk)
     outer, inner = pipeline.make_family(torch.Generator().manual_seed(SEED), cfg.d_model, scfg, dev)
     cell = keys[: n_keys // deploy.nu]
     wide_a = [wide_a_check(cell, outer, scfg, deploy.p, flush)]
     wide_b = [wide_b_check(cell[:1024].contiguous(), inner, flush),
               wide_b_check(cell[:1].contiguous(), inner, flush)]  # the hook's one row
     b_order = [b_order_check(cell, inner)]
+    g = torch.Generator(dev).manual_seed(SEED)
+    fill = cell[:: max(1, cell.shape[0] // 50)][:50]
+    hq50 = torch.cat([hq_all.float(), fill + 0.01 * fill.std() * torch.randn(fill.shape, generator=g, device=dev)])[:50]
+    knn_a, knn_d, knn_order = knn_path_cases(cell, hq50, scfg, deploy.p, flush)
     del index, keys, lm, cell
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -1232,7 +1486,6 @@ def knn_lm_phase(dev, smoke: bool, ds_seqs: int, flush) -> tuple[dict, dict, dic
     wide_a.append(wide_a_check(xw, outer_w, scfg, deploy.p, flush))
     wide_b.append(wide_b_check(xw[:1024].contiguous(), inner_w, flush))
     del xw
-
     gens3 = served[0.3][0]
     emit(
         "knn_lm", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
@@ -1259,8 +1512,12 @@ def knn_lm_phase(dev, smoke: bool, ds_seqs: int, flush) -> tuple[dict, dict, dic
     )
     for ok, msg in checks:
         need(ok, msg)
-    return f_row, dict(wide=wide_a), dict(wide=wide_b, one_order=b_order,
-                                          knn_lm_launch_shapes=b_shapes), launches
+    knn = {"bitsample_pack": dict(wide=wide_a, path_shapes=knn_a),
+           "proj_sign_pack": dict(wide=wide_b, one_order=b_order),
+           "query_tail": dict(path_shapes=knn_d, one_order=knn_order)}
+    for name, extra in knn.items():
+        extra["knn_lm_launch_shapes"] = lm_shapes.get(name, {})
+    return f_row, knn, launches
 
 
 def serve_phase(argv: list[str]) -> dict:
@@ -1293,4 +1550,7 @@ def serve_phase(argv: list[str]) -> dict:
 
 
 if __name__ == "__main__":
+    if "--shapes" in sys.argv:  # python3 chip_smoke.py --shapes [SRC [OUT]]
+        rest = sys.argv[sys.argv.index("--shapes") + 1 :]
+        sys.exit(shapes_main(rest[0] if rest else os.path.join(ROOT, "src"), rest[1] if len(rest) > 1 else None))
     sys.exit(main())

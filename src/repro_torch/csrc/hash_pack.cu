@@ -14,13 +14,21 @@
 // m_pad a multiple of 32, so word w of row r packs columns [32w, 32w+32).
 //
 // A: what bounds it on an H100 is device-memory bytes (one compare per
-// column). A block stages up to HP_ROWS rows in shared memory with
-// coalesced loads; each warp then produces one (row, word) pair per step:
-// lane j evaluates column 32w + j and __ballot_sync packs the 32 bits into
-// the word, so bits never touch device memory. Past d = 1,816 a full tile
-// of rows does not fit a block's 227 KB, and A reads its sampled
-// coordinates straight from global memory (it touches M of the d floats).
-// A only gathers, compares and subtracts: bit-exact with the plain version.
+// column, only the sampled coordinates of a row needed) and, at the paths'
+// small shapes (a 50-row query chunk, the kNN-LM hook's one row), the
+// launch itself. One launch writes the int64 words the callers use (32
+// bits zero-extended), so no widening pass follows. A block loads the
+// family's dims and thrs into shared memory once and takes tiles of one
+// row per warp; the rows per block follow T (one warp per block for a
+// 50-row chunk, so it spreads over 50 SMs; eight for a build chunk), and a
+// grid of at most HP_A_GRID blocks walks the tiles. Where a row has no
+// more coordinates than the family has columns (d = 30 against 128), the
+// tile, one contiguous span of rows, arrives by cp.async (16-byte copies
+// where aligned); wider rows (d = 4,096 against 64 columns) are gathered
+// at their sampled coordinates only. A warp packs a row's words by
+// __ballot_sync, lane j evaluating column 32w + j, and writes them in one
+// coalesced store. A only gathers, compares and subtracts: bit-exact with
+// the plain version.
 //
 // B: 2*d flops per (row, real column) and x read once. At the inner
 // family's widths (48 real columns) it is bound by operations at d = 4,096
@@ -71,9 +79,9 @@
 
 namespace cg = cooperative_groups;
 
-constexpr int HP_ROWS = 32;      // A: x rows per block (staged when they fit)
+constexpr int HP_A_GRID = 132 * 8;   // A: most blocks a launch takes
+constexpr size_t HP_A_SMEM = 48 * 1024;  // A: a block's columns and row tile
 constexpr int HP_THREADS = 256;  // 8 warps
-constexpr size_t HP_SMEM_MAX = 232448;  // dynamic shared memory a block may use
 
 constexpr int HP_SLICE = 32;        // B: floats of d per slice of the summation order
 constexpr int HP_CHUNK = 128;       // B: physical columns per block (4 words)
@@ -86,33 +94,66 @@ constexpr int HP_CLUSTER = 8;       // B few-row path: blocks per cluster, each 
 constexpr size_t HP_FEW_SMEM = 200 * 1024;  // B few-row path: partials a block may hold
 constexpr int HP_FEW_MAX_T = 512;   // B: the few-row path below this many rows
 
+// cp.async of the floats [0, cnt) of src into dst, where dst sits at the
+// same offset from a 16-byte boundary as src: 4-byte copies to the first
+// boundary and after the last, 16-byte copies between.
+__device__ inline void stage_span(float* dst, const float* src, int cnt) {
+  const int head = min(cnt, static_cast<int>((16 - reinterpret_cast<uintptr_t>(src) % 16) % 16 / 4));
+  const int body = (cnt - head) >> 2;
+  for (int i = threadIdx.x; i < head; i += blockDim.x)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst + i)), "l"(src + i));
+  for (int i = threadIdx.x; i < body; i += blockDim.x)
+    cp_async16(smem_addr(dst + head + 4 * i), src + head + 4 * i, 16);
+  for (int i = head + 4 * body + threadIdx.x; i < cnt; i += blockDim.x)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst + i)), "l"(src + i));
+}
+
 __global__ void __launch_bounds__(HP_THREADS)
 bitsample_pack_kernel(const float* __restrict__ x, const int* __restrict__ dims,
                       const float* __restrict__ thrs, int T, int d, int M,
-                      bool staged, uint32_t* __restrict__ words,
+                      bool staged, unsigned long long* __restrict__ words,
                       float* __restrict__ margins) {
-  extern __shared__ float xs[];  // HP_ROWS * d when staged
-  const int row0 = blockIdx.x * HP_ROWS;
-  const int rows = min(HP_ROWS, T - row0);
-  if (staged) {
-    for (int i = threadIdx.x; i < rows * d; i += blockDim.x)
-      xs[i] = x[static_cast<size_t>(row0) * d + i];
-  }
-  __syncthreads();
-  const float* base = staged ? xs : x + static_cast<size_t>(row0) * d;
-  const int W = M >> 5;
-  const int lane = threadIdx.x & 31;
+  extern __shared__ __align__(16) float bp_smem[];
+  int* ds = reinterpret_cast<int*>(bp_smem);  // M sampled coordinates
+  float* ts = bp_smem + M;                    // M thresholds
+  float* tile = bp_smem + 2 * M + 4;          // a row per warp, staged
   const int nw = blockDim.x >> 5;
-  for (int p = threadIdx.x >> 5; p < rows * W; p += nw) {
-    const int r = p / W;
-    const int w = p - r * W;
-    const int col = (w << 5) + lane;
-    const float thr = thrs[col];
-    const float g = base[static_cast<size_t>(r) * d + dims[col]];
-    const unsigned bits = __ballot_sync(0xffffffffu, g > thr);
-    const size_t t = static_cast<size_t>(row0 + r);
-    if (lane == 0) words[t * W + w] = bits;
-    if (margins != nullptr) margins[t * M + col] = fabsf(g - thr);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int W = M >> 5;
+  for (int i = threadIdx.x; i < M; i += blockDim.x) {
+    ds[i] = dims[i];
+    ts[i] = thrs[i];
+  }
+  for (int row0 = blockIdx.x * nw; row0 < T; row0 += gridDim.x * nw) {
+    const int rows = min(nw, T - row0);
+    const float* src = x + static_cast<size_t>(row0) * d;
+    // the span lands at src's offset from a 16-byte boundary
+    float* span = tile + (reinterpret_cast<uintptr_t>(src) % 16) / 4;
+    if (staged) {
+      __syncthreads();  // the previous tile is read
+      stage_span(span, src, rows * d);
+      cp_async_commit();
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (warp < rows) {
+      const size_t t = static_cast<size_t>(row0 + warp);
+      const float* xr = staged ? span + warp * d : src + warp * d;
+      for (int wb = 0; wb < W; wb += 32) {
+        const int nwd = min(32, W - wb);
+        unsigned long long mine = 0;
+        for (int i = 0; i < nwd; ++i) {
+          const int col = ((wb + i) << 5) + lane;
+          const float g = xr[ds[col]];
+          const float th = ts[col];
+          const unsigned bits = __ballot_sync(0xffffffffu, g > th);
+          if (lane == i) mine = bits;
+          if (margins != nullptr) margins[t * M + col] = fabsf(g - th);
+        }
+        if (lane < nwd) words[t * W + wb + lane] = mine;
+      }
+    }
   }
 }
 
@@ -434,20 +475,24 @@ static int launch_few_cg(const SignArgs& a, int per, int n_cg, int chunks, cudaS
 
 static bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// Kernel A: warps (rows) per block from T, so a small chunk spreads over
+// many SMs; rows staged when a row has no more coordinates than the family
+// has columns and a tile fits. Returns the CUDA error code.
 extern "C" int bitsample_pack_launch(const float* x, const int* dims,
                                      const float* thrs, int T, int d, int M,
-                                     uint32_t* words, float* margins,
+                                     unsigned long long* words, float* margins,
                                      void* stream) {
   if (T > 0) {
-    // stage a full tile of rows when it fits; else gather from global memory
-    const size_t tile = static_cast<size_t>(HP_ROWS) * d * sizeof(float);
-    const bool staged = tile <= HP_SMEM_MAX;
-    const size_t smem = staged ? tile : 0;
+    if (d < 1 || M < 32 || M % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    const int nw = std::min(HP_THREADS / 32, std::max(1, (T + 131) / 132));
+    const size_t cols = (2 * static_cast<size_t>(M) + 4) * sizeof(float);
+    const size_t tile = (static_cast<size_t>(nw) * d + 4) * sizeof(float);
+    const bool staged = d <= M && cols + tile <= HP_A_SMEM;
+    const size_t smem = cols + (staged ? tile : 0);
     const int err = allow_dynamic_smem(bitsample_pack_kernel, smem);
     if (err != 0) return err;
-    const int blocks = (T + HP_ROWS - 1) / HP_ROWS;
-    bitsample_pack_kernel<<<blocks, HP_THREADS, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
+    const int blocks = std::min((T + nw - 1) / nw, HP_A_GRID);
+    bitsample_pack_kernel<<<blocks, nw * 32, smem, static_cast<cudaStream_t>(stream)>>>(
         x, dims, thrs, T, d, M, staged, words, margins);
   }
   return static_cast<int>(cudaGetLastError());

@@ -13,83 +13,218 @@
 //
 // What bounds it on an H100: the row gather — each surviving candidate's d
 // floats are read once at a data-dependent address (the paper's "linear
-// search over the candidates"); the sort network and scan are shared-memory
-// work on a few KB per query. Design: one block per query. The candidate row
-// (C <= a few thousand int32) lives in shared memory for the whole tail:
-// a bitonic merge network joins the gather's ascending runs (starting at the
-// run width, so no general sort when the run is a power of two), a block
-// scan (__shfl_up_sync within warps plus one pass over warp totals) ranks
-// the first occurrences, and the compacted indices and their distances stay
-// in shared memory too. Rows are gathered one warp per row with coalesced
-// lane-per-coordinate loads and a butterfly sum, and warp 0 selects the top-k
-// with the device function the l1_topk kernel uses (topk.cuh). Candidate
-// vectors therefore touch device memory exactly once and no (Q, c_comp, d)
-// block is ever written. cp.async staging of the gather is later work. The
-// merge, scan, compaction and per-row L1 live in tail_common.cuh, shared
-// with the compressed-payload tail (query_payload.cu).
+// search over the candidates"), so the time is HBM round trips unless many
+// rows are in flight at once; the merge and scan are on-chip work on a few
+// KB per query.
+//
+// Design. A query belongs to a thread-block cluster of `cs` blocks (1 for
+// narrow rows or many queries; up to 8 when few queries of wide rows would
+// leave SMs idle, as the kNN-LM hook's single query at d = 4,096 does).
+// Every block of the cluster loads the query's candidate row (C ints; the
+// columns past C count as -1, so the caller pads nothing) straight into
+// registers and merges its runs there (tail_common.cuh: shuffles inside a
+// warp, shared memory with one barrier per step across warps), ranks the
+// first occurrences with a block scan and compacts them in shared memory;
+// block b of the cluster then takes the b-th contiguous share of the
+// compacted rows. Rows of d <= 32 are gathered one per thread, two at a
+// time with vector loads (a 50-query chunk at d = 30 keeps 512 rows' loads
+// in flight per block); wider rows one per warp, each copied whole into
+// the warp's slot of shared memory with 16-byte cp.async (all of a 16 KB
+// row in flight at once, no registers held) where d % 4 == 0 and it fits,
+// else read with coalesced loads. Every path computes the L1 in one order
+// (tail_common.cuh), so a query gets the same bits alone or in a chunk, on
+// any cluster size, and kernel E's exact rerank gets D's. Each warp keeps
+// lane lists of its share's k nearest, one warp merges the block's lists,
+// and block 0 merges the cluster's block lists through distributed shared
+// memory. Candidate vectors touch device memory once and no (Q, c_comp, d)
+// block is written.
+#include <cooperative_groups.h>
+
 #include "tail_common.cuh"
 
-__global__ void __launch_bounds__(QT_THREADS)
-query_tail_kernel(const float* __restrict__ data,
-                  const float* __restrict__ queries,
-                  const int* __restrict__ cand, int n, int d, int C, int Cp,
-                  int start_width, int c_comp, int k, float* __restrict__ kd,
-                  int* __restrict__ ki, int* __restrict__ comparisons,
-                  int* __restrict__ overflow) {
-  extern __shared__ int smem[];
-  int* s = smem;                                      // Cp sorted candidates
-  int* comp = s + Cp;                                 // c_comp unique indices
-  float* dist = reinterpret_cast<float*>(comp + c_comp);  // c_comp distances
+namespace cg = cooperative_groups;
+
+constexpr int QT_CLUSTER_MAX = 8;
+
+struct TailArgs {
+  const float* data;     // (n, d)
+  const float* queries;  // (Q, d)
+  const int* cand;       // (Q, C)
+  int n, d, C, Cp, start_width, c_comp, k;
+  int vec;               // row load width of the narrow path
+  bool stage;            // wide path: rows through shared memory by cp.async
+  float* kd;
+  int* ki;
+  int* comparisons;
+  int* overflow;
+};
+
+// Dynamic shared memory of one block: the wide path's row slots, the
+// query, the merge's exchange buffers, comp and dist (the wrapper's
+// tail_smem_bytes computes the same).
+static size_t tail_smem_bytes(int d, int Cp, int c_comp, bool stage) {
+  const size_t e = static_cast<size_t>(Cp > QT_THREADS ? Cp : QT_THREADS);
+  return ((stage ? static_cast<size_t>(QT_WARPS) * d : 0) + d + 2 * e +
+          2 * static_cast<size_t>(c_comp)) * 4;
+}
+
+template <int E>
+__global__ void __launch_bounds__(QT_THREADS) query_tail_kernel(const TailArgs a) {
+  extern __shared__ __align__(16) float qt_smem[];
   __shared__ int warp_sums[32];
-  __shared__ float top_d[TOPK_MAX];
-  __shared__ int top_p[TOPK_MAX];
+  __shared__ int warp_last[32];
+  __shared__ float wl_d[QT_WARPS * TOPK_MAX];  // each warp's k nearest
+  __shared__ int wl_p[QT_WARPS * TOPK_MAX];
+  __shared__ float bl_d[TOPK_MAX];  // the block's k nearest
+  __shared__ int bl_p[TOPK_MAX];
 
-  const int qi = blockIdx.x;
-  const int total =
-      dedup_compact(cand + static_cast<size_t>(qi) * C, C, Cp, start_width,
-                    c_comp, s, comp, warp_sums);
-  const int nc = min(total, c_comp);
-
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int qi = blockIdx.x / cs;
+  const int d = a.d;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const float* qv = queries + static_cast<size_t>(qi) * d;
-  for (int r = warp; r < nc; r += blockDim.x >> 5) {
-    const int idx = min(max(comp[r], 0), n - 1);
-    const float acc = warp_l1_row(data + static_cast<size_t>(idx) * d, qv, d);
-    if (lane == 0) dist[r] = acc;
+  float* slots = qt_smem;                        // QT_WARPS rows of d (stage)
+  float* qs = slots + (a.stage ? QT_WARPS * d : 0);  // the query
+  int* xbuf = reinterpret_cast<int*>(qs + d);    // 2 * QT_THREADS * E
+  int* comp = xbuf + 2 * QT_THREADS * E;         // c_comp unique indices
+  float* dist = reinterpret_cast<float*>(comp + a.c_comp);  // their L1
+
+  const float* qv = a.queries + static_cast<size_t>(qi) * d;
+  for (int j = threadIdx.x; j < d; j += QT_THREADS) qs[j] = qv[j];
+  const int total = dedup_compact<E>(a.cand + static_cast<size_t>(qi) * a.C, a.C, a.Cp,
+                                     a.start_width, a.c_comp, xbuf, comp, warp_sums,
+                                     warp_last);
+  const int nc = min(total, a.c_comp);
+  const int share = (nc + cs - 1) / cs;
+  const int lo = min(rank * share, nc);
+  const int hi = min(lo + share, nc);
+  const int n1 = a.n - 1;
+
+  if (d <= QT_NARROW_D) {
+    l1_thread_rows(
+        a.vec, a.data, d, qs, lo, hi, [&](int r) { return min(max(comp[r], 0), n1); },
+        [&](int r, float v) { dist[r] = v; });
+  } else if (a.stage) {
+    float* slot = slots + warp * d;
+    for (int r = lo + warp; r < hi; r += QT_WARPS) {
+      const float* src = a.data + static_cast<size_t>(min(max(comp[r], 0), n1)) * d;
+      for (int c = lane; c < (d >> 2); c += 32) cp_async16(smem_addr(slot + 4 * c), src + 4 * c, 16);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncwarp();
+      const float v = l1_warp(slot, qs, d);
+      if (lane == 0) dist[r] = v;
+      __syncwarp();  // the slot is read before the next row lands in it
+    }
+  } else {
+    for (int r = lo + warp; r < hi; r += QT_WARPS) {
+      const float v = l1_warp(a.data + static_cast<size_t>(min(max(comp[r], 0), n1)) * d, qs, d);
+      if (lane == 0) dist[r] = v;
+    }
   }
   __syncthreads();
 
+  // the block's k nearest: warp w takes positions lo + 32w + lane + 256i
+  const int k = a.k;
+  const int span = ((hi - lo + QT_THREADS - 1) / QT_THREADS) * 32;
+  warp_topk_keys(
+      [&](int i, float& dv, int& pos) {
+        pos = lo + 32 * warp + (i & 31) + (i >> 5) * QT_THREADS;
+        dv = pos < hi ? dist[pos] : INFINITY;
+      },
+      span, k, wl_d + warp * k, wl_p + warp * k);
+  __syncthreads();
   if (warp == 0) {
-    warp_topk_smallest([&](int pos) { return dist[pos]; }, nc, k, top_d,
-                       top_p);
+    warp_topk_keys(
+        [&](int i, float& dv, int& pos) {
+          dv = wl_d[i];
+          pos = wl_p[i];
+        },
+        QT_WARPS * k, k, bl_d, bl_p);
+  }
+  float* top_d = bl_d;
+  int* top_p = bl_p;
+  if (cs > 1) {
+    cluster.sync();  // every block's list is in place
+    if (rank == 0 && warp == 0) {
+      warp_topk_keys(
+          [&](int i, float& dv, int& pos) {
+            const int q = i / k;
+            dv = cluster.map_shared_rank(&bl_d[0], q)[i - q * k];
+            pos = cluster.map_shared_rank(&bl_p[0], q)[i - q * k];
+          },
+          cs * k, k, wl_d, wl_p);
+    }
+    top_d = wl_d;
+    top_p = wl_p;
+    cluster.sync();  // block 0 has read the other blocks' lists
+  }
+  if (rank == 0 && warp == 0) {
     __syncwarp();
     const size_t o = static_cast<size_t>(qi) * k;
     for (int r = lane; r < k; r += 32) {
-      kd[o + r] = top_d[r];
-      ki[o + r] = top_p[r] >= 0 ? comp[top_p[r]] : -1;
+      a.kd[o + r] = top_d[r];
+      a.ki[o + r] = top_p[r] >= 0 ? comp[top_p[r]] : -1;
     }
     if (lane == 0) {
-      comparisons[qi] = total;
-      overflow[qi] = max(total - c_comp, 0);
+      a.comparisons[qi] = total;
+      a.overflow[qi] = max(total - a.c_comp, 0);
     }
   }
 }
 
+template <int E>
+static int launch(const TailArgs& a, int Q, int cs, cudaStream_t stream) {
+  const size_t smem = tail_smem_bytes(a.d, a.Cp, a.c_comp, a.stage);
+  int err = allow_dynamic_smem(query_tail_kernel<E>, smem);
+  if (err != 0) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(Q * cs);
+  cfg.blockDim = dim3(QT_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, query_tail_kernel<E>, a));
+}
+
+// Cp is the merge width (a power of two, C <= Cp <= 16,384), start_width the
+// run width the merge starts from, cluster the blocks per query (1, 2, 4 or
+// 8) and stage whether wide rows go through shared memory (d % 4 == 0 and
+// a 16-byte aligned data pointer). Returns the CUDA error code.
 extern "C" int query_tail_launch(const float* data, const float* queries,
                                  const int* cand, int n, int d, int Q, int C,
                                  int Cp, int start_width, int c_comp, int k,
-                                 float* kd, int* ki, int* comparisons,
-                                 int* overflow, void* stream) {
+                                 int cluster, int stage, float* kd, int* ki,
+                                 int* comparisons, int* overflow,
+                                 void* stream) {
   if (Q > 0) {
-    const size_t smem =
-        (static_cast<size_t>(Cp) + 2 * static_cast<size_t>(c_comp)) * 4;
-    const int err = allow_dynamic_smem(query_tail_kernel, smem);
+    const bool ok = C >= 1 && C <= Cp && (Cp & (Cp - 1)) == 0 && Cp <= 64 * QT_THREADS &&
+                    cluster >= 1 && cluster <= QT_CLUSTER_MAX && (cluster & (cluster - 1)) == 0 &&
+                    k >= 1 && k <= TOPK_MAX &&
+                    (!stage || (d % 4 == 0 && reinterpret_cast<uintptr_t>(data) % 16 == 0));
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+    const TailArgs a{data, queries, cand, n, d, C, Cp, start_width, c_comp, k,
+                     row_vec(data, d), stage != 0, kd, ki, comparisons, overflow};
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    int err;
+    switch (Cp <= QT_THREADS ? 1 : Cp / QT_THREADS) {
+      case 1: err = launch<1>(a, Q, cluster, st); break;
+      case 2: err = launch<2>(a, Q, cluster, st); break;
+      case 4: err = launch<4>(a, Q, cluster, st); break;
+      case 8: err = launch<8>(a, Q, cluster, st); break;
+      case 16: err = launch<16>(a, Q, cluster, st); break;
+      case 32: err = launch<32>(a, Q, cluster, st); break;
+      default: err = launch<64>(a, Q, cluster, st); break;
+    }
     if (err != 0) return err;
-    query_tail_kernel<<<Q, QT_THREADS, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-        data, queries, cand, n, d, C, Cp, start_width, c_comp, k, kd, ki,
-        comparisons, overflow);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,25 +16,29 @@
 // top-k over that row (ties to the lowest position) gives kd and ki. A miss
 // is a valid, unshortlisted position with ad - qerr <= kd[k-1]; zero misses
 // certify kd/ki equal to kernel D's on the same index, bit for bit, because
-// both use the same warp_l1_row.
+// both compute the exact L1 with the same device functions (l1_warp and
+// l1_thread_rows in tail_common.cuh).
 //
 // What bounds it on an H100: the gathers at data-dependent addresses, as
 // for D — each compacted candidate's d quantized values plus 8 bytes of
 // meta (30 B + 8 for i8, 60 B + 8 for f16 at d = 30), then d f32 values for
 // each of the cr shortlisted rows; the merge network, the scan and the
-// shortlist sort are shared-memory work on a few tens of KB per query.
+// shortlist sort are on-chip work on a few tens of KB per query.
 // Design: one block of 256 threads per query, everything per query held in
-// shared memory (candidate row, comp, ad, qerr, exact distances, shortlist
-// flags, 64-bit sort keys). The approximate pass runs one thread per
-// compacted position, summing its row's coordinates in ascending order with
+// shared memory (comp, ad, qerr, exact distances, shortlist flags, 64-bit
+// sort keys); the candidate row is merged in registers by kernel D's code
+// (tail_common.cuh). The approximate pass runs one thread per compacted
+// position, summing its row's coordinates in ascending order with
 // round-to-nearest intrinsics (no FMA contraction), so ad — and so the
 // shortlist and the miss count — equal the plain version's exactly. The
 // shortlist is a block-wide bitonic sort of (order-preserving ad bits,
 // position) keys over next_pow2(c_comp) entries, since cr may be as large as
-// c_comp (beyond the warp top-k's TOPK_MAX). The exact rerank is one warp
-// per shortlisted row, the final top-k is warp 0's warp_topk_smallest, and
-// the miss count a block reduction. cp.async/TMA staging of the quantized
-// rows and several queries per block are later work.
+// c_comp (beyond the warp top-k's TOPK_MAX). The exact rerank computes
+// kernel D's L1 with D's device functions (one thread per shortlisted row
+// up to d = 32, one warp per row beyond), so a query with no miss gets D's
+// bits; the final top-k is warp 0's warp_topk_smallest, and the miss count a
+// block reduction. cp.async/TMA staging of the quantized rows and several
+// queries per block are later work.
 #include <cuda_fp16.h>
 
 #include "tail_common.cuh"
@@ -53,7 +57,7 @@ __device__ __forceinline__ uint32_t ordered_bits(float f) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-template <class T>
+template <class T, int E>
 __global__ void __launch_bounds__(QT_THREADS)
 query_tail_payload_kernel(const float* __restrict__ data,
                           const T* __restrict__ qdata,
@@ -61,20 +65,21 @@ query_tail_payload_kernel(const float* __restrict__ data,
                           const float* __restrict__ queries,
                           const int* __restrict__ cand, int n, int d, int C,
                           int Cp, int start_width, int c_comp, int c_keys,
-                          int cr, int k, float* __restrict__ kd,
+                          int cr, int k, int vec, float* __restrict__ kd,
                           int* __restrict__ ki, int* __restrict__ comparisons,
                           int* __restrict__ overflow,
                           int* __restrict__ misses) {
   extern __shared__ unsigned long long smem_keys[];
   unsigned long long* keys = smem_keys;  // c_keys shortlist sort keys
-  int* s = reinterpret_cast<int*>(keys + c_keys);  // Cp sorted candidates
-  int* comp = s + Cp;                               // c_comp unique indices
+  int* xbuf = reinterpret_cast<int*>(keys + c_keys);  // the merge's exchange
+  int* comp = xbuf + 2 * QT_THREADS * E;              // c_comp unique indices
   float* ad = reinterpret_cast<float*>(comp + c_comp);  // approximate L1
   float* qerr = ad + c_comp;  // per-position quantization error bound
   float* ed = qerr + c_comp;  // exact L1 in position order, +inf off list
   float* qs = ed + c_comp;    // the query row (d floats)
   int* in_short = reinterpret_cast<int*>(qs + d);  // c_comp shortlist flags
   __shared__ int warp_sums[32];
+  __shared__ int warp_last[32];
   __shared__ float top_d[TOPK_MAX];
   __shared__ int top_p[TOPK_MAX];
 
@@ -82,8 +87,8 @@ query_tail_payload_kernel(const float* __restrict__ data,
   const float* qv = queries + static_cast<size_t>(qi) * d;
   for (int j = threadIdx.x; j < d; j += blockDim.x) qs[j] = qv[j];
   const int total =
-      dedup_compact(cand + static_cast<size_t>(qi) * C, C, Cp, start_width,
-                    c_comp, s, comp, warp_sums);
+      dedup_compact<E>(cand + static_cast<size_t>(qi) * C, C, Cp, start_width,
+                       c_comp, xbuf, comp, warp_sums, warp_last);
   const int nc = min(total, c_comp);
 
   // approximate pass: one thread per compacted position
@@ -116,18 +121,27 @@ query_tail_payload_kernel(const float* __restrict__ data,
   // shortlist: the cr smallest (ad, position) keys
   bitonic_merge_from(keys, c_keys, 1);
 
-  // exact rerank, one warp per shortlisted row
+  // exact rerank of the shortlisted rows with kernel D's L1
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  for (int i = warp; i < cr; i += blockDim.x >> 5) {
-    const int pos = static_cast<int>(keys[i] & 0xffffffffu);
-    if (pos < nc) {
-      const int idx = min(max(comp[pos], 0), n - 1);
-      const float e = warp_l1_row(data + static_cast<size_t>(idx) * d, qs, d);
-      if (lane == 0) ed[pos] = e;
+  auto short_pos = [&](int i) { return static_cast<int>(keys[i] & 0xffffffffu); };
+  auto row_of = [&](int i) {
+    const int pos = short_pos(i);
+    return pos < nc ? min(max(comp[pos], 0), n - 1) : -1;
+  };
+  if (d <= QT_NARROW_D) {
+    l1_thread_rows(vec, data, d, qs, 0, cr, row_of,
+                   [&](int i, float e) { ed[short_pos(i)] = e; });
+  } else {
+    for (int i = warp; i < cr; i += QT_WARPS) {
+      const int idx = row_of(i);
+      if (idx >= 0) {
+        const float e = l1_warp(data + static_cast<size_t>(idx) * d, qs, d);
+        if (lane == 0) ed[short_pos(i)] = e;
+      }
     }
-    if (lane == 0) in_short[pos] = 1;
   }
+  for (int i = threadIdx.x; i < cr; i += QT_THREADS) in_short[short_pos(i)] = 1;
   __syncthreads();
 
   // exact top-k in position order (ties to the lowest position)
@@ -164,10 +178,29 @@ query_tail_payload_kernel(const float* __restrict__ data,
 // Dynamic shared memory of one block, in bytes (the wrapper checks the same
 // sum against its budget).
 static size_t payload_smem_bytes(int Cp, int c_comp, int c_keys, int d) {
+  const size_t e = static_cast<size_t>(Cp > QT_THREADS ? Cp : QT_THREADS);
   return static_cast<size_t>(c_keys) * 8 +
-         (static_cast<size_t>(Cp) + 5 * static_cast<size_t>(c_comp) + d) * 4;
+         (2 * e + 5 * static_cast<size_t>(c_comp) + d) * 4;
 }
 
+template <class T, int E>
+static int launch_e(const float* data, const T* qdata, const float* meta,
+                    const float* queries, const int* cand, int n, int d, int Q,
+                    int C, int Cp, int start_width, int c_comp, int c_keys,
+                    int cr, int k, float* kd, int* ki, int* comparisons,
+                    int* overflow, int* misses, cudaStream_t stream) {
+  const size_t smem = payload_smem_bytes(Cp, c_comp, c_keys, d);
+  const int err = allow_dynamic_smem(query_tail_payload_kernel<T, E>, smem);
+  if (err != 0) return err;
+  query_tail_payload_kernel<T, E><<<Q, QT_THREADS, smem, stream>>>(
+      data, qdata, meta, queries, cand, n, d, C, Cp, start_width, c_comp,
+      c_keys, cr, k, row_vec(data, d), kd, ki, comparisons, overflow, misses);
+  return 0;
+}
+
+// Cp is the merge width (a power of two, C <= Cp <= 16,384) and
+// start_width the run width the merge starts from; the columns past C count
+// as -1. Returns the CUDA error code.
 template <class T>
 static int launch(const float* data, const T* qdata, const float* meta,
                   const float* queries, const int* cand, int n, int d, int Q,
@@ -175,13 +208,25 @@ static int launch(const float* data, const T* qdata, const float* meta,
                   int cr, int k, float* kd, int* ki, int* comparisons,
                   int* overflow, int* misses, void* stream) {
   if (Q > 0) {
-    const size_t smem = payload_smem_bytes(Cp, c_comp, c_keys, d);
-    const int err = allow_dynamic_smem(query_tail_payload_kernel<T>, smem);
+    if (!(C >= 1 && C <= Cp && (Cp & (Cp - 1)) == 0 && Cp <= 64 * QT_THREADS))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define QTP_LAUNCH(E)                                                        \
+  launch_e<T, E>(data, qdata, meta, queries, cand, n, d, Q, C, Cp,           \
+                 start_width, c_comp, c_keys, cr, k, kd, ki, comparisons,    \
+                 overflow, misses, st)
+    int err;
+    switch (Cp <= QT_THREADS ? 1 : Cp / QT_THREADS) {
+      case 1: err = QTP_LAUNCH(1); break;
+      case 2: err = QTP_LAUNCH(2); break;
+      case 4: err = QTP_LAUNCH(4); break;
+      case 8: err = QTP_LAUNCH(8); break;
+      case 16: err = QTP_LAUNCH(16); break;
+      case 32: err = QTP_LAUNCH(32); break;
+      default: err = QTP_LAUNCH(64); break;
+    }
+#undef QTP_LAUNCH
     if (err != 0) return err;
-    query_tail_payload_kernel<T><<<Q, QT_THREADS, smem,
-                                   static_cast<cudaStream_t>(stream)>>>(
-        data, qdata, meta, queries, cand, n, d, C, Cp, start_width, c_comp,
-        c_keys, cr, k, kd, ki, comparisons, overflow, misses);
   }
   return static_cast<int>(cudaGetLastError());
 }

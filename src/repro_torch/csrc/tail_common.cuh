@@ -1,69 +1,124 @@
 // Stages shared by the fused query tails (kernel D, query_fused.cu, and
-// kernel E, query_payload.cu): load a query's candidate row into shared
-// memory, merge its ascending runs, rank the first occurrences with a block
-// scan and compact the first c_comp unique indices, plus the warp-per-row L1
-// distance both tails use for their exact f32 distances. Keeping one copy
-// is what makes E's exact top-k bit-identical to D's on the same rows.
+// kernel E, query_payload.cu): merge a query's candidate runs, rank the
+// first occurrences with a block scan and compact the first c_comp unique
+// indices, plus the L1 distance both tails use for their exact f32
+// distances. Keeping one copy is what makes E's exact top-k bit-identical
+// to D's on the same rows.
 #pragma once
 
 #include "topk.cuh"
 
-constexpr int QT_THREADS = 256;  // one block of 256 threads per query
+constexpr int QT_THREADS = 256;  // threads of a query's block
+constexpr int QT_WARPS = QT_THREADS / 32;
+constexpr int QT_NARROW_D = 32;  // rows this narrow: one thread per row
 constexpr int SENT = INT_MAX;    // sorts after any real index
 
-__device__ __forceinline__ bool first_occurrence(const int* s, int i) {
-  return s[i] != SENT && (i == 0 || s[i] != s[i - 1]);
+// ------------------------------------------------------------ the merge
+//
+// A block holds a row of Cp <= QT_THREADS * E candidates in registers,
+// E contiguous elements per thread (element e = thread * E + register), so
+// a warp spans 32 * E elements. A compare-exchange at a distance below E
+// stays in a thread's registers, one below 32 * E is a __shfl_xor_sync,
+// and only the wider ones go through shared memory with one barrier each
+// (two buffers in turn, so a step's writes never meet the previous step's
+// reads). From run width 16 to Cp = 1,024 (E = 4) that is 6 barriers.
+
+template <int E>
+__device__ __forceinline__ void cmp_swap_regs(int (&v)[E], int a, int b) {
+  const int lo = min(v[a], v[b]);
+  v[b] = max(v[a], v[b]);
+  v[a] = lo;
 }
 
-// Exclusive prefix sum of v over the block in thread order; the block total
-// is left in warp_sums[nwarps - 1]. Ends with __syncthreads().
-__device__ inline int block_exclusive_scan(int v, int* warp_sums) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  int incl = v;
-  for (int off = 1; off < 32; off <<= 1) {
-    const int t = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += t;
+// w[r] = the partner thread's v[src(r)], the partner being this thread with
+// its index xor'ed by tmask: a shuffle inside a warp, shared memory across
+// warps (xbuf: 2 * QT_THREADS * E ints, *cur the buffer to use next).
+template <int E, class Src>
+__device__ __forceinline__ void exchange(const int (&v)[E], int (&w)[E],
+                                         int tmask, bool in_warp, int* xbuf,
+                                         int* cur, Src src) {
+  if (in_warp) {
+#pragma unroll
+    for (int r = 0; r < E; ++r) w[r] = __shfl_xor_sync(0xffffffffu, v[src(r)], tmask);
+    return;
   }
-  if (lane == 31) warp_sums[warp] = incl;
+  int* buf = xbuf + *cur * QT_THREADS * E;
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int r = 0; r < E; ++r) buf[r * QT_THREADS + t] = v[r];
   __syncthreads();
-  if (warp == 0) {
-    int s = lane < nw ? warp_sums[lane] : 0;
-    for (int off = 1; off < 32; off <<= 1) {
-      const int t = __shfl_up_sync(0xffffffffu, s, off);
-      if (lane >= off) s += t;
+#pragma unroll
+  for (int r = 0; r < E; ++r) w[r] = buf[src(r) * QT_THREADS + (t ^ tmask)];
+  *cur ^= 1;
+}
+
+// Sort the block's row ascending given that every aligned block of
+// start_width elements already ascends (Cp, start_width powers of two):
+// merge ascending blocks of size/2 into ascending blocks of size by
+// comparing each element with its mirror in the partner block, then
+// half-cleaning with halving strides. From width 1 this is a full bitonic
+// sort; from the run width it only merges the runs. Elements past Cp hold
+// SENT and never meet one below it.
+template <int E>
+__device__ void bitonic_merge_regs(int (&v)[E], int Cp, int start_width,
+                                   int* xbuf) {
+  constexpr int WSPAN = 32 * E;  // elements a warp holds
+  const int t = threadIdx.x;
+  int cur = 0;
+  int w[E];
+  for (int size = start_width << 1; size <= Cp; size <<= 1) {
+    if (size <= E) {  // mirror inside a thread
+#pragma unroll
+      for (int sz = 2; sz <= E; sz <<= 1) {
+        if (sz == size) {
+#pragma unroll
+          for (int r = 0; r < E; ++r)
+            if (r < (r ^ (sz - 1))) cmp_swap_regs(v, r, r ^ (sz - 1));
+        }
+      }
+    } else {  // element t*E + r meets (t ^ (size/E - 1))*E + E-1-r
+      exchange(v, w, size / E - 1, size <= WSPAN, xbuf, &cur,
+               [](int r) { return E - 1 - r; });
+      const bool lower = (t & (size / (2 * E))) == 0;
+#pragma unroll
+      for (int r = 0; r < E; ++r) v[r] = lower ? min(v[r], w[r]) : max(v[r], w[r]);
     }
-    if (lane < nw) warp_sums[lane] = s;  // inclusive warp totals
+    for (int st = size >> 2; st >= E; st >>= 1) {  // across threads
+      exchange(v, w, st / E, st < WSPAN, xbuf, &cur, [](int r) { return r; });
+      const bool lower = (t & (st / E)) == 0;
+#pragma unroll
+      for (int r = 0; r < E; ++r) v[r] = lower ? min(v[r], w[r]) : max(v[r], w[r]);
+    }
+#pragma unroll
+    for (int s = E >> 1; s > 0; s >>= 1) {  // inside a thread
+      if (s <= (size >> 2)) {
+#pragma unroll
+        for (int r = 0; r < E; ++r)
+          if (r < (r ^ s)) cmp_swap_regs(v, r, r ^ s);
+      }
+    }
   }
-  __syncthreads();
-  return (warp > 0 ? warp_sums[warp - 1] : 0) + incl - v;
 }
 
-// Sort s[0, n) ascending (n a power of two) given that every aligned block
-// of start_width already ascends: merge ascending blocks of size/2 into
-// ascending blocks of size by comparing each element with its mirror in the
-// partner block, then half-cleaning with halving strides. From width 1 this
-// is a full bitonic sort; from the run width it only merges the runs.
-// Ends with __syncthreads().
+// Sort s[0, n) in shared memory the same way (n a power of two), for keys
+// wider than the register form takes. Ends with __syncthreads().
 template <class K>
 __device__ void bitonic_merge_from(K* s, int n, int start_width) {
   const int half_n = n >> 1;
   for (int size = start_width << 1; size <= n; size <<= 1) {
-    const int half = size >> 1;
+    const int lg = __ffs(size) - 2;  // log2(size / 2)
     for (int i = threadIdx.x; i < half_n; i += blockDim.x) {
-      const int blk = i / half;
-      const int j = i - blk * half;
-      const int a = blk * size + j;
-      const int b = blk * size + size - 1 - j;
+      const int j = i & ((1 << lg) - 1);
+      const int a = ((i >> lg) << (lg + 1)) + j;
+      const int b = a ^ (size - 1);
       const K va = s[a], vb = s[b];
       if (va > vb) { s[a] = vb; s[b] = va; }
     }
     __syncthreads();
-    for (int stride = half >> 1; stride > 0; stride >>= 1) {
+    for (int ls = lg - 1; ls >= 0; --ls) {
       for (int i = threadIdx.x; i < half_n; i += blockDim.x) {
-        const int a = (i / stride) * 2 * stride + i % stride;
-        const int b = a + stride;
+        const int a = ((i >> ls) << (ls + 1)) + (i & ((1 << ls) - 1));
+        const int b = a + (1 << ls);
         const K va = s[a], vb = s[b];
         if (va > vb) { s[a] = vb; s[b] = va; }
       }
@@ -72,31 +127,66 @@ __device__ void bitonic_merge_from(K* s, int n, int start_width) {
   }
 }
 
-// Stages 3-4 for one query row of `C` candidates (-1 = masked) padded to
-// Cp: sort the row into s[0, Cp) from its runs, write the first c_comp
-// unique indices ascending to comp[0, min(total, c_comp)), and return
-// total (the query's `comparisons`). Ends with __syncthreads().
-__device__ inline int dedup_compact(const int* __restrict__ row, int C,
-                                    int Cp, int start_width, int c_comp,
-                                    int* s, int* comp, int* warp_sums) {
-  for (int i = threadIdx.x; i < Cp; i += blockDim.x) {
-    const int v = i < C ? row[i] : -1;
-    s[i] = v < 0 ? SENT : v;
+// Exclusive prefix sum of v over the block in thread order; the block total
+// is left in warp_sums[QT_WARPS - 1]. Ends with __syncthreads().
+__device__ inline int block_exclusive_scan(int v, int* warp_sums) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int incl = v;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int t = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += t;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int s = lane < QT_WARPS ? warp_sums[lane] : 0;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, s, off);
+      if (lane >= off) s += t;
+    }
+    if (lane < QT_WARPS) warp_sums[lane] = s;  // inclusive warp totals
   }
   __syncthreads();
-  bitonic_merge_from(s, Cp, start_width);
+  return (warp > 0 ? warp_sums[warp - 1] : 0) + incl - v;
+}
 
-  // rank first occurrences: each thread owns a contiguous slice of the row
-  const int per = (Cp + blockDim.x - 1) / blockDim.x;
-  const int lo = min(static_cast<int>(threadIdx.x) * per, Cp);
-  const int hi = min(lo + per, Cp);
+// Stages 3-4 for one query row of `C` candidates (-1 = masked; columns
+// C..Cp-1 count as -1): sort the row from its runs in registers, write the
+// first c_comp unique indices ascending to comp[0, min(total, c_comp)), and
+// return total (the query's `comparisons`). xbuf holds 2 * QT_THREADS * E
+// ints; warp_sums and warp_last 32 each. Ends with __syncthreads().
+template <int E>
+__device__ int dedup_compact(const int* __restrict__ row, int C, int Cp,
+                             int start_width, int c_comp, int* xbuf,
+                             int* comp, int* warp_sums, int* warp_last) {
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  int v[E];
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    const int e = t * E + r;
+    const int x = e < C ? row[e] : -1;
+    v[r] = x < 0 ? SENT : x;
+  }
+  bitonic_merge_regs(v, Cp, start_width, xbuf);
+
+  // first occurrences, ranked in element order
+  int prev = __shfl_up_sync(0xffffffffu, v[E - 1], 1);
+  if (lane == 31) warp_last[warp] = v[E - 1];
+  __syncthreads();
+  if (lane == 0) prev = warp > 0 ? warp_last[warp - 1] : -1;
   int local = 0;
-  for (int i = lo; i < hi; ++i) local += first_occurrence(s, i);
+#pragma unroll
+  for (int r = 0; r < E; ++r)
+    local += v[r] != SENT && v[r] != (r > 0 ? v[r - 1] : prev);
   int rank = block_exclusive_scan(local, warp_sums);
-  const int total = warp_sums[(blockDim.x >> 5) - 1];
-  for (int i = lo; i < hi; ++i) {
-    if (first_occurrence(s, i)) {
-      if (rank < c_comp) comp[rank] = s[i];
+  const int total = warp_sums[QT_WARPS - 1];
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    if (v[r] != SENT && v[r] != (r > 0 ? v[r - 1] : prev)) {
+      if (rank < c_comp) comp[rank] = v[r];
       ++rank;
     }
   }
@@ -104,16 +194,102 @@ __device__ inline int dedup_compact(const int* __restrict__ row, int C,
   return total;
 }
 
-// L1 distance of data row x to query qv over d coordinates, computed by one
-// warp: lane l sums coordinates l, l+32, ... and a butterfly adds the lanes.
-// Every lane returns the same sum. Loads are coalesced across the lanes.
-__device__ __forceinline__ float warp_l1_row(const float* __restrict__ x,
-                                             const float* __restrict__ qv,
-                                             int d) {
+// ------------------------------------------------------------ the L1 order
+//
+// Both tails' exact L1 distance, the same bits on every path: lane class l
+// (0..31) sums |x_j - q_j| over j = l, l+32, ... in ascending order from 0,
+// and the 32 class sums fold by the butterfly a_l = a_l + a_(l^16), then
+// ^8, ^4, ^2, ^1 (a float add is commutative, so a lane and its partner
+// agree); the distance is a_0. l1_warp computes it with one warp per row
+// (lane l is class l: loads coalesced, any d); l1_thread with one thread
+// per row of d <= 32 coordinates (class l holds coordinate l alone),
+// replaying the butterfly in registers.
+
+template <class X>
+__device__ __forceinline__ float l1_warp(const X* __restrict__ x,
+                                         const float* __restrict__ q, int d) {
   const int lane = threadIdx.x & 31;
   float acc = 0.0f;
-  for (int j = lane; j < d; j += 32) acc += fabsf(x[j] - qv[j]);
+#pragma unroll 8
+  for (int j = lane; j < d; j += 32)
+    acc = __fadd_rn(acc, fabsf(__fsub_rn(x[j], q[j])));
+#pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, off));
   return acc;
+}
+
+// The class sums of a row of d <= 32 coordinates, loaded V floats at a
+// time (V divides d, and the row is 4V-byte aligned): a[l] = |x_l - q_l|
+// (0 + y is y), 0 past d.
+template <int V>
+__device__ __forceinline__ void l1_load32(const float* __restrict__ x,
+                                          const float* __restrict__ q, int d,
+                                          float (&a)[32]) {
+#pragma unroll
+  for (int j = 0; j < 32; j += V) {
+    if (j < d) {
+      if constexpr (V == 4) {
+        const float4 v = *reinterpret_cast<const float4*>(x + j);
+        a[j] = fabsf(__fsub_rn(v.x, q[j]));
+        a[j + 1] = fabsf(__fsub_rn(v.y, q[j + 1]));
+        a[j + 2] = fabsf(__fsub_rn(v.z, q[j + 2]));
+        a[j + 3] = fabsf(__fsub_rn(v.w, q[j + 3]));
+      } else if constexpr (V == 2) {
+        const float2 v = *reinterpret_cast<const float2*>(x + j);
+        a[j] = fabsf(__fsub_rn(v.x, q[j]));
+        a[j + 1] = fabsf(__fsub_rn(v.y, q[j + 1]));
+      } else {
+        a[j] = fabsf(__fsub_rn(x[j], q[j]));
+      }
+    } else {
+#pragma unroll
+      for (int m = 0; m < V; ++m) a[j + m] = 0.0f;
+    }
+  }
+}
+
+__device__ __forceinline__ float l1_fold32(float (&a)[32]) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int l = 0; l < off; ++l) a[l] = __fadd_rn(a[l], a[l + off]);
+  return a[0];
+}
+
+// Widest row load (4, 2 or 1 floats) that d and the base address allow.
+inline int row_vec(const float* data, int d) {
+  const uintptr_t p = reinterpret_cast<uintptr_t>(data);
+  if (d % 4 == 0 && p % 16 == 0) return 4;
+  if (d % 2 == 0 && p % 8 == 0) return 2;
+  return 1;
+}
+
+// Exact distances of the rows i in [i0, i1), one thread per row (d <=
+// QT_NARROW_D), two rows per thread at a time so both rows' loads are in
+// flight together; row_of(i) is the row's data index (< 0 skips it) and
+// store(i, dist) takes the result.
+template <int V, class RowOf, class Store>
+__device__ void l1_thread_rows(const float* __restrict__ data, int d,
+                               const float* __restrict__ q, int i0, int i1,
+                               RowOf row_of, Store store) {
+  for (int i = i0 + threadIdx.x; i < i1; i += 2 * blockDim.x) {
+    const int i2 = i + blockDim.x;
+    const int ra = row_of(i);
+    const int rb = i2 < i1 ? row_of(i2) : -1;
+    float a[32], b[32];
+    l1_load32<V>(data + static_cast<size_t>(max(ra, 0)) * d, q, d, a);
+    l1_load32<V>(data + static_cast<size_t>(max(rb, 0)) * d, q, d, b);
+    if (ra >= 0) store(i, l1_fold32(a));
+    if (rb >= 0) store(i2, l1_fold32(b));
+  }
+}
+
+template <class RowOf, class Store>
+__device__ void l1_thread_rows(int vec, const float* __restrict__ data, int d,
+                               const float* __restrict__ q, int i0, int i1,
+                               RowOf row_of, Store store) {
+  if (vec == 4) l1_thread_rows<4>(data, d, q, i0, i1, row_of, store);
+  else if (vec == 2) l1_thread_rows<2>(data, d, q, i0, i1, row_of, store);
+  else l1_thread_rows<1>(data, d, q, i0, i1, row_of, store);
 }

@@ -1,9 +1,9 @@
 // Warp-level top-k smallest on (distance, position) keys.
 //
 // Shared by the l1_topk kernel (one warp per query row) and the fused query
-// tail (warp 0 of each query's block). Order: smaller distance first, then
-// lower position — the lowest-position tie rule of lax.top_k that the JAX
-// package's Pallas kernels rely on.
+// tails (every warp of a query's block, then one warp over their lists).
+// Order: smaller distance first, then lower position — the lowest-position
+// tie rule of lax.top_k that the JAX package's Pallas kernels rely on.
 #pragma once
 
 #include "common.cuh"
@@ -14,21 +14,25 @@ __device__ __forceinline__ bool key_less(float da, int pa, float db, int pb) {
   return da < db || (da == db && pa < pb);
 }
 
-// k smallest of dist(pos) over pos in [0, n), written ascending to
-// out_d/out_p[0..k). Lane l scans positions l, l+32, ... in ascending order,
-// keeping its own sorted list of at most k keys; then k rounds of a
-// warp-wide butterfly argmin pop the lists in global order. Infinite (masked)
-// distances never enter a list, so slots past the last finite candidate come
-// out as (inf, -1). Every lane of the warp must call it with the same n, k.
-template <class DistFn>
-__device__ void warp_topk_smallest(DistFn dist, int n, int k, float* out_d,
-                                   int* out_p) {
+// k smallest keys over candidates i in [0, n), written ascending to
+// out_d/out_p[0..k); key(i, dv, pos) sets candidate i's distance and
+// position (positions are distinct). Lane l scans i = l, l+32, ... keeping
+// its own sorted list of at most k keys; then k rounds of a warp-wide
+// butterfly argmin pop the lists in global order. Infinite (masked)
+// distances never enter a list, so slots past the last finite candidate
+// come out as (inf, -1). Every lane of the warp must call it with the same
+// n, k.
+template <class KeyFn>
+__device__ void warp_topk_keys(KeyFn key, int n, int k, float* out_d,
+                               int* out_p) {
   const int lane = threadIdx.x & 31;
   float ld[TOPK_MAX];
   int lp[TOPK_MAX];
   int cnt = 0;
-  for (int pos = lane; pos < n; pos += 32) {
-    const float dv = dist(pos);
+  for (int i = lane; i < n; i += 32) {
+    float dv;
+    int pos;
+    key(i, dv, pos);
     if (!(dv < INFINITY)) continue;
     if (cnt == k && !key_less(dv, pos, ld[k - 1], lp[k - 1])) continue;
     int j = cnt < k ? cnt++ : k - 1;
@@ -58,4 +62,17 @@ __device__ void warp_topk_smallest(DistFn dist, int n, int k, float* out_d,
       out_p[r] = bp == INT_MAX ? -1 : bp;
     }
   }
+}
+
+// k smallest of dist(pos) over pos in [0, n): warp_topk_keys with each
+// candidate's own index as its position.
+template <class DistFn>
+__device__ void warp_topk_smallest(DistFn dist, int n, int k, float* out_d,
+                                   int* out_p) {
+  warp_topk_keys(
+      [&](int i, float& dv, int& pos) {
+        dv = dist(i);
+        pos = i;
+      },
+      n, k, out_d, out_p);
 }

@@ -37,13 +37,9 @@ def _check_common(x: torch.Tensor, cols: int, *others: torch.Tensor) -> None:
     _require(cols % 32 == 0, f"column count {cols} must be a multiple of 32")
 
 
-def _outputs(x: torch.Tensor, cols: int, margins: bool):
-    words = torch.empty((x.shape[0], cols // 32), dtype=torch.int32, device=x.device)
-    mg = torch.empty((x.shape[0], cols), dtype=torch.float32, device=x.device) if margins else None
-    return words, mg
-
-
 def _finish(words: torch.Tensor, mg: torch.Tensor | None):
+    """Kernel B's int32 words widened to the callers' int64 (32 bits,
+    zero-extended)."""
     words = words.to(torch.int64) & hashing.MASK32
     return (words, mg) if mg is not None else words
 
@@ -52,14 +48,16 @@ def bitsample_pack(
     x: torch.Tensor, dims: torch.Tensor, thrs: torch.Tensor, margins: bool = False
 ):
     """Kernel A: x (T, d) f32, dims (M,) int32 in [0, d), thrs (M,) f32 ->
-    words (T, M/32) int64 [, margins (T, M) f32]."""
+    words (T, M/32) int64 [, margins (T, M) f32], in one launch (the kernel
+    writes the int64 words itself)."""
     if x.device.type == "cpu":
         return ref.bitsample_pack_ref(x, dims, thrs, margins)
     cols = dims.shape[0]
     _check_common(x, cols, dims, thrs)
     _require(dims.dtype == torch.int32 and thrs.dtype == torch.float32
              and thrs.shape == dims.shape, "dims int32 and thrs float32, both (M,)")
-    words, mg = _outputs(x, cols, margins)
+    words = torch.empty((x.shape[0], cols // 32), dtype=torch.int64, device=x.device)
+    mg = torch.empty((x.shape[0], cols), dtype=torch.float32, device=x.device) if margins else None
     lib = _build.library("hash_pack", _SIGNATURES)
     err = lib.bitsample_pack_launch(
         x.data_ptr(), dims.data_ptr(), thrs.data_ptr(), x.shape[0], x.shape[1],
@@ -67,9 +65,10 @@ def bitsample_pack(
         _build.stream_ptr(x),
     )
     _build.check(lib, err, "bitsample_pack")
-    if mg is not None:  # the multiprobe mode's launches, counted apart too
-        _build.count_launch("bitsample_pack.margins")
-    return _finish(words, mg)
+    if mg is None:
+        return words
+    _build.count_launch("bitsample_pack.margins")  # the multiprobe mode's launches, counted apart too
+    return words, mg
 
 
 def proj_sign_pack(
@@ -87,7 +86,8 @@ def proj_sign_pack(
              "proj (d, M) and bias (M,) must be float32")
     _require(m_pad % 32 == 0 and cols % m_pad == 0 and 0 < m <= m_pad,
              f"bad column layout m={m}, m_pad={m_pad}, M={cols}")
-    words, mg = _outputs(x, cols, margins)
+    words = torch.empty((x.shape[0], cols // 32), dtype=torch.int32, device=x.device)
+    mg = torch.empty((x.shape[0], cols), dtype=torch.float32, device=x.device) if margins else None
     lib = _build.library("hash_pack", _SIGNATURES)
     err = lib.proj_sign_pack_launch(
         x.data_ptr(), proj.data_ptr(), bias.data_ptr(), x.shape[0], x.shape[1],

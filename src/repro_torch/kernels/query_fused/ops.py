@@ -10,23 +10,32 @@ kernel E) replaces ``query_tail_payload_pallas`` as
 over f16/i8 payload rows, a ``c_rerank`` shortlist reranked exactly in f32,
 and the rerank-margin miss count, equal to ``ref.query_tail_payload_ref``.
 
-The wrappers own the launch shape: they pad the candidate width with ``-1``
-columns to a multiple of ``run`` holding a power-of-two number of runs, as
-``repro/kernels/query_fused/ops.py`` does, and the kernels merge runs from
-the run width up when the run is a power of two (a full in-block sort
-otherwise).
+The wrappers own the launch shape (:func:`launch_shape`): they pass the real
+candidate width ``C`` (the kernels count the columns past it as ``-1``, so
+nothing is padded or copied), the merge width ``cp`` (the next power of two)
+and the run width the merge starts from when the run is a power of two (a
+full in-block sort otherwise), and, for kernel D, how many blocks of a
+thread-block cluster share a query and whether wide rows go through shared
+memory.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.blocking import next_pow2, pad_axis, round_up
+from repro_torch.kernels.blocking import next_pow2
 from repro_torch.kernels.query_fused import ref
 
 TOPK_MAX = 32  # csrc/topk.cuh
+QT_THREADS = 256  # csrc/tail_common.cuh: threads of a query's block
+NARROW_D = 32  # csrc/tail_common.cuh QT_NARROW_D: one thread per row up to here
+CP_MAX = 64 * QT_THREADS  # widest merge a block holds in registers
+CLUSTER_MAX = 8  # csrc/query_fused.cu: blocks per query
+_STAGE_MAX = 128 * 1024  # kernel D's row slots (one row per warp) may take this much
 _SMEM_MAX = 200 * 1024  # dynamic shared memory a block may ask for here
-_SIGNATURES = {"query_tail_launch": [_build.PTR] * 3 + [_build.INT] * 8 + [_build.PTR] * 5}
+_SIGNATURES = {"query_tail_launch": [_build.PTR] * 3 + [_build.INT] * 10 + [_build.PTR] * 5}
 _PAYLOAD_LAUNCH = [_build.PTR] * 5 + [_build.INT] * 10 + [_build.PTR] * 6
 _PAYLOAD_SIGNATURES = {
     "query_tail_payload_f16_launch": _PAYLOAD_LAUNCH,
@@ -35,19 +44,56 @@ _PAYLOAD_SIGNATURES = {
 _PAYLOAD_DTYPES = {torch.float16: "f16", torch.int8: "i8"}
 
 
-def _run_padded_width(c: int, run: int) -> int:
-    """The next multiple of ``run`` holding a power-of-two number of runs."""
-    return run * next_pow2(round_up(max(c, 1), run) // run)
+def merge_shape(c: int, run: int) -> tuple[int, int]:
+    """The merge width for ``c`` candidate columns (the next power of two)
+    and the width the merge starts from: the run when it is a power of two
+    (every aligned run of the row ascends, the columns past ``c`` included),
+    else 1, a full sort."""
+    cp = next_pow2(c)
+    return cp, (min(run, cp) if run & (run - 1) == 0 else 1)
 
 
-def _launch_rows(cand: torch.Tensor, run: int) -> tuple[torch.Tensor, int, int, int]:
-    """``cand`` padded to the run-padded width ``c_pad``, the merge width
-    ``cp`` (a power of two) and the run width the merge starts from."""
-    c_pad = _run_padded_width(cand.shape[1], run)
-    cand = pad_axis(cand, 1, c_pad, value=-1).contiguous()
-    cp = next_pow2(c_pad)
-    start = run if (run & (run - 1)) == 0 and cp == c_pad else 1
-    return cand, c_pad, cp, start
+def cluster_size(q_n: int, d: int, sms: int) -> int:
+    """Blocks of kernel D per query: 1 for narrow rows (every block of a
+    cluster repeats the merge, which outweighs their gather) and when the
+    queries alone fill the card; else the largest power of two up to
+    ``CLUSTER_MAX`` that keeps the grid within two blocks per SM."""
+    cs = 1
+    if d > NARROW_D:
+        while cs < CLUSTER_MAX and q_n * cs * 2 <= 2 * sms:
+            cs *= 2
+    return cs
+
+
+def tail_smem_bytes(cp: int, c_comp: int, d: int, stage: bool) -> int:
+    """Dynamic shared memory of one kernel-D block: the wide path's row
+    slots (one row per warp), the query, the merge's two exchange buffers,
+    and the compacted indices with their distances (``tail_smem_bytes`` in
+    ``csrc/query_fused.cu``)."""
+    return ((QT_THREADS // 32 * d if stage else 0) + d + 2 * max(cp, QT_THREADS) + 2 * c_comp) * 4
+
+
+def launch_shape(q_n: int, c: int, d: int, run: int, c_comp: int, *, aligned16: bool, sms: int) -> dict:
+    """Kernel D's launch for ``q_n`` queries of ``c`` candidates at width
+    ``d``: the merge width ``cp`` and ``start``, the ``cluster`` size,
+    ``stage`` (wide rows by cp.async through shared memory: needs d % 4 == 0,
+    a 16-byte aligned data pointer and room) and the dynamic shared memory
+    ``smem``. Raises when the row does not fit a block."""
+    cp, start = merge_shape(c, run)
+    if cp > CP_MAX:
+        raise ValueError(f"candidate width {c} exceeds the merge's {CP_MAX}")
+    stage = (d > NARROW_D and d % 4 == 0 and aligned16 and QT_THREADS // 32 * d * 4 <= _STAGE_MAX
+             and tail_smem_bytes(cp, c_comp, d, True) <= _SMEM_MAX)
+    smem = tail_smem_bytes(cp, c_comp, d, stage)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"candidate width {c} with c_comp={c_comp}, d={d} needs {smem} bytes"
+                         f" of shared memory, over the {_SMEM_MAX} budget")
+    return dict(cp=cp, start=start, cluster=cluster_size(q_n, d, sms), stage=stage, smem=smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def query_tail(
@@ -78,18 +124,18 @@ def query_tail(
         raise ValueError("data, queries and cand must be contiguous on one device")
     if not (1 <= k <= TOPK_MAX and c_comp >= 1 and run >= 1 and n >= 1):
         raise ValueError(f"bad launch: k={k}, c_comp={c_comp}, run={run}, n={n}")
-    cand, c_pad, cp, start = _launch_rows(cand, run)
-    if (cp + 2 * c_comp) * 4 > _SMEM_MAX:
-        raise ValueError(f"candidate width {cp} with c_comp={c_comp} exceeds shared memory")
+    shape = launch_shape(q_n, c, d, run, c_comp, aligned16=data.data_ptr() % 16 == 0,
+                         sms=_sm_count(data.device))
     kd = torch.empty((q_n, k), dtype=torch.float32, device=data.device)
     ki = torch.empty((q_n, k), dtype=torch.int32, device=data.device)
     comparisons = torch.empty((q_n,), dtype=torch.int32, device=data.device)
     overflow = torch.empty((q_n,), dtype=torch.int32, device=data.device)
     lib = _build.library("query_fused", _SIGNATURES)
     err = lib.query_tail_launch(
-        data.data_ptr(), queries.data_ptr(), cand.data_ptr(), n, d, q_n, c_pad,
-        cp, start, c_comp, k, kd.data_ptr(), ki.data_ptr(),
-        comparisons.data_ptr(), overflow.data_ptr(), _build.stream_ptr(data),
+        data.data_ptr(), queries.data_ptr(), cand.data_ptr(), n, d, q_n, c,
+        shape["cp"], shape["start"], c_comp, k, shape["cluster"], int(shape["stage"]),
+        kd.data_ptr(), ki.data_ptr(), comparisons.data_ptr(), overflow.data_ptr(),
+        _build.stream_ptr(data),
     )
     _build.check(lib, err, "query_tail")
     return kd, ki, comparisons, overflow
@@ -97,10 +143,11 @@ def query_tail(
 
 def payload_smem_bytes(cp: int, c_comp: int, d: int) -> int:
     """Dynamic shared memory of one kernel-E block: the 64-bit shortlist keys
-    over ``next_pow2(c_comp)`` entries, the candidate row, five ``c_comp``
-    arrays (comp, ad, qerr, exact distances, shortlist flags) and the query
-    (``payload_smem_bytes`` in ``csrc/query_payload.cu``)."""
-    return next_pow2(c_comp) * 8 + (cp + 5 * c_comp + d) * 4
+    over ``next_pow2(c_comp)`` entries, the merge's two exchange buffers,
+    five ``c_comp`` arrays (comp, ad, qerr, exact distances, shortlist
+    flags) and the query (``payload_smem_bytes`` in
+    ``csrc/query_payload.cu``)."""
+    return next_pow2(c_comp) * 8 + (2 * max(cp, QT_THREADS) + 5 * c_comp + d) * 4
 
 
 def query_tail_payload(
@@ -149,7 +196,9 @@ def query_tail_payload(
             f"bad launch: k={k}, c_comp={c_comp}, c_rerank={c_rerank}, run={run}, n={n}"
         )
     cr = min(c_rerank, c_comp)
-    cand, c_pad, cp, start = _launch_rows(cand, run)
+    cp, start = merge_shape(c, run)
+    if cp > CP_MAX:
+        raise ValueError(f"candidate width {c} exceeds the merge's {CP_MAX}")
     smem = payload_smem_bytes(cp, c_comp, d)
     if smem > _SMEM_MAX:
         raise ValueError(
@@ -163,7 +212,7 @@ def query_tail_payload(
     launch = getattr(lib, f"query_tail_payload_{fmt}_launch")
     err = launch(
         data.data_ptr(), qdata.data_ptr(), meta.data_ptr(), queries.data_ptr(),
-        cand.data_ptr(), n, d, q_n, c_pad, cp, start, c_comp, next_pow2(c_comp),
+        cand.data_ptr(), n, d, q_n, c, cp, start, c_comp, next_pow2(c_comp),
         cr, k, kd.data_ptr(), ki.data_ptr(), counts[0].data_ptr(),
         counts[1].data_ptr(), counts[2].data_ptr(), _build.stream_ptr(data),
     )

@@ -95,6 +95,19 @@ def test_bitsample_words_and_margins(m):
     _eq(jm, tm)  # |x[dim] - thr| is one subtraction: bit-exact
 
 
+@pytest.mark.parametrize("rows", [1, 50, 200])
+def test_bitsample_pack_words_are_int64_in_the_uint32_range(rows):
+    # the words the callers take are int64 holding 32 bits, zero-extended:
+    # high bits set in a word must not turn into negative values
+    x = _x(rows, seed=rows)
+    (jo, _), (to, _) = _families(m=32)
+    dims, thrs = thp.bitsample_columns(to)
+    words = thp.bitsample_pack(torch.as_tensor(x), dims, thrs)
+    assert words.dtype == torch.int64 and words.shape == (rows, 5)
+    assert int(words.min()) >= 0 and int(words.max()) < 2**32 and int(words.max()) >= 2**31
+    _eq(jhp._bitsample_gather_pack(jnp.asarray(x), jo.dims, jo.thrs), words.reshape(rows, 5, 1))
+
+
 def test_bitsample_padded_columns_pack_zero_and_inf_margins():
     x = torch.as_tensor(_x(16))
     dims = torch.tensor([3, 0, 7] + [0] * 29, dtype=torch.int32)
@@ -219,10 +232,41 @@ def test_query_tail(run, runs, c_comp, integer):
 
 
 def test_query_tail_pads_to_a_power_of_two_run_count():
-    assert tqf._run_padded_width(96, 16) == 128
-    assert tqf._run_padded_width(48, 12) == 48
-    assert tqf._run_padded_width(1024, 16) == 1024
-    assert tqf._run_padded_width(130, 16) == 256
+    # the merge width holds a power-of-two number of whole runs (the columns
+    # past C count as -1), and the merge starts from the run only when the
+    # run is a power of two
+    assert tqf.merge_shape(96, 16) == (128, 16)
+    assert tqf.merge_shape(48, 12) == (64, 1)
+    assert tqf.merge_shape(1024, 16) == (1024, 16)
+    assert tqf.merge_shape(130, 16) == (256, 16)
+    assert tqf.merge_shape(7, 16) == (8, 8)
+
+
+@pytest.mark.parametrize(
+    "q_n,c,d,c_comp,aligned,want",
+    [
+        (50, 1024, 30, 1024, True, dict(cp=1024, start=16, cluster=1, stage=False, smem=16504)),
+        (50, 4096, 30, 1024, True, dict(cp=4096, start=16, cluster=1, stage=False, smem=41080)),
+        (1, 128, 4096, 128, True, dict(cp=128, start=16, cluster=8, stage=True, smem=150528)),
+        (50, 128, 4096, 128, True, dict(cp=128, start=16, cluster=4, stage=True, smem=150528)),
+        (7, 128, 4096, 128, False, dict(cp=128, start=16, cluster=8, stage=False, smem=19456)),
+        (300, 128, 4096, 128, True, dict(cp=128, start=16, cluster=1, stage=True, smem=150528)),
+        (1, 128, 18432, 128, True, dict(cp=128, start=16, cluster=8, stage=False, smem=76800)),
+        (50, 12288, 30, 1024, True, dict(cp=16384, start=16, cluster=1, stage=False, smem=139384)),
+    ],
+    ids=["grid_chunk", "payload_chunk", "hook", "knn_chunk", "unaligned", "many_queries", "widest",
+         "multiprobe"],
+)
+def test_query_tail_launch_shape(q_n, c, d, c_comp, aligned, want):
+    assert tqf.launch_shape(q_n, c, d, 16, c_comp, aligned16=aligned, sms=132) == want
+    assert want["smem"] == tqf.tail_smem_bytes(want["cp"], c_comp, d, want["stage"])
+
+
+def test_query_tail_launch_shape_refuses_what_a_block_cannot_hold():
+    with pytest.raises(ValueError, match="merge"):
+        tqf.launch_shape(1, 16385, 30, 16, 1024, aligned16=True, sms=132)
+    with pytest.raises(ValueError, match="shared memory"):
+        tqf.launch_shape(1, 1024, 60_000, 16, 1024, aligned16=True, sms=132)
 
 
 def _tie_case():
