@@ -1,13 +1,10 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --shapes [SRC [OUT]]
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs eight
 phases, printing one JSON line each; any failed check raises, so the script
-exits non-zero. With ``--shapes`` it runs only kernels A and D at the
-paths' shapes (below) with the package under SRC, so that one call can
-measure two trees on one card:
+exits non-zero:
 
 1. ``device``     the card's name and power limit (``nvidia-smi``).
 2. ``kernels``    each hand-written kernel against its plain PyTorch version
@@ -20,8 +17,9 @@ measure two trees on one card:
                   (the payload tail, f16 and i8) on the first 50-query
                   chunk of a single shard over every point. A and D also
                   at every shape the DSLSH paths give them
-                  (``path_shapes``, with the profiler's device time and
-                  kernels per call), and D's one-order check: each query
+                  (``path_shapes``, with the profiler's device time, its
+                  kernels per call and the host's time per call), and
+                  D's one-order check: each query
                   of a 50-query chunk, alone and in launches of 7, gets
                   the chunk's bits.
 3. ``main_path``  the paper's scale: 1,370,000 synthetic ABP windows (d=30)
@@ -192,9 +190,24 @@ def device_profile(fn, iters: int = 10) -> dict:
     return best
 
 
-def device_ms(fn, iters: int = 10) -> float | None:
-    """``device_profile``'s device time alone."""
-    return device_profile(fn, iters)["device_ms"]
+def host_ms(fn, iters: int = 50) -> float | None:
+    """Median host time of one ``fn()`` call, from the call to its return,
+    over ``iters`` calls made back to back: the wrapper's checks, launch
+    shape and dispatch, which a host-bound path pays on every call. None on
+    the CPU."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return None
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return float(np.median(times)) * 1e3
 
 
 def sync(dev) -> None:
@@ -317,7 +330,7 @@ def kernels_phase(data, queries, cfg, flush) -> list[dict]:
         shape=f"x ({t}, {d}), {m_cols} columns, margins", exact=True,
         max_abs_err=float((mk - mr)[torch.isfinite(mr)].abs().max()),  # padded columns hold inf
         ms=timed_ms(lambda: hp.bitsample_pack(cell, dims, thrs, margins=True), 50, flush),
-        device_ms=device_ms(lambda: hp.bitsample_pack(cell, dims, thrs, margins=True)),
+        device_ms=device_profile(lambda: hp.bitsample_pack(cell, dims, thrs, margins=True))["device_ms"],
         plain_ms=timed_ms(lambda: hp_ref.bitsample_pack_ref(cell, dims, thrs, margins=True), 10, flush),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, path_shapes=shapes["a"],
     ))
@@ -359,7 +372,7 @@ def kernels_phase(data, queries, cfg, flush) -> list[dict]:
         max_abs_err=margin_err, max_abs_err_of="margins |s| against the float32 matmul",
         onehot_vs_bitsample=dict(margins_equal=True, words_equal_off_ties=True, tie_columns=int(ties.sum())),
         ms=timed_ms(lambda: hp.proj_sign_pack(cell, cols, bias, m_in, m_pad), 50, flush),
-        device_ms=device_ms(lambda: hp.proj_sign_pack(cell, cols, bias, m_in, m_pad)),
+        device_ms=device_profile(lambda: hp.proj_sign_pack(cell, cols, bias, m_in, m_pad))["device_ms"],
         plain_ms=timed_ms(lambda: hp_ref.proj_sign_pack_ref(cell, cols, bias, m_in, m_pad), 10, flush),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         margins_replaces="src/repro/kernels/hash_pack/hash_pack.py:175",
@@ -396,7 +409,7 @@ def kernels_phase(data, queries, cfg, flush) -> list[dict]:
         shape=f"cands ({q_n}, {cc}, {d}), {n_valid} valid", exact=bool(torch.equal(pk_, pr)),
         max_abs_err=float((dk - dr).abs().nan_to_num(0.0).max()),
         ms=timed_ms(lambda: l1.l1_topk(qs, pts, valid, k), 50, flush),
-        device_ms=device_ms(lambda: l1.l1_topk(qs, pts, valid, k)),
+        device_ms=device_profile(lambda: l1.l1_topk(qs, pts, valid, k))["device_ms"],
         plain_ms=timed_ms(lambda: l1_ref.l1_topk_ref(qs, pts, valid, k), 10, flush),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
     ))
@@ -436,7 +449,7 @@ def b_query_chunk(qs, cols, bias, m: int, m_pad: int, flush) -> dict:
     return dict(shape=f"x ({t}, {d}), proj ({d}, {cols.shape[1]}), {cols.shape[1] // m_pad * m} real columns",
                 exact=bool(not diff.any()), disagreeing_bits=int(diff.sum()),
                 ms=timed_ms(lambda: hp.proj_sign_pack(qs, cols, bias, m, m_pad), 50, flush),
-                device_ms=device_ms(lambda: hp.proj_sign_pack(qs, cols, bias, m, m_pad)),
+                device_ms=device_profile(lambda: hp.proj_sign_pack(qs, cols, bias, m, m_pad))["device_ms"],
                 plain_ms=timed_ms(lambda: hp_ref.proj_sign_pack_ref(qs, cols, bias, m, m_pad), 10, flush),
                 bound_ms=b_ms, bound_by=b_by)
 
@@ -452,7 +465,10 @@ def merge_exchanges(c_pad: int, run: int) -> int:
 def merge_width(c: int, run: int) -> tuple[int, int]:
     """The least merge network for a row of ``c`` candidates in runs of
     ``run``: its power-of-two width and the run width it starts from (1, a
-    full sort, when the run is not a power of two)."""
+    full sort, when the run is not a power of two). The same rule as the
+    package's ``query_fused.ops.merge_shape``, kept here so that a bound
+    does not rest on the code it measures and the script also measures a
+    tree whose package lacks that helper (a parent commit)."""
     cp = 1 << max(0, c - 1).bit_length()
     return cp, (min(run, cp) if run & (run - 1) == 0 else 1)
 
@@ -463,9 +479,9 @@ def merge_width(c: int, run: int) -> tuple[int, int]:
 def a_case(case: str, x, dims, thrs, flush, margins: bool = False) -> dict:
     """Kernel A on rows ``x`` against flat columns ``dims``/``thrs``,
     bit-exact against its plain version (words and margins), timed by
-    events and by the profiler. The bound reads each row's distinct sampled
-    coordinates (not the whole row), the columns, and writes the int64
-    words (and the margins)."""
+    events, by the profiler and on the host. The bound reads each row's
+    distinct sampled coordinates (not the whole row), the columns, and
+    writes the int64 words (and the margins)."""
     import torch
 
     from repro_torch.kernels.hash_pack import ops as hp, ref as hp_ref
@@ -484,7 +500,7 @@ def a_case(case: str, x, dims, thrs, flush, margins: bool = False) -> dict:
     nbytes = t * sampled * 4 + m_cols * 8 + t * (m_cols // 32) * 8 + (t * m_cols * 4 if margins else 0)
     b_ms, b_by = bound(nbytes, t * m_cols * (2 if margins else 1))
     return dict(case=case, shape=f"x ({t}, {d}), {m_cols} columns" + (", margins" if margins else ""),
-                exact=True, ms=timed_ms(fn, 30, flush), **device_profile(fn),
+                exact=True, ms=timed_ms(fn, 30, flush), **device_profile(fn), host_ms=host_ms(fn),
                 plain_ms=timed_ms(lambda: hp_ref.bitsample_pack_ref(x, dims, thrs, margins=margins), 5, flush),
                 bound_ms=b_ms, bound_by=b_by)
 
@@ -504,9 +520,10 @@ def tail_candidates(data, outer_l, inner, cfg, qs):
 def d_case(case: str, data, qs, cand, cfg, flush) -> dict:
     """Kernel D on a chunk's raw (Q, C) candidate rows against its plain
     version (counters equal, top-k tie-aware within RTOL/ATOL), timed by
-    events and by the profiler, with its bound: the candidate rows, the
-    queries, the gathered data rows and the outputs, and 3 operations per
-    gathered coordinate plus the merge network's compare-exchanges."""
+    events, by the profiler and on the host, with its bound: the candidate
+    rows, the queries, the gathered data rows and the outputs, and 3
+    operations per gathered coordinate plus the merge network's
+    compare-exchanges."""
     import torch
 
     from repro_torch.core import pipeline
@@ -529,7 +546,7 @@ def d_case(case: str, data, qs, cand, cfg, flush) -> dict:
     return dict(case=case, shape=f"cand ({q_n}, {c_w}), d {d}, run {run}, c_comp {cc}, k {k}, {gathered} rows gathered",
                 exact=bool(torch.equal(out_k[1], out_r[1])),
                 max_abs_err=float((out_k[0] - out_r[0]).abs().nan_to_num(0.0).max()),
-                ms=timed_ms(fn, 30, flush), **device_profile(fn),
+                ms=timed_ms(fn, 30, flush), **device_profile(fn), host_ms=host_ms(fn),
                 plain_ms=timed_ms(lambda: qf_ref.query_tail_ref(data, qs, cand, c_comp=cc, k=k), 5, flush),
                 bound_ms=b_ms, bound_by=b_by)
 
@@ -591,14 +608,13 @@ def dslsh_path_cases(data, queries, cfg, flush) -> dict:
     return dict(a=a, d=d, order=order, cell_cand=cell_cand, full_cand=full_cand)
 
 
-def knn_path_cases(keys, hq, scfg, p: int, flush, hook: str = "first") -> tuple[list, list, list]:
+def knn_path_cases(keys, hq, scfg, p: int, flush) -> tuple[list, list, list]:
     """Kernels A and D at the kNN-LM path's shapes, on ``keys``, one grid
     cell's datastore keys (d = 4,096), and query rows ``hq`` (at least 50):
     A on the hook's one row and a build chunk of 4,096 keys (the cell's 2
-    tables' 64 columns); D on the hook's one query (the first of ``hq``, or
-    with ``hook="fullest"`` the one with the most candidates) and on a
-    50-query chunk, with D's one-order check on that chunk. Returns (A
-    cases, D cases, D order checks)."""
+    tables' 64 columns); D on the hook's one query (the first of ``hq``)
+    and on a 50-query chunk, with D's one-order check on that chunk.
+    Returns (A cases, D cases, D order checks)."""
     import torch
 
     from repro_torch.core import hashing, pipeline
@@ -612,55 +628,9 @@ def knn_path_cases(keys, hq, scfg, p: int, flush, hook: str = "first") -> tuple[
          a_case("knn_build_chunk", keys[: scfg.build_chunk].contiguous(), dims, thrs, flush)]
     qs = hq[:50].contiguous()
     cand = tail_candidates(keys, outer0, inner, scfg, qs)
-    h = 0 if hook == "first" else int((cand >= 0).sum(dim=1).argmax())
-    d = [d_case("hook_query", keys, qs[h : h + 1], cand[h : h + 1].contiguous(), scfg, flush),
+    d = [d_case("hook_query", keys, qs[:1], cand[:1].contiguous(), scfg, flush),
          d_case("knn_chunk", keys, qs, cand, scfg, flush)]
     return a, d, [d_order_check(keys, qs, cand, scfg)]
-
-
-def shapes_main(src: str, out: str | None) -> int:
-    """``--shapes``: kernels A and D alone at every path shape, with the
-    package under ``src`` (a checkout's ``src/``, so one call can measure
-    two trees on one card). The kNN-LM shapes run on seeded Gaussian keys
-    in place of the model's hidden states. Prints one JSON line."""
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 1
-    sys.path.insert(0, os.path.abspath(src))
-    from repro_torch import dslsh
-    from repro_torch.kernels import _build
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    _build.build(("hash_pack", "query_fused"))
-    dev = torch.device("cuda")
-    pts, _, qx, _ = synth(N, NQ)
-    data, queries = torch.as_tensor(pts, device=dev), torch.as_tensor(qx, device=dev)
-    cfg = dslsh.make_config(**CFG, backend="cuda")
-    scratch = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
-    flush = scratch.zero_
-    cases = dslsh_path_cases(data, queries, cfg, flush)
-    a, d, order = cases["a"], cases["d"], cases["order"]
-    del data, queries, cases
-    g = torch.Generator(dev).manual_seed(SEED)
-    n_cell, width = DS_SEQS * (DS_LEN - 1) // 2, 4096  # one grid(nu=2, p=4) cell of the datastore
-    keys = torch.randn((n_cell, width), generator=g, device=dev)
-    hq = keys[:: n_cell // 64][:64] + 0.05 * torch.randn((64, width), generator=g, device=dev)
-    scfg = dslsh.make_config(
-        dslsh.FamilyConfig(**KNN_FAMILY, val_lo=float(keys.min()), val_hi=float(keys.max())),
-        dslsh.BudgetConfig(**KNN_BUDGET), backend="cuda",
-    )
-    ka, kd_, korder = knn_path_cases(keys, hq, scfg, 4, flush, hook="fullest")
-    result = dict(src=src, nvidia_smi=smi, bitsample_pack=a + ka, query_tail=d + kd_, query_tail_one_order=order + korder)
-    line = json.dumps(result)
-    if out:
-        with open(out, "w") as f:
-            f.write(line + "\n")
-    print(line, flush=True)
-    return 0
 
 
 def payload_kernel_rows(data, queries, cfg, cand, flush) -> list[dict]:
@@ -716,7 +686,7 @@ def payload_kernel_rows(data, queries, cfg, cand, flush) -> list[dict]:
             exact=exact, rerank_misses=int(out_k[4].sum()), zero_miss_rows_equal_to_query_tail=int(ok.sum()),
             max_abs_err=float((out_k[0] - out_r[0]).abs().nan_to_num(0.0).max()),
             ms=timed_ms(lambda: qf.query_tail_payload(*args, run=run, **kw), 50, flush),
-            device_ms=device_ms(lambda: qf.query_tail_payload(*args, run=run, **kw)),
+            device_ms=device_profile(lambda: qf.query_tail_payload(*args, run=run, **kw))["device_ms"],
             plain_ms=timed_ms(lambda: qf_ref.query_tail_payload_ref(*args, **kw), 10, flush),
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
         ))
@@ -1031,7 +1001,8 @@ def flash_row(dev, cfg, wide_cfg, max_len: int, flush) -> dict:
             ms=timed_ms(lambda: fa.flash_attention(q, k, v, **kw), 20, flush),
             plain_ms=timed_ms(lambda: fa_ref.attention_ref(q, k, v, **kw), 5, flush),
             bound_ms=b_ms, bound_by=b_by, library_ms=timed_ms(lib, 20, flush), **fault,
-            device_ms=device_ms(lambda: fa.flash_attention(q, k, v, **kw)), library_device_ms=device_ms(lib),
+            device_ms=device_profile(lambda: fa.flash_attention(q, k, v, **kw))["device_ms"],
+            library_device_ms=device_profile(lib)["device_ms"],
         ))
         out[-1]["library_ratio"] = out[-1]["ms"] / out[-1]["library_ms"]
         del q, k, v, o, r, ok, mask
@@ -1098,7 +1069,7 @@ def wide_b_check(x, inner, flush) -> dict:
     return dict(d=d, shape=f"x ({t}, {d}), proj ({d}, {cols.shape[1]}), {n_tab * m_in} real columns",
                 exact=bool(not diff.any()), disagreeing_bits=int(diff.sum()),
                 ms=timed_ms(lambda: hp.proj_sign_pack(x, cols, bias, m_in, m_pad), 20, flush),
-                device_ms=device_ms(lambda: hp.proj_sign_pack(x, cols, bias, m_in, m_pad)),
+                device_ms=device_profile(lambda: hp.proj_sign_pack(x, cols, bias, m_in, m_pad))["device_ms"],
                 plain_ms=timed_ms(lambda: hp_ref.proj_sign_pack_ref(x, cols, bias, m_in, m_pad), 5, flush),
                 bound_ms=b_ms, bound_by=b_by)
 
@@ -1550,7 +1521,4 @@ def serve_phase(argv: list[str]) -> dict:
 
 
 if __name__ == "__main__":
-    if "--shapes" in sys.argv:  # python3 chip_smoke.py --shapes [SRC [OUT]]
-        rest = sys.argv[sys.argv.index("--shapes") + 1 :]
-        sys.exit(shapes_main(rest[0] if rest else os.path.join(ROOT, "src"), rest[1] if len(rest) > 1 else None))
     sys.exit(main())

@@ -214,16 +214,9 @@ extern "C" int query_tail_launch(const float* data, const float* queries,
     const TailArgs a{data, queries, cand, n, d, C, Cp, start_width, c_comp, k,
                      row_vec(data, d), stage != 0, kd, ki, comparisons, overflow};
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    int err;
-    switch (Cp <= QT_THREADS ? 1 : Cp / QT_THREADS) {
-      case 1: err = launch<1>(a, Q, cluster, st); break;
-      case 2: err = launch<2>(a, Q, cluster, st); break;
-      case 4: err = launch<4>(a, Q, cluster, st); break;
-      case 8: err = launch<8>(a, Q, cluster, st); break;
-      case 16: err = launch<16>(a, Q, cluster, st); break;
-      case 32: err = launch<32>(a, Q, cluster, st); break;
-      default: err = launch<64>(a, Q, cluster, st); break;
-    }
+    const int err = with_merge_regs(Cp, [&](auto e) {
+      return launch<decltype(e)::value>(a, Q, cluster, st);
+    });
     if (err != 0) return err;
   }
   return static_cast<int>(cudaGetLastError());

@@ -211,21 +211,11 @@ static int launch(const float* data, const T* qdata, const float* meta,
     if (!(C >= 1 && C <= Cp && (Cp & (Cp - 1)) == 0 && Cp <= 64 * QT_THREADS))
       return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define QTP_LAUNCH(E)                                                        \
-  launch_e<T, E>(data, qdata, meta, queries, cand, n, d, Q, C, Cp,           \
-                 start_width, c_comp, c_keys, cr, k, kd, ki, comparisons,    \
-                 overflow, misses, st)
-    int err;
-    switch (Cp <= QT_THREADS ? 1 : Cp / QT_THREADS) {
-      case 1: err = QTP_LAUNCH(1); break;
-      case 2: err = QTP_LAUNCH(2); break;
-      case 4: err = QTP_LAUNCH(4); break;
-      case 8: err = QTP_LAUNCH(8); break;
-      case 16: err = QTP_LAUNCH(16); break;
-      case 32: err = QTP_LAUNCH(32); break;
-      default: err = QTP_LAUNCH(64); break;
-    }
-#undef QTP_LAUNCH
+    const int err = with_merge_regs(Cp, [&](auto e) {
+      return launch_e<T, decltype(e)::value>(
+          data, qdata, meta, queries, cand, n, d, Q, C, Cp, start_width, c_comp,
+          c_keys, cr, k, kd, ki, comparisons, overflow, misses, st);
+    });
     if (err != 0) return err;
   }
   return static_cast<int>(cudaGetLastError());

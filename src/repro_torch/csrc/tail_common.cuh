@@ -6,12 +6,31 @@
 // to D's on the same rows.
 #pragma once
 
+#include <type_traits>
+
 #include "topk.cuh"
 
 constexpr int QT_THREADS = 256;  // threads of a query's block
 constexpr int QT_WARPS = QT_THREADS / 32;
 constexpr int QT_NARROW_D = 32;  // rows this narrow: one thread per row
 constexpr int SENT = INT_MAX;    // sorts after any real index
+
+// Calls launch(std::integral_constant<int, E>{}) with E, the registers a
+// thread holds of a merge of width Cp (a power of two, at most 64 *
+// QT_THREADS), and returns what it returns: how both tails pick the
+// instance of their kernel templated on E.
+template <class Launch>
+static int with_merge_regs(int Cp, Launch&& launch) {
+  switch (Cp <= QT_THREADS ? 1 : Cp / QT_THREADS) {
+    case 1: return launch(std::integral_constant<int, 1>{});
+    case 2: return launch(std::integral_constant<int, 2>{});
+    case 4: return launch(std::integral_constant<int, 4>{});
+    case 8: return launch(std::integral_constant<int, 8>{});
+    case 16: return launch(std::integral_constant<int, 16>{});
+    case 32: return launch(std::integral_constant<int, 32>{});
+    default: return launch(std::integral_constant<int, 64>{});
+  }
+}
 
 // ------------------------------------------------------------ the merge
 //

@@ -73,12 +73,15 @@ def tail_smem_bytes(cp: int, c_comp: int, d: int, stage: bool) -> int:
     return ((QT_THREADS // 32 * d if stage else 0) + d + 2 * max(cp, QT_THREADS) + 2 * c_comp) * 4
 
 
+@functools.lru_cache(maxsize=None)
 def launch_shape(q_n: int, c: int, d: int, run: int, c_comp: int, *, aligned16: bool, sms: int) -> dict:
     """Kernel D's launch for ``q_n`` queries of ``c`` candidates at width
     ``d``: the merge width ``cp`` and ``start``, the ``cluster`` size,
     ``stage`` (wide rows by cp.async through shared memory: needs d % 4 == 0,
     a 16-byte aligned data pointer and room) and the dynamic shared memory
-    ``smem``. Raises when the row does not fit a block."""
+    ``smem``. Raises when the row does not fit a block. Cached: a path asks
+    for the same few shapes on every call. Read the result, do not change
+    it."""
     cp, start = merge_shape(c, run)
     if cp > CP_MAX:
         raise ValueError(f"candidate width {c} exceeds the merge's {CP_MAX}")
