@@ -13,9 +13,13 @@ exits non-zero:
                   and apart its margins mode; also on one 50-query chunk,
                   and its words for 64 rows equal whether hashed in one
                   launch, one row per launch, in launches of 50 or through
-                  either path), C and D on one grid cell's shapes, and E
-                  (the payload tail, f16 and i8) on the first 50-query
-                  chunk of a single shard over every point. A and D also
+                  either path), C and D on one grid cell's shapes (C also
+                  at the staged route's widest block, 50 x 16,384 x 30, and
+                  its distances equal to D's bits on the same compacted
+                  rows), and E (the payload tail, f16 and i8) on the first
+                  50-query chunk of a single shard over every point, at the
+                  path's c_comp and with a forced overflow (c_comp=64). A
+                  and D also
                   at every shape the DSLSH paths give them
                   (``path_shapes``, with the profiler's device time, its
                   kernels per call and the host's time per call), and
@@ -30,6 +34,14 @@ exits non-zero:
                   kernel time on the card and the device's idle share.
 4. ``multiprobe`` a single-shard index with ``multiprobe=2``, so the
                   words+margins kernel runs on the query path.
+   ``routes``     three configurations the ``"cuda"`` backend once refused,
+                  on the same 131,072-point single shard and 500 queries:
+                  k = 40 (D sorts the block's keys; i8 with c_rerank=64), a
+                  merge width of 32,768 and D's shared memory over budget
+                  (both the staged route: torch stages 3-4, kernel C). Each
+                  as f32 against the ``"torch"`` backend and as i8 against
+                  the payload tail's plain version chunk by chunk; every
+                  chunk's route counted, and each through its kernel.
 5. ``backends_agree`` the ``"torch"`` backend on the card answers the first
                   256 queries as the ``"cuda"`` backend does.
 6. ``payload``    the compressed-payload path: ``single()`` over all
@@ -71,9 +83,10 @@ exits non-zero:
 
 The ``kernels`` line comes last but two, then the ``nvidia-smi`` line, and
 the last line is ``{"ok": true, "device": {...}}``. A kernel's ``launches``
-counts the path it belongs to: the main path for A-D, the payload phase's
-two compressed queries for E, the ``knn_lm`` phase for F; every row also
-gives its launches on the ``knn_lm`` and ``serve`` paths. Without a CUDA
+counts the path it belongs to: the main path for A, B and D, the
+``routes`` phase's staged route for C, the payload phase's two compressed
+queries for E, the ``knn_lm`` phase for F; every row also gives its
+launches on the ``routes``, ``knn_lm`` and ``serve`` paths. Without a CUDA
 device, or without the repository's ``src/`` beside it, the script exits
 non-zero before printing any result.
 """
@@ -107,6 +120,17 @@ CFG = dict(
 )
 N, NQ, NU, P, SEED = 1_370_000, 2_000, 10, 4, 0
 C_RERANK = 32  # the payload shortlist of benchmarks/scale_bench.py:48
+# the routes phase: configurations SLSHConfig accepts that the "cuda" backend
+# once refused, each with the route its chunks must take (D's k > 32 sort,
+# or the staged route: a merge width of 32,768, and D's shared memory over
+# budget at 16,384 compacted columns), and the i8 query's extra settings
+ROUTE_CASES = {
+    "k40": dict(k=40),
+    "merge_width_32768": dict(L_out=16, c_max=512, multiprobe=2),
+    "d_over_shared_memory": dict(multiprobe=1, c_max=512, c_comp=0),
+}
+ROUTE_EXPECTED = {"k40": "fused", "merge_width_32768": "staged", "d_over_shared_memory": "staged"}
+ROUTE_I8 = {"k40": dict(c_rerank=64)}
 
 # the kNN-LM slice
 LM_ARCH = "granite-8b"  # d_model 4,096, 32/8 heads, head_dim 128, 36 layers
@@ -306,7 +330,6 @@ def kernels_phase(data, queries, cfg, flush) -> list[dict]:
 
     from repro_torch.core import hashing, pipeline
     from repro_torch.kernels.hash_pack import ops as hp, ref as hp_ref
-    from repro_torch.kernels.l1_topk import ops as l1, ref as l1_ref
 
     shapes = dslsh_path_cases(data, queries, cfg, flush)
     n_loc = data.shape[0] // NU
@@ -390,28 +413,21 @@ def kernels_phase(data, queries, cfg, flush) -> list[dict]:
     cand = shapes["cell_cand"]
     c_w = cand.shape[1]
     cc = pipeline._compact_width(cfg, c_w, n_loc)
-    cs, uniq, comparisons = pipeline._stage_dedup(cand)
-    comp, valid, _ = pipeline._stage_compact(cs, uniq, comparisons, cc)
-    q_n, k = qs.shape[0], cfg.k
+    comp, valid = compacted(cand, cc)
+    k = cfg.k
 
-    # C: l1_topk on the compacted (Q, c_comp, d) block
-    pts = cell[comp.long().clamp(0, n_loc - 1)].contiguous()
-    valid = valid.contiguous()
-    dk, pk_ = l1.l1_topk(qs, pts, valid, k)
-    dr, pr = l1_ref.l1_topk_ref(qs, pts, valid, k)
-    need_topk(dk, pk_, dr, pr, lambda rows, pos: (pts[rows, pos.long()] - qs[rows]).abs().sum(-1),
-              "l1_topk differs from its plain version")
-    n_valid = int(valid.sum())
-    b_ms, b_by = bound(n_valid * d * 4 + valid.numel() + q_n * d * 4 + q_n * k * 8, 3 * n_valid * d)
+    # C: l1_topk on the compacted (Q, c_comp, d) block of the grid chunk and
+    # on the staged route's widest block; its distances against D's bits on
+    # the grid chunk's compacted rows
+    c_row = c_case("grid_chunk", qs, cell[comp.long().clamp(0, n_loc - 1)].contiguous(), valid.contiguous(), k, flush)
     rows.append(dict(
         name="l1_topk", route="cuda", source="src/repro_torch/csrc/l1_topk.cu",
         replaces="src/repro/kernels/l1_topk/l1_topk.py:100",
-        shape=f"cands ({q_n}, {cc}, {d}), {n_valid} valid", exact=bool(torch.equal(pk_, pr)),
-        max_abs_err=float((dk - dr).abs().nan_to_num(0.0).max()),
-        ms=timed_ms(lambda: l1.l1_topk(qs, pts, valid, k), 50, flush),
-        device_ms=device_profile(lambda: l1.l1_topk(qs, pts, valid, k))["device_ms"],
-        plain_ms=timed_ms(lambda: l1_ref.l1_topk_ref(qs, pts, valid, k), 10, flush),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        **{key: c_row[key] for key in ("shape", "exact", "max_abs_err", "ms", "device_ms", "kernels_per_call",
+                                       "host_ms", "plain_ms", "bound_ms", "bound_by")},
+        library_ms=None,
+        path_shapes=[c_row, c_case("staged_widest", *staged_widest_block(data, queries, cfg), k, flush)],
+        one_order=[c_d_order_check(cell, qs, shapes["cell_cand"], cfg)],
     ))
 
     # D: the fused tail on the chunk's raw (Q, C) candidate rows (the grid
@@ -425,7 +441,6 @@ def kernels_phase(data, queries, cfg, flush) -> list[dict]:
                                       "plain_ms", "bound_ms", "bound_by")},
         library_ms=None, path_shapes=shapes["d"], one_order=shapes["order"],
     ))
-    del pts
     rows += payload_kernel_rows(data, queries, cfg, shapes["full_cand"], flush)
     return rows
 
@@ -471,6 +486,85 @@ def merge_width(c: int, run: int) -> tuple[int, int]:
     tree whose package lacks that helper (a parent commit)."""
     cp = 1 << max(0, c - 1).bit_length()
     return cp, (min(run, cp) if run & (run - 1) == 0 else 1)
+
+
+# ------------------------------------------------------ kernel C, the staged route
+
+
+def compacted(cand, cc: int):
+    """Stages 3-4 of the staged form on a chunk's (Q, C) candidate rows: the
+    first ``cc`` unique indices ascending (-1 pad) and their mask."""
+    from repro_torch.core import pipeline
+
+    cs, uniq, comparisons = pipeline._stage_dedup(cand)
+    comp, valid, _ = pipeline._stage_compact(cs, uniq, comparisons, cc)
+    return comp, valid
+
+
+def c_case(case: str, qs, pts, valid, k: int, flush) -> dict:
+    """Kernel C on a compacted (Q, cc, d) block against its plain version
+    (top-k tie-aware within RTOL/ATOL), timed by events, by the profiler
+    and on the host, with its bound: the valid rows, the mask, the queries
+    and the outputs read or written once, 3 operations per valid
+    coordinate."""
+    import torch
+
+    from repro_torch.kernels.l1_topk import ops as l1, ref as l1_ref
+
+    (q_n, cc, d) = pts.shape
+
+    def fn():
+        return l1.l1_topk(qs, pts, valid, k)
+
+    (dk, pk), (dr, pr) = fn(), l1_ref.l1_topk_ref(qs, pts, valid, k)
+    need_topk(dk, pk, dr, pr, lambda rows, pos: (pts[rows, pos.long()] - qs[rows]).abs().sum(-1),
+              f"l1_topk ({case}) differs from its plain version")
+    n_valid = int(valid.sum())
+    b_ms, b_by = bound(n_valid * d * 4 + valid.numel() + q_n * d * 4 + q_n * k * 8, 3 * n_valid * d)
+    return dict(case=case, shape=f"cands ({q_n}, {cc}, {d}), {n_valid} valid, k {k}", exact=bool(torch.equal(pk, pr)),
+                max_abs_err=float((dk - dr).abs().nan_to_num(0.0).max()),
+                ms=timed_ms(fn, 30, flush), **device_profile(fn), host_ms=host_ms(fn),
+                plain_ms=timed_ms(lambda: l1_ref.l1_topk_ref(qs, pts, valid, k), 5, flush),
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def staged_widest_block(data, queries, cfg):
+    """The widest block the staged route gives kernel C in the ``routes``
+    phase: the first 50-query chunk of a 131,072-point single shard with
+    ``multiprobe=1, c_max=512, c_comp=0`` (16,384 columns, all kept)."""
+    import torch
+
+    from repro_torch.core import pipeline
+
+    n_r = min(131_072, data.shape[0])
+    cfg_w = cfg.replace(**ROUTE_CASES["d_over_shared_memory"])
+    part = data[:n_r].contiguous()
+    outer, inner = pipeline.make_family(torch.Generator().manual_seed(SEED), data.shape[1], cfg_w, data.device)
+    qs = queries[: cfg.query_chunk].contiguous()
+    cand = tail_candidates(part, outer, inner, cfg_w, qs)
+    comp, valid = compacted(cand, pipeline._compact_width(cfg_w, cand.shape[1], n_r))
+    return qs, part[comp.long().clamp(0, n_r - 1)].contiguous(), valid.contiguous()
+
+
+def c_d_order_check(data, qs, cand, cfg) -> dict:
+    """One L1 order across the routes: on a chunk's compacted rows kernel
+    C's top-k equals kernel D's on the raw rows bit for bit (distances, and
+    the indices C's positions point at)."""
+    import torch
+
+    from repro_torch.core import pipeline
+    from repro_torch.kernels.l1_topk import ops as l1
+    from repro_torch.kernels.query_fused import ops as qf
+
+    cc = pipeline._compact_width(cfg, cand.shape[1], data.shape[0])
+    comp, valid = compacted(cand, cc)
+    pts = data[comp.long().clamp(0, data.shape[0] - 1)].contiguous()
+    dc, pc = l1.l1_topk(qs, pts, valid.contiguous(), cfg.k)
+    ic = torch.where(pc >= 0, torch.gather(comp, 1, pc.long().clamp(min=0)), -1)
+    dd, id_, _, _ = qf.query_tail(data, qs, cand, run=pipeline._fused_run(cfg), c_comp=cc, k=cfg.k)
+    same = dict(distances_equal=bool(torch.equal(dc, dd)), indices_equal=bool(torch.equal(ic, id_)))
+    need(all(same.values()), f"l1_topk and query_tail disagree on the same compacted rows: {same}")
+    return dict(d=data.shape[1], queries=qs.shape[0], **same)
 
 
 # ------------------------------------------- kernels A and D at the paths' shapes
@@ -636,62 +730,83 @@ def knn_path_cases(keys, hq, scfg, p: int, flush) -> tuple[list, list, list]:
 def payload_kernel_rows(data, queries, cfg, cand, flush) -> list[dict]:
     """Kernel E, per payload format, against its plain version on the first
     50-query chunk of a plain-backend single shard over every point (its
-    candidate rows ``cand``)."""
+    candidate rows ``cand``), at the path's ``c_comp`` and with a forced
+    overflow (``c_comp=64``)."""
     import torch
 
     from repro_torch.core import pipeline
-    from repro_torch.kernels.blocking import next_pow2
-    from repro_torch.kernels.query_fused import ops as qf, ref as qf_ref
     from repro_torch.runtime import payload as payload_mod
 
-    n, d = data.shape
     qs = queries[: cfg.query_chunk].contiguous()
-    run, c_w, k = pipeline._fused_run(cfg), cand.shape[1], cfg.k
-    cc = pipeline._compact_width(cfg, c_w, n)
-    q_n = qs.shape[0]
-    out_d = qf.query_tail(data, qs, cand, run=run, c_comp=cc, k=k)  # kernel D on the same rows
+    cc = pipeline._compact_width(cfg, cand.shape[1], data.shape[0])
     rows = []
     for fmt in ("f16", "i8"):
         pl = payload_mod.make_payload(data, fmt)
-        args = (data, pl.qdata, pl.meta, qs, cand)
-        kw = dict(c_comp=cc, c_rerank=C_RERANK, k=k)
-        out_k = qf.query_tail_payload(*args, run=run, **kw)
-        out_r = qf_ref.query_tail_payload_ref(*args, **kw)
-        for i, what in ((2, "comparisons"), (3, "overflow"), (4, "rerank_misses")):
-            need(torch.equal(out_k[i], out_r[i]), f"query_tail_payload ({fmt}) {what} differ from its plain version")
-        exact = bool(torch.equal(out_k[0], out_r[0]) and torch.equal(out_k[1], out_r[1]))
-        if not exact:
-            need_topk(out_k[0], out_k[1], out_r[0], out_r[1], point_dist_of(data, qs),
-                      f"query_tail_payload ({fmt}) top-k differs")
-        # the certificate at kernel level: a row with no miss equals kernel D's bit for bit
-        ok = out_k[4] == 0
-        need(torch.equal(out_k[0][ok], out_d[0][ok]) and torch.equal(out_k[1][ok], out_d[1][ok]),
-             f"query_tail_payload ({fmt}) rows with no miss differ from query_tail")
-        gathered = int(out_r[2].clamp(max=cc).sum())
-        shortlisted = int(out_r[2].clamp(max=min(C_RERANK, cc)).sum())
-        cx = q_n * (merge_exchanges(*merge_width(c_w, run)) + merge_exchanges(next_pow2(cc), 1))
-        itemsize = payload_mod.payload_itemsize(fmt)
-        b_ms, b_by = bound(
-            cand.numel() * 4 + q_n * d * 4 + gathered * (d * itemsize + 8) + shortlisted * d * 4
-            + q_n * (k * 8 + 12),
-            3 * d * (gathered + shortlisted) + cx,
-        )
+        row = e_case(fmt, data, pl, qs, cand, cfg, cc, flush)
         rows.append(dict(
             name=f"query_tail_payload.{fmt}", kernel="query_tail_payload", route="cuda",
             source="src/repro_torch/csrc/query_payload.cu",
             replaces="src/repro/kernels/query_fused/query_fused.py:592",
             also_replaces="src/repro/kernels/query_fused/query_fused.py:564",
-            shape=(f"cand ({q_n}, {c_w}), run {run}, c_comp {cc}, c_rerank {C_RERANK}, k {k}, {fmt} rows,"
-                   f" {gathered} rows gathered, {shortlisted} reranked"),
-            exact=exact, rerank_misses=int(out_k[4].sum()), zero_miss_rows_equal_to_query_tail=int(ok.sum()),
-            max_abs_err=float((out_k[0] - out_r[0]).abs().nan_to_num(0.0).max()),
-            ms=timed_ms(lambda: qf.query_tail_payload(*args, run=run, **kw), 50, flush),
-            device_ms=device_profile(lambda: qf.query_tail_payload(*args, run=run, **kw))["device_ms"],
-            plain_ms=timed_ms(lambda: qf_ref.query_tail_payload_ref(*args, **kw), 10, flush),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            **{key: v for key, v in row.items() if key != "case"},
+            library_ms=None, overflow_case=e_case(fmt, data, pl, qs, cand, cfg, 64, flush),
         ))
-        del pl, args
+        del pl
     return rows
+
+
+def e_case(fmt: str, data, pl, qs, cand, cfg, cc: int, flush) -> dict:
+    """Kernel E on a chunk's (Q, C) rows with payload ``pl`` and compact
+    width ``cc``: ``comparisons``, ``overflow`` and ``rerank_misses`` equal
+    to the plain version's, the top-k tie-aware, every row with no miss
+    equal to kernel D's bits on the same rows; timed by events, by the
+    profiler and on the host. The bound: the candidate rows, the queries,
+    each compacted row's quantized coordinates and meta, each shortlisted
+    row's f32 coordinates and the outputs, moved once; one operation per
+    candidate column for the dedup and 3 per coordinate of the two L1
+    passes."""
+    import torch
+
+    from repro_torch.core import pipeline
+    from repro_torch.kernels.query_fused import ops as qf, ref as qf_ref
+    from repro_torch.runtime import payload as payload_mod
+
+    (q_n, c_w), d, k = cand.shape, data.shape[1], cfg.k
+    run = pipeline._fused_run(cfg)
+    args = (data, pl.qdata, pl.meta, qs, cand)
+    kw = dict(c_comp=cc, c_rerank=C_RERANK, k=k)
+
+    def fn():
+        return qf.query_tail_payload(*args, run=run, **kw)
+
+    out_k, out_r = fn(), qf_ref.query_tail_payload_ref(*args, **kw)
+    for i, what in ((2, "comparisons"), (3, "overflow"), (4, "rerank_misses")):
+        need(torch.equal(out_k[i], out_r[i]), f"query_tail_payload ({fmt}, c_comp {cc}) {what} differ from its plain version")
+    exact = bool(torch.equal(out_k[0], out_r[0]) and torch.equal(out_k[1], out_r[1]))
+    if not exact:
+        need_topk(out_k[0], out_k[1], out_r[0], out_r[1], point_dist_of(data, qs),
+                  f"query_tail_payload ({fmt}, c_comp {cc}) top-k differs")
+    # the certificate at kernel level: a row with no miss equals kernel D's bit for bit
+    out_d = qf.query_tail(data, qs, cand, run=run, c_comp=cc, k=k)
+    ok = out_k[4] == 0
+    need(torch.equal(out_k[0][ok], out_d[0][ok]) and torch.equal(out_k[1][ok], out_d[1][ok]),
+         f"query_tail_payload ({fmt}, c_comp {cc}) rows with no miss differ from query_tail")
+    gathered = int(out_r[2].clamp(max=cc).sum())
+    shortlisted = int(out_r[2].clamp(max=min(C_RERANK, cc)).sum())
+    itemsize = payload_mod.payload_itemsize(fmt)
+    b_ms, b_by = bound(
+        cand.numel() * 4 + q_n * d * 4 + gathered * (d * itemsize + 8) + shortlisted * d * 4 + q_n * (k * 8 + 12),
+        cand.numel() + 3 * d * (gathered + shortlisted),
+    )
+    return dict(case=f"c_comp {cc}",
+                shape=(f"cand ({q_n}, {c_w}), run {run}, c_comp {cc}, c_rerank {C_RERANK}, k {k}, {fmt} rows,"
+                       f" {gathered} rows gathered, {shortlisted} reranked"),
+                exact=exact, rerank_misses=int(out_k[4].sum()), overflow=int(out_k[3].sum()),
+                zero_miss_rows_equal_to_query_tail=int(ok.sum()),
+                max_abs_err=float((out_k[0] - out_r[0]).abs().nan_to_num(0.0).max()),
+                ms=timed_ms(fn, 50, flush), **device_profile(fn), host_ms=host_ms(fn),
+                plain_ms=timed_ms(lambda: qf_ref.query_tail_payload_ref(*args, **kw), 10, flush),
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def main() -> int:
@@ -812,6 +927,8 @@ def run(dev, n: int, nq: int, lm_smoke: bool = False, ds_seqs: int = DS_SEQS) ->
               point_dist_of(single._state["data"], queries), "multiprobe top-k differs")
     emit("multiprobe", n=n_mp, queries=nq_mp, query_launches=mp_launches,
          mean_comparisons=float(res_mp.comparisons.to(torch.float32).mean()))
+    del single, res_mp, ref_mp
+    route_launches = routes_phase(dev, pts[:n_mp], qx[:nq_mp], queries[:nq_mp], cfg)
 
     # backends agree on the card: the plain path on the same grid index
     nq_b = 256
@@ -850,13 +967,98 @@ def run(dev, n: int, nq: int, lm_smoke: bool = False, ds_seqs: int = DS_SEQS) ->
             r["launches"] = payload_launches.get(r["name"], 0)
         elif r["name"] == "flash_attention":  # runs on the kNN-LM path only
             r["launches"] = lm_launches.get(r["name"], 0)
+        elif r["name"] == "l1_topk":  # runs on the staged route only
+            r["launches"] = route_launches.get(r["name"], 0)
         else:
             r["launches"] = main_launches.get(r["name"], 0)
             r["multiprobe_query_launches"] = mp_launches.get(r["name"], 0)
         r["payload_query_launches"] = payload_launches.get(r["name"], 0)
+        r["routes_launches"] = route_launches.get(r["name"], 0)
         r["knn_lm_launches"] = lm_launches.get(r["name"], 0)
         r["serve_launches"] = serve_launches.get(r["name"], 0)
     print(json.dumps({"kernels": rows}), flush=True)
+
+
+def routes_phase(dev, pts, qx, queries, cfg) -> dict:
+    """Each of ``ROUTE_CASES`` on a single shard over ``pts`` (131,072 points)
+    through the handle's entry points on the ``"cuda"`` backend, queried
+    with ``qx`` (500 queries) as f32 and as i8. Every chunk must take the
+    case's route, counted in ``tail.fused``/``tail.staged``, each through
+    its kernel (D, or C), so no plain version ran. f32 is held against the
+    ``"torch"`` backend on the card (counters exact, top-k tie-aware); i8
+    against the payload tail's plain version chunk by chunk, and its rows
+    with no rerank miss equal the f32 answer bit for bit. Returns the
+    kernels' launches over all cases."""
+    import torch
+
+    from repro_torch import dslsh
+    from repro_torch.core import pipeline
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.query_fused import ref as qf_ref
+
+    n, nq = pts.shape[0], qx.shape[0]
+    chunks = -(-nq // cfg.query_chunk)
+    launches: dict[str, int] = {}
+    for case, kw in ROUTE_CASES.items():
+        cfg_r = cfg.replace(**kw)
+        index = dslsh.build(SEED, pts, cfg_r, dslsh.single(), dev)
+        data = index._state["data"]
+        sync(dev)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = index.query(qx)
+        sync(dev)
+        f32_s = time.perf_counter() - t0
+        got = dict(_build.LAUNCHES)
+        routes = {r: got.get(f"tail.{r}", 0) for r in ("fused", "staged")}
+        want = ROUTE_EXPECTED[case]
+        need(routes[want] == chunks, f"routes {case}: chunks by route {routes}, not all {chunks} {want}")
+        need(got.get("query_tail", 0) == routes["fused"] and got.get("l1_topk", 0) == routes["staged"],
+             f"routes {case}: a chunk ran without its kernel: {got}")
+        ref = pipeline.query_batch(index.pipeline_index, data, queries, cfg_r.replace(backend="torch"))
+        for what in ("comparisons", "compaction_overflow"):
+            need(torch.equal(getattr(res, what)[0, 0], getattr(ref, what)), f"routes {case}: {what} differ from the torch backend")
+        need_topk(res.knn_dist, res.knn_idx, ref.knn_dist, ref.knn_idx, point_dist_of(data, queries),
+                  f"routes {case}: top-k differs from the torch backend")
+
+        cfg_8 = cfg_r.replace(payload="i8", **ROUTE_I8.get(case, {}))
+        index8 = dslsh.build(SEED, pts, cfg_8, dslsh.single(), dev)
+        pl = index8._payload()
+        sync(dev)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res8 = index8.query(qx)
+        sync(dev)
+        i8_s = time.perf_counter() - t0
+        got8 = dict(_build.LAUNCHES)
+        need(got8.get("query_tail_payload.i8", 0) == chunks, f"routes {case}: i8 ran {got8}, not one payload tail a chunk")
+        cfg_t = cfg_r.replace(backend="torch")
+        for lo in range(0, nq, cfg.query_chunk):
+            qc = queries[lo : lo + cfg.query_chunk]
+            pk, ik = pipeline._stage_hash(index8.pipeline_index, qc, cfg_t, pipeline.get_backend("torch"))
+            cand, _ = pipeline._stage_gather_fast(index8.pipeline_index, cfg_t, pk, ik)
+            cc = pipeline._compact_width(cfg_8, cand.shape[1], n)
+            out = qf_ref.query_tail_payload_ref(data, pl.qdata, pl.meta, qc, cand, c_comp=cc,
+                                                c_rerank=cfg_8.c_rerank, k=cfg_8.k)
+            sl = slice(lo, lo + qc.shape[0])
+            for i, what in ((2, "comparisons"), (3, "compaction_overflow"), (4, "rerank_misses")):
+                need(torch.equal(getattr(res8, what)[0, 0, sl], out[i]),
+                     f"routes {case}: i8 {what} differ from the plain version in chunk {lo}")
+            need_topk(res8.knn_dist[sl], res8.knn_idx[sl], out[0], out[1], point_dist_of(data, qc),
+                      f"routes {case}: i8 top-k differs from the plain version in chunk {lo}")
+        ok = res8.rerank_misses[0, 0] == 0
+        need(torch.equal(res8.knn_idx[ok], res.knn_idx[ok]) and torch.equal(res8.knn_dist[ok], res.knn_dist[ok]),
+             f"routes {case}: an i8 query with no rerank miss differs from the f32 answer")
+        emit("routes", case=case, config=dict(kw, **ROUTE_I8.get(case, {})), n=n, queries=nq,
+             columns=cfg_r.L_out * cfg_r.slot, c_comp=pipeline._compact_width(cfg_r, cfg_r.L_out * cfg_r.slot, n),
+             chunks_by_route=routes, f32_launches=got, i8_launches=got8, f32_query_s=f32_s, i8_query_s=i8_s,
+             mean_comparisons=float(res.comparisons.to(torch.float32).mean()),
+             overflow_queries=int((res.compaction_overflow > 0).sum()),
+             i8_rerank_miss_total=res8.rerank_miss_total, i8_certified_queries=int(ok.sum()))
+        for name, c in list(got.items()) + list(got8.items()):
+            launches[name] = launches.get(name, 0) + c
+        del index, index8, res, res8, ref, pl
+    return launches
 
 
 def payload_phase(dev, pts, qx, labels, truth, cfg, mcc_pknn: float) -> dict:

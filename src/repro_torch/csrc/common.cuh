@@ -14,10 +14,12 @@ extern "C" const char* repro_cuda_error_string(int err) {
 }
 
 // Raise a kernel's dynamic shared-memory cap when a launch needs more than
-// the default 48 KB; returns the CUDA error code (0 on success).
+// the default 48 KB together with the kernel's static shared memory (at
+// most 8 KB in every kernel of the port); returns the CUDA error code (0 on
+// success).
 template <class Kernel>
 inline int allow_dynamic_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
+  if (bytes + 8 * 1024 <= 48 * 1024) return 0;
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes)));

@@ -36,8 +36,9 @@
 // any cluster size, and kernel E's exact rerank gets D's. Each warp keeps
 // lane lists of its share's k nearest, one warp merges the block's lists,
 // and block 0 merges the cluster's block lists through distributed shared
-// memory. Candidate vectors touch device memory once and no (Q, c_comp, d)
-// block is written.
+// memory; for k > 32 (one block a query) the block sorts 64-bit (distance,
+// position) keys instead (topk.cuh's block form). Candidate vectors touch
+// device memory once and no (Q, c_comp, d) block is written.
 #include <cooperative_groups.h>
 
 #include "tail_common.cuh"
@@ -60,15 +61,16 @@ struct TailArgs {
 };
 
 // Dynamic shared memory of one block: the wide path's row slots, the
-// query, the merge's exchange buffers, comp and dist (the wrapper's
-// tail_smem_bytes computes the same).
+// query (an even number of floats, so the exchange buffers after it are
+// 8-byte aligned for the k > TOPK_MAX sort's keys), the merge's exchange
+// buffers, comp and dist (the wrapper's tail_smem_bytes computes the same).
 static size_t tail_smem_bytes(int d, int Cp, int c_comp, bool stage) {
   const size_t e = static_cast<size_t>(Cp > QT_THREADS ? Cp : QT_THREADS);
-  return ((stage ? static_cast<size_t>(QT_WARPS) * d : 0) + d + 2 * e +
+  return ((stage ? static_cast<size_t>(QT_WARPS) * d : 0) + d + (d & 1) + 2 * e +
           2 * static_cast<size_t>(c_comp)) * 4;
 }
 
-template <int E>
+template <int E, bool SORT_K>  // SORT_K: k > TOPK_MAX, one block a query
 __global__ void __launch_bounds__(QT_THREADS) query_tail_kernel(const TailArgs a) {
   extern __shared__ __align__(16) float qt_smem[];
   __shared__ int warp_sums[32];
@@ -87,7 +89,7 @@ __global__ void __launch_bounds__(QT_THREADS) query_tail_kernel(const TailArgs a
   const int warp = threadIdx.x >> 5;
   float* slots = qt_smem;                        // QT_WARPS rows of d (stage)
   float* qs = slots + (a.stage ? QT_WARPS * d : 0);  // the query
-  int* xbuf = reinterpret_cast<int*>(qs + d);    // 2 * QT_THREADS * E
+  int* xbuf = reinterpret_cast<int*>(qs + d + (d & 1));  // 2 * QT_THREADS * E
   int* comp = xbuf + 2 * QT_THREADS * E;         // c_comp unique indices
   float* dist = reinterpret_cast<float*>(comp + a.c_comp);  // their L1
 
@@ -126,8 +128,24 @@ __global__ void __launch_bounds__(QT_THREADS) query_tail_kernel(const TailArgs a
   }
   __syncthreads();
 
-  // the block's k nearest: warp w takes positions lo + 32w + lane + 256i
   const int k = a.k;
+  if constexpr (SORT_K) {  // sort (dist, position) keys in the merge's
+    // exchange buffers, free now and at least Cp >= next_pow2(nc) keys wide
+    unsigned long long* keys = reinterpret_cast<unsigned long long*>(xbuf);
+    for (int r = threadIdx.x; r < nc; r += QT_THREADS) keys[r] = topk_key(dist[r], r);
+    const size_t o = static_cast<size_t>(qi) * k;
+    block_topk_sorted(keys, nc, k, [&](int r, float dv, int pos) {
+      a.kd[o + r] = dv;
+      a.ki[o + r] = pos >= 0 ? comp[pos] : -1;
+    });
+    if (threadIdx.x == 0) {
+      a.comparisons[qi] = total;
+      a.overflow[qi] = max(total - a.c_comp, 0);
+    }
+    return;
+  }
+
+  // the block's k nearest: warp w takes positions lo + 32w + lane + 256i
   const int span = ((hi - lo + QT_THREADS - 1) / QT_THREADS) * 32;
   warp_topk_keys(
       [&](int i, float& dv, int& pos) {
@@ -175,10 +193,10 @@ __global__ void __launch_bounds__(QT_THREADS) query_tail_kernel(const TailArgs a
   }
 }
 
-template <int E>
+template <int E, bool SORT_K>
 static int launch(const TailArgs& a, int Q, int cs, cudaStream_t stream) {
   const size_t smem = tail_smem_bytes(a.d, a.Cp, a.c_comp, a.stage);
-  int err = allow_dynamic_smem(query_tail_kernel<E>, smem);
+  int err = allow_dynamic_smem(query_tail_kernel<E, SORT_K>, smem);
   if (err != 0) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(Q * cs);
@@ -192,13 +210,14 @@ static int launch(const TailArgs& a, int Q, int cs, cudaStream_t stream) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, query_tail_kernel<E>, a));
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, query_tail_kernel<E, SORT_K>, a));
 }
 
 // Cp is the merge width (a power of two, C <= Cp <= 16,384), start_width the
 // run width the merge starts from, cluster the blocks per query (1, 2, 4 or
-// 8) and stage whether wide rows go through shared memory (d % 4 == 0 and
-// a 16-byte aligned data pointer). Returns the CUDA error code.
+// 8; 1 when k > TOPK_MAX) and stage whether wide rows go through shared
+// memory (d % 4 == 0 and a 16-byte aligned data pointer). Returns the CUDA
+// error code.
 extern "C" int query_tail_launch(const float* data, const float* queries,
                                  const int* cand, int n, int d, int Q, int C,
                                  int Cp, int start_width, int c_comp, int k,
@@ -208,14 +227,15 @@ extern "C" int query_tail_launch(const float* data, const float* queries,
   if (Q > 0) {
     const bool ok = C >= 1 && C <= Cp && (Cp & (Cp - 1)) == 0 && Cp <= 64 * QT_THREADS &&
                     cluster >= 1 && cluster <= QT_CLUSTER_MAX && (cluster & (cluster - 1)) == 0 &&
-                    k >= 1 && k <= TOPK_MAX &&
+                    k >= 1 && (k <= TOPK_MAX || cluster == 1) &&
                     (!stage || (d % 4 == 0 && reinterpret_cast<uintptr_t>(data) % 16 == 0));
     if (!ok) return static_cast<int>(cudaErrorInvalidValue);
     const TailArgs a{data, queries, cand, n, d, C, Cp, start_width, c_comp, k,
                      row_vec(data, d), stage != 0, kd, ki, comparisons, overflow};
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int err = with_merge_regs(Cp, [&](auto e) {
-      return launch<decltype(e)::value>(a, Q, cluster, st);
+      return k > TOPK_MAX ? launch<decltype(e)::value, true>(a, Q, cluster, st)
+                          : launch<decltype(e)::value, false>(a, Q, cluster, st);
     });
     if (err != 0) return err;
   }

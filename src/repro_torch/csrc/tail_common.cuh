@@ -1,9 +1,11 @@
 // Stages shared by the fused query tails (kernel D, query_fused.cu, and
-// kernel E, query_payload.cu): merge a query's candidate runs, rank the
+// kernel E, query_payload.cu) and by kernel C (l1_topk.cu): stages 3-4 in
+// two forms, D's (merge a query's candidate runs in registers, rank the
 // first occurrences with a block scan and compact the first c_comp unique
-// indices, plus the L1 distance both tails use for their exact f32
-// distances. Keeping one copy is what makes E's exact top-k bit-identical
-// to D's on the same rows.
+// indices) and E's (a hash set whose cost follows the row's live entries),
+// plus the one L1 order every exact f32 distance of C, D and E takes.
+// Keeping one copy of it is what makes E's exact top-k and C's distances
+// bit-identical to D's on the same rows.
 #pragma once
 
 #include <type_traits>
@@ -17,8 +19,8 @@ constexpr int SENT = INT_MAX;    // sorts after any real index
 
 // Calls launch(std::integral_constant<int, E>{}) with E, the registers a
 // thread holds of a merge of width Cp (a power of two, at most 64 *
-// QT_THREADS), and returns what it returns: how both tails pick the
-// instance of their kernel templated on E.
+// QT_THREADS), and returns what it returns: how kernel D picks the
+// instance of its kernel templated on E.
 template <class Launch>
 static int with_merge_regs(int Cp, Launch&& launch) {
   switch (Cp <= QT_THREADS ? 1 : Cp / QT_THREADS) {
@@ -119,35 +121,10 @@ __device__ void bitonic_merge_regs(int (&v)[E], int Cp, int start_width,
   }
 }
 
-// Sort s[0, n) in shared memory the same way (n a power of two), for keys
-// wider than the register form takes. Ends with __syncthreads().
-template <class K>
-__device__ void bitonic_merge_from(K* s, int n, int start_width) {
-  const int half_n = n >> 1;
-  for (int size = start_width << 1; size <= n; size <<= 1) {
-    const int lg = __ffs(size) - 2;  // log2(size / 2)
-    for (int i = threadIdx.x; i < half_n; i += blockDim.x) {
-      const int j = i & ((1 << lg) - 1);
-      const int a = ((i >> lg) << (lg + 1)) + j;
-      const int b = a ^ (size - 1);
-      const K va = s[a], vb = s[b];
-      if (va > vb) { s[a] = vb; s[b] = va; }
-    }
-    __syncthreads();
-    for (int ls = lg - 1; ls >= 0; --ls) {
-      for (int i = threadIdx.x; i < half_n; i += blockDim.x) {
-        const int a = ((i >> ls) << (ls + 1)) + (i & ((1 << ls) - 1));
-        const int b = a + (1 << ls);
-        const K va = s[a], vb = s[b];
-        if (va > vb) { s[a] = vb; s[b] = va; }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// Exclusive prefix sum of v over the block in thread order; the block total
-// is left in warp_sums[QT_WARPS - 1]. Ends with __syncthreads().
+// Exclusive prefix sum of v over a block of NWARPS warps in thread order;
+// the block total is left in warp_sums[NWARPS - 1]. Ends with
+// __syncthreads().
+template <int NWARPS = QT_WARPS>
 __device__ inline int block_exclusive_scan(int v, int* warp_sums) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -159,12 +136,12 @@ __device__ inline int block_exclusive_scan(int v, int* warp_sums) {
   if (lane == 31) warp_sums[warp] = incl;
   __syncthreads();
   if (warp == 0) {
-    int s = lane < QT_WARPS ? warp_sums[lane] : 0;
+    int s = lane < NWARPS ? warp_sums[lane] : 0;
     for (int off = 1; off < 32; off <<= 1) {
       const int t = __shfl_up_sync(0xffffffffu, s, off);
       if (lane >= off) s += t;
     }
-    if (lane < QT_WARPS) warp_sums[lane] = s;  // inclusive warp totals
+    if (lane < NWARPS) warp_sums[lane] = s;  // inclusive warp totals
   }
   __syncthreads();
   return (warp > 0 ? warp_sums[warp - 1] : 0) + incl - v;
@@ -207,6 +184,207 @@ __device__ int dedup_compact(const int* __restrict__ row, int C, int Cp,
     if (v[r] != SENT && v[r] != (r > 0 ? v[r - 1] : prev)) {
       if (rank < c_comp) comp[rank] = v[r];
       ++rank;
+    }
+  }
+  __syncthreads();
+  return total;
+}
+
+// ------------------------------------------------------ the hash-set dedup
+//
+// Stages 3-4 at a cost that follows the row's live entries rather than its
+// width (kernel E's; kernel D keeps dedup_compact): count the row's
+// non-negative entries, insert them into an open-addressing hash set of
+// next_pow2(4 * live) slots (at least THREADS, at most h_cap >= 2 * C:
+// load at most 1/4, or 1/2 for a row of nearly C live entries) by
+// hash_insert_block, -1 skipped, and compact the set's entries with a
+// block scan. When more than c_comp indices are unique, a bisection over
+// the row's index range finds the c_comp-th smallest, and only indices up
+// to it are kept, so comp holds the c_comp smallest unique indices, as the
+// sorted form keeps them. comp[0, min(total, c_comp)) is in slot order, not
+// ascending: every later tie is broken by the index itself. table: h_cap
+// ints; warp_sums 32 ints of shared memory. Returns total (the query's
+// `comparisons`); ends with __syncthreads().
+
+__device__ __forceinline__ uint32_t hash_index(uint32_t x) {  // murmur3's finalizer
+  x ^= x >> 16;
+  x *= 0x85ebca6bu;
+  x ^= x >> 13;
+  x *= 0xc2b2ae35u;
+  return x ^ (x >> 16);
+}
+
+// Insert every thread's entries v[r] >= 0 into the set, without atomics,
+// in rounds of linear probing: an entry whose slot reads empty writes
+// itself there, and after a barrier reads the slot back; an entry that
+// finds another index moves to the next slot for the next round. Copies of
+// one index probe the same slots in the same rounds, so each index lands in
+// exactly one slot, and a slot once set is never written again. Every
+// thread of the block calls it.
+template <int R>
+__device__ void hash_insert_block(int* table, uint32_t mask, const int (&v)[R]) {
+  uint32_t slot[R];
+  bool pending[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    pending[r] = v[r] >= 0;
+    slot[r] = hash_index(static_cast<uint32_t>(v[r])) & mask;
+  }
+  for (;;) {
+    int cur[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) cur[r] = pending[r] ? table[slot[r]] : 0;
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (pending[r] && cur[r] == -1) table[slot[r]] = v[r];
+    __syncthreads();
+    bool again = false;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (pending[r]) {
+        pending[r] = table[slot[r]] != v[r];
+        slot[r] = pending[r] ? (slot[r] + 1) & mask : slot[r];
+        again |= pending[r];
+      }
+    }
+    if (!__syncthreads_or(again)) break;
+  }
+}
+
+template <int THREADS>
+__device__ inline int dedup_hash_compact(const int* row, int C,
+                                         int c_comp, int h_cap, int* table,
+                                         int* comp, int* warp_sums) {
+  // the row in passes of DEDUP_REGS entries a thread, all loads of a pass in
+  // flight together (a row of up to 4,096 is loaded once and kept in
+  // registers: `row` is not __restrict__, so the loads are not repeated
+  // after the barriers)
+  constexpr int NWARPS = THREADS / 32;
+  constexpr int DEDUP_REGS = 4096 / THREADS;  // row entries a thread loads at once
+  constexpr int DEDUP_SLOTS = 8192 / THREADS;  // set slots a thread holds in registers
+  constexpr int PASS = THREADS * DEDUP_REGS;
+  int v[DEDUP_REGS];
+  auto load = [&](int base) {
+#pragma unroll
+    for (int r = 0; r < DEDUP_REGS; ++r) {
+      const int e = base + r * THREADS + static_cast<int>(threadIdx.x);
+      v[r] = e < C ? row[e] : -1;
+    }
+  };
+  int live = 0, lo = INT_MAX, hi = -1;  // the thread's live entries and their bounds
+  for (int base = 0; base < C; base += PASS) {
+    load(base);
+#pragma unroll
+    for (int r = 0; r < DEDUP_REGS; ++r) {
+      live += v[r] >= 0;
+      if (v[r] >= 0) {
+        lo = min(lo, v[r]);
+        hi = max(hi, v[r]);
+      }
+    }
+  }
+  block_exclusive_scan<NWARPS>(live, warp_sums);
+  const int h = min(h_cap, max(THREADS, next_pow2(4 * warp_sums[NWARPS - 1])));
+  for (int s = threadIdx.x; s < h / 4; s += THREADS)  // table is 16-byte aligned
+    reinterpret_cast<int4*>(table)[s] = make_int4(-1, -1, -1, -1);
+  __syncthreads();
+  for (int base = 0; base < C; base += PASS) {
+    if (C > PASS) load(base);
+    hash_insert_block(table, static_cast<uint32_t>(h - 1), v);
+  }
+  // the set's entries, thread t taking slots t + THREADS * j: in
+  // registers for a set of at most THREADS * DEDUP_SLOTS slots
+  const int per = h / THREADS;
+  const bool in_regs = per <= DEDUP_SLOTS;
+  int sv[DEDUP_SLOTS];
+#pragma unroll
+  for (int j = 0; j < DEDUP_SLOTS; ++j)
+    sv[j] = in_regs && j < per ? table[threadIdx.x + THREADS * j] : -1;
+  auto count_upto = [&](int t) {  // this thread's entries up to index t >= 0
+    int c = 0;                     // (an empty slot's -1 is above t unsigned)
+    if (in_regs) {
+#pragma unroll
+      for (int j = 0; j < DEDUP_SLOTS; ++j) c += static_cast<unsigned>(sv[j]) <= static_cast<unsigned>(t);
+    } else {
+      for (int j = 0; j < per; ++j)
+        c += static_cast<unsigned>(table[threadIdx.x + THREADS * j]) <= static_cast<unsigned>(t);
+    }
+    return c;
+  };
+  int off = block_exclusive_scan<NWARPS>(count_upto(INT_MAX), warp_sums);
+  const int total = warp_sums[NWARPS - 1];
+  int limit = INT_MAX;  // keep the indices up to this one
+  if (total > c_comp) {
+    // the c_comp-th smallest index, by narrowing the row's [lo, hi] with
+    // histograms of at most SEL_BINS bins of 2^sh indices (shared atomics):
+    // each level keeps the bin that holds the rank, SEL_BINS times narrower,
+    // so an index range of up to 2^20 takes two levels and any range at
+    // most three.
+    constexpr int SEL_BINS = 1024;
+    constexpr int PER = SEL_BINS / THREADS;  // bins a thread scans
+    __shared__ int hist[SEL_BINS];
+    __shared__ int red[2 * NWARPS + 2];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    lo = __reduce_min_sync(0xffffffffu, lo);
+    hi = __reduce_max_sync(0xffffffffu, hi);
+    if (lane == 0) {
+      red[warp] = lo;
+      red[NWARPS + warp] = hi;
+    }
+    for (int b = threadIdx.x; b < SEL_BINS; b += THREADS) hist[b] = 0;
+    __syncthreads();
+    lo = __reduce_min_sync(0xffffffffu, lane < NWARPS ? red[lane] : INT_MAX);
+    hi = __reduce_max_sync(0xffffffffu, lane < NWARPS ? red[NWARPS + lane] : -1);
+    int rank = c_comp - 1;  // of the wanted index among those in [lo, hi]
+    while (lo < hi) {
+      // bins of 2^sh indices: the fewest bits that leave at most SEL_BINS
+      int sh = 0;
+      while (((hi - lo) >> sh) >= SEL_BINS) ++sh;
+      auto add = [&](int x) {
+        if (x >= lo && x <= hi) atomicAdd(&hist[(x - lo) >> sh], 1);
+      };
+      if (in_regs) {
+#pragma unroll
+        for (int j = 0; j < DEDUP_SLOTS; ++j) add(sv[j]);
+      } else {
+        for (int j = 0; j < per; ++j) add(table[threadIdx.x + THREADS * j]);
+      }
+      __syncthreads();
+      int c[PER > 0 ? PER : 1], mine = 0;
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        c[i] = hist[threadIdx.x * PER + i];
+        mine += c[i];
+      }
+      int below = block_exclusive_scan<NWARPS>(mine, warp_sums);
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        if (rank >= below && rank < below + c[i]) {
+          red[2 * NWARPS] = threadIdx.x * PER + i;
+          red[2 * NWARPS + 1] = below;
+        }
+        below += c[i];
+      }
+#pragma unroll
+      for (int i = 0; i < PER; ++i) hist[threadIdx.x * PER + i] = 0;  // for the next level
+      __syncthreads();
+      const int bstar = red[2 * NWARPS];
+      rank -= red[2 * NWARPS + 1];
+      lo += bstar << sh;
+      hi = min(hi, lo + (1 << sh) - 1);
+      __syncthreads();  // red is read before the next level writes it
+    }
+    limit = lo;
+    off = block_exclusive_scan<NWARPS>(count_upto(limit), warp_sums);
+  }
+  if (in_regs) {
+#pragma unroll
+    for (int j = 0; j < DEDUP_SLOTS; ++j)
+      if (sv[j] >= 0 && sv[j] <= limit) comp[off++] = sv[j];
+  } else {
+    for (int j = 0; j < per; ++j) {
+      const int x = table[threadIdx.x + THREADS * j];
+      if (x >= 0 && x <= limit) comp[off++] = x;
     }
   }
   __syncthreads();
@@ -274,6 +452,30 @@ __device__ __forceinline__ float l1_fold32(float (&a)[32]) {
 #pragma unroll
     for (int l = 0; l < off; ++l) a[l] = __fadd_rn(a[l], a[l + off]);
   return a[0];
+}
+
+// l1_warp over R rows at once, their loads in flight together: out[r] gets
+// l1_warp(x[r], q, d)'s bits.
+template <int R>
+__device__ __forceinline__ void l1_warp_rows(const float* const (&x)[R],
+                                             const float* __restrict__ q, int d,
+                                             float (&out)[R]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < R; ++r) out[r] = 0.0f;
+  for (int j = lane; j < d; j += 32) {
+    const float qj = q[j];
+    float xv[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) xv[r] = x[r][j];
+#pragma unroll
+    for (int r = 0; r < R; ++r) out[r] = __fadd_rn(out[r], fabsf(__fsub_rn(xv[r], qj)));
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      out[r] = __fadd_rn(out[r], __shfl_xor_sync(0xffffffffu, out[r], off));
 }
 
 // Widest row load (4, 2 or 1 floats) that d and the base address allow.

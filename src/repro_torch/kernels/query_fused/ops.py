@@ -16,10 +16,16 @@ nothing is padded or copied), the merge width ``cp`` (the next power of two)
 and the run width the merge starts from when the run is a power of two (a
 full in-block sort otherwise), and, for kernel D, how many blocks of a
 thread-block cluster share a query and whether wide rows go through shared
-memory.
+memory. Kernel D holds a query's whole row in one block: where the merge
+width passes ``CP_MAX`` or the block's shared memory its budget,
+:func:`tail_route` says ``"staged"`` and the pipeline runs stages 3-4 in
+torch and stage 5 as kernel C instead. Kernel E has no such limit: its
+per-query arrays move to a device scratch when they do not fit shared
+memory. Neither refuses any k.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -28,15 +34,16 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.blocking import next_pow2
 from repro_torch.kernels.query_fused import ref
 
-TOPK_MAX = 32  # csrc/topk.cuh
+TOPK_MAX = 32  # csrc/topk.cuh: the warp form's largest k
 QT_THREADS = 256  # csrc/tail_common.cuh: threads of a query's block
 NARROW_D = 32  # csrc/tail_common.cuh QT_NARROW_D: one thread per row up to here
 CP_MAX = 64 * QT_THREADS  # widest merge a block holds in registers
 CLUSTER_MAX = 8  # csrc/query_fused.cu: blocks per query
+E_THREADS = 512  # csrc/query_payload.cu: threads of a kernel-E block
 _STAGE_MAX = 128 * 1024  # kernel D's row slots (one row per warp) may take this much
 _SMEM_MAX = 200 * 1024  # dynamic shared memory a block may ask for here
 _SIGNATURES = {"query_tail_launch": [_build.PTR] * 3 + [_build.INT] * 10 + [_build.PTR] * 5}
-_PAYLOAD_LAUNCH = [_build.PTR] * 5 + [_build.INT] * 10 + [_build.PTR] * 6
+_PAYLOAD_LAUNCH = [_build.PTR] * 5 + [_build.INT] * 8 + [_build.PTR, ctypes.c_longlong] + [_build.PTR] * 6
 _PAYLOAD_SIGNATURES = {
     "query_tail_payload_f16_launch": _PAYLOAD_LAUNCH,
     "query_tail_payload_i8_launch": _PAYLOAD_LAUNCH,
@@ -67,31 +74,41 @@ def cluster_size(q_n: int, d: int, sms: int) -> int:
 
 def tail_smem_bytes(cp: int, c_comp: int, d: int, stage: bool) -> int:
     """Dynamic shared memory of one kernel-D block: the wide path's row
-    slots (one row per warp), the query, the merge's two exchange buffers,
-    and the compacted indices with their distances (``tail_smem_bytes`` in
-    ``csrc/query_fused.cu``)."""
-    return ((QT_THREADS // 32 * d if stage else 0) + d + 2 * max(cp, QT_THREADS) + 2 * c_comp) * 4
+    slots (one row per warp), the query (an even number of floats), the
+    merge's two exchange buffers, and the compacted indices with their
+    distances (``tail_smem_bytes`` in ``csrc/query_fused.cu``)."""
+    return ((QT_THREADS // 32 * d if stage else 0) + d + d % 2 + 2 * max(cp, QT_THREADS) + 2 * c_comp) * 4
 
 
 @functools.lru_cache(maxsize=None)
-def launch_shape(q_n: int, c: int, d: int, run: int, c_comp: int, *, aligned16: bool, sms: int) -> dict:
+def tail_route(c: int, d: int, run: int, c_comp: int) -> str:
+    """``"fused"`` when kernel D holds a query's row of ``c`` candidates in
+    one block (merge width within ``CP_MAX``, shared memory within budget
+    without the wide path's row slots), else ``"staged"``: stages 3-4 in
+    torch and stage 5 as kernel C. Decided from the shape alone, before any
+    launch; k does not enter (D's k > 32 sort reuses the merge's buffers).
+    Cached: every chunk of a path asks."""
+    cp, _ = merge_shape(c, run)
+    fits = cp <= CP_MAX and tail_smem_bytes(cp, c_comp, d, False) <= _SMEM_MAX
+    return "fused" if fits else "staged"
+
+
+@functools.lru_cache(maxsize=None)
+def launch_shape(q_n: int, c: int, d: int, run: int, c_comp: int, *, k: int, aligned16: bool,
+                 sms: int) -> dict:
     """Kernel D's launch for ``q_n`` queries of ``c`` candidates at width
-    ``d``: the merge width ``cp`` and ``start``, the ``cluster`` size,
-    ``stage`` (wide rows by cp.async through shared memory: needs d % 4 == 0,
-    a 16-byte aligned data pointer and room) and the dynamic shared memory
-    ``smem``. Raises when the row does not fit a block. Cached: a path asks
-    for the same few shapes on every call. Read the result, do not change
-    it."""
+    ``d``: the ``route`` (:func:`tail_route`), the merge width ``cp`` and
+    ``start``, the ``cluster`` size (1 when k > TOPK_MAX: the block-wide
+    top-k runs in one block), ``stage`` (wide rows by cp.async through
+    shared memory: needs d % 4 == 0, a 16-byte aligned data pointer and
+    room) and the dynamic shared memory ``smem``. Cached: a path asks for
+    the same few shapes on every call. Read the result, do not change it."""
     cp, start = merge_shape(c, run)
-    if cp > CP_MAX:
-        raise ValueError(f"candidate width {c} exceeds the merge's {CP_MAX}")
     stage = (d > NARROW_D and d % 4 == 0 and aligned16 and QT_THREADS // 32 * d * 4 <= _STAGE_MAX
              and tail_smem_bytes(cp, c_comp, d, True) <= _SMEM_MAX)
-    smem = tail_smem_bytes(cp, c_comp, d, stage)
-    if smem > _SMEM_MAX:
-        raise ValueError(f"candidate width {c} with c_comp={c_comp}, d={d} needs {smem} bytes"
-                         f" of shared memory, over the {_SMEM_MAX} budget")
-    return dict(cp=cp, start=start, cluster=cluster_size(q_n, d, sms), stage=stage, smem=smem)
+    return dict(route=tail_route(c, d, run, c_comp), cp=cp, start=start,
+                cluster=cluster_size(q_n, d, sms) if k <= TOPK_MAX else 1, stage=stage,
+                smem=tail_smem_bytes(cp, c_comp, d, stage))
 
 
 @functools.lru_cache(maxsize=None)
@@ -125,9 +142,12 @@ def query_tail(
         raise ValueError(f"queries {tuple(queries.shape)} do not match ({q_n}, {d})")
     if not all(t.is_contiguous() and t.device == data.device for t in (data, queries, cand)):
         raise ValueError("data, queries and cand must be contiguous on one device")
-    if not (1 <= k <= TOPK_MAX and c_comp >= 1 and run >= 1 and n >= 1):
+    if not (k >= 1 and c_comp >= 1 and run >= 1 and n >= 1):
         raise ValueError(f"bad launch: k={k}, c_comp={c_comp}, run={run}, n={n}")
-    shape = launch_shape(q_n, c, d, run, c_comp, aligned16=data.data_ptr() % 16 == 0,
+    if tail_route(c, d, run, c_comp) != "fused":
+        raise ValueError(f"kernel D cannot hold {c} candidates with c_comp={c_comp}, d={d} in one"
+                         " block: take the staged route (tail_route)")
+    shape = launch_shape(q_n, c, d, run, c_comp, k=k, aligned16=data.data_ptr() % 16 == 0,
                          sms=_sm_count(data.device))
     kd = torch.empty((q_n, k), dtype=torch.float32, device=data.device)
     ki = torch.empty((q_n, k), dtype=torch.int32, device=data.device)
@@ -144,13 +164,22 @@ def query_tail(
     return kd, ki, comparisons, overflow
 
 
-def payload_smem_bytes(cp: int, c_comp: int, d: int) -> int:
-    """Dynamic shared memory of one kernel-E block: the 64-bit shortlist keys
-    over ``next_pow2(c_comp)`` entries, the merge's two exchange buffers,
-    five ``c_comp`` arrays (comp, ad, qerr, exact distances, shortlist
-    flags) and the query (``payload_smem_bytes`` in
-    ``csrc/query_payload.cu``)."""
-    return next_pow2(c_comp) * 8 + (2 * max(cp, QT_THREADS) + 5 * c_comp + d) * 4
+def hash_slots(c: int) -> int:
+    """Kernel E's hash-set capacity for rows of ``c`` candidates: a power of
+    two, at least twice ``c`` (load at most 1/2) and ``E_THREADS``."""
+    return max(E_THREADS, next_pow2(2 * c))
+
+
+def payload_ws_bytes(c: int, c_comp: int, cr: int, k: int, d: int) -> int:
+    """One kernel-E query's workspace (``PayloadLayout`` in
+    ``csrc/query_payload.cu``): the block sort's 64-bit keys when k or
+    ``cr`` passes TOPK_MAX, the hash set, comp, ad and qerr (``c_comp``
+    each), the shortlisted indices and their exact distances (``cr`` each)
+    and the query, rounded up to 16 bytes. In shared memory when it fits the
+    budget, else in a device scratch of one workspace per query."""
+    sort = k > TOPK_MAX or cr > TOPK_MAX  # past the warp form: the block sort's keys
+    keys = -(-next_pow2(cr) * 8 // 16) * 16 if sort else 0  # the set starts 16-byte aligned
+    return -(-(keys + (hash_slots(c) + 3 * c_comp + 2 * cr + d) * 4) // 16) * 16
 
 
 def query_tail_payload(
@@ -194,20 +223,13 @@ def query_tail_payload(
     tensors = (data, qdata, meta, queries, cand)
     if not all(t.is_contiguous() and t.device == data.device for t in tensors):
         raise ValueError("data, qdata, meta, queries and cand must be contiguous on one device")
-    if not (1 <= k <= TOPK_MAX and c_comp >= 1 and c_rerank >= 1 and run >= 1 and n >= 1):
+    if not (k >= 1 and c_comp >= 1 and c_rerank >= 1 and run >= 1 and n >= 1 and c >= 1):
         raise ValueError(
-            f"bad launch: k={k}, c_comp={c_comp}, c_rerank={c_rerank}, run={run}, n={n}"
+            f"bad launch: k={k}, c_comp={c_comp}, c_rerank={c_rerank}, run={run}, n={n}, C={c}"
         )
     cr = min(c_rerank, c_comp)
-    cp, start = merge_shape(c, run)
-    if cp > CP_MAX:
-        raise ValueError(f"candidate width {c} exceeds the merge's {CP_MAX}")
-    smem = payload_smem_bytes(cp, c_comp, d)
-    if smem > _SMEM_MAX:
-        raise ValueError(
-            f"candidate width {cp} with c_comp={c_comp}, d={d} needs {smem} bytes"
-            f" of shared memory, over the {_SMEM_MAX} budget"
-        )
+    ws = payload_ws_bytes(c, c_comp, cr, k, d)
+    scratch = torch.empty((q_n * ws,), dtype=torch.uint8, device=data.device) if ws > _SMEM_MAX else None
     kd = torch.empty((q_n, k), dtype=torch.float32, device=data.device)
     ki = torch.empty((q_n, k), dtype=torch.int32, device=data.device)
     counts = torch.empty((3, q_n), dtype=torch.int32, device=data.device)
@@ -215,9 +237,9 @@ def query_tail_payload(
     launch = getattr(lib, f"query_tail_payload_{fmt}_launch")
     err = launch(
         data.data_ptr(), qdata.data_ptr(), meta.data_ptr(), queries.data_ptr(),
-        cand.data_ptr(), n, d, q_n, c, cp, start, c_comp, next_pow2(c_comp),
-        cr, k, kd.data_ptr(), ki.data_ptr(), counts[0].data_ptr(),
-        counts[1].data_ptr(), counts[2].data_ptr(), _build.stream_ptr(data),
+        cand.data_ptr(), n, d, q_n, c, c_comp, cr, k, hash_slots(c),
+        None if scratch is None else scratch.data_ptr(), ws, kd.data_ptr(), ki.data_ptr(),
+        counts[0].data_ptr(), counts[1].data_ptr(), counts[2].data_ptr(), _build.stream_ptr(data),
     )
     _build.check(lib, err, "query_tail_payload")
     _build.count_launch(f"query_tail_payload.{fmt}")

@@ -163,7 +163,7 @@ def _l1_inputs(b=9, c=70, d=6, integer=True, seed=4):
 
 
 @pytest.mark.parametrize("integer", [True, False], ids=["ties", "float"])
-@pytest.mark.parametrize("k", [1, 10])
+@pytest.mark.parametrize("k", [1, 10, 40, 70])  # 40 past the warp form's 32; 70 = C
 def test_l1_topk(integer, k):
     q, cands, mask = _l1_inputs(integer=integer)
     td, tp = tl1.l1_topk(*map(torch.as_tensor, (q, cands, mask)), k)
@@ -242,31 +242,83 @@ def test_query_tail_pads_to_a_power_of_two_run_count():
     assert tqf.merge_shape(7, 16) == (8, 8)
 
 
-@pytest.mark.parametrize(
-    "q_n,c,d,c_comp,aligned,want",
-    [
-        (50, 1024, 30, 1024, True, dict(cp=1024, start=16, cluster=1, stage=False, smem=16504)),
-        (50, 4096, 30, 1024, True, dict(cp=4096, start=16, cluster=1, stage=False, smem=41080)),
-        (1, 128, 4096, 128, True, dict(cp=128, start=16, cluster=8, stage=True, smem=150528)),
-        (50, 128, 4096, 128, True, dict(cp=128, start=16, cluster=4, stage=True, smem=150528)),
-        (7, 128, 4096, 128, False, dict(cp=128, start=16, cluster=8, stage=False, smem=19456)),
-        (300, 128, 4096, 128, True, dict(cp=128, start=16, cluster=1, stage=True, smem=150528)),
-        (1, 128, 18432, 128, True, dict(cp=128, start=16, cluster=8, stage=False, smem=76800)),
-        (50, 12288, 30, 1024, True, dict(cp=16384, start=16, cluster=1, stage=False, smem=139384)),
-    ],
-    ids=["grid_chunk", "payload_chunk", "hook", "knn_chunk", "unaligned", "many_queries", "widest",
-         "multiprobe"],
+@pytest.mark.parametrize("integer", [True, False], ids=["ties", "float"])
+def test_query_tail_k_past_the_warp_form(integer):
+    # k = 40 > 32: kernel D sorts the block's keys instead of merging warp lists
+    n, k, run = 300, 40, 16
+    rng = np.random.default_rng(5)
+    data = (rng.integers(0, 3, (n, 5)) if integer else rng.random((n, 5))).astype(np.float32)
+    queries = data[:12] + (0 if integer else 0.01)
+    cand = _run_rows(12, 8, run, n, seed=40)
+    tout = tqf.query_tail(*map(torch.as_tensor, (data, queries, cand)), run=run, c_comp=64, k=k)
+    for jkd, jki, jcmp, jovf in (
+        jqf_ref.query_tail_ref(*map(jnp.asarray, (data, queries, cand)), c_comp=64, k=k),
+        jqf.query_tail(*map(jnp.asarray, (data, queries, cand)), run=run, c_comp=64, k=k, interpret=True),
+    ):
+        _eq(jcmp, tout[2])
+        _eq(jovf, tout[3])
+        if integer:
+            _eq(jkd, tout[0])
+            _eq(jki, tout[1])
+        else:
+            _topk_close(jkd, jki, tout[0], tout[1], _point_dist_of(data, queries))
+    assert tout[0].shape == (12, k) and int((tout[1][0] == -1).sum()) == k
+
+
+_SHAPES = dict(
+    grid_chunk=((50, 1024, 30, 1024, 10, True), dict(cp=1024, start=16, cluster=1, stage=False, smem=16504)),
+    payload_chunk=((50, 4096, 30, 1024, 10, True), dict(cp=4096, start=16, cluster=1, stage=False, smem=41080)),
+    hook=((1, 128, 4096, 128, 8, True), dict(cp=128, start=16, cluster=8, stage=True, smem=150528)),
+    knn_chunk=((50, 128, 4096, 128, 8, True), dict(cp=128, start=16, cluster=4, stage=True, smem=150528)),
+    unaligned=((7, 128, 4096, 128, 8, False), dict(cp=128, start=16, cluster=8, stage=False, smem=19456)),
+    many_queries=((300, 128, 4096, 128, 8, True), dict(cp=128, start=16, cluster=1, stage=True, smem=150528)),
+    widest=((1, 128, 18432, 128, 8, True), dict(cp=128, start=16, cluster=8, stage=False, smem=76800)),
+    multiprobe=((50, 12288, 30, 1024, 10, True), dict(cp=16384, start=16, cluster=1, stage=False, smem=139384)),
+    hook_k40=((1, 128, 4096, 128, 40, True), dict(cp=128, start=16, cluster=1, stage=True, smem=150528)),
+    odd_d=((50, 1024, 31, 1024, 10, True), dict(cp=1024, start=16, cluster=1, stage=False, smem=16512)),
 )
-def test_query_tail_launch_shape(q_n, c, d, c_comp, aligned, want):
-    assert tqf.launch_shape(q_n, c, d, 16, c_comp, aligned16=aligned, sms=132) == want
+
+
+@pytest.mark.parametrize("case", list(_SHAPES)[:8] + ["hook_k40", "odd_d"])
+def test_query_tail_launch_shape(case):
+    (q_n, c, d, c_comp, k, aligned), want = _SHAPES[case]
+    got = tqf.launch_shape(q_n, c, d, 16, c_comp, k=k, aligned16=aligned, sms=132)
+    assert got == dict(route="fused", **want)
     assert want["smem"] == tqf.tail_smem_bytes(want["cp"], c_comp, d, want["stage"])
 
 
 def test_query_tail_launch_shape_refuses_what_a_block_cannot_hold():
-    with pytest.raises(ValueError, match="merge"):
-        tqf.launch_shape(1, 16385, 30, 16, 1024, aligned16=True, sms=132)
-    with pytest.raises(ValueError, match="shared memory"):
-        tqf.launch_shape(1, 1024, 60_000, 16, 1024, aligned16=True, sms=132)
+    # what kernel D cannot hold in one block takes the staged route (torch
+    # stages 3-4, kernel C) instead of being refused: a merge width past
+    # CP_MAX, and shared memory past the budget
+    wide = tqf.launch_shape(1, 16385, 30, 16, 1024, k=10, aligned16=True, sms=132)
+    assert wide["route"] == "staged" and wide["cp"] == 32768 > tqf.CP_MAX
+    deep = tqf.launch_shape(1, 1024, 60_000, 16, 1024, k=10, aligned16=True, sms=132)
+    assert deep["route"] == "staged" and deep["smem"] > 200 * 1024 and not deep["stage"]
+    with pytest.raises(ValueError, match="staged route"):
+        tqf.query_tail(torch.zeros((4, 30), device="meta"), torch.zeros((1, 30), device="meta"),
+                       torch.zeros((1, 16385), dtype=torch.int32, device="meta"), run=16, c_comp=1024, k=10)
+
+
+@pytest.mark.parametrize(
+    "c,d,run,c_comp,route",
+    [
+        (1024, 30, 16, 1024, "fused"),  # the grid chunk
+        (16384, 30, 16, 1024, "fused"),  # merge width at CP_MAX
+        (16385, 30, 16, 1024, "staged"),  # one column past it
+        (24576, 30, 16, 1024, "staged"),  # L_out=16, c_max=512, multiprobe=2
+        (16384, 30, 16, 16384, "staged"),  # c_comp=0 at 16,384 columns: 262 KB
+        (16384, 30, 16, 9201, "fused"),  # the widest c_comp that fits beside it
+        (16384, 30, 16, 9202, "staged"),
+        (128, 4096, 16, 128, "fused"),  # the kNN-LM hook (row slots dropped when tight)
+        (128, 60_000, 16, 128, "staged"),  # the query alone over the budget
+        (48, 30, 12, 48, "fused"),  # an odd run: a full in-block sort
+    ],
+)
+def test_tail_route_follows_the_shape(c, d, run, c_comp, route):
+    assert tqf.tail_route(c, d, run, c_comp) == route
+    for k in (1, 10, 40, 1000):  # k never decides the route
+        assert tqf.launch_shape(50, c, d, run, c_comp, k=k, aligned16=True, sms=132)["route"] == route
 
 
 def _tie_case():

@@ -134,6 +134,23 @@ def test_payload_tail_exact_on_grid_data(fmt, seed):
             np.testing.assert_array_equal(_np(g), np.asarray(w), err_msg=name)
 
 
+@pytest.mark.parametrize("fmt", ["f16", "i8"])
+@pytest.mark.parametrize("c_rerank", [40, 48])
+def test_payload_tail_k_past_the_warp_form(fmt, c_rerank):
+    # k = 40 > 32 (kernel E sorts the block's keys) with a shortlist of at
+    # least k: every output exact on grid data, a tight cluster so that
+    # misses are counted
+    data, qs, cand, run = _tail_inputs(6, q_n=5, n=400, run=16, windows=8, fill=1.0)
+    data, qs = 80.0 + data * 0.05, 80.0 + qs * 0.05
+    jk, jr, tout, _ = _both(data, qs, cand, run, fmt, c_comp=56, c_rerank=c_rerank, k=40)
+    assert tout[0].shape == (5, 40) and int(tout[2].min()) > 40
+    for jout in (jk, jr):
+        for g, w, name in zip(tout, jout, NAMES):
+            np.testing.assert_array_equal(_np(g), np.asarray(w), err_msg=name)
+    if fmt == "i8":
+        assert int(tout[4].sum()) > 0
+
+
 def _miss_flags(data, qdata, meta, qs, cand, c_comp, c_rerank, kd_k, ad_of):
     """Per compacted position: (miss flag, margin ad - qerr - kd[k-1]), with
     ``ad_of(deq_minus_q_abs) -> ad`` summing the approximate distance."""

@@ -23,6 +23,7 @@ from repro_torch import params as tparams
 from repro_torch.core import pipeline as tp
 from repro_torch.core import topk as ttopk
 from repro_torch.kernels import _build
+from repro_torch.kernels.query_fused import ops as tqf
 
 RTOL = ATOL = 1e-5
 N, D, NQ = 2048, 30, 40
@@ -135,6 +136,47 @@ def test_query_on_a_jax_built_index(jax_runs):
     cfg = tp.SLSHConfig.compose(**BASE, **VARIANTS["inner+multiprobe"], backend="cuda")
     tindex = tparams.index_from_numpy(jindex, "cpu")
     _assert_results(jres, tp.query_batch(tindex, torch.as_tensor(data), torch.as_tensor(queries), cfg))
+
+
+# Shapes where the "cuda" backend once refused what the reference answers:
+# k past the warp top-k's 32 (kernel D sorts the block's keys), a merge
+# width past 16,384 and kernel D's shared memory over its budget (both take
+# the staged route: torch stages 3-4, kernel C). On CPU tensors the kernels
+# run their plain versions; the route is chosen from the shape alike.
+ROUTE_CASES = {
+    "k40": (dict(k=40), N, "fused"),
+    "merge_width_32768": (dict(L_out=8, c_max=1024, multiprobe=2), N, "staged"),  # 24,576 columns
+    "c_comp0_16384_columns": (dict(L_out=8, c_max=1024, multiprobe=1, c_comp=0), 16_384, "staged"),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_cuda_backend_answers_what_the_reference_answers(case):
+    kw, n, route = ROUTE_CASES[case]
+    rng = np.random.default_rng(3)
+    data = rng.random((n, D), dtype=np.float32)
+    queries = (data[:NQ] + 0.01 * rng.standard_normal((NQ, D))).astype(np.float32)
+    jcfg = jp.SLSHConfig.compose(**{**BASE, **kw}, backend="reference")
+    family = jp.make_family(jax.random.PRNGKey(1), D, jcfg)
+    jres = jp.query_batch(jp.build_from_params(jnp.asarray(data), *family, jcfg), jnp.asarray(data),
+                          jnp.asarray(queries), jcfg)
+    cfg = tp.SLSHConfig.compose(**{**BASE, **kw}, backend="cuda")
+    cc = tp._compact_width(cfg, cfg.L_out * cfg.slot, n)
+    assert tqf.tail_route(cfg.L_out * cfg.slot, D, tp._fused_run(cfg), cc) == route
+    _build.reset_launches()
+    index = tp.build_from_params(torch.as_tensor(data), *tparams.from_jax_params(*family, "cpu"), cfg)
+    tres = tp.query_batch(index, torch.as_tensor(data), torch.as_tensor(queries), cfg)
+    assert _build.LAUNCHES == {}  # CPU tensors: plain versions only
+    assert tres.knn_idx.shape == (NQ, cfg.k)
+    assert int((tres.comparisons >= cfg.k).sum()) >= NQ // 2  # most queries fill all k slots
+    for name in ("comparisons", "bucket_total", "compaction_overflow"):
+        np.testing.assert_array_equal(_np(getattr(tres, name)), _np(getattr(jres, name)), err_msg=name)
+    dt, qt = torch.as_tensor(data), torch.as_tensor(queries)
+    why = ttopk.topk_mismatch(
+        tres.knn_dist, tres.knn_idx, torch.as_tensor(_np(jres.knn_dist)), torch.as_tensor(_np(jres.knn_idx)),
+        lambda rows, idx: (dt[idx.long()] - qt[rows]).abs().sum(-1), rtol=RTOL, atol=ATOL,
+    )
+    assert why is None, why
 
 
 def test_build_keeps_the_reference_preconditions():
