@@ -14,13 +14,15 @@ exits non-zero:
                   and its words for 64 rows equal whether hashed in one
                   launch, one row per launch, in launches of 50 or through
                   either path), C and D on one grid cell's shapes (C also
-                  at the staged route's widest block, 50 x 16,384 x 30, and
-                  its distances equal to D's bits on the same compacted
-                  rows), and E (the payload tail, f16 and i8) on the first
+                  at k = 40, at 50 x 16,384 x 30 and, with its workspace
+                  spilled to device memory, at 50 x 49,152 x 30 for k = 10
+                  and 40, and its distances equal to D's bits on the same
+                  compacted rows), and E (the payload tail, f16 and i8) on the first
                   50-query chunk of a single shard over every point, at the
                   path's c_comp and with a forced overflow (c_comp=64). A
                   and D also
-                  at every shape the DSLSH paths give them
+                  at every shape the DSLSH paths give them (D's hash
+                  form at the ``routes`` phase's two wide shapes too)
                   (``path_shapes``, with the profiler's device time, its
                   kernels per call and the host's time per call), and
                   D's one-order check: each query
@@ -34,14 +36,16 @@ exits non-zero:
                   kernel time on the card and the device's idle share.
 4. ``multiprobe`` a single-shard index with ``multiprobe=2``, so the
                   words+margins kernel runs on the query path.
-   ``routes``     three configurations the ``"cuda"`` backend once refused,
+   ``routes``     four configurations the ``"cuda"`` backend once refused,
                   on the same 131,072-point single shard and 500 queries:
                   k = 40 (D sorts the block's keys; i8 with c_rerank=64), a
-                  merge width of 32,768 and D's shared memory over budget
-                  (both the staged route: torch stages 3-4, kernel C). Each
-                  as f32 against the ``"torch"`` backend and as i8 against
-                  the payload tail's plain version chunk by chunk; every
-                  chunk's route counted, and each through its kernel.
+                  merge width of 32,768 (at k = 10 and 40) and D's shared
+                  memory over budget (these three in D's hash form: E's
+                  hash-set dedup, then D's L1 and top-k, in one launch).
+                  Each as f32 against the ``"torch"`` backend and as i8
+                  against the payload tail's plain version chunk by chunk;
+                  every chunk one launch of D (or E), in the form the shape
+                  calls for, and no plain version.
 5. ``backends_agree`` the ``"torch"`` backend on the card answers the first
                   256 queries as the ``"cuda"`` backend does.
 6. ``payload``    the compressed-payload path: ``single()`` over all
@@ -83,8 +87,9 @@ exits non-zero:
 
 The ``kernels`` line comes last but two, then the ``nvidia-smi`` line, and
 the last line is ``{"ok": true, "device": {...}}``. A kernel's ``launches``
-counts the path it belongs to: the main path for A, B and D, the
-``routes`` phase's staged route for C, the payload phase's two compressed
+counts the path it belongs to: the main path for A, B and D (C, the
+staged form's distance stage, is on no path of the ``"cuda"`` backend and
+counts 0 there), the payload phase's two compressed
 queries for E, the ``knn_lm`` phase for F; every row also gives its
 launches on the ``routes``, ``knn_lm`` and ``serve`` paths. Without a CUDA
 device, or without the repository's ``src/`` beside it, the script exits
@@ -109,7 +114,8 @@ RTOL = ATOL = 1e-5  # distances: the kernels sum over d in another order
 # the port's kernels by their CUDA function names (csrc/*.cu), whose share of
 # a profiled window's device time the profiles report
 PORT_KERNELS = ("bitsample_pack_kernel", "proj_sign_batch_kernel", "proj_sign_few_kernel", "l1_topk_kernel",
-                "query_tail_kernel", "query_tail_payload_kernel", "flash_attention_kernel")
+                "query_tail_kernel", "query_tail_hash_kernel", "query_tail_payload_kernel",
+                "flash_attention_kernel")
 
 # the paper-scale configuration of benchmarks/scale_bench.py and
 # benchmarks/common.py (slsh_cfg)
@@ -121,16 +127,22 @@ CFG = dict(
 N, NQ, NU, P, SEED = 1_370_000, 2_000, 10, 4, 0
 C_RERANK = 32  # the payload shortlist of benchmarks/scale_bench.py:48
 # the routes phase: configurations SLSHConfig accepts that the "cuda" backend
-# once refused, each with the route its chunks must take (D's k > 32 sort,
-# or the staged route: a merge width of 32,768, and D's shared memory over
-# budget at 16,384 compacted columns), and the i8 query's extra settings
+# once refused, each with the form of kernel D its chunks must take (the
+# fused form's k > 32 sort, or the hash form: a merge width of 32,768, and
+# the fused form's shared memory over budget at 16,384 compacted columns),
+# and the i8 query's extra settings
 ROUTE_CASES = {
     "k40": dict(k=40),
     "merge_width_32768": dict(L_out=16, c_max=512, multiprobe=2),
+    "merge_width_32768_k40": dict(L_out=16, c_max=512, multiprobe=2, k=40),
     "d_over_shared_memory": dict(multiprobe=1, c_max=512, c_comp=0),
 }
-ROUTE_EXPECTED = {"k40": "fused", "merge_width_32768": "staged", "d_over_shared_memory": "staged"}
-ROUTE_I8 = {"k40": dict(c_rerank=64)}
+ROUTE_EXPECTED = {"k40": "fused", "merge_width_32768": "hash", "merge_width_32768_k40": "hash",
+                  "d_over_shared_memory": "hash"}
+ROUTE_I8 = {"k40": dict(c_rerank=64), "merge_width_32768_k40": dict(c_rerank=64)}
+# kernel C's widest block: every compacted column of a 49,152-column row
+# (c_comp=0), past what its workspace holds in shared memory
+C_SPILL_CASE = dict(L_out=16, c_max=1024, multiprobe=2, c_comp=0)
 
 # the kNN-LM slice
 LM_ARCH = "granite-8b"  # d_model 4,096, 32/8 heads, head_dim 128, 36 layers
@@ -416,19 +428,26 @@ def kernels_phase(data, queries, cfg, flush) -> list[dict]:
     comp, valid = compacted(cand, cc)
     k = cfg.k
 
-    # C: l1_topk on the compacted (Q, c_comp, d) block of the grid chunk and
-    # on the staged route's widest block; its distances against D's bits on
+    # C: l1_topk on the compacted (Q, c_comp, d) block of the grid chunk (k
+    # 10 and 40), on a 16,384-wide block and on a 49,152-wide one that
+    # spills its workspace (k 10 and 40); its distances against D's bits on
     # the grid chunk's compacted rows
-    c_row = c_case("grid_chunk", qs, cell[comp.long().clamp(0, n_loc - 1)].contiguous(), valid.contiguous(), k, flush)
+    grid_pts = cell[comp.long().clamp(0, n_loc - 1)].contiguous()
+    c_row = c_case("grid_chunk", qs, grid_pts, valid.contiguous(), k, flush)
+    wide = wide_block(data, queries, cfg, ROUTE_CASES["d_over_shared_memory"])
+    spill = wide_block(data, queries, cfg, C_SPILL_CASE)
     rows.append(dict(
         name="l1_topk", route="cuda", source="src/repro_torch/csrc/l1_topk.cu",
         replaces="src/repro/kernels/l1_topk/l1_topk.py:100",
         **{key: c_row[key] for key in ("shape", "exact", "max_abs_err", "ms", "device_ms", "kernels_per_call",
                                        "host_ms", "plain_ms", "bound_ms", "bound_by")},
         library_ms=None,
-        path_shapes=[c_row, c_case("staged_widest", *staged_widest_block(data, queries, cfg), k, flush)],
+        cases=[c_row, c_case("grid_chunk_k40", qs, grid_pts, valid.contiguous(), 40, flush),
+               c_case("wide_16384", *wide, k, flush), c_case("spill_49152", *spill, k, flush),
+               c_case("spill_49152_k40", *spill, 40, flush)],
         one_order=[c_d_order_check(cell, qs, shapes["cell_cand"], cfg)],
     ))
+    del wide, spill
 
     # D: the fused tail on the chunk's raw (Q, C) candidate rows (the grid
     # chunk of the path shapes)
@@ -488,7 +507,7 @@ def merge_width(c: int, run: int) -> tuple[int, int]:
     return cp, (min(run, cp) if run & (run - 1) == 0 else 1)
 
 
-# ------------------------------------------------------ kernel C, the staged route
+# ------------------------------------------------------ kernel C
 
 
 def compacted(cand, cc: int):
@@ -528,16 +547,16 @@ def c_case(case: str, qs, pts, valid, k: int, flush) -> dict:
                 bound_ms=b_ms, bound_by=b_by)
 
 
-def staged_widest_block(data, queries, cfg):
-    """The widest block the staged route gives kernel C in the ``routes``
-    phase: the first 50-query chunk of a 131,072-point single shard with
-    ``multiprobe=1, c_max=512, c_comp=0`` (16,384 columns, all kept)."""
+def wide_block(data, queries, cfg, kw: dict):
+    """The staged form's compacted block for kernel C on the first 50-query
+    chunk of a 131,072-point single shard with settings ``kw`` and
+    ``c_comp=0``, every column kept: (queries, points, mask)."""
     import torch
 
     from repro_torch.core import pipeline
 
     n_r = min(131_072, data.shape[0])
-    cfg_w = cfg.replace(**ROUTE_CASES["d_over_shared_memory"])
+    cfg_w = cfg.replace(**kw)
     part = data[:n_r].contiguous()
     outer, inner = pipeline.make_family(torch.Generator().manual_seed(SEED), data.shape[1], cfg_w, data.device)
     qs = queries[: cfg.query_chunk].contiguous()
@@ -616,8 +635,9 @@ def d_case(case: str, data, qs, cand, cfg, flush) -> dict:
     version (counters equal, top-k tie-aware within RTOL/ATOL), timed by
     events, by the profiler and on the host, with its bound: the candidate
     rows, the queries, the gathered data rows and the outputs, and 3
-    operations per gathered coordinate plus the merge network's
-    compare-exchanges."""
+    operations per gathered coordinate plus the dedup's: the merge
+    network's compare-exchanges in the fused form, one per candidate column
+    in the hash form."""
     import torch
 
     from repro_torch.core import pipeline
@@ -634,10 +654,13 @@ def d_case(case: str, data, qs, cand, cfg, flush) -> dict:
     need(torch.equal(out_k[2], out_r[2]) and torch.equal(out_k[3], out_r[3]), f"query_tail ({case}) counters differ")
     need_topk(out_k[0], out_k[1], out_r[0], out_r[1], point_dist_of(data, qs), f"query_tail ({case}) top-k differs")
     gathered = int(out_r[2].clamp(max=cc).sum())
+    form = qf.launch_shape(q_n, c_w, d, run, cc, k=k, aligned16=data.data_ptr() % 16 == 0, sms=132)["route"]
     cp, start = merge_width(c_w, run)
+    dedup_ops = q_n * merge_exchanges(cp, start) if form == "fused" else cand.numel()
     b_ms, b_by = bound(cand.numel() * 4 + q_n * d * 4 + gathered * d * 4 + q_n * (k * 8 + 8),
-                       3 * gathered * d + q_n * merge_exchanges(cp, start))
-    return dict(case=case, shape=f"cand ({q_n}, {c_w}), d {d}, run {run}, c_comp {cc}, k {k}, {gathered} rows gathered",
+                       3 * gathered * d + dedup_ops)
+    return dict(case=case, form=form,
+                shape=f"cand ({q_n}, {c_w}), d {d}, run {run}, c_comp {cc}, k {k}, {gathered} rows gathered",
                 exact=bool(torch.equal(out_k[1], out_r[1])),
                 max_abs_err=float((out_k[0] - out_r[0]).abs().nan_to_num(0.0).max()),
                 ms=timed_ms(fn, 30, flush), **device_profile(fn), host_ms=host_ms(fn),
@@ -676,7 +699,8 @@ def dslsh_path_cases(data, queries, cfg, flush) -> dict:
     chunk (words) and the multiprobe query's chunk (words and margins over a
     single shard's 16 tables); D on a grid cell's 50-query chunk and the
     f32 single shard's (every point), with D's one-order check on the
-    grid chunk. Returns the cases (``a``, ``d``, ``order``) and the two
+    grid chunk, and in its hash form on the ``routes`` phase's three wide
+    chunks. Returns the cases (``a``, ``d``, ``order``) and the two
     chunks' candidate rows (``cell_cand``, ``full_cand``)."""
     import torch
 
@@ -699,6 +723,12 @@ def dslsh_path_cases(data, queries, cfg, flush) -> dict:
     order = [d_order_check(cell, qs, cell_cand, cfg)]
     full_cand = tail_candidates(data, outer, inner, cfg, qs)
     d.append(d_case("f32_payload_chunk", data, qs, full_cand, cfg, flush))
+    # D's hash form at the routes phase's wide shapes (131,072-point shard)
+    part = data[: min(131_072, data.shape[0])].contiguous()
+    for case in ("merge_width_32768", "merge_width_32768_k40", "d_over_shared_memory"):
+        cfg_h = cfg.replace(**ROUTE_CASES[case])
+        outer_h, inner_h = pipeline.make_family(torch.Generator().manual_seed(SEED), data.shape[1], cfg_h, data.device)
+        d.append(d_case(f"hash_{case}", part, qs, tail_candidates(part, outer_h, inner_h, cfg_h, qs), cfg_h, flush))
     return dict(a=a, d=d, order=order, cell_cand=cell_cand, full_cand=full_cand)
 
 
@@ -707,7 +737,8 @@ def knn_path_cases(keys, hq, scfg, p: int, flush) -> tuple[list, list, list]:
     cell's datastore keys (d = 4,096), and query rows ``hq`` (at least 50):
     A on the hook's one row and a build chunk of 4,096 keys (the cell's 2
     tables' 64 columns); D on the hook's one query (the first of ``hq``)
-    and on a 50-query chunk, with D's one-order check on that chunk.
+    and on a 50-query chunk (also at k = 40, past the warp top-k), with D's
+    one-order check on that chunk.
     Returns (A cases, D cases, D order checks)."""
     import torch
 
@@ -723,7 +754,8 @@ def knn_path_cases(keys, hq, scfg, p: int, flush) -> tuple[list, list, list]:
     qs = hq[:50].contiguous()
     cand = tail_candidates(keys, outer0, inner, scfg, qs)
     d = [d_case("hook_query", keys, qs[:1], cand[:1].contiguous(), scfg, flush),
-         d_case("knn_chunk", keys, qs, cand, scfg, flush)]
+         d_case("knn_chunk", keys, qs, cand, scfg, flush),
+         d_case("knn_chunk_k40", keys, qs, cand, scfg.replace(k=40), flush)]  # D's k > 32 sort at d = 4,096
     return a, d, [d_order_check(keys, qs, cand, scfg)]
 
 
@@ -967,8 +999,6 @@ def run(dev, n: int, nq: int, lm_smoke: bool = False, ds_seqs: int = DS_SEQS) ->
             r["launches"] = payload_launches.get(r["name"], 0)
         elif r["name"] == "flash_attention":  # runs on the kNN-LM path only
             r["launches"] = lm_launches.get(r["name"], 0)
-        elif r["name"] == "l1_topk":  # runs on the staged route only
-            r["launches"] = route_launches.get(r["name"], 0)
         else:
             r["launches"] = main_launches.get(r["name"], 0)
             r["multiprobe_query_launches"] = mp_launches.get(r["name"], 0)
@@ -982,9 +1012,10 @@ def run(dev, n: int, nq: int, lm_smoke: bool = False, ds_seqs: int = DS_SEQS) ->
 def routes_phase(dev, pts, qx, queries, cfg) -> dict:
     """Each of ``ROUTE_CASES`` on a single shard over ``pts`` (131,072 points)
     through the handle's entry points on the ``"cuda"`` backend, queried
-    with ``qx`` (500 queries) as f32 and as i8. Every chunk must take the
-    case's route, counted in ``tail.fused``/``tail.staged``, each through
-    its kernel (D, or C), so no plain version ran. f32 is held against the
+    with ``qx`` (500 queries) as f32 and as i8. Every chunk must launch
+    kernel D once, in the form the case calls for (``query_tail.hash``
+    counts the hash form), and no plain version may run: kernel C, the
+    staged form's, never launches. f32 is held against the
     ``"torch"`` backend on the card (counters exact, top-k tie-aware); i8
     against the payload tail's plain version chunk by chunk, and its rows
     with no rerank miss equal the f32 answer bit for bit. Returns the
@@ -1010,11 +1041,12 @@ def routes_phase(dev, pts, qx, queries, cfg) -> dict:
         sync(dev)
         f32_s = time.perf_counter() - t0
         got = dict(_build.LAUNCHES)
-        routes = {r: got.get(f"tail.{r}", 0) for r in ("fused", "staged")}
+        hashed = got.get("query_tail.hash", 0)
+        routes = {"fused": got.get("query_tail", 0) - hashed, "hash": hashed}
         want = ROUTE_EXPECTED[case]
-        need(routes[want] == chunks, f"routes {case}: chunks by route {routes}, not all {chunks} {want}")
-        need(got.get("query_tail", 0) == routes["fused"] and got.get("l1_topk", 0) == routes["staged"],
-             f"routes {case}: a chunk ran without its kernel: {got}")
+        need(routes[want] == chunks and got.get("query_tail", 0) == chunks,
+             f"routes {case}: chunks by form of kernel D {routes}, not all {chunks} {want}")
+        need(got.get("l1_topk", 0) == 0, f"routes {case}: the staged form ran: {got}")
         ref = pipeline.query_batch(index.pipeline_index, data, queries, cfg_r.replace(backend="torch"))
         for what in ("comparisons", "compaction_overflow"):
             need(torch.equal(getattr(res, what)[0, 0], getattr(ref, what)), f"routes {case}: {what} differ from the torch backend")

@@ -16,10 +16,9 @@ in explicit batched stages (DESIGN.md §3):
 ``SLSHConfig.backend`` picks the compute: ``"torch"`` runs every stage as
 plain PyTorch (the port's oracle, as ``"reference"`` is the JAX package's);
 ``"cuda"`` runs the signatures through the hand-written ``hash_pack``
-kernels and stages 3-5 as the fused ``query_fused`` kernel, or, for a
-chunk whose rows that kernel cannot hold in one block, as the staged form
-with the ``l1_topk`` kernel (the two routes give the same answer, and
-between them the backend answers every configuration). With a compressed
+kernels and stages 3-5 as the fused ``query_fused`` kernel, one launch a
+chunk at every k and width the reference answers, with ``l1_topk``
+registered for the staged form. With a compressed
 ``RuntimeConfig.payload`` (``"f16"``/``"i8"``) the ``"cuda"`` backend runs
 stages 3-5 as the payload tail instead: approximate distances over
 quantized rows, an exact f32 rerank of a ``c_rerank`` shortlist, and
@@ -41,7 +40,6 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.core import hashing, merge, tables, topk
-from repro_torch.kernels import _build
 from repro_torch.runtime.payload import PAYLOAD_FORMATS, Payload, make_payload
 
 # ------------------------------------------------------------ configuration
@@ -416,10 +414,6 @@ class BackendOps(NamedTuple):
         ``(data, queries, cand (Q, C), run=, c_comp=, k=) -> (kd, ki,
         comparisons, overflow)``: stages 3-5 fused; ``None`` keeps the
         staged stages.
-    tail_route (with query_tail)
-        ``(C, d, run, c_comp) -> "fused" | "staged"``: whether
-        ``query_tail`` holds a chunk of that shape, decided before any
-        launch; ``"staged"`` runs the staged stages with ``l1_topk``.
     query_tail_payload (optional)
         ``(data, qdata, meta, queries, cand, run=, c_comp=, c_rerank=, k=)
         -> (kd, ki, comparisons, overflow, rerank_misses)``: the fused tail
@@ -431,7 +425,6 @@ class BackendOps(NamedTuple):
     l1_topk: Callable[..., tuple[torch.Tensor, torch.Tensor]]
     probe_words: Callable[..., tuple[torch.Tensor, torch.Tensor]] | None = None
     query_tail: Callable[..., tuple[torch.Tensor, ...]] | None = None
-    tail_route: Callable[[int, int, int, int], str] | None = None
     query_tail_payload: Callable[..., tuple[torch.Tensor, ...]] | None = None
 
 
@@ -449,7 +442,6 @@ def _cuda_ops() -> BackendOps:
         l1_ops.l1_topk,
         probe_words=hp_ops.probe_words,
         query_tail=qf_ops.query_tail,
-        tail_route=qf_ops.tail_route,
         query_tail_payload=qf_ops.query_tail_payload,
     )
 
@@ -831,13 +823,10 @@ def query_chunk(
     """Run the pipeline for one (Q, d) chunk of queries.
 
     Backends with ``query_tail`` (``"cuda"``) run stages 3-5 as one fused
-    launch where its ``tail_route`` says the chunk's shape fits one block,
-    and the staged form below, with their ``l1_topk``, where it does not;
-    on the card each chunk counts its route in ``_build.LAUNCHES``
-    (``"tail.fused"`` or ``"tail.staged"``). The staged form is the
-    oracle. With a compressed ``cfg.payload`` the tail reads the quantized
-    rows of ``payload`` (made here from ``data`` when the caller holds
-    none) and reranks exactly in f32.
+    launch; the staged form below is the oracle. With a compressed
+    ``cfg.payload`` the tail reads the quantized rows of ``payload`` (made
+    here from ``data`` when the caller holds none) and reranks exactly in
+    f32.
     """
     backend = get_backend(cfg.backend)
     probe_keys, inner_keys = _stage_hash(index, queries, cfg, backend)
@@ -852,15 +841,10 @@ def query_chunk(
         )
         return QueryResult(ki, kd, comparisons, bucket_total, overflow, misses)
     if backend.query_tail is not None:
-        run = _fused_run(cfg)
-        route = backend.tail_route(cand.shape[1], data.shape[1], run, cc)
-        if data.device.type == "cuda":
-            _build.count_launch(f"tail.{route}")
-        if route == "fused":
-            kd, ki, comparisons, overflow = backend.query_tail(
-                data, queries, cand.contiguous(), run=run, c_comp=cc, k=cfg.k
-            )
-            return QueryResult(ki, kd, comparisons, bucket_total, overflow)
+        kd, ki, comparisons, overflow = backend.query_tail(
+            data, queries, cand.contiguous(), run=_fused_run(cfg), c_comp=cc, k=cfg.k
+        )
+        return QueryResult(ki, kd, comparisons, bucket_total, overflow)
     cand_sorted, uniq, comparisons = _stage_dedup(cand)
     comp_cand, comp_valid, overflow = _stage_compact(cand_sorted, uniq, comparisons, cc)
     kd, ki = _stage_topk(data, queries, comp_cand, comp_valid, cfg, backend)

@@ -3,9 +3,8 @@
 // Replaces the JAX package's repro/kernels/l1_topk/l1_topk.py:
 // l1_topk_pallas (_l1_topk_kernel): for each query row b, the k smallest
 // masked L1 distances from q[b] to cands[b, :, :], ascending, ties to the
-// lowest position, inf/-1 padded. On the "cuda" backend it is the last
-// stage of the staged route, which query_chunk takes when kernel D cannot
-// hold a query's row in one block.
+// lowest position, inf/-1 padded. It is the "cuda" backend's l1_topk, the
+// distance stage of the staged pipeline form.
 //
 // What bounds it on an H100: every valid candidate row is read once
 // (d floats) for 3 operations per element (subtract, abs, add), about
@@ -18,8 +17,8 @@
 // per thread, two at a time, with the widest vector loads row_vec allows;
 // wider rows one per warp, coalesced. The L1 is tail_common.cuh's one
 // summation order (l1_thread_rows / l1_warp), so C's distances equal
-// kernel D's bits on the same compacted rows, and the staged and fused
-// routes give the same answer wherever both can run. Each (distance,
+// kernel D's bits on the same compacted rows: the staged form with C and
+// the fused tail give the same answer. Each (distance,
 // position) is kept as one 64-bit key in the list's slot. Up to k = 32
 // every warp keeps lane lists of its share and warp 0 merges the warps'
 // lists (topk.cuh's warp form, as D does); beyond, the block sorts the

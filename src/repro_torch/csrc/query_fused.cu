@@ -39,6 +39,19 @@
 // memory; for k > 32 (one block a query) the block sorts 64-bit (distance,
 // position) keys instead (topk.cuh's block form). Candidate vectors touch
 // device memory once and no (Q, c_comp, d) block is written.
+//
+// The hash form. A row that one block cannot hold — a merge width past
+// 64 * QT_THREADS registers, or shared memory past its budget (c_comp=0 at
+// 16,384 columns) — goes to this file's second kernel,
+// query_tail_hash_kernel, in one launch all the same: stages 3-4 as kernel
+// E's hash-set dedup
+// (tail_common.cuh's dedup_hash_compact, whose cost follows the row's live
+// entries and which has no width ceiling), its set, the compacted indices,
+// their distances and the query in shared memory or, past the budget, in a
+// per-query slice of a device scratch the wrapper allocates; then the same
+// L1 order and top-k. Its compacted set is not in index order, so the
+// top-k keys carry the index itself (ties to the lowest index, as the
+// reference's ascending positions give).
 #include <cooperative_groups.h>
 
 #include "tail_common.cuh"
@@ -237,6 +250,139 @@ extern "C" int query_tail_launch(const float* data, const float* queries,
       return k > TOPK_MAX ? launch<decltype(e)::value, true>(a, Q, cluster, st)
                           : launch<decltype(e)::value, false>(a, Q, cluster, st);
     });
+    if (err != 0) return err;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------------ the hash form
+
+struct HashTailArgs {
+  TailArgs t;
+  int h_cap;               // hash-set slots a query may use
+  unsigned char* scratch;  // per-query workspaces in device memory, or null
+  size_t ws_bytes;         // one query's workspace
+};
+
+// A query's workspace in the hash form: the hash set (whose slots hold the
+// block sort's 64-bit keys once the dedup is done: h_cap >= 2 *
+// next_pow2(C) ints), comp and dist (c_comp each) and the query; its size
+// in bytes, rounded up to 16 (the wrapper's hash_ws_bytes).
+struct HashLayout {
+  size_t table, comp, dist, qs, bytes;
+  __host__ __device__ HashLayout(int h_cap, int c_comp, int d) {
+    table = 0;
+    comp = table + static_cast<size_t>(h_cap) * 4;
+    dist = comp + static_cast<size_t>(c_comp) * 4;
+    qs = dist + static_cast<size_t>(c_comp) * 4;
+    bytes = (qs + static_cast<size_t>(d) * 4 + 15) / 16 * 16;
+  }
+};
+
+template <bool SORT_K, bool SPILL>
+__global__ void __launch_bounds__(QT_THREADS) query_tail_hash_kernel(const HashTailArgs h) {
+  extern __shared__ __align__(16) unsigned char qh_smem[];
+  __shared__ int warp_sums[32];
+  __shared__ float wl_d[QT_WARPS * TOPK_MAX];  // each warp's k nearest
+  __shared__ int wl_p[QT_WARPS * TOPK_MAX];
+
+  const TailArgs& a = h.t;
+  const int qi = blockIdx.x;
+  const int d = a.d, k = a.k;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const HashLayout lay(h.h_cap, a.c_comp, d);
+  unsigned char* ws = SPILL ? h.scratch + qi * h.ws_bytes : qh_smem;
+  int* table = reinterpret_cast<int*>(ws + lay.table);
+  int* comp = reinterpret_cast<int*>(ws + lay.comp);
+  float* dist = reinterpret_cast<float*>(ws + lay.dist);
+  float* qs = reinterpret_cast<float*>(ws + lay.qs);
+
+  const float* qv = a.queries + static_cast<size_t>(qi) * d;
+  for (int j = threadIdx.x; j < d; j += QT_THREADS) qs[j] = qv[j];
+  const int total = dedup_hash_compact<QT_THREADS>(a.cand + static_cast<size_t>(qi) * a.C, a.C,
+                                                   a.c_comp, h.h_cap, table, comp, warp_sums);
+  const int nc = min(total, a.c_comp);
+  const int n1 = a.n - 1;
+
+  if (d <= QT_NARROW_D) {
+    l1_thread_rows(
+        a.vec, a.data, d, qs, 0, nc, [&](int r) { return min(max(comp[r], 0), n1); },
+        [&](int r, float v) { dist[r] = v; });
+  } else {
+    for (int r = warp; r < nc; r += QT_WARPS) {
+      const float v = l1_warp(a.data + static_cast<size_t>(min(max(comp[r], 0), n1)) * d, qs, d);
+      if (lane == 0) dist[r] = v;
+    }
+  }
+  __syncthreads();
+
+  const size_t o = static_cast<size_t>(qi) * k;
+  if constexpr (SORT_K) {  // (dist, index) keys in the set's slots, free now
+    unsigned long long* keys = reinterpret_cast<unsigned long long*>(table);
+    for (int r = threadIdx.x; r < nc; r += QT_THREADS) keys[r] = topk_key(dist[r], comp[r]);
+    block_topk_sorted(keys, nc, k, [&](int r, float dv, int idx) {
+      a.kd[o + r] = dv;
+      a.ki[o + r] = idx;
+    });
+  } else {  // warp w takes positions 32w + lane + 256i, then warp 0 merges
+    const int span = ((nc + QT_THREADS - 1) / QT_THREADS) * 32;
+    warp_topk_keys(
+        [&](int i, float& dv, int& idx) {
+          const int r = 32 * warp + (i & 31) + (i >> 5) * QT_THREADS;
+          dv = r < nc ? dist[r] : INFINITY;
+          idx = r < nc ? comp[r] : -1;
+        },
+        span, k, wl_d + warp * k, wl_p + warp * k);
+    __syncthreads();
+    if (warp == 0) {
+      warp_topk_keys(
+          [&](int i, float& dv, int& idx) {
+            dv = wl_d[i];
+            idx = wl_p[i];
+          },
+          QT_WARPS * k, k, a.kd + o, a.ki + o);
+    }
+  }
+  if (threadIdx.x == 0) {
+    a.comparisons[qi] = total;
+    a.overflow[qi] = max(total - a.c_comp, 0);
+  }
+}
+
+template <bool SORT_K>
+static int launch_hash(const HashTailArgs& h, int Q, cudaStream_t stream) {
+  if (h.scratch != nullptr) {
+    query_tail_hash_kernel<SORT_K, true><<<Q, QT_THREADS, 0, stream>>>(h);
+    return 0;
+  }
+  const int err = allow_dynamic_smem(query_tail_hash_kernel<SORT_K, false>, h.ws_bytes);
+  if (err != 0) return err;
+  query_tail_hash_kernel<SORT_K, false><<<Q, QT_THREADS, h.ws_bytes, stream>>>(h);
+  return 0;
+}
+
+// The hash form, for rows query_tail_launch cannot hold: h_cap is the hash
+// set's slots (a power of two, at least 2 * C and QT_THREADS), ws_bytes one
+// query's workspace (HashLayout), scratch null to hold it in shared memory,
+// else Q * ws_bytes of device memory. Any C, c_comp, d and k. Returns the
+// CUDA error code.
+extern "C" int query_tail_hash_launch(const float* data, const float* queries,
+                                      const int* cand, int n, int d, int Q, int C,
+                                      int c_comp, int k, int h_cap, void* scratch,
+                                      long long ws_bytes, float* kd, int* ki,
+                                      int* comparisons, int* overflow, void* stream) {
+  if (Q > 0) {
+    const HashLayout lay(h_cap, c_comp, d);
+    const bool ok = C >= 1 && n >= 1 && c_comp >= 1 && k >= 1 && h_cap >= QT_THREADS &&
+                    (h_cap & (h_cap - 1)) == 0 && h_cap >= 2 * next_pow2(C) &&
+                    static_cast<size_t>(ws_bytes) >= lay.bytes && ws_bytes % 16 == 0;
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+    const HashTailArgs h{TailArgs{data, queries, cand, n, d, C, 0, 0, c_comp, k, row_vec(data, d), false,
+                                  kd, ki, comparisons, overflow},
+                         h_cap, static_cast<unsigned char*>(scratch), static_cast<size_t>(ws_bytes)};
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int err = k > TOPK_MAX ? launch_hash<true>(h, Q, st) : launch_hash<false>(h, Q, st);
     if (err != 0) return err;
   }
   return static_cast<int>(cudaGetLastError());

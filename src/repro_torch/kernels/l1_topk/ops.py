@@ -2,9 +2,7 @@
 
 Replaces the JAX package's ``l1_topk_pallas``
 (``repro/kernels/l1_topk/l1_topk.py``). It serves the staged pipeline's
-distance stage (``BackendOps.l1_topk``): on the ``"cuda"`` backend the query
-path runs the staged route, and so this kernel, when the fused tail cannot
-hold a query's row in one block (``query_fused.ops.tail_route``). Any k and
+distance stage (``BackendOps.l1_topk``), in kernel D's L1 order. Any k and
 any width: a row's workspace moves from shared memory to a device scratch
 when it does not fit.
 """

@@ -16,12 +16,13 @@ nothing is padded or copied), the merge width ``cp`` (the next power of two)
 and the run width the merge starts from when the run is a power of two (a
 full in-block sort otherwise), and, for kernel D, how many blocks of a
 thread-block cluster share a query and whether wide rows go through shared
-memory. Kernel D holds a query's whole row in one block: where the merge
-width passes ``CP_MAX`` or the block's shared memory its budget,
-:func:`tail_route` says ``"staged"`` and the pipeline runs stages 3-4 in
-torch and stage 5 as kernel C instead. Kernel E has no such limit: its
+memory. Kernel D's merge holds a query's whole row in one block: where the
+merge width passes ``CP_MAX`` or the block's shared memory its budget,
+:func:`launch_shape` says ``"hash"`` and the wrapper launches D's hash form
+instead (kernel E's hash-set dedup, then D's L1 and top-k), whose
 per-query arrays move to a device scratch when they do not fit shared
-memory. Neither refuses any k.
+memory. Kernel E has the same dedup and scratch. So neither wrapper
+refuses any k or any width, and each answers in one launch.
 """
 from __future__ import annotations
 
@@ -42,7 +43,11 @@ CLUSTER_MAX = 8  # csrc/query_fused.cu: blocks per query
 E_THREADS = 512  # csrc/query_payload.cu: threads of a kernel-E block
 _STAGE_MAX = 128 * 1024  # kernel D's row slots (one row per warp) may take this much
 _SMEM_MAX = 200 * 1024  # dynamic shared memory a block may ask for here
-_SIGNATURES = {"query_tail_launch": [_build.PTR] * 3 + [_build.INT] * 10 + [_build.PTR] * 5}
+_SIGNATURES = {
+    "query_tail_launch": [_build.PTR] * 3 + [_build.INT] * 10 + [_build.PTR] * 5,
+    "query_tail_hash_launch": [_build.PTR] * 3 + [_build.INT] * 7 + [_build.PTR, ctypes.c_longlong]
+    + [_build.PTR] * 5,
+}
 _PAYLOAD_LAUNCH = [_build.PTR] * 5 + [_build.INT] * 8 + [_build.PTR, ctypes.c_longlong] + [_build.PTR] * 6
 _PAYLOAD_SIGNATURES = {
     "query_tail_payload_f16_launch": _PAYLOAD_LAUNCH,
@@ -80,33 +85,38 @@ def tail_smem_bytes(cp: int, c_comp: int, d: int, stage: bool) -> int:
     return ((QT_THREADS // 32 * d if stage else 0) + d + d % 2 + 2 * max(cp, QT_THREADS) + 2 * c_comp) * 4
 
 
-@functools.lru_cache(maxsize=None)
-def tail_route(c: int, d: int, run: int, c_comp: int) -> str:
-    """``"fused"`` when kernel D holds a query's row of ``c`` candidates in
-    one block (merge width within ``CP_MAX``, shared memory within budget
-    without the wide path's row slots), else ``"staged"``: stages 3-4 in
-    torch and stage 5 as kernel C. Decided from the shape alone, before any
-    launch; k does not enter (D's k > 32 sort reuses the merge's buffers).
-    Cached: every chunk of a path asks."""
-    cp, _ = merge_shape(c, run)
-    fits = cp <= CP_MAX and tail_smem_bytes(cp, c_comp, d, False) <= _SMEM_MAX
-    return "fused" if fits else "staged"
+def hash_ws_bytes(c: int, c_comp: int, d: int) -> int:
+    """One query's workspace in kernel D's hash form (``HashLayout`` in
+    ``csrc/query_fused.cu``): the hash set (``hash_slots(c)`` ints, which
+    later hold the k > TOPK_MAX sort's keys), the compacted indices and
+    their distances (``c_comp`` each) and the query, rounded up to 16
+    bytes. In shared memory when it fits the budget, else in a device
+    scratch of one workspace per query."""
+    return -(-(hash_slots(c) + 2 * c_comp + d) * 4 // 16) * 16
 
 
 @functools.lru_cache(maxsize=None)
 def launch_shape(q_n: int, c: int, d: int, run: int, c_comp: int, *, k: int, aligned16: bool,
                  sms: int) -> dict:
     """Kernel D's launch for ``q_n`` queries of ``c`` candidates at width
-    ``d``: the ``route`` (:func:`tail_route`), the merge width ``cp`` and
-    ``start``, the ``cluster`` size (1 when k > TOPK_MAX: the block-wide
-    top-k runs in one block), ``stage`` (wide rows by cp.async through
-    shared memory: needs d % 4 == 0, a 16-byte aligned data pointer and
-    room) and the dynamic shared memory ``smem``. Cached: a path asks for
-    the same few shapes on every call. Read the result, do not change it."""
+    ``d``. The ``route`` is ``"fused"`` when the merge holds a query's row
+    in one block (merge width within ``CP_MAX``, shared memory within
+    budget without the wide path's row slots), else ``"hash"``: decided
+    from the shape alone, k aside. A fused launch has the merge width
+    ``cp`` and ``start``, the ``cluster`` size (1 when k > TOPK_MAX: the
+    block-wide top-k runs in one block), ``stage`` (wide rows by cp.async
+    through shared memory: needs d % 4 == 0, a 16-byte aligned data pointer
+    and room) and the dynamic shared memory ``smem``; a hash launch its set's
+    slots ``h_cap``, one query's workspace ``ws`` and whether it ``spill``s
+    to a device scratch. Cached: a path asks for the same few shapes on
+    every call. Read the result, do not change it."""
     cp, start = merge_shape(c, run)
+    if cp > CP_MAX or tail_smem_bytes(cp, c_comp, d, False) > _SMEM_MAX:
+        ws = hash_ws_bytes(c, c_comp, d)
+        return dict(route="hash", h_cap=hash_slots(c), ws=ws, spill=ws > _SMEM_MAX)
     stage = (d > NARROW_D and d % 4 == 0 and aligned16 and QT_THREADS // 32 * d * 4 <= _STAGE_MAX
              and tail_smem_bytes(cp, c_comp, d, True) <= _SMEM_MAX)
-    return dict(route=tail_route(c, d, run, c_comp), cp=cp, start=start,
+    return dict(route="fused", cp=cp, start=start,
                 cluster=cluster_size(q_n, d, sms) if k <= TOPK_MAX else 1, stage=stage,
                 smem=tail_smem_bytes(cp, c_comp, d, stage))
 
@@ -144,9 +154,6 @@ def query_tail(
         raise ValueError("data, queries and cand must be contiguous on one device")
     if not (k >= 1 and c_comp >= 1 and run >= 1 and n >= 1):
         raise ValueError(f"bad launch: k={k}, c_comp={c_comp}, run={run}, n={n}")
-    if tail_route(c, d, run, c_comp) != "fused":
-        raise ValueError(f"kernel D cannot hold {c} candidates with c_comp={c_comp}, d={d} in one"
-                         " block: take the staged route (tail_route)")
     shape = launch_shape(q_n, c, d, run, c_comp, k=k, aligned16=data.data_ptr() % 16 == 0,
                          sms=_sm_count(data.device))
     kd = torch.empty((q_n, k), dtype=torch.float32, device=data.device)
@@ -154,19 +161,29 @@ def query_tail(
     comparisons = torch.empty((q_n,), dtype=torch.int32, device=data.device)
     overflow = torch.empty((q_n,), dtype=torch.int32, device=data.device)
     lib = _build.library("query_fused", _SIGNATURES)
+    outs = (kd.data_ptr(), ki.data_ptr(), comparisons.data_ptr(), overflow.data_ptr(), _build.stream_ptr(data))
+    if shape["route"] == "hash":
+        scratch = (torch.empty((q_n * shape["ws"],), dtype=torch.uint8, device=data.device)
+                   if shape["spill"] else None)
+        err = lib.query_tail_hash_launch(
+            data.data_ptr(), queries.data_ptr(), cand.data_ptr(), n, d, q_n, c, c_comp, k,
+            shape["h_cap"], None if scratch is None else scratch.data_ptr(), shape["ws"], *outs,
+        )
+        _build.check(lib, err, "query_tail")
+        _build.count_launch("query_tail.hash")
+        return kd, ki, comparisons, overflow
     err = lib.query_tail_launch(
         data.data_ptr(), queries.data_ptr(), cand.data_ptr(), n, d, q_n, c,
-        shape["cp"], shape["start"], c_comp, k, shape["cluster"], int(shape["stage"]),
-        kd.data_ptr(), ki.data_ptr(), comparisons.data_ptr(), overflow.data_ptr(),
-        _build.stream_ptr(data),
+        shape["cp"], shape["start"], c_comp, k, shape["cluster"], int(shape["stage"]), *outs,
     )
     _build.check(lib, err, "query_tail")
     return kd, ki, comparisons, overflow
 
 
 def hash_slots(c: int) -> int:
-    """Kernel E's hash-set capacity for rows of ``c`` candidates: a power of
-    two, at least twice ``c`` (load at most 1/2) and ``E_THREADS``."""
+    """The hash-set capacity of kernel E and of kernel D's hash form for rows
+    of ``c`` candidates: a power of two, at least twice ``c`` (load at most
+    1/2) and ``E_THREADS``."""
     return max(E_THREADS, next_pow2(2 * c))
 
 

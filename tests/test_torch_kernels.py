@@ -288,16 +288,22 @@ def test_query_tail_launch_shape(case):
 
 
 def test_query_tail_launch_shape_refuses_what_a_block_cannot_hold():
-    # what kernel D cannot hold in one block takes the staged route (torch
-    # stages 3-4, kernel C) instead of being refused: a merge width past
-    # CP_MAX, and shared memory past the budget
+    # what kernel D's merge cannot hold in one block (a merge width past
+    # CP_MAX, shared memory past the budget) takes D's hash form, in one
+    # launch, instead of being refused; its workspace spills to a device
+    # scratch when it passes the budget
     wide = tqf.launch_shape(1, 16385, 30, 16, 1024, k=10, aligned16=True, sms=132)
-    assert wide["route"] == "staged" and wide["cp"] == 32768 > tqf.CP_MAX
+    assert merge_cp(16385) == 32768 > tqf.CP_MAX
+    assert wide == dict(route="hash", h_cap=65536, ws=(65536 + 2 * 1024 + 32) * 4, spill=True)
     deep = tqf.launch_shape(1, 1024, 60_000, 16, 1024, k=10, aligned16=True, sms=132)
-    assert deep["route"] == "staged" and deep["smem"] > 200 * 1024 and not deep["stage"]
-    with pytest.raises(ValueError, match="staged route"):
-        tqf.query_tail(torch.zeros((4, 30), device="meta"), torch.zeros((1, 30), device="meta"),
-                       torch.zeros((1, 16385), dtype=torch.int32, device="meta"), run=16, c_comp=1024, k=10)
+    assert tqf.tail_smem_bytes(1024, 1024, 60_000, False) > 200 * 1024
+    assert deep == dict(route="hash", h_cap=2048, ws=(2048 + 2 * 1024 + 60_000) * 4, spill=True)
+    small = tqf.launch_shape(50, 4096, 30, 16, 9000, k=10, aligned16=True, sms=132)
+    assert small["route"] == "fused"  # a c_comp past C still fits D's merge
+
+
+def merge_cp(c: int) -> int:
+    return tqf.merge_shape(c, 16)[0]
 
 
 @pytest.mark.parametrize(
@@ -305,20 +311,24 @@ def test_query_tail_launch_shape_refuses_what_a_block_cannot_hold():
     [
         (1024, 30, 16, 1024, "fused"),  # the grid chunk
         (16384, 30, 16, 1024, "fused"),  # merge width at CP_MAX
-        (16385, 30, 16, 1024, "staged"),  # one column past it
-        (24576, 30, 16, 1024, "staged"),  # L_out=16, c_max=512, multiprobe=2
-        (16384, 30, 16, 16384, "staged"),  # c_comp=0 at 16,384 columns: 262 KB
+        (16385, 30, 16, 1024, "hash"),  # one column past it
+        (24576, 30, 16, 1024, "hash"),  # L_out=16, c_max=512, multiprobe=2
+        (16384, 30, 16, 16384, "hash"),  # c_comp=0 at 16,384 columns: 262 KB
         (16384, 30, 16, 9201, "fused"),  # the widest c_comp that fits beside it
-        (16384, 30, 16, 9202, "staged"),
+        (16384, 30, 16, 9202, "hash"),
         (128, 4096, 16, 128, "fused"),  # the kNN-LM hook (row slots dropped when tight)
-        (128, 60_000, 16, 128, "staged"),  # the query alone over the budget
+        (128, 60_000, 16, 128, "hash"),  # the query alone over the budget
         (48, 30, 12, 48, "fused"),  # an odd run: a full in-block sort
     ],
 )
 def test_tail_route_follows_the_shape(c, d, run, c_comp, route):
-    assert tqf.tail_route(c, d, run, c_comp) == route
     for k in (1, 10, 40, 1000):  # k never decides the route
-        assert tqf.launch_shape(50, c, d, run, c_comp, k=k, aligned16=True, sms=132)["route"] == route
+        shape = tqf.launch_shape(50, c, d, run, c_comp, k=k, aligned16=True, sms=132)
+        assert shape["route"] == route
+    if route == "hash":  # the set holds twice the row, and the k > 32 sort's keys after it
+        assert shape["h_cap"] == max(tqf.E_THREADS, 2 * tqf.merge_shape(c, 1)[0])
+        assert shape["ws"] == tqf.hash_ws_bytes(c, c_comp, d)
+        assert shape["spill"] == (shape["ws"] > 200 * 1024)
 
 
 def _tie_case():

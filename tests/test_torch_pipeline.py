@@ -141,12 +141,12 @@ def test_query_on_a_jax_built_index(jax_runs):
 # Shapes where the "cuda" backend once refused what the reference answers:
 # k past the warp top-k's 32 (kernel D sorts the block's keys), a merge
 # width past 16,384 and kernel D's shared memory over its budget (both take
-# the staged route: torch stages 3-4, kernel C). On CPU tensors the kernels
-# run their plain versions; the route is chosen from the shape alike.
+# D's hash form). On CPU tensors the kernels run their plain versions; the
+# route is chosen from the shape alike.
 ROUTE_CASES = {
     "k40": (dict(k=40), N, "fused"),
-    "merge_width_32768": (dict(L_out=8, c_max=1024, multiprobe=2), N, "staged"),  # 24,576 columns
-    "c_comp0_16384_columns": (dict(L_out=8, c_max=1024, multiprobe=1, c_comp=0), 16_384, "staged"),
+    "merge_width_32768": (dict(L_out=8, c_max=1024, multiprobe=2), N, "hash"),  # 24,576 columns
+    "c_comp0_16384_columns": (dict(L_out=8, c_max=1024, multiprobe=1, c_comp=0), 16_384, "hash"),
 }
 
 
@@ -162,7 +162,8 @@ def test_cuda_backend_answers_what_the_reference_answers(case):
                           jnp.asarray(queries), jcfg)
     cfg = tp.SLSHConfig.compose(**{**BASE, **kw}, backend="cuda")
     cc = tp._compact_width(cfg, cfg.L_out * cfg.slot, n)
-    assert tqf.tail_route(cfg.L_out * cfg.slot, D, tp._fused_run(cfg), cc) == route
+    shape = tqf.launch_shape(NQ, cfg.L_out * cfg.slot, D, tp._fused_run(cfg), cc, k=cfg.k, aligned16=True, sms=132)
+    assert shape["route"] == route
     _build.reset_launches()
     index = tp.build_from_params(torch.as_tensor(data), *tparams.from_jax_params(*family, "cpu"), cfg)
     tres = tp.query_batch(index, torch.as_tensor(data), torch.as_tensor(queries), cfg)
