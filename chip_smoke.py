@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs eight
+Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs eleven
 phases, printing one JSON line each; any failed check raises, so the script
 exits non-zero:
 
@@ -56,7 +56,25 @@ exits non-zero:
                   compressed MCC within 0.01 of the f32 shard's.
    ``payload_profile`` per format, a profiled 200-query single-shard query,
                   as ``query_profile``.
-7. ``knn_lm``     the kNN-LM serving path of examples/serve_knn_lm.py
+7. ``quickstart`` ``examples/torch_quickstart.main`` at the example's size (8
+                  records x 60,000 beats from ``repro_torch.data.abp``,
+                  ``grid(nu=2, p=8)``): MCC within 0.1 of PKNN's.
+8. ``routed``     the main path's grid through ``with_routing()`` (its
+                  2,000 answers equal the broadcast ones in ``knn_idx``,
+                  comparisons and overflow), then a ``replication=2``
+                  build queried with ``max_cells=8`` against the
+                  ``"torch"`` backend on the same plan (256 queries).
+9. ``stream``     the paper-scale streaming deployment: ``streaming(nu=10,
+                  p=4, node_capacity=139,048, delta_cap=256)`` warmed on the
+                  1,370,000 windows, then a ``StreamingMonitor`` streams
+                  4,096 more in batches of 16. Checks: after the 8th event
+                  and after the last, 256 queries agree between the
+                  ``"cuda"`` and ``"torch"`` backends and with an unrouted
+                  clone; after ``compact`` node 0's cells equal a scratch
+                  build; A, B and D launch; every node compacts; the
+                  rolling MCC within 0.1 of PKNN's on the live windows.
+   ``stream_profile`` the last 32 events profiled: the device idle share.
+10. ``knn_lm``    the kNN-LM serving path of examples/serve_knn_lm.py
                   steps 2-3 at granite-8b's full width and depth (36 layers,
                   d_model 4,096, weights from a seeded generator): kernel F
                   (flash attention) first against its plain version at the
@@ -81,7 +99,7 @@ exits non-zero:
                   Kernels A's, B's and D's calls on the main and kNN-LM
                   paths are counted by shape.
    ``knn_lm_profile`` one request served with the hook, profiled.
-8. ``serve``      ``repro_torch.launch.serve.main --arch granite-8b`` with
+11. ``serve``     ``repro_torch.launch.serve.main --arch granite-8b`` with
                   its defaults: 4 requests through ``ServeEngine`` on the
                   card.
 
@@ -91,7 +109,8 @@ counts the path it belongs to: the main path for A, B and D (C, the
 staged form's distance stage, is on no path of the ``"cuda"`` backend and
 counts 0 there), the payload phase's two compressed
 queries for E, the ``knn_lm`` phase for F; every row also gives its
-launches on the ``routes``, ``knn_lm`` and ``serve`` paths. Without a CUDA
+launches on the ``routes``, ``quickstart``, ``routed``, ``stream``,
+``knn_lm`` and ``serve`` paths. Without a CUDA
 device, or without the repository's ``src/`` beside it, the script exits
 non-zero before printing any result.
 """
@@ -274,22 +293,26 @@ def profile_query(dev, fn, queries: int = 200) -> dict:
         fn()
         sync(dev)
         wall = time.perf_counter() - t0
-    # device-side events only: a CPU op's self device time repeats the time
-    # of the kernels it launched
-    events = [
-        e for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-    ]
-    busy = sum(e.self_device_time_total for e in events) / 1e6
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
-    port = [e for e in events if (e.key.split("(")[0].split("<")[0].split() or [""])[-1] in PORT_KERNELS]
+    # device-side events only (a CPU op's device time repeats that of the
+    # kernels it launched), summed by name from the raw trace: building
+    # key_averages() over a streaming window's half a million events took
+    # minutes on the card's host
+    kernels: dict[str, list] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and e.duration_ns() > 0:
+            acc = kernels.setdefault(e.name(), [0, 0])
+            acc[0] += e.duration_ns()
+            acc[1] += 1
+    busy = sum(ns for ns, _ in kernels.values()) / 1e9
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    port = [kv for kv in kernels.items() if (kv[0].split("(")[0].split("<")[0].split() or [""])[-1] in PORT_KERNELS]
     return dict(
         queries=queries, wall_s=wall,
-        device_busy_s=busy if events else None,
-        device_idle_share=1.0 - busy / wall if events else None,
-        top_kernels=[dict(name=e.key[:90], ms=e.self_device_time_total / 1e3, calls=e.count) for e in top],
-        port_kernels=[dict(name=e.key[:60], ms=e.self_device_time_total / 1e3, calls=e.count,
-                           share_of_busy=e.self_device_time_total / 1e6 / busy) for e in port],
+        device_busy_s=busy if kernels else None,
+        device_idle_share=1.0 - busy / wall if kernels else None,
+        top_kernels=[dict(name=name[:90], ms=ns / 1e6, calls=c) for name, (ns, c) in top],
+        port_kernels=[dict(name=name[:60], ms=ns / 1e6, calls=c, share_of_busy=ns / 1e9 / busy)
+                      for name, (ns, c) in port],
     )
 
 
@@ -975,8 +998,12 @@ def run(dev, n: int, nq: int, lm_smoke: bool = False, ds_seqs: int = DS_SEQS) ->
     emit("backends_agree", queries=nq_b, knn_idx_identical=bool(torch.equal(ref.knn_idx, res.knn_idx[:nq_b])),
          max_abs_dist_err=float((ref.knn_dist - res.knn_dist[:nq_b]).abs().nan_to_num(0.0).max()))
 
-    del index, res, ref
+    del ref
     payload_launches = payload_phase(dev, pts, qx, labels, truth, cfg, mcc_p)
+    quickstart_launches = quickstart_phase(dev)
+    routed_launches = routed_phase(dev, index, res, pts, qx, queries, cfg)
+    del index, res
+    stream_launches = stream_phase(dev, pts, labs, qx, cfg, n)
     del data, queries, labels, truth
 
     scratch = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
@@ -1004,6 +1031,9 @@ def run(dev, n: int, nq: int, lm_smoke: bool = False, ds_seqs: int = DS_SEQS) ->
             r["multiprobe_query_launches"] = mp_launches.get(r["name"], 0)
         r["payload_query_launches"] = payload_launches.get(r["name"], 0)
         r["routes_launches"] = route_launches.get(r["name"], 0)
+        r["quickstart_launches"] = quickstart_launches.get(r["name"], 0)
+        r["routed_launches"] = routed_launches.get(r["name"], 0)
+        r["stream_launches"] = stream_launches.get(r["name"], 0)
         r["knn_lm_launches"] = lm_launches.get(r["name"], 0)
         r["serve_launches"] = serve_launches.get(r["name"], 0)
     print(json.dumps({"kernels": rows}), flush=True)
@@ -1163,6 +1193,254 @@ def payload_phase(dev, pts, qx, labels, truth, cfg, mcc_pknn: float) -> dict:
         del index, res
         if dev.type == "cuda":
             torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------- the ICU deployment slice
+
+
+def _load_example(name: str):
+    """``examples/<name>.py`` of this checkout as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"_{name}", os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def quickstart_phase(dev) -> dict:
+    """``examples/torch_quickstart.main`` at the example's full size: 8
+    records x 60,000 beats from the port's ABP generator, ``grid(nu=2,
+    p=8)`` on the ``"cuda"`` backend. DSLSH's MCC may fall at most 0.1
+    below PKNN's. Returns the kernels' launches."""
+    import torch
+
+    from repro_torch.data import abp
+    from repro_torch.kernels import _build
+
+    mapv, valid = abp.synth_dataset_beats(0, 8, abp.ABPConfig(n_beats=60_000, episode_rate=1.0 / 2500.0))
+    _build.reset_launches()
+    out = _load_example("torch_quickstart").main(mapv, valid, device=dev)
+    launches = dict(_build.LAUNCHES)
+    for name in ("bitsample_pack", "proj_sign_pack", "query_tail"):
+        need(launches.get(name, 0) > 0, f"quickstart never launched {name}")
+    need(bool(torch.isfinite(torch.tensor([out["mcc"], out["mcc_pknn"]])).all()), "quickstart MCC not finite")
+    need(out["mcc"] >= out["mcc_pknn"] - 0.1, f"quickstart MCC {out['mcc']} below PKNN's {out['mcc_pknn']} by more than 0.1")
+    emit("quickstart", records=8, beats=60_000, n=out["n"], queries=out["queries"], grid=[2, 8],
+         mcc_dslsh=out["mcc"], mcc_pknn=out["mcc_pknn"],
+         median_max_comparisons_per_processor=out["median_max_comparisons"],
+         pknn_comparisons_per_processor=out["pknn_comparisons_per_processor"], speedup=out["speedup"],
+         build_s=out["build_s"], query_s=out["query_s"], us_per_query=out["query_s"] / out["queries"] * 1e6,
+         overflow_cells=out["overflow_cells"], launches=launches)
+    return launches
+
+
+def routed_phase(dev, index, res, pts, qx, queries, cfg) -> dict:
+    """Routing on the main path's 1.37 M-point ``grid(nu=10, p=4)``:
+    ``index.with_routing()`` answers the 2,000 queries with ``knn_idx``,
+    ``comparisons`` and ``compaction_overflow`` equal to the broadcast
+    answer ``res``; then a build with ``replication=2`` and a
+    ``max_cells=8`` query over 256 queries are held against the
+    ``"torch"`` backend on the same plan (counters exact, top-k tie-aware).
+    Returns the kernels' launches of the two routed queries."""
+    import torch
+
+    from repro_torch import dslsh
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import _build
+
+    nq = qx.shape[0]
+    routed = index.with_routing()
+    sync(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    rres, stats = routed.query_with_stats(qx)
+    sync(dev)
+    query_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    for what in ("knn_idx", "comparisons", "compaction_overflow"):
+        need(torch.equal(getattr(rres, what), getattr(res, what)), f"routed: {what} differs from the broadcast answer")
+    need(bool((~rres.routed & (res.comparisons > 0)).sum() == 0), "routed: a skipped cell had candidates")
+    per_query = rres.routed.to(torch.float32).mean(dim=(0, 1))
+
+    t0 = time.perf_counter()
+    rep = dslsh.build(SEED, pts, cfg, dslsh.grid(nu=NU, p=P, replication=2), dev)
+    sync(dev)
+    build_s = time.perf_counter() - t0
+    nq_b = 256
+    before = dict(_build.LAUNCHES)
+    capped = rep.query(qx[:nq_b], max_cells=8)
+    sync(dev)
+    for name, c in _build.LAUNCHES.items():
+        launches[name] = launches.get(name, 0) + c - before.get(name, 0)
+    ref = D.grid_query(rep.pipeline_index, rep._state["data"], queries[:nq_b], cfg.replace(backend="torch"),
+                       rep.grid, plan=rep.plan, max_cells=8)
+    for what in ("comparisons", "compaction_overflow", "routed"):
+        need(torch.equal(getattr(capped, what), getattr(ref, what)), f"routed max_cells=8: {what} differ from the torch backend")
+    need_topk(capped.knn_dist, capped.knn_idx, ref.knn_dist, ref.knn_idx, point_dist_of(rep._state["data"], queries),
+              "routed max_cells=8: top-k differs from the torch backend")
+    need(bool((capped.routed.sum(dim=(0, 1)) <= 8).all()), "routed: max_cells=8 probed more than 8 cells")
+    emit("routed", n=pts.shape[0], queries=nq, grid=[NU, P], query_s=query_s, us_per_query=query_s / nq * 1e6,
+         routed_frac=rres.routed_frac, median_routed_frac=float(per_query.median()),
+         occupied_slot_share=float(routed.plan.occupancy.to(torch.float32).mean()),
+         device_load=stats.device_load.tolist(), tree_routed_bytes=stats.payload["tree_routed_bytes"],
+         flat_allgather_bytes=stats.payload["flat_allgather_bytes"],
+         replication2_build_s=build_s, replicas=rep.plan.replicas.tolist(), n_devices=rep.plan.n_devices,
+         max_cells8_queries=nq_b, max_cells8_routed_frac=capped.routed_frac,
+         max_cells8_recall_at_k=float((capped.knn_idx[:, :, None] == res.knn_idx[:nq_b, None, :]).any(-1)
+                                      .to(torch.float32).mean()),
+         launches=launches)
+    del routed, rep, capped, ref
+    return launches
+
+
+STREAM_CAP, STREAM_DELTA, STREAM_LIVE, STREAM_BATCH = 139_048, 256, 4_096, 16
+STREAM_CHECK_EVENT, STREAM_PROFILE_EVENTS = 8, 32
+
+
+def stream_phase(dev, pts, labs, qx, cfg, n: int) -> dict:
+    """The paper-scale streaming deployment: ``streaming(nu=10, p=4,
+    node_capacity=139,048, delta_cap=256)`` (routed) warmed on the main
+    path's windows at ``t0=0``, then a ``StreamingMonitor`` streams 4,096
+    further windows in batches of 16, one timestamp step each, labels at
+    once. After the 8th event (deltas partly full, no compaction yet) and
+    after the last, 256 queries go through the ``"cuda"`` and the
+    ``"torch"`` backends on the same state and through an unrouted clone;
+    after ``compact``, node 0's cells equal a from-scratch build over its
+    stored rows; kernels A, B and D must launch, and the rolling MCC may
+    fall at most 0.1 below PKNN's on the same live windows. Returns the
+    kernels' launches of the replay."""
+    import torch
+
+    from repro_torch import dslsh, obs
+    from repro_torch import stream as stream_mod
+    from repro_torch.core import pipeline, predict
+    from repro_torch.data import windows
+    from repro_torch.kernels import _build
+
+    t_phase = time.perf_counter()
+    deploy = dslsh.streaming(nu=NU, p=P, node_capacity=STREAM_CAP, delta_cap=STREAM_DELTA)
+    lx, ly = windows.synth_window_slice(
+        windows.SyntheticWindowSpec(n=n + NQ + STREAM_LIVE, seed=SEED), n + NQ, n + NQ + STREAM_LIVE
+    )
+    ts = 1.0 + np.arange(STREAM_LIVE) // STREAM_BATCH
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    ob = obs.Obs()
+    mon = stream_mod.StreamingMonitor(
+        SEED, pts, labs, cfg, deploy.grid, node_capacity=deploy.node_capacity, delta_cap=deploy.delta_cap,
+        retention_s=deploy.retention_s, route=deploy.routed, route_bits=deploy.route_bits, obs=ob, device=dev,
+    )
+    sync(dev)
+    warm_s = time.perf_counter() - t0
+    index = dslsh.Index(deploy, cfg, {"core": mon.core})
+    core = mon.core
+    compact_s: list[float] = []
+    maintain = core.maintain
+
+    def timed_maintain(i, t):
+        sync(dev)
+        t1 = time.perf_counter()
+        out = maintain(i, t)
+        sync(dev)
+        compact_s.append(time.perf_counter() - t1)
+        return out
+
+    core.maintain = timed_maintain
+    queries = torch.as_tensor(qx[:256], device=dev)
+    step_s: list[float] = []
+    launches: dict[str, int] = {}
+
+    def replay(lo: int, hi: int) -> None:
+        _build.reset_launches()
+        for s in range(lo * STREAM_BATCH, hi * STREAM_BATCH, STREAM_BATCH):
+            e = s + STREAM_BATCH
+            t1 = time.perf_counter()
+            mon.step(lx[s:e], ly[s:e], float(ts[e - 1]))
+            sync(dev)
+            step_s.append(time.perf_counter() - t1)
+        for name, c in _build.LAUNCHES.items():
+            launches[name] = launches.get(name, 0) + c
+
+    def check(when: str) -> dict:
+        state = list(core.state)
+        res = core.query(queries)
+        ref = core.clone(cfg=cfg.replace(backend="torch")).query(queries)
+        plain = core.clone(route=False).query(queries)
+        for what in ("comparisons", "compaction_overflow", "routed"):
+            need(torch.equal(getattr(res, what), getattr(ref, what)), f"stream {when}: {what} differ from the torch backend")
+        for what in ("knn_idx", "comparisons"):
+            need(torch.equal(getattr(res, what), getattr(plain, what)), f"stream {when}: {what} differ from the unrouted answer")
+        rows = torch.cat([nd.store for nd in state])
+        need_topk(res.knn_dist, res.knn_idx, ref.knn_dist, ref.knn_idx, point_dist_of(rows, queries),
+                  f"stream {when}: top-k differs from the torch backend")
+        return dict(routed_frac=res.routed_frac, delta_fill=[nd.count for nd in state],
+                    knn_idx_identical_to_torch=bool(torch.equal(res.knn_idx, ref.knn_idx)))
+
+    n_events = STREAM_LIVE // STREAM_BATCH
+    replay(0, STREAM_CHECK_EVENT)
+    need(not any(e.compacted for e in mon.events), "stream: a node compacted before the first check")
+    first = check(f"after event {STREAM_CHECK_EVENT}")
+    spans = {}
+    for e in ob.tracer.events:
+        spans[e["name"]] = spans.get(e["name"], 0) + 1
+    mon.obs = None  # the rest unobserved: per-stage spans synchronize the device
+    replay(STREAM_CHECK_EVENT, n_events - STREAM_PROFILE_EVENTS)
+    t_prof = time.perf_counter()
+    prof = profile_query(dev, lambda: replay(n_events - STREAM_PROFILE_EVENTS, n_events),
+                         queries=STREAM_PROFILE_EVENTS * STREAM_BATCH)
+    prof["seconds_with_trace_processing"] = time.perf_counter() - t_prof
+    core.maintain = maintain
+    last = check("after the last event")
+    for name in ("bitsample_pack", "proj_sign_pack", "query_tail"):
+        need(launches.get(name, 0) > 0, f"stream: the replay never launched {name}")
+    events = mon.events
+    compacted_nodes = sorted({e.node for e in events if e.compacted})
+    need(compacted_nodes == list(range(NU)), f"stream: only nodes {compacted_nodes} compacted")
+    need(sum(e.dropped for e in events) == 0, "stream: windows were dropped")
+
+    # compaction is exact: node 0's cells against a from-scratch build
+    index.compact(float(ts[-1]))
+    node = core.state[0]
+    m = node.n
+    for c, cell in enumerate(node.cells):
+        scratch = pipeline.build_from_params(node.store[:m], cell.base.outer_params, cell.base.inner_params, cfg)
+        need(torch.equal(cell.base.outer.sorted_keys[:, :m], scratch.outer.sorted_keys)
+             and torch.equal(cell.base.outer.sorted_idx[:, :m], scratch.outer.sorted_idx),
+             f"stream: node 0 cell {c} tables differ from a scratch build after compaction")
+        need(all(torch.equal(a, b) for a, b in zip(cell.base.heavy, scratch.heavy)),
+             f"stream: node 0 cell {c} heavy registry differs from a scratch build")
+        need(torch.equal(cell.base.inner_keys, scratch.inner_keys) and torch.equal(cell.base.inner_idx, scratch.inner_idx),
+             f"stream: node 0 cell {c} inner tables differ from a scratch build")
+
+    data = torch.as_tensor(pts, device=dev)
+    pkd, pki, _ = dslsh.pknn_query(data, torch.as_tensor(lx, device=dev), cfg.k, deploy.grid)
+    mcc_p = float(predict.mcc(predict.predict_batch(torch.as_tensor(labs, device=dev), pki, pkd),
+                              torch.as_tensor(ly, device=dev)))
+    mcc = mon.mcc()
+    need(mcc >= mcc_p - 0.1, f"stream: rolling MCC {mcc} below PKNN's {mcc_p} by more than 0.1")
+    lat = np.asarray([e.latency_s for e in events]) * 1e3
+    step = np.asarray(step_s) * 1e3
+    ingest = step - lat  # a step is the prediction, then the ingest
+    emit("stream", warm_n=n, nodes=NU, cores=P, node_capacity=STREAM_CAP, delta_cap=STREAM_DELTA,
+         live_windows=STREAM_LIVE, batch=STREAM_BATCH, events=len(events), warm_s=warm_s,
+         ingest_ms_median=float(np.median(ingest)), ingest_ms_p95=float(np.percentile(ingest, 95)),
+         predict_ms_median=float(np.median(lat)), predict_ms_p95=float(np.percentile(lat, 95)),
+         step_ms_median=float(np.median(step)), compactions=sum(e.compacted for e in events),
+         compaction_s=compact_s, n_index=mon.n_index(),
+         median_routed_frac=float(np.median([e.routed_frac for e in events])),
+         median_comparisons=float(np.median([e.comparisons for e in events])),
+         overflow_events=sum(e.overflow > 0 for e in events), rolling_mcc=mcc, mcc_pknn=mcc_p,
+         check_event_8=first, check_last=last, spans_first_8_events=spans,
+         peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else None,
+         seconds=time.perf_counter() - t_phase, launches=launches)
+    emit("stream_profile", events=STREAM_PROFILE_EVENTS, **prof)
+    del mon, index, core, data
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     return launches
 
 

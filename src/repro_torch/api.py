@@ -10,20 +10,25 @@ one handle runs the lifecycle::
 
 Everything runs on the CUDA card unless ``device="cpu"`` is passed. A
 compressed payload (``payload="f16"``/``"i8"``) rides the single-shard
-fused tail; a grid refuses it. Routed and replicated grids, the mesh and
-streaming deployments, and persistence are not ported yet; they raise
+fused tail; a grid refuses it. A grid may be routed (DESIGN.md §10:
+``grid(routed=True)``, ``replication``, ``degrade``), and the
+:func:`streaming` deployment ingests, compacts and evicts online
+(DESIGN.md §9). An ``obs`` bundle instruments the handle (DESIGN.md §12).
+The mesh deployment and persistence are not ported yet; they raise
 ``NotImplementedError`` (see ROADMAP.md).
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch import device as device_mod
+from repro_torch import obs as obs_mod
 from repro_torch import params as params_mod
 from repro_torch.core import distributed as D
-from repro_torch.core import hashing, pipeline
+from repro_torch.core import hashing, pipeline, routing
 from repro_torch.core.distributed import (  # noqa: F401  (re-exported public API)
     DistributedQueryResult,
     Grid,
@@ -39,6 +44,7 @@ from repro_torch.core.pipeline import (  # noqa: F401  (re-exported public API)
 )
 from repro_torch.runtime import memory as memory_mod
 from repro_torch.runtime import payload as payload_mod
+from repro_torch.stream import shard as shard_mod
 
 __all__ = [
     "BudgetConfig",
@@ -61,7 +67,7 @@ __all__ = [
     "streaming",
 ]
 
-_KINDS = ("single", "grid")
+_KINDS = ("single", "grid", "streaming")
 _NOT_PORTED = "is not ported to PyTorch yet (see ROADMAP.md, Queue 1)"
 
 
@@ -79,11 +85,21 @@ def make_config(
 @dataclasses.dataclass(frozen=True)
 class Deployment:
     """Frozen descriptor of where a DSLSH index runs; build one with
-    :func:`single` or :func:`grid`."""
+    :func:`single`, :func:`grid` or :func:`streaming`."""
 
     kind: str
     nu: int = 1  # nodes
     p: int = 1  # cores per node
+    replication: int = 1  # replica factor for hot cells (DESIGN.md §10)
+    routed: bool = False  # key→cell routing (bit-exact)
+    route_bits: int = routing.DEFAULT_BITS
+    # deadline-degradation levels ((min_budget_s, max_cells), ...) read by
+    # query(budget=...); they need ``routed``
+    degrade: tuple | None = None
+    # streaming knobs (DESIGN.md §9)
+    node_capacity: int | None = None
+    delta_cap: int = 64
+    retention_s: float = float("inf")
 
     def __post_init__(self):
         pipeline._require(
@@ -95,6 +111,32 @@ class Deployment:
             f"nu={self.nu}, p={self.p}: the cell grid needs at least one"
             " node and one core",
         )
+        pipeline._require(
+            self.replication >= 1,
+            f"replication={self.replication}: replica counts start at 1",
+        )
+        pipeline._require(
+            self.replication == 1 or self.routed,
+            f"replication={self.replication} without routed=True: replica"
+            " placement rides the §10 routing plan — pass routed=True (the"
+            " routed query stays bit-identical to the broadcast one)",
+        )
+        pipeline._require(
+            not self.degrade or self.routed,
+            "degrade levels require routed=True (degradation caps the"
+            " cells the §10 router probes)",
+        )
+        if self.kind == "streaming":
+            pipeline._require(
+                self.node_capacity is not None and self.node_capacity >= 1,
+                "streaming deployments need node_capacity (the fixed"
+                " per-node store size, >= warmup shard size)",
+            )
+            pipeline._require(
+                self.delta_cap >= 1,
+                f"delta_cap={self.delta_cap}: each node needs at least one"
+                " delta slot to ingest into",
+            )
 
     @property
     def grid(self) -> Grid:
@@ -118,23 +160,58 @@ def grid(
     *,
     replication: int = 1,
     routed: bool | None = None,
+    route_bits: int = routing.DEFAULT_BITS,
     degrade: tuple | None = None,
 ) -> Deployment:
-    """The nu x p cell grid simulated on one device. Routing, replication
-    and deadline degradation are not ported yet and raise."""
-    if routed or replication > 1 or degrade is not None:
-        raise NotImplementedError(f"routed/replicated grid deployment {_NOT_PORTED}")
-    return Deployment(kind="grid", nu=nu, p=p)
+    """The nu x p cell grid simulated on one device.
+
+    ``routed=True`` builds a key→cell routing plan at build time and routes
+    every query batch only to the cells its probe keys can land in
+    (bit-identical results, fewer cells visited). ``replication > 1``
+    replicates hot cells and ``degrade`` declares deadline-degradation
+    levels for ``query(budget=...)``; both imply ``routed``.
+
+    >>> grid(nu=2, p=4, replication=2).routed
+    True
+    """
+    if routed is None:
+        routed = replication > 1 or degrade is not None
+    return Deployment(
+        kind="grid", nu=nu, p=p, replication=replication, routed=routed,
+        route_bits=route_bits, degrade=degrade,
+    )
+
+
+def streaming(
+    nu: int = 1,
+    p: int = 1,
+    *,
+    node_capacity: int,
+    delta_cap: int = 64,
+    retention_s: float = float("inf"),
+    routed: bool = True,
+    route_bits: int = routing.DEFAULT_BITS,
+) -> Deployment:
+    """The online deployment: ingest, auto-compact, evict (DESIGN.md §9).
+
+    ``node_capacity`` fixes each node's store size (it must cover the
+    node's warm-up shard); ``delta_cap`` sizes the append-only segments;
+    windows older than ``retention_s`` are evicted during compaction.
+    Routing is on by default and exact here too (delta segments inherit
+    their cell's placement).
+
+    >>> streaming(nu=2, node_capacity=256).kind
+    'streaming'
+    """
+    return Deployment(
+        kind="streaming", nu=nu, p=p, routed=routed, route_bits=route_bits,
+        node_capacity=node_capacity, delta_cap=delta_cap, retention_s=retention_s,
+    )
 
 
 def mesh(*args, **kwargs) -> Deployment:
     """The grid over a device mesh (``torch.distributed``): not ported yet."""
     raise NotImplementedError(f"the mesh deployment {_NOT_PORTED}")
-
-
-def streaming(*args, **kwargs) -> Deployment:
-    """The online ingest/compact deployment: not ported yet."""
-    raise NotImplementedError(f"the streaming deployment {_NOT_PORTED}")
 
 
 def load(path: str, **kwargs):
@@ -147,13 +224,20 @@ class Index:
 
     :meth:`query` always returns one :class:`DistributedQueryResult`,
     whatever the deployment; the handle adds no math of its own.
+    :meth:`ingest`, :meth:`compact` and :meth:`snapshot` serve streaming
+    deployments. ``obs`` binds an observability bundle: lifecycle calls
+    then record spans and the query path feeds the metrics registry
+    (latency, comparisons, overflow, routed_frac — DESIGN.md §12).
     """
 
-    def __init__(self, deploy: Deployment, cfg: SLSHConfig, state: dict):
+    def __init__(self, deploy: Deployment, cfg: SLSHConfig, state: dict, obs: obs_mod.Obs | None = None):
         self.deploy = deploy
         self.cfg = cfg
         self._state = state
+        self._obs = obs
         self._cached_payload: payload_mod.Payload | None = None
+
+    # ------------------------------------------------------------- facts
 
     @property
     def grid(self) -> Grid:
@@ -161,20 +245,41 @@ class Index:
         return self.deploy.grid
 
     @property
+    def plan(self) -> routing.RoutingPlan | None:
+        """The routing plan (None for unrouted deployments)."""
+        return self._state.get("plan")
+
+    @property
     def device(self) -> torch.device:
         """The device the index lives on."""
+        if self.deploy.kind == "streaming":
+            return self._state["core"].device
         return self._state["data"].device
 
     @property
     def pipeline_index(self):
-        """The built pipeline state: one ``SLSHIndex`` (single) or the cell
-        indexes in flat (node, core) order (grid)."""
+        """The built pipeline state: one ``SLSHIndex`` (single), the cell
+        indexes in flat (node, core) order (grid), or the per-node state
+        list (streaming)."""
+        if self.deploy.kind == "streaming":
+            return self._state["core"].state
         return self._state["index"]
+
+    def n_index(self) -> int:
+        """Points queryable right now."""
+        if self.deploy.kind == "streaming":
+            return self._state["core"].n_index()
+        return int(self._state["data"].shape[0])
 
     def memory_report(self) -> memory_mod.MemoryReport:
         """Per-cell byte accounting of the resident index (DESIGN.md §13):
         tables, heavy, inner, data and payload bytes from tensor shapes
-        alone, with no sync."""
+        alone, with no sync. Batch deployments only."""
+        pipeline._require(
+            self.deploy.kind != "streaming",
+            "memory_report covers batch deployments — streaming capacity"
+            " is tracked live by ingest/compact reports (DESIGN.md §9)",
+        )
         cells = (1, 1) if self.deploy.kind == "single" else (self.deploy.nu, self.deploy.p)
         return memory_mod.index_report(
             self._state["index"], self._state["data"], self.cfg.payload, cells
@@ -189,15 +294,72 @@ class Index:
             self._cached_payload = payload_mod.make_payload(self._state["data"], self.cfg.payload)
         return self._cached_payload
 
-    def query(self, queries, *, drop_mask=None, drop_cells=None) -> DistributedQueryResult:
+    def _bound_obs(self) -> obs_mod.Obs | None:
+        ob = self._obs if self._obs is not None else obs_mod.get_active()
+        return ob if ob is not None and ob.enabled else None
+
+    # ------------------------------------------------------------- query
+
+    def query(
+        self,
+        queries,
+        *,
+        budget: float | None = None,
+        max_cells: int | None = None,
+        drop_mask=None,
+        drop_cells=None,
+    ) -> DistributedQueryResult:
         """Resolve a query batch -> one :class:`DistributedQueryResult`.
 
-        ``drop_mask`` (nu,) excludes straggler nodes from the Reducer and
-        ``drop_cells`` (nu, p) lost cells (grid deployments).
+        ``budget`` (remaining latency seconds) maps through the
+        deployment's ``degrade`` levels to a probe-cell cap; ``max_cells``
+        caps it directly (both need a routed deployment and are
+        approximate by design). ``drop_mask`` (nu,) excludes straggler
+        nodes from the Reducer and ``drop_cells`` (nu, p) lost cells (grid
+        deployments). With an obs bundle the call records an
+        ``index.query`` span (synchronized) and feeds the query metrics.
         """
+        if budget is not None:
+            pipeline._require(
+                self.deploy.degrade is not None,
+                "query(budget=...) needs degrade levels on the deployment:"
+                " dslsh.grid(..., routed=True, degrade=((0.05, None),"
+                " (0.0, 4)))",
+            )
+            cap = routing.degrade_max_cells(budget, self.deploy.degrade)
+            max_cells = cap if max_cells is None else min(max_cells, cap or max_cells)
+        if max_cells is not None:
+            pipeline._require(
+                self.plan is not None,
+                "max_cells requires a routed deployment (dslsh.grid(...,"
+                " routed=True)) — the cap rides the §10 routing plan",
+            )
+        ob = self._bound_obs()
+        if ob is None:
+            return self._query_impl(queries, max_cells, drop_mask, drop_cells)
+        q_n = int(np.shape(queries)[0])
+        with ob.activate():
+            with ob.span("index.query", deployment=self.deploy.kind, queries=q_n) as sp:
+                res = self._query_impl(queries, max_cells, drop_mask, drop_cells)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+        if ob.metrics is not None:
+            self._record_query_metrics(ob, res, sp.dur_s)
+        return res
+
+    def _query_impl(self, queries, max_cells, drop_mask, drop_cells) -> DistributedQueryResult:
+        """Deployment dispatch behind :meth:`query` (validation done)."""
+        kind = self.deploy.kind
+        if kind == "streaming":
+            pipeline._require(
+                drop_mask is None and drop_cells is None and max_cells is None,
+                "streaming deployments answer with their live cells — drop_mask"
+                " / drop_cells / max_cells degradation applies to grid deployments",
+            )
+            return self._state["core"].query(queries)
         queries = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
         data, index = self._state["data"], self._state["index"]
-        if self.deploy.kind == "single":
+        if kind == "single":
             pipeline._require(
                 drop_mask is None and drop_cells is None,
                 "drop_mask / drop_cells only apply to grid deployments (a"
@@ -213,9 +375,153 @@ class Index:
                 None if res.rerank_misses is None else res.rerank_misses[None, None],
             )
         return D.grid_query(
-            index, data, queries, self.cfg, self.grid,
-            drop_mask=drop_mask, drop_cells=drop_cells,
+            index, data, queries, self.cfg, self.grid, plan=self.plan,
+            max_cells=max_cells, drop_mask=drop_mask, drop_cells=drop_cells,
         )
+
+    def _record_query_metrics(self, ob: obs_mod.Obs, res: DistributedQueryResult, dur_s: float) -> None:
+        """Feed the query metrics (DESIGN.md §12) from one computed result."""
+        m = ob.metrics
+        kind = self.deploy.kind
+        m.histogram(
+            "dslsh_query_latency_seconds", "end-to-end Index.query wall time (synced)",
+        ).labels(deployment=kind).observe(dur_s)
+        m.counter("dslsh_queries_total", "Index.query batches answered").labels(deployment=kind).inc()
+        comps = res.comparisons.cpu().numpy()  # (nu, p, Q)
+        m.counter(
+            "dslsh_comparisons_total",
+            "unique candidates scanned across all cells (paper's cost"
+            " measure)",
+        ).inc(float(comps.sum()))
+        comp_hist = m.histogram(
+            "dslsh_query_comparisons",
+            "per-query max unique candidates scanned in any one cell",
+            buckets=obs_mod.metrics.COUNT_BUCKETS,
+        )
+        for v in comps.max(axis=(0, 1)):
+            comp_hist.observe(float(v))
+        m.counter(
+            "dslsh_compaction_overflow_total",
+            "unique survivors beyond c_comp — non-zero means results are"
+            " budget-truncated (DESIGN.md §3)",
+        ).inc(float(res.compaction_overflow.sum()))
+        if res.rerank_misses is not None:
+            m.counter(
+                "dslsh_rerank_misses_total",
+                "compressed-payload shortlist misses — non-zero means the"
+                " quantized L1 pass may have excluded a true neighbour"
+                " (raise c_rerank; DESIGN.md §13)",
+            ).inc(float(res.rerank_misses.sum()))
+        m.histogram(
+            "dslsh_routed_frac",
+            "fraction of (cell, query) pairs the §10 router visited",
+            buckets=obs_mod.log_buckets(0.01, 1.0, per_decade=8),
+        ).observe(float(res.routed_frac))
+        routed = res.routed.cpu().numpy()  # (nu, p, Q)
+        per_cell = routed.sum(axis=2)
+        cell_counter = m.counter(
+            "dslsh_routed_queries_per_cell_total",
+            "queries routed to each (node, core) cell — the load signal"
+            " the routing plan's replicas balance",
+        )
+        for j in range(per_cell.shape[0]):
+            for c in range(per_cell.shape[1]):
+                cell_counter.labels(cell=f"{j}/{c}").inc(float(per_cell[j, c]))
+        plan = self.plan
+        if plan is not None and plan.r_max > 1:
+            load = routing.device_load(plan, routed.transpose(2, 0, 1))
+            dev_counter = m.counter(
+                "dslsh_replica_routed_queries_total",
+                "queries each replica device answered (replication load"
+                " balance, §10)",
+            )
+            for d, v in enumerate(load):
+                dev_counter.labels(device=str(d)).inc(float(v))
+
+    def with_obs(self, obs: obs_mod.Obs | None) -> "Index":
+        """The same handle state bound to a (different) obs bundle."""
+        out = Index(self.deploy, self.cfg, self._state, obs)
+        out._cached_payload = self._cached_payload
+        return out
+
+    def with_routing(
+        self,
+        *,
+        replication: int = 1,
+        route_bits: int = routing.DEFAULT_BITS,
+        degrade: tuple | None = None,
+    ) -> "Index":
+        """A routed variant of this grid handle, sharing the built state: the
+        key→cell map and replica placement come from the built cells (no
+        re-hash of the data); queries route, bit-identical to broadcast."""
+        pipeline._require(
+            self.deploy.kind == "grid",
+            "with_routing derives a plan from a grid deployment — streaming"
+            " deployments take routed=True at build time",
+        )
+        plan = routing.make_plan(
+            self._state["index"], self.cfg, self.grid, replication=replication, bits=route_bits
+        )
+        deploy = dataclasses.replace(
+            self.deploy, routed=True, replication=replication, route_bits=route_bits, degrade=degrade,
+        )
+        return Index(deploy, self.cfg, {**self._state, "plan": plan}, self._obs)
+
+    def query_with_stats(self, queries) -> tuple[DistributedQueryResult, routing.RoutingStats]:
+        """Routed-grid query + host-side :class:`routing.RoutingStats`
+        (route mask, Reducer payload accounting, per-device load)."""
+        pipeline._require(
+            self.deploy.kind == "grid" and self.plan is not None,
+            "query_with_stats needs a routed grid deployment (dslsh.grid(..., routed=True))",
+        )
+        queries = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
+        return D.grid_query(
+            self._state["index"], self._state["data"], queries, self.cfg, self.grid,
+            plan=self.plan, return_stats=True,
+        )
+
+    # --------------------------------------------------------- streaming
+
+    def _core(self) -> shard_mod.ShardedStream:
+        pipeline._require(
+            self.deploy.kind == "streaming",
+            f"{self.deploy.kind!r} deployments are immutable — ingest /"
+            " compact need dslsh.streaming(...) (build a fresh index to"
+            " change batch deployments)",
+        )
+        return self._state["core"]
+
+    def ingest(self, xs, ts: float = 0.0) -> shard_mod.IngestReport:
+        """Ingest one batch of points stamped ``ts`` (streaming only): the
+        Forwarder routes it to the next node round-robin; a node whose delta
+        would overflow compacts (and, past the retention horizon, evicts)
+        first."""
+        core = self._core()
+        ob = self._bound_obs()
+        if ob is None:
+            return core.ingest(xs, float(ts))
+        with ob.activate(), ob.span("index.ingest", ts=float(ts)):
+            return core.ingest(xs, float(ts))
+
+    def compact(self, ts: float = 0.0) -> list:
+        """Fold every node's delta segment into its base now (streaming
+        only); one ``(evicted, keep)`` pair per node, ``keep`` the
+        renumbering map when eviction moved rows."""
+        core = self._core()
+        ob = self._bound_obs()
+        if ob is None:
+            return core.compact_all(float(ts))
+        with ob.activate(), ob.span("index.compact", ts=float(ts)):
+            return core.compact_all(float(ts))
+
+    def snapshot(self) -> "Index":
+        """An RCU snapshot for ingest-while-serving (DESIGN.md §15). Batch
+        deployments are immutable, so the snapshot is the handle itself; a
+        streaming handle gets a clone of its core, sharing every tensor,
+        which keeps answering from the state it took."""
+        if self.deploy.kind != "streaming":
+            return self
+        return Index(self.deploy, self.cfg, {**self._state, "core": self._state["core"].clone()}, self._obs)
 
     def save(self, path: str) -> str:
         """Persist the index: not ported yet."""
@@ -224,14 +530,10 @@ class Index:
 
 def _family(seed: int, d: int, cfg: SLSHConfig, dev: torch.device, params):
     if params is None:
-        gen = torch.Generator().manual_seed(seed)
-        return pipeline.make_family(gen, d, cfg, dev)
+        return pipeline.family_from_key(seed, d, cfg, dev)
     outer, inner = params
     if isinstance(outer, hashing.BitSampleParams) and isinstance(inner, hashing.SignRPParams):
-        return (
-            hashing.BitSampleParams(*(t.to(dev) for t in outer)),
-            hashing.SignRPParams(*(t.to(dev) for t in inner)),
-        )
+        return pipeline.family_from_key((outer, inner), d, cfg, dev)
     return params_mod.from_jax_params(outer, inner, dev)
 
 
@@ -243,23 +545,41 @@ def build(
     device: str | torch.device | None = None,
     *,
     params=None,
+    t0: float = 0.0,
+    obs: obs_mod.Obs | None = None,
 ) -> Index:
     """Build a DSLSH index over ``data`` (n, d) for ``deploy`` -> :class:`Index`.
 
     ``seed`` draws the one root hash family every cell slices its tables
     from; ``params`` instead supplies it as an ``(outer, inner)`` pair —
     the port's parameter types, or numpy arrays such as the JAX package's
-    family (see ``repro_torch.params``). For grid deployments ``n`` must
-    divide the cell grid (:func:`pad_to_multiple`). Runs on the CUDA card
-    unless ``device`` says otherwise.
+    family (see ``repro_torch.params``). For grid and streaming deployments
+    ``n`` must divide across the nodes (:func:`pad_to_multiple`). ``t0``
+    stamps a streaming deployment's warm-up windows. ``obs`` binds an
+    observability bundle: the build records an ``index.build`` span and
+    the handle is instrumented. Runs on the CUDA card unless ``device``
+    says otherwise.
     """
     dev = device_mod.resolve(device)
+    if obs is not None and obs.enabled:
+        n = int(np.shape(data)[0])
+        with obs.activate(), obs.span("index.build", deployment=deploy.kind, n=n):
+            out = _build_impl(seed, data, cfg, deploy, dev, params, t0, obs)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        if obs.metrics is not None and deploy.kind != "streaming":
+            out.memory_report().feed_gauges(obs.metrics)
+        return out
+    return _build_impl(seed, data, cfg, deploy, dev, params, t0, obs)
+
+
+def _build_impl(seed, data, cfg, deploy, dev, params, t0, obs) -> Index:
     data = torch.as_tensor(data, dtype=torch.float32, device=dev).contiguous()
     n, d = data.shape
     family = _family(seed, d, cfg, dev, params)
     if deploy.kind == "single":
         index = pipeline.build_from_params(data, *family, cfg)
-        return Index(deploy, cfg, {"index": index, "data": data})
+        return Index(deploy, cfg, {"index": index, "data": data}, obs)
     pipeline._require(
         cfg.payload == "f32",
         f"payload={cfg.payload!r} (compressed candidate payload) rides"
@@ -277,6 +597,18 @@ def build(
         " dataset first (dslsh.pad_to_multiple(points, labels,"
         f" {deploy.cells}))",
     )
+    if deploy.kind == "streaming":
+        core = shard_mod.ShardedStream(
+            family, data, cfg, deploy.grid,
+            node_capacity=deploy.node_capacity, delta_cap=deploy.delta_cap,
+            retention_s=deploy.retention_s, t0=t0, route=deploy.routed,
+            route_bits=deploy.route_bits, device=dev,
+        )
+        return Index(deploy, cfg, {"core": core}, obs)
     index = D.simulate_build(family, data, cfg, deploy.grid)
-    return Index(deploy, cfg, {"index": index, "data": data})
-
+    state = {"index": index, "data": data}
+    if deploy.routed:
+        state["plan"] = routing.make_plan(
+            index, cfg, deploy.grid, replication=deploy.replication, bits=deploy.route_bits
+        )
+    return Index(deploy, cfg, state, obs)

@@ -6,8 +6,10 @@ L_out/p outer tables; the Root broadcasts one hash family and each core
 keeps its rows of it. Here the nu*p cells are a Python loop on one device,
 each cell running the shared pipeline; the Reducer merges the cells'
 partial top-Ks in flat (node, core) order, so distance ties resolve as in
-the JAX package. The mesh path (``torch.distributed``) and routing are
-still to port.
+the JAX package. With a ``routing.RoutingPlan`` the query is routed,
+replica-split and tournament-merged as in the JAX package
+(:func:`grid_query`). The mesh path (``torch.distributed``) is still to
+port.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core import hashing, pipeline, pknn, topk
+from repro_torch.core import hashing, pipeline, pknn, routing, topk
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,19 +154,33 @@ def grid_query(
     cfg: pipeline.SLSHConfig,
     grid: Grid,
     *,
-    plan=None,
+    plan: routing.RoutingPlan | None = None,
     drop_mask: torch.Tensor | None = None,
     drop_cells: torch.Tensor | None = None,
-) -> DistributedQueryResult:
-    """Query every cell, then the Reducer's flat masked top-K merge.
+    max_cells: int | None = None,
+    return_stats: bool = False,
+):
+    """Query every cell, then the Reducer's merge -> typed result.
 
-    ``drop_mask`` (nu,) excludes straggler nodes from the merge;
-    ``drop_cells`` (nu, p) excludes lost cells, zeroes their counters and
-    flips them off in ``routed``. ``plan`` (routing) is still to port.
+    With ``plan=None`` the Forwarder broadcasts and the Reducer runs the
+    flat masked top-K merge. With a ``routing.RoutingPlan`` the batch is
+    hashed once against the full family, routed to the cells its probe
+    keys can land in, block-split across each cell's replicas and merged
+    by the tournament: equal to the broadcast result in distances,
+    indices, comparisons and overflow. As in the JAX package every cell
+    computes and the route then masks.
+
+    ``max_cells`` probes only the best-landing cells per query
+    (approximate by design; needs a plan). ``drop_mask`` (nu,) excludes
+    straggler nodes from the merge; ``drop_cells`` (nu, p) excludes lost
+    cells, zeroes their counters and flips them off in ``routed``.
+    ``return_stats`` also returns a ``routing.RoutingStats`` (needs a plan).
     """
-    if plan is not None:
-        raise NotImplementedError(
-            "routed grid queries are not ported yet (see ROADMAP.md)"
+    if plan is None and (max_cells is not None or return_stats):
+        raise ValueError(
+            "max_cells / return_stats require a routing plan — build one"
+            " with routing.make_plan(index, cfg, grid) (or use a routed"
+            " dslsh deployment)"
         )
     n = data.shape[0]
     n_loc = n // grid.nu
@@ -187,20 +203,68 @@ def grid_query(
     if drop_mask is None:
         drop_mask = torch.zeros(grid.nu, dtype=torch.bool, device=dev)
     drop_mask = torch.as_tensor(drop_mask, device=dev)
+    if plan is None:
+        kd = torch.where(drop_mask[:, None, None, None], topk.INF, kd)
+        ki = torch.where(drop_mask[:, None, None, None], -1, ki)
+        visited = torch.ones((grid.nu, grid.p, q), dtype=torch.bool, device=dev)
+        if drop_cells is not None:
+            dc = torch.as_tensor(drop_cells, device=dev)[:, :, None]
+            kd = torch.where(dc[..., None], topk.INF, kd)
+            ki = torch.where(dc[..., None], -1, ki)
+            comps = torch.where(dc, 0, comps)
+            overflow = torch.where(dc, 0, overflow)
+            visited = visited & ~dc
+        kd = kd.permute(2, 0, 1, 3).reshape(q, -1)
+        ki = ki.permute(2, 0, 1, 3).reshape(q, -1)
+        fd, fi = topk.masked_topk_smallest(kd, ki, cfg.k)
+        return DistributedQueryResult(fd, fi, comps, overflow, visited)
+
+    pk = routing.probe_keys(routing.family_from_index(index, grid.p), queries, cfg)
+    routed, scores = routing.route_mask(plan.occupancy, pk, grid)
+    if max_cells is not None:
+        routed = routing.apply_cell_budget(routed, scores, max_cells)
+    if drop_cells is not None:
+        routed = routed & ~torch.as_tensor(drop_cells, device=dev)[None]
+    mask = routed.permute(1, 2, 0)  # (nu, p, Q)
+    kd = torch.where(mask[..., None], kd, topk.INF)
+    ki = torch.where(mask[..., None], ki, -1)
+    comps = torch.where(mask, comps, 0)
+    overflow = torch.where(mask, overflow, 0)
     kd = torch.where(drop_mask[:, None, None, None], topk.INF, kd)
     ki = torch.where(drop_mask[:, None, None, None], -1, ki)
-    visited = torch.ones((grid.nu, grid.p, q), dtype=torch.bool, device=dev)
-    if drop_cells is not None:
-        dc = torch.as_tensor(drop_cells, device=dev)[:, :, None]
-        kd = torch.where(dc[..., None], topk.INF, kd)
-        ki = torch.where(dc[..., None], -1, ki)
-        comps = torch.where(dc, 0, comps)
-        overflow = torch.where(dc, 0, overflow)
-        visited = visited & ~dc
-    kd = kd.permute(2, 0, 1, 3).reshape(q, -1)
-    ki = ki.permute(2, 0, 1, 3).reshape(q, -1)
-    fd, fi = topk.masked_topk_smallest(kd, ki, cfg.k)
-    return DistributedQueryResult(fd, fi, comps, overflow, visited)
+    kd_s = kd.reshape(grid.cells, q, cfg.k)
+    ki_s = ki.reshape(grid.cells, q, cfg.k)
+    if plan.r_max > 1:
+        # stage 1: split each cell's partial across its replicas by row
+        # block, then reassemble (replicas own disjoint rows)
+        owner = torch.as_tensor(
+            np.stack([
+                routing.replica_owner(q, int(plan.replicas[j, c]))
+                for j in range(grid.nu)
+                for c in range(grid.p)
+            ]),
+            device=dev,
+        )
+        merged = [
+            routing.merge_replica_partials(
+                *routing.split_replicas(kd_s[s], ki_s[s], owner[s], plan.r_max), cfg.k
+            )
+            for s in range(grid.cells)
+        ]
+        kd_s = torch.stack([m[0] for m in merged])
+        ki_s = torch.stack([m[1] for m in merged])
+    fd, fi = routing.merge_partials_tree(kd_s, ki_s, cfg.k)
+    result = DistributedQueryResult(fd, fi, comps, overflow, mask)
+    if not return_stats:
+        return result
+    routed_np = routed.cpu().numpy()
+    stats = routing.RoutingStats(
+        routed=routed_np,
+        scores=scores.cpu().numpy(),
+        payload=routing.merge_payload(mask.cpu().numpy().reshape(grid.cells, q), cfg.k),
+        device_load=routing.device_load(plan, routed_np),
+    )
+    return result, stats
 
 
 def pknn_query(

@@ -26,8 +26,19 @@ quantized rows, an exact f32 rerank of a ``c_rerank`` shortlist, and
 tensors runs its plain version, so the ``"cuda"`` backend's control flow
 also runs (and is tested) on the CPU.
 
-Left out against the JAX package: the per-stage jit schedule and its obs
-spans, the traced paths and the delta (streaming) gather.
+A ``DeltaView`` fans the gather out over a streaming index's base tables
+and its append-only delta segment (``_stage_gather_delta``, DESIGN.md §9):
+plain torch ops, as the JAX package leaves that gather to XLA, feeding the
+same fused tail with the same run layout.
+
+Under an ambient :class:`repro_torch.obs.Obs` with tracing on, each stage
+of a query chunk runs in a ``query.*`` span and each phase of a build in a
+``build.*`` span; these spans synchronize the device before they close, so
+they time device work, and observe ``dslsh_stage_latency_seconds``. The
+untraced path checks one ContextVar and records nothing.
+
+Left out against the JAX package: the per-stage jit schedule and the
+traced (in-jit) paths.
 """
 from __future__ import annotations
 
@@ -39,6 +50,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch import device as device_mod
+from repro_torch import obs as obs_mod
 from repro_torch.core import hashing, merge, tables, topk
 from repro_torch.runtime.payload import PAYLOAD_FORMATS, Payload, make_payload
 
@@ -392,6 +405,21 @@ class QueryResult(NamedTuple):
     rerank_misses: torch.Tensor | None = None  # (Q,) int32
 
 
+class DeltaView(NamedTuple):
+    """Streamed-in points exposed to the gather stage (DESIGN.md §9).
+
+    Slot ``s`` (when ``valid[s]``) holds the point with global index
+    ``gidx[s]``; slots fill in ascending global-index order, and every
+    ``gidx`` exceeds every base index — the two facts the exact merge in
+    :func:`_merge_capped` rests on.
+    """
+
+    outer_keys: torch.Tensor  # (cap, L) int64 bucket key per outer table
+    inner_keys: torch.Tensor  # (cap, L_in) int64 inner-layer keys
+    gidx: torch.Tensor  # (cap,) int32 global dataset index of each slot
+    valid: torch.Tensor  # (cap,) bool — slot occupied
+
+
 _IDX_SENTINEL = 2**31 - 1  # sorts after any index
 
 
@@ -463,6 +491,35 @@ def get_backend(name: str) -> BackendOps:
     return entry if isinstance(entry, BackendOps) else entry()
 
 
+# ----------------------------------------------------------------- tracing
+
+
+def _tracing_obs():
+    """The ambient obs bundle when it records spans, else None (one
+    ContextVar read on the untraced path)."""
+    ob = obs_mod.get_active()
+    return ob if ob is not None and ob.tracing else None
+
+
+def _stage(ob, name: str, device: torch.device, fn, *args):
+    """``fn(*args)``; when ``ob`` records spans, inside a ``name`` span that
+    synchronizes ``device`` before it closes (so it covers device time, not
+    the enqueue), its duration observed into the per-stage histogram."""
+    if ob is None:
+        return fn(*args)
+    with ob.span(name) as sp:
+        out = fn(*args)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    if ob.metrics is not None:
+        ob.metrics.histogram(
+            "dslsh_stage_latency_seconds",
+            "device time per eager query-pipeline stage dispatch"
+            " (recorded only under tracing — the sync-point policy)",
+        ).labels(stage=name).observe(sp.dur_s)
+    return out
+
+
 # ------------------------------------------------------------------- build
 
 
@@ -478,6 +535,24 @@ def make_family(
     )
     inner = hashing.make_signrp(gen, cfg.L_in, cfg.m_in, d, device)
     return outer, inner
+
+
+def family_from_key(
+    key, d: int, cfg: SLSHConfig, device: torch.device | str | None = None
+) -> tuple[hashing.BitSampleParams, hashing.SignRPParams]:
+    """The root hash family named by ``key``: an int seed or a
+    ``torch.Generator`` to draw it from, or an ``(outer, inner)`` pair of
+    the port's parameter types, moved to ``device`` (the card unless told
+    otherwise)."""
+    device = device_mod.resolve(device)
+    if isinstance(key, tuple):
+        outer, inner = key
+        return (
+            hashing.BitSampleParams(*(t.to(device) for t in outer)),
+            hashing.SignRPParams(*(t.to(device) for t in inner)),
+        )
+    gen = key if isinstance(key, torch.Generator) else torch.Generator().manual_seed(int(key))
+    return make_family(gen, d, cfg, device)
 
 
 def hash_keys(
@@ -548,23 +623,41 @@ def _build_tables_chunked(
     data: torch.Tensor,
     cfg: SLSHConfig,
     backend: BackendOps,
+    ob=None,
 ) -> tables.TableSet:
     """Chunked sorted-run construction (DESIGN.md §13), eager.
 
     Each ``build_chunk`` of rows is hashed against every table, sorted into
     a run, and folded through the binary-counter ladder (``core.merge``);
     the result equals the monolithic stable sort. Peak transient memory is
-    O(L * chunk) + O(output).
+    O(L * chunk) + O(output). Under tracing (``ob``) the three phases run
+    one after another over all chunks, each in its ``build.*`` span.
     """
     n = data.shape[0]
     chunk = min(cfg.build_chunk, n)
-    stack: list[merge.Run] = []
-    for lo in range(0, n, chunk):
-        hi = min(lo + chunk, n)
-        kg = hash_keys(outer_params, data[lo:hi], backend).T.contiguous()  # (L, c)
+    bounds = [(lo, min(lo + chunk, n)) for lo in range(0, n, chunk)]
+
+    def hash_one(lo: int, hi: int) -> torch.Tensor:
+        return hash_keys(outer_params, data[lo:hi], backend).T.contiguous()  # (L, c)
+
+    def sort_one(lo: int, hi: int, kg: torch.Tensor) -> merge.Run:
         ig = torch.arange(lo, hi, dtype=torch.int32, device=data.device).expand(kg.shape)
-        merge.ladder_push(stack, tables.sort_rows(kg, ig))
-    return tables.TableSet(*merge.ladder_collapse(stack))
+        return tables.sort_rows(kg, ig)
+
+    def merge_all(runs) -> tables.TableSet:
+        stack: list[merge.Run] = []
+        for run in runs:
+            merge.ladder_push(stack, run)
+        return tables.TableSet(*merge.ladder_collapse(stack))
+
+    if ob is None:
+        return merge_all(sort_one(lo, hi, hash_one(lo, hi)) for lo, hi in bounds)
+    dev = data.device
+    keys = _stage(ob, "build.hash", dev, lambda: [hash_one(lo, hi) for lo, hi in bounds])
+    runs = _stage(
+        ob, "build.sort_runs", dev, lambda: [sort_one(lo, hi, k) for (lo, hi), k in zip(bounds, keys)]
+    )
+    return _stage(ob, "build.merge", dev, merge_all, runs)
 
 
 def _pick_build_mode(cfg: SLSHConfig, n: int) -> str:
@@ -595,18 +688,25 @@ def build_from_params(
         )
     backend = get_backend(cfg.backend)
     l_out = outer_params.salts.shape[0]
+    ob = _tracing_obs()
+    dev = data.device
     if _pick_build_mode(cfg, n) == "chunked":
-        outer = _build_tables_chunked(outer_params, data, cfg, backend)
+        outer = _build_tables_chunked(outer_params, data, cfg, backend, ob)
         find_heavy = tables.find_heavy_streamed
     else:
-        keys = hash_keys_chunked(outer_params, data, cfg.build_chunk, backend)
-        outer = tables.build_tables(keys)
+        keys = _stage(ob, "build.hash", dev, hash_keys_chunked, outer_params, data, cfg.build_chunk, backend)
+        outer = _stage(ob, "build.sort_runs", dev, tables.build_tables, keys)
         find_heavy = tables.find_heavy
-    heavy = find_heavy(outer, max(int(cfg.alpha * n), 1), cfg.h_max)
-    if cfg.use_inner:
-        ik, ii = build_inner(inner_params, data, outer, heavy, cfg, backend)
-    else:
-        ik, ii = empty_inner(l_out, cfg, data.device)
+
+    def heavy_inner():
+        heavy = find_heavy(outer, max(int(cfg.alpha * n), 1), cfg.h_max)
+        if cfg.use_inner:
+            ik, ii = build_inner(inner_params, data, outer, heavy, cfg, backend)
+        else:
+            ik, ii = empty_inner(l_out, cfg, data.device)
+        return heavy, ik, ii
+
+    heavy, ik, ii = _stage(ob, "build.heavy_inner", dev, heavy_inner)
     return SLSHIndex(outer_params, inner_params, outer, heavy, ik, ii, n)
 
 
@@ -752,6 +852,76 @@ def _stage_gather_fast(
     return _gather_fast_select(cfg, outer_cand, inner_cand, found), bucket_sz
 
 
+def _merge_capped(
+    base_cand: torch.Tensor,  # (..., budget) ascending, -1 pad at the end
+    delta_match: torch.Tensor,  # (..., cap) delta slots in the same bucket
+    delta_gidx: torch.Tensor,  # (cap,) ascending global indices
+    budget: int,
+) -> torch.Tensor:
+    """Merge base bucket windows with their delta-segment matches, exactly.
+
+    A from-scratch build over base ∪ delta gathers the ``budget`` smallest
+    global indices of the union bucket (CSR rows are stably sorted, so
+    equal keys order by index): the ``budget`` smallest of the base window
+    and the matching delta slots, ascending, -1 padded. Two sorts, no
+    ``topk`` (whose tie order is unspecified).
+    """
+    base = torch.where(base_cand < 0, _IDX_SENTINEL, base_cand)
+    vals = torch.where(delta_match, delta_gidx, _IDX_SENTINEL)
+    k = min(budget, vals.shape[-1])
+    delta = torch.sort(vals, dim=-1).values[..., :k]
+    merged = torch.sort(torch.cat([base, delta], dim=-1), dim=-1).values[..., :budget]
+    return torch.where(merged == _IDX_SENTINEL, -1, merged)
+
+
+def _stage_gather_delta(
+    index: SLSHIndex,
+    cfg: SLSHConfig,
+    probe_keys: torch.Tensor,  # (Q, L, 1 + multiprobe)
+    inner_keys: torch.Tensor,  # (Q, L_in)
+    delta: DeltaView,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stage 2 over base + delta -> (cand (Q, L*slot), bucket_total (Q,)).
+
+    The base windows come from the fast gather; each probe's window then
+    merges with the delta slots holding its key (:func:`_merge_capped`), so
+    every window stays an ascending ``c_max`` (outer) or ``c_in`` (inner)
+    slice padded to ``slot``: the run layout of the base path, which the
+    fused tail's ``run`` assumes. The inner layer keeps the *base* heavy
+    registry (stratification is frozen between compactions); a delta
+    member joins a heavy bucket's inner population only while
+    ``heavy.size + rank < p_max``, as the first ``p_max`` rows of a union
+    build would. All tables, queries and probes in one batch of ops.
+    """
+    q_n, l_out, p_n = probe_keys.shape
+    c_max, c_in, l_in, slot = cfg.c_max, cfg.c_in, cfg.L_in, cfg.slot
+    outer_cand, inner_cand, found, bucket_sz = _gather_fast_parts(
+        index, cfg, probe_keys, inner_keys
+    )
+    dkeys = delta.outer_keys.T  # (L, cap)
+    match = delta.valid & (dkeys[None, :, None, :] == probe_keys[..., None])  # (Q, L, P, cap)
+    d_base = match[:, :, 0]  # (Q, L, cap) matches of each table's base key
+    bucket_sz = bucket_sz + d_base.sum(dim=(1, 2), dtype=torch.int32)
+    win = outer_cand[..., : p_n * c_max].reshape(q_n, l_out, p_n, c_max)
+    outer = _merge_capped(win, match, delta.gidx, c_max).reshape(q_n, l_out, p_n * c_max)
+    outer = torch.nn.functional.pad(outer, (0, slot - p_n * c_max), value=-1)
+    if not cfg.use_inner:
+        return outer.reshape(q_n, -1), bucket_sz
+
+    base_keys = probe_keys[:, :, 0]
+    hit = (index.heavy.keys[None] == base_keys[:, :, None]) & index.heavy.valid[None]
+    h = hit.to(torch.int32).argmax(dim=-1)  # (Q, L) first match, 0 if none
+    size = torch.gather(index.heavy.size[None].expand(q_n, -1, -1), 2, h[..., None].long())
+    rank = torch.cumsum(d_base.to(torch.int32), dim=-1) - 1
+    in_pop = d_base & (size + rank < cfg.p_max)  # (Q, L, cap)
+    d_in = delta.inner_keys.T  # (L_in, cap)
+    dm = in_pop[:, :, None, :] & (d_in[None, None] == inner_keys[:, None, :, None])  # (Q, L, L_in, cap)
+    win2 = inner_cand[..., : l_in * c_in].reshape(q_n, l_out, l_in, c_in)
+    inner = _merge_capped(win2, dm, delta.gidx, c_in).reshape(q_n, l_out, l_in * c_in)
+    inner = torch.nn.functional.pad(inner, (0, slot - l_in * c_in), value=-1)
+    return _gather_fast_select(cfg, outer, inner, found), bucket_sz
+
+
 def _stage_dedup(cand: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Stage 3 — sort each row; the first occurrence of an index survives."""
     cand_sorted = torch.sort(cand, dim=-1).values
@@ -819,30 +989,49 @@ def query_chunk(
     queries: torch.Tensor,
     cfg: SLSHConfig,
     payload: Payload | None = None,
+    delta: DeltaView | None = None,
 ) -> QueryResult:
     """Run the pipeline for one (Q, d) chunk of queries.
 
-    Backends with ``query_tail`` (``"cuda"``) run stages 3-5 as one fused
-    launch; the staged form below is the oracle. With a compressed
-    ``cfg.payload`` the tail reads the quantized rows of ``payload`` (made
-    here from ``data`` when the caller holds none) and reranks exactly in
-    f32.
+    ``delta`` fans the gather out over base + delta segments (the
+    streaming path, DESIGN.md §9); the merged candidates flow through the
+    same tail. Backends with ``query_tail`` (``"cuda"``) run stages 3-5 as
+    one fused launch; the staged form below is the oracle. With a
+    compressed ``cfg.payload`` the tail reads the quantized rows of
+    ``payload`` (made here from ``data`` when the caller holds none) and
+    reranks exactly in f32. Under tracing each stage of a fused chunk runs
+    in its ``query.*`` span.
     """
     backend = get_backend(cfg.backend)
-    probe_keys, inner_keys = _stage_hash(index, queries, cfg, backend)
-    cand, bucket_total = _stage_gather_fast(index, cfg, probe_keys, inner_keys)
+    fused = backend.query_tail is not None
+    ob = _tracing_obs() if fused else None
+    dev = queries.device
+    probe_keys, inner_keys = _stage(ob, "query.hash", dev, _stage_hash, index, queries, cfg, backend)
+    if delta is not None:
+        cand, bucket_total = _stage(
+            ob, "query.gather_delta", dev, _stage_gather_delta, index, cfg, probe_keys, inner_keys, delta
+        )
+    else:
+        outer_cand, inner_cand, found, bucket_total = _stage(
+            ob, "query.gather_work", dev, _gather_fast_parts, index, cfg, probe_keys, inner_keys
+        )
+        cand = _stage(ob, "query.gather_select", dev, _gather_fast_select, cfg, outer_cand, inner_cand, found)
     cc = _compact_width(cfg, cand.shape[1], data.shape[0])
     if _use_payload(cfg, backend):
         if payload is None:
             payload = make_payload(data, cfg.payload)
-        kd, ki, comparisons, overflow, misses = backend.query_tail_payload(
-            data, payload.qdata, payload.meta, queries, cand.contiguous(),
-            run=_fused_run(cfg), c_comp=cc, c_rerank=cfg.c_rerank, k=cfg.k,
+        kd, ki, comparisons, overflow, misses = _stage(
+            ob, "query.tail", dev, lambda: backend.query_tail_payload(
+                data, payload.qdata, payload.meta, queries, cand.contiguous(),
+                run=_fused_run(cfg), c_comp=cc, c_rerank=cfg.c_rerank, k=cfg.k,
+            ),
         )
         return QueryResult(ki, kd, comparisons, bucket_total, overflow, misses)
-    if backend.query_tail is not None:
-        kd, ki, comparisons, overflow = backend.query_tail(
-            data, queries, cand.contiguous(), run=_fused_run(cfg), c_comp=cc, k=cfg.k
+    if fused:
+        kd, ki, comparisons, overflow = _stage(
+            ob, "query.tail", dev, lambda: backend.query_tail(
+                data, queries, cand.contiguous(), run=_fused_run(cfg), c_comp=cc, k=cfg.k
+            ),
         )
         return QueryResult(ki, kd, comparisons, bucket_total, overflow)
     cand_sorted, uniq, comparisons = _stage_dedup(cand)
@@ -857,21 +1046,31 @@ def query_batch(
     queries: torch.Tensor,
     cfg: SLSHConfig,
     payload: Payload | None = None,
+    delta: DeltaView | None = None,
 ) -> QueryResult:
     """Chunked pipeline over queries -> stacked QueryResult (Q, ...).
 
     A compressed ``cfg.payload`` reads ``payload``, made once for the whole
-    batch when the caller holds none (handles cache theirs).
+    batch when the caller holds none (handles cache theirs). ``delta``
+    queries a streaming index's base + delta segment. Under tracing the
+    staged (``"torch"``) backend records one ``query.batch`` span, as the
+    JAX package's one-program staged path does.
     """
     queries = queries.to(torch.float32)
-    if payload is None and _use_payload(cfg, get_backend(cfg.backend)):
+    backend = get_backend(cfg.backend)
+    if payload is None and _use_payload(cfg, backend):
         payload = make_payload(data, cfg.payload)
-    outs = [
-        query_chunk(index, data, queries[lo : lo + cfg.query_chunk], cfg, payload)
-        for lo in range(0, queries.shape[0], cfg.query_chunk)
-    ]
-    if len(outs) == 1:
-        return outs[0]
-    return QueryResult(*(
-        None if parts[0] is None else torch.cat(parts, dim=0) for parts in zip(*outs)
-    ))
+
+    def run() -> QueryResult:
+        outs = [
+            query_chunk(index, data, queries[lo : lo + cfg.query_chunk], cfg, payload, delta)
+            for lo in range(0, queries.shape[0], cfg.query_chunk)
+        ]
+        if len(outs) == 1:
+            return outs[0]
+        return QueryResult(*(
+            None if parts[0] is None else torch.cat(parts, dim=0) for parts in zip(*outs)
+        ))
+
+    ob = _tracing_obs() if backend.query_tail is None else None
+    return _stage(ob, "query.batch", queries.device, run)

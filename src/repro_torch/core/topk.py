@@ -35,16 +35,20 @@ def masked_topk_smallest(
 def masked_unique_topk_smallest(
     dists: torch.Tensor, idx: torch.Tensor, k: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """:func:`masked_topk_smallest` with duplicate indices collapsed first.
+    """:func:`masked_topk_smallest` with duplicate indices collapsed first,
+    along the last axis (..., C).
 
-    Duplicates refer to one point and so carry one distance; keeping the
-    first occurrence is exact. 1-D inputs (C,), as in the JAX package.
+    Cells of one node share its points, so one point can surface in
+    several partial top-Ks; duplicates carry one distance, so keeping the
+    first occurrence is exact. Entries are taken in ascending index order
+    (a stable sort, as the JAX package's ``argsort``), so distance ties go
+    to the lower index.
     """
-    order = torch.sort(idx, stable=True).indices
-    idx_s = idx[order]
-    dist_s = dists[order]
+    order = torch.sort(idx, dim=-1, stable=True).indices
+    idx_s = torch.gather(idx, -1, order)
+    dist_s = torch.gather(dists, -1, order)
     uniq = torch.ones_like(idx_s, dtype=torch.bool)
-    uniq[1:] = idx_s[1:] != idx_s[:-1]
+    uniq[..., 1:] = idx_s[..., 1:] != idx_s[..., :-1]
     uniq &= idx_s >= 0
     return masked_topk_smallest(
         torch.where(uniq, dist_s, INF), torch.where(uniq, idx_s, -1), k

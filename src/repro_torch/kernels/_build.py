@@ -17,6 +17,11 @@ kernel, nowhere else), so a run can show which kernels its path went
 through. A launch in a mode of its own (``bitsample_pack`` with margins,
 ``query_tail_payload`` per payload format) also counts under
 ``"<kernel>.<mode>"``.
+
+Each library compiled here also bumps the public retrace counter
+(:func:`repro_torch.obs.metrics.count_retrace`, stage = the library's
+name): a build is the port's only compile step, what a jit trace is to the
+JAX package.
 """
 from __future__ import annotations
 
@@ -28,6 +33,8 @@ import subprocess
 from pathlib import Path
 
 import torch
+
+from repro_torch.obs import metrics as obs_metrics
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -96,6 +103,7 @@ def build(names: tuple[str, ...] = SOURCES) -> dict[str, Path]:
             failed.append(f"{name}.cu (exit {proc.returncode}):\n{out}")
             continue
         os.replace(tmp, todo[name])
+        obs_metrics.count_retrace(name)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return paths

@@ -66,6 +66,20 @@ class MemoryReport(NamedTuple):
             "per_cell": self.per_cell,
         }
 
+    def feed_gauges(self, metrics) -> None:
+        """Set ``dslsh_index_bytes{component,cell}`` on a metrics registry:
+        one sample per (component, cell), each cell its equal share."""
+        fam = metrics.gauge(
+            "dslsh_index_bytes",
+            "resident index bytes by component per (node/core) cell"
+            " (DESIGN.md §13 capacity accounting)",
+        )
+        per = self.per_cell
+        for j in range(self.cells[0]):
+            for c in range(self.cells[1]):
+                for name, b in per.items():
+                    fam.labels(component=name, cell=f"{j}/{c}").set(float(b))
+
 
 def payload_nbytes(n: int, d: int, fmt: str) -> int:
     """Bytes of the quantized payload for ``n`` rows of width ``d`` in

@@ -129,3 +129,32 @@ def test_windows_copy_matches_jax_package(quickstart):
     spec_j, spec_t = jwin.SyntheticWindowSpec(n=10_000, seed=3), twin.SyntheticWindowSpec(n=10_000, seed=3)
     for a, b in zip(jwin.synth_window_slice(spec_j, 4000, 9000), twin.synth_window_slice(spec_t, 4000, 9000)):
         np.testing.assert_array_equal(a, b)
+
+
+def _example(name: str):
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_torch_quickstart_twin_matches_jax_quickstart(quickstart, capsys):
+    """``examples/torch_quickstart.py``'s ``main`` on the fixture's JAX beats
+    and family prints and returns the JAX quickstart's numbers: per-cell
+    comparisons, their per-processor median, and the DSLSH and PKNN MCCs."""
+    qs = quickstart
+    out = _example("torch_quickstart").main(qs["mapv"], qs["valid"], params=qs["family"], device="cpu")
+    jres = qs["res"]
+    np.testing.assert_array_equal(_np(out["comparisons"]), _np(jres.comparisons))
+    assert out["median_max_comparisons"] == float(np.median(_np(jres.max_comparisons_per_cell)))
+    assert out["pknn_comparisons_per_processor"] == int(_np(qs["pknn"][2])[0, 0, 0])
+    assert out["mcc"] == pytest.approx(qs["mcc"], abs=1e-6)
+    assert out["mcc_pknn"] == pytest.approx(qs["mcc_p"], abs=1e-6)
+    assert out["overflow_cells"] == jres.overflow_cells
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[1] == f"DSLSH:  MCC={qs['mcc']:.3f}  median max-comparisons/processor={out['median_max_comparisons']:.0f}"
+    assert lines[2].startswith(f"PKNN:   MCC={qs['mcc_p']:.3f}")
