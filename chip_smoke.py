@@ -64,6 +64,22 @@ exits non-zero:
                   comparisons and overflow), then a ``replication=2``
                   build queried with ``max_cells=8`` against the
                   ``"torch"`` backend on the same plan (256 queries).
+   ``icu_serve``  the ICU service under failure and load on that grid:
+                  ``with_routing(replication=2)`` in an ``ElasticIndex``
+                  and an ``ElasticController``, behind a ``ServeFrontend``
+                  (ladder 8/32/128/512, two degradation levels, tenants
+                  ``bedside``, ``ward`` and a quota-limited ``burst``);
+                  after ``warmup()`` about 1,100 query rows in four stages
+                  on a simulated clock: healthy, one replica down
+                  (failover), a whole node down (lost cells, flagged), and
+                  ticks until the controller restores the node's cells and
+                  migrates (save → load → replan → swap), then healthy.
+                  Every undegraded response equals a direct query of its
+                  rows bit for bit, the loaded index answers as the
+                  healthy one, the request ledger balances, no kernel
+                  library is built after warmup, and D launches once per
+                  cell and 50-query chunk of every micro-batch.
+   ``icu_serve_profile`` one 96-row micro-batch profiled.
 9. ``stream``     the paper-scale streaming deployment: ``streaming(nu=10,
                   p=4, node_capacity=139,048, delta_cap=256)`` warmed on the
                   1,370,000 windows, then a ``StreamingMonitor`` streams
@@ -109,7 +125,7 @@ counts the path it belongs to: the main path for A, B and D (C, the
 staged form's distance stage, is on no path of the ``"cuda"`` backend and
 counts 0 there), the payload phase's two compressed
 queries for E, the ``knn_lm`` phase for F; every row also gives its
-launches on the ``routes``, ``quickstart``, ``routed``, ``stream``,
+launches on the ``routes``, ``quickstart``, ``routed``, ``icu_serve``, ``stream``,
 ``knn_lm`` and ``serve`` paths. Without a CUDA
 device, or without the repository's ``src/`` beside it, the script exits
 non-zero before printing any result.
@@ -1002,6 +1018,7 @@ def run(dev, n: int, nq: int, lm_smoke: bool = False, ds_seqs: int = DS_SEQS) ->
     payload_launches = payload_phase(dev, pts, qx, labels, truth, cfg, mcc_p)
     quickstart_launches = quickstart_phase(dev)
     routed_launches = routed_phase(dev, index, res, pts, qx, queries, cfg)
+    icu_launches = icu_serve_phase(dev, index, qx, cfg)
     del index, res
     stream_launches = stream_phase(dev, pts, labs, qx, cfg, n)
     del data, queries, labels, truth
@@ -1033,6 +1050,7 @@ def run(dev, n: int, nq: int, lm_smoke: bool = False, ds_seqs: int = DS_SEQS) ->
         r["routes_launches"] = route_launches.get(r["name"], 0)
         r["quickstart_launches"] = quickstart_launches.get(r["name"], 0)
         r["routed_launches"] = routed_launches.get(r["name"], 0)
+        r["icu_serve_launches"] = icu_launches.get(r["name"], 0)
         r["stream_launches"] = stream_launches.get(r["name"], 0)
         r["knn_lm_launches"] = lm_launches.get(r["name"], 0)
         r["serve_launches"] = serve_launches.get(r["name"], 0)
@@ -1293,6 +1311,258 @@ def routed_phase(dev, index, res, pts, qx, queries, cfg) -> dict:
          launches=launches)
     del routed, rep, capped, ref
     return launches
+
+
+# the icu_serve phase: the front end's ladder and degradation levels, four
+# stages of traffic (wave sizes in query rows: one wave a micro-batch, so the
+# waves reach every rung), and the burst tenant's tight quota
+ICU_LADDER = (8, 32, 128, 512)
+ICU_DEGRADE = ((0.25, None), (0.0, 8))
+ICU_WAVES = (1, 16, 96, 140)  # with the burst tenant's 16 rows in waves 2 and 4
+ICU_STAGES = ("healthy", "failover", "lost_node", "repaired")
+ICU_BURST = dict(rate_qps=20.0, burst=16.0, degrade_overdraft=8.0)
+ICU_DT = 0.05  # simulated seconds between waves
+
+
+def icu_serve_phase(dev, index, qx, cfg) -> dict:
+    """The paper's latency-first ICU service under failures and load, at the
+    main path's scale: ``index.with_routing(replication=2)`` (the 1.37 M-point
+    ``grid(nu=10, p=4, replication=2)``) in an ``ElasticIndex`` and an
+    ``ElasticController`` (migration checkpoints in a temp dir the phase
+    deletes), behind a ``ServeFrontend`` with three tenants: ``bedside`` (1
+    window a request), ``ward`` (4-16) and ``burst`` (8, a tight quota: some
+    requests shed, some admitted degraded). After ``warmup()``, four stages
+    on a simulated clock: healthy; one device of a replicated cell down
+    (failover); every device of another node down (its cells lost, flagged);
+    controller ticks until it repairs (restores the node's 4 cells, save →
+    load → replan → swap), then healthy again. Checks: every undegraded
+    response equals a direct ``Index.query`` of its micro-batch's rows on the
+    healthy index bit for bit (``knn_idx``, ``knn_dist``, ``comparisons``),
+    failover batches included, and every undegraded response equals a
+    direct query of its own rows; every batch with a lost cell is flagged
+    and has the cell's rows off in ``routed``; the swapped-in (loaded)
+    index answers as the restored index it was saved from, and that one as
+    the healthy index; the ledger balances; no kernel library is built
+    after warmup; A, B and D launch, D once per cell and 50-query chunk of
+    every micro-batch (no plain version). Returns the kernels' launches of
+    the serving and the rebalance."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import elastic
+    from repro_torch.serve import admission
+    from repro_torch.serve import frontend as frontend_mod
+
+    t_phase = time.perf_counter()
+    ob = obs.Obs(trace=False)
+    idx = index.with_routing(replication=2).with_obs(ob)
+    plan = idx.plan
+    cells = NU * P
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)  # git-ignored, beside the kernels
+    workdir = tempfile.mkdtemp(prefix="icu-serve-", dir=os.path.join(ROOT, "build"))
+    el = elastic.ElasticIndex(idx, deadline_s=1.0, now=0.0)
+    ctl = elastic.ElasticController(el, elastic.ElasticConfig(
+        deadline_s=1.0, repair_ticks=2, scale_ticks=1 << 30, workdir=workdir))
+    fe = frontend_mod.ServeFrontend(el, frontend_mod.FrontendConfig(
+        ladder=ICU_LADDER, degrade=ICU_DEGRADE, quotas=(("burst", admission.TenantQuota(**ICU_BURST)),)), obs=ob)
+    t0 = time.perf_counter()
+    warm = fe.warmup()
+    sync(dev)
+    warm_s = time.perf_counter() - t0
+    retraces0 = obs.query_retraces()
+
+    # every micro-batch's elastic answer, beside the rows it was asked
+    batches: list = []
+    query = el.query
+
+    def recorded(queries, **kw):
+        er = query(queries, **kw)
+        batches.append((queries, er, kw.get("max_cells")))
+        return er
+
+    el.query = recorded
+    rng = np.random.default_rng(SEED)
+    pool = torch.as_tensor(qx, device=dev)
+    launches: dict[str, int] = {}
+    dead: set[int] = set()
+    pump_ms: dict[int, list] = {r: [] for r in ICU_LADDER}
+    stage_rows = {}
+    tickets: list = []
+    clock = [0.0]
+    expected_d = [0]
+
+    def count(fn):
+        _build.reset_launches()
+        out = fn()
+        sync(dev)
+        for name, c in _build.LAUNCHES.items():
+            launches[name] = launches.get(name, 0) + c
+        return out
+
+    def beat(t: float) -> None:
+        for d in range(el.n_devices):
+            if d not in dead:
+                el.beat(d, t=t)
+
+    def wave(rows: int, stage: str, burst: bool) -> None:
+        t = clock[0] = clock[0] + ICU_DT
+        beat(t)
+        if burst:
+            for _ in range(2):
+                tickets.append((stage, fe.submit(qx[rng.integers(0, len(qx), 8)], tenant="burst",
+                                                 deadline_s=10.0, now=t)))
+        left = rows
+        while left > 0:
+            n = 1 if left < 4 or rng.random() < 0.3 else int(min(rng.integers(4, 17), left))
+            tenant, deadline = ("bedside", 0.5) if n == 1 else ("ward", 2.0)
+            tickets.append((stage, fe.submit(qx[rng.integers(0, len(qx), n)], tenant=tenant,
+                                             deadline_s=deadline, now=t)))
+            left -= n
+        while fe.queue_depth:
+            n_before = len(batches)
+            t1 = time.perf_counter()
+            fe.pump(now=t)
+            sync(dev)
+            dt = time.perf_counter() - t1
+            if len(batches) > n_before:
+                bucket = batches[-1][0].shape[0]
+                pump_ms[bucket].append(dt * 1e3)
+                expected_d[0] += cells * -(-bucket // cfg.query_chunk)
+
+    def serve(stage: str) -> None:
+        for i, rows in enumerate(ICU_WAVES):
+            count(lambda: wave(rows, stage, burst=i % 2 == 1))
+        stage_rows[stage] = sum(r.n_queries for st, r in tickets if st == stage and r.status != "shed")
+        fe.assert_conserved()
+
+    # 1. healthy
+    first = len(batches)
+    serve("healthy")
+    # 2. one replica of a replicated cell down: failover, bit-exact
+    j2, c2 = next((j, c) for j in range(NU) for c in range(P) if plan.replicas[j, c] >= 2)
+    dead.add(int(plan.cell_device[j2, c2, 0]))
+    clock[0] += 1.5  # past the heartbeat deadline
+    mark2 = len(batches)
+    serve("failover")
+    need(any((j2, c2) in er.failover_cells for _, er, _ in batches[mark2:]), "icu_serve: no failover was served")
+    # 3. every device of another node down: its cells lost, flagged
+    j3 = (j2 + 1) % NU
+    dead.update(int(d) for c in range(P) for d in plan.cell_device[j3, c] if d >= 0)
+    clock[0] += 1.5
+    mark3 = len(batches)
+    serve("lost_node")
+    lost3 = {(j3, c) for c in range(P)}
+    for _, er, _ in batches[mark3:]:
+        need(lost3 <= set(er.lost_cells) and er.degraded, "icu_serve: a lost cell was not flagged")
+        need(not bool(er.result.routed[j3].any()), "icu_serve: a lost cell's rows were routed")
+    for stage, r in tickets:
+        if stage == "lost_node" and r.status == "done":
+            need(r.degraded, "icu_serve: a response with a lost cell was not flagged degraded")
+    # 4. ticks until the controller repairs and rebalances, then healthy
+    phases: dict[str, float] = {}
+    rebalance = ctl.rebalance
+
+    def timed_rebalance(*a, **kw):
+        sync(dev)
+        phases["start"] = time.perf_counter()
+        return rebalance(*a, **kw)
+
+    def on_phase(name: str) -> None:
+        sync(dev)
+        phases[name] = time.perf_counter()
+
+    ctl.rebalance, ctl.on_phase = timed_rebalance, on_phase
+    restore_cells, saved = elastic.ft.elastic_restore_cells, []
+
+    def restored(index, nodes):  # the index the rebalance saves
+        saved.append(restore_cells(index, nodes))
+        return saved[-1]
+
+    elastic.ft.elastic_restore_cells = restored
+    reports = []
+    while not reports or not reports[-1].rebalanced:
+        need(len(reports) < 5, "icu_serve: the controller never rebalanced")
+        clock[0] += 0.5
+        beat(clock[0])
+        reports.append(count(lambda: ctl.tick(now=clock[0])))
+    elastic.ft.elastic_restore_cells = restore_cells
+    rep = reports[-1]
+    dead.clear()  # the cells landed on fresh hosts
+    disk = sum(os.path.getsize(os.path.join(dp, f)) for dp, _, fs in os.walk(workdir) for f in fs)
+    need(rep.repaired_nodes == (j3,) and el.epoch.n == 1, f"icu_serve: repair {rep}")
+    new = el.index
+    need(new.device.type == dev.type and new is not idx, "icu_serve: the swapped-in index is not the loaded copy")
+    mark4 = len(batches)
+    serve("repaired")
+    need(all(er.epoch == 1 and not er.degraded and not er.failover_cells for _, er, _ in batches[mark4:]),
+         "icu_serve: the repaired epoch did not serve every cell")
+    served_launches, expected = dict(launches), expected_d[0]
+    prof = profile_query(dev, lambda: wave(ICU_WAVES[2], "profile", burst=False), queries=ICU_WAVES[2])
+    el.query = query
+
+    # every undegraded batch (failover included) against a direct query of
+    # its rows on the healthy index; the loaded index against the healthy
+    exact_batches = exact_rows = 0
+    for queries, er, cap in batches[first:]:
+        if cap is not None or er.degraded:
+            continue
+        ref = idx.query(queries)
+        res = er.result
+        for what in ("knn_idx", "knn_dist", "comparisons"):
+            need(torch.equal(getattr(res, what), getattr(ref, what)), f"icu_serve: {what} of an exact batch differs")
+        exact_batches += 1
+        exact_rows += queries.shape[0]
+    exact_tickets = 0
+    for stage, r in tickets:
+        if r.status == "done" and not r.degraded:
+            ref = idx.query(r.queries)
+            need(np.array_equal(r.knn_idx, ref.knn_idx.cpu().numpy())
+                 and np.array_equal(r.knn_dist, ref.knn_dist.cpu().numpy()),
+                 f"icu_serve: the {stage} response {r.rid} differs from a direct query of its rows")
+            exact_tickets += 1
+    rows = pool[:256]
+    a, b, c = new.query(rows), saved[0].query(rows), idx.query(rows)
+    for what in ("knn_idx", "knn_dist", "comparisons", "compaction_overflow", "routed"):
+        need(torch.equal(getattr(a, what), getattr(b, what)), f"icu_serve: the loaded index's {what} differs from the saved one's")
+        need(torch.equal(getattr(b, what), getattr(c, what)), f"icu_serve: the restored index's {what} differs from the healthy one's")
+
+    s = fe.assert_conserved()
+    need(obs.query_retraces() == retraces0, "icu_serve: a kernel library was built after warmup")
+    for name in ("bitsample_pack", "proj_sign_pack", "query_tail"):
+        need(served_launches.get(name, 0) > 0, f"icu_serve never launched {name}")
+    need(served_launches.get("query_tail", 0) == expected,
+         f"icu_serve: {served_launches.get('query_tail', 0)} launches of D, not one per cell and chunk ({expected})")
+    verdicts = {}
+    for _, r in tickets:
+        verdicts[r.verdict] = verdicts.get(r.verdict, 0) + 1
+    need(verdicts.get("shed", 0) > 0 and verdicts.get("degrade", 0) > 0, f"icu_serve: verdicts {verdicts}")
+    shutil.rmtree(workdir)
+    rungs = {r: len(v) for r, v in pump_ms.items()}
+    need(all(rungs.values()), f"icu_serve: a rung was never used ({rungs})")
+    emit("icu_serve", n=int(idx.n_index()), grid=[NU, P], replication=2, replicas=int(plan.replicas.sum()),
+         warmup_shapes=warm, warmup_s=warm_s, stage_rows=stage_rows,
+         ledger=dict(submitted=s.submitted, admitted=s.admitted, completed=s.completed, shed=s.shed,
+                     timed_out=s.timed_out, degraded_responses=s.degraded_responses, in_queue=s.in_queue),
+         verdicts=verdicts, tenants=sorted({r.tenant for _, r in tickets}),
+         microbatches_per_rung=rungs,
+         pump_ms_median={r: float(np.median(v)) for r, v in pump_ms.items()},
+         pump_ms_p99={r: float(np.percentile(v, 99)) for r, v in pump_ms.items()},
+         failover_cell=[j2, c2], lost_node=j3, exact_batches=exact_batches, exact_batch_rows=exact_rows,
+         exact_tickets_checked=exact_tickets, ticks_to_repair=len(reports),
+         restore_ms=(phases["restore"] - phases["start"]) * 1e3, save_ms=(phases["save"] - phases["restore"]) * 1e3,
+         load_ms=(phases["load"] - phases["save"]) * 1e3, rebalance_ms=(phases["swap"] - phases["start"]) * 1e3,
+         bytes_on_disk=disk, migrated_cells=rep.migrated_cells,
+         counters={k: ob.snapshot().get(k, {}).get("values") for k in (
+             "dslsh_failovers_total", "dslsh_degraded_queries_total", "dslsh_rebalances_total",
+             "dslsh_cells_migrated_total", "dslsh_serve_shed_total")},
+         launches=served_launches, expected_query_tail=expected, seconds=time.perf_counter() - t_phase)
+    emit("icu_serve_profile", microbatch_rows=ICU_WAVES[2], **prof)
+    del el, ctl, fe, idx, new
+    return served_launches
 
 
 STREAM_CAP, STREAM_DELTA, STREAM_LIVE, STREAM_BATCH = 139_048, 256, 4_096, 16

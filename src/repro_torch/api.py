@@ -14,12 +14,17 @@ fused tail; a grid refuses it. A grid may be routed (DESIGN.md §10:
 ``grid(routed=True)``, ``replication``, ``degrade``), and the
 :func:`streaming` deployment ingests, compacts and evicts online
 (DESIGN.md §9). An ``obs`` bundle instruments the handle (DESIGN.md §12).
-The mesh deployment and persistence are not ported yet; they raise
-``NotImplementedError`` (see ROADMAP.md).
+``index.save(path)`` / :func:`load` persist it in the JAX package's format
+(``checkpoint/store.py``), so either package loads what the other saved,
+and ``index.frontend(...)`` puts the multi-tenant serving front end
+(``serve/frontend.py``, DESIGN.md §15) before it. The mesh deployment is
+not ported yet; it raises ``NotImplementedError`` (see ROADMAP.md).
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 
 import numpy as np
 import torch
@@ -27,8 +32,9 @@ import torch
 from repro_torch import device as device_mod
 from repro_torch import obs as obs_mod
 from repro_torch import params as params_mod
+from repro_torch.checkpoint import store as ckpt_store
 from repro_torch.core import distributed as D
-from repro_torch.core import hashing, pipeline, routing
+from repro_torch.core import hashing, pipeline, routing, tables
 from repro_torch.core.distributed import (  # noqa: F401  (re-exported public API)
     DistributedQueryResult,
     Grid,
@@ -44,6 +50,7 @@ from repro_torch.core.pipeline import (  # noqa: F401  (re-exported public API)
 )
 from repro_torch.runtime import memory as memory_mod
 from repro_torch.runtime import payload as payload_mod
+from repro_torch.stream import delta as delta_mod
 from repro_torch.stream import shard as shard_mod
 
 __all__ = [
@@ -212,11 +219,6 @@ def streaming(
 def mesh(*args, **kwargs) -> Deployment:
     """The grid over a device mesh (``torch.distributed``): not ported yet."""
     raise NotImplementedError(f"the mesh deployment {_NOT_PORTED}")
-
-
-def load(path: str, **kwargs):
-    """Restore a saved index: persistence is not ported yet."""
-    raise NotImplementedError(f"load {_NOT_PORTED}")
 
 
 class Index:
@@ -523,9 +525,44 @@ class Index:
             return self
         return Index(self.deploy, self.cfg, {**self._state, "core": self._state["core"].clone()}, self._obs)
 
+    # ----------------------------------------------------------- serving
+
+    def frontend(self, cfg=None, **kw):
+        """An async multi-tenant serving front end over this handle
+        (DESIGN.md §15): admission control, micro-batch coalescing onto the
+        ladder of batch shapes, deadline-aware degradation and (streaming)
+        RCU ingest-while-serving. ``cfg`` is a
+        :class:`repro_torch.serve.frontend.FrontendConfig`; keywords pass
+        through to :class:`repro_torch.serve.frontend.ServeFrontend`."""
+        from repro_torch.serve import frontend as frontend_mod
+
+        kw.setdefault("obs", self._obs)
+        return frontend_mod.ServeFrontend(self, cfg, **kw)
+
+    # ------------------------------------------------------- persistence
+
     def save(self, path: str) -> str:
-        """Persist the index: not ported yet."""
-        raise NotImplementedError(f"Index.save {_NOT_PORTED}")
+        """Persist this index to ``path`` (a directory), in the JAX
+        package's format: the tensors through ``checkpoint/store.py``
+        (atomic rename, one .npy per leaf, grid cells stacked ``(nu, p)``,
+        keys and salts ``uint32``), the deployment, config and host-side
+        cursors in ``dslsh.json``. :func:`load` restores the handle, and so
+        does ``repro.api.load``; round trips are bit-exact."""
+        ob = self._bound_obs()
+        span = ob.span("index.save", path=path) if ob is not None else obs_mod.NULL_SPAN
+        with span:
+            state, extra = _state_arrays(self)
+            os.makedirs(path, exist_ok=True)
+            ckpt_store.save({"state": state}, 0, path)
+            meta = {
+                "format": 1,
+                "cfg": _cfg_dict(self.cfg),
+                "deploy": _deploy_dict(self.deploy),
+                "extra": extra,
+            }
+            with open(os.path.join(path, "dslsh.json"), "w") as f:
+                json.dump(meta, f, indent=2)
+            return path
 
 
 def _family(seed: int, d: int, cfg: SLSHConfig, dev: torch.device, params):
@@ -612,3 +649,186 @@ def _build_impl(seed, data, cfg, deploy, dev, params, t0, obs) -> Index:
             index, cfg, deploy.grid, replication=deploy.replication, bits=deploy.route_bits
         )
     return Index(deploy, cfg, state, obs)
+
+
+def load(path: str, *, device: str | torch.device | None = None, obs: obs_mod.Obs | None = None) -> Index:
+    """Restore an :class:`Index` saved by :meth:`Index.save` or by the JAX
+    package's ``Index.save``, on ``device`` (the card unless told
+    otherwise). ``obs`` instruments the restored handle and records an
+    ``index.load`` span around the restore. A mesh deployment raises
+    ``NotImplementedError`` (not ported yet)."""
+    with open(os.path.join(path, "dslsh.json")) as f:
+        meta = json.load(f)
+    dep = dict(meta["deploy"])
+    if dep["kind"] == "mesh":
+        raise NotImplementedError(f"the mesh deployment {_NOT_PORTED}")
+    dep.pop("reducer", None)  # a mesh Reducer knob
+    if dep.get("retention_s") is None:
+        dep["retention_s"] = float("inf")
+    if dep.get("degrade") is not None:
+        dep["degrade"] = tuple(tuple(level) for level in dep["degrade"])
+    deploy = Deployment(**dep)
+    cfg_kw = dict(meta["cfg"])
+    cfg_kw["backend"] = _PORT_BACKEND.get(cfg_kw["backend"], cfg_kw["backend"])
+    cfg_kw["interpret"] = None  # a JAX execution knob the port has no use for
+    cfg = SLSHConfig.compose(**cfg_kw)
+    dev = device_mod.resolve(device)
+    ob = obs if obs is not None and obs.enabled else None
+    if ob is None:
+        state = ckpt_store.restore({"state": _state_skeleton(deploy)}, 0, path)["state"]
+        return _rehydrate(deploy, cfg, state, meta["extra"], dev, obs)
+    with ob.activate(), ob.span("index.load", path=path):
+        state = ckpt_store.restore({"state": _state_skeleton(deploy)}, 0, path)["state"]
+        return _rehydrate(deploy, cfg, state, meta["extra"], dev, obs)
+
+
+# ----------------------------------------------------- persistence helpers
+
+# the JAX package's backend names in dslsh.json: its plain path and its
+# hand-written kernels, as the port's "torch" and "cuda"
+_JAX_BACKEND = {"torch": "reference", "cuda": "pallas"}
+_PORT_BACKEND = {v: k for k, v in _JAX_BACKEND.items()}
+
+
+def _cfg_dict(cfg: SLSHConfig) -> dict:
+    out = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(SLSHConfig)}
+    out["backend"] = _JAX_BACKEND[cfg.backend]
+    return out
+
+
+def _deploy_dict(deploy: Deployment) -> dict:
+    out = {f.name: getattr(deploy, f.name) for f in dataclasses.fields(Deployment)}
+    out["reducer"] = "allgather"  # the JAX package's mesh Reducer field, at its default
+    if not np.isfinite(out["retention_s"]):
+        out["retention_s"] = None  # JSON has no inf
+    return out
+
+
+def _tree_map(fn, tree):
+    """``fn`` over the leaves of a NamedTuple tree."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_map(fn, v) for v in tree))
+    return fn(tree)
+
+
+def _stack(trees: list, shape: tuple[int, ...]):
+    """Equal-shaped NamedTuple trees of numpy leaves stacked leaf by leaf
+    into leading dims ``shape`` (the JAX package's vmapped layout)."""
+    first = trees[0]
+    if isinstance(first, tuple) and hasattr(first, "_fields"):
+        return type(first)(*(_stack([t[i] for t in trees], shape) for i in range(len(first))))
+    return np.stack([np.asarray(t) for t in trees]).reshape(shape + np.shape(first))
+
+
+def _state_arrays(index: Index) -> tuple[dict, dict]:
+    """(the tree to checkpoint, host-side extras for the JSON sidecar), in
+    the JAX package's layout."""
+    st = index._state
+    if index.deploy.kind == "streaming":
+        core: shard_mod.ShardedStream = st["core"]
+        p = index.deploy.p
+        nodes = []
+        for nd in core.state:
+            cells = shard_mod.CellState(
+                _stack([params_mod.index_to_numpy(c.base) for c in nd.cells], (p,)),
+                delta_mod.DeltaIndex(
+                    np.stack([params_mod.u32(c.delta.outer_keys) for c in nd.cells]),
+                    np.stack([params_mod.u32(c.delta.inner_keys) for c in nd.cells]),
+                    np.asarray([c.delta.count for c in nd.cells], np.int32),
+                    np.asarray([c.delta.dropped for c in nd.cells], np.int32),
+                ),
+                np.stack([c.occ.cpu().numpy() for c in nd.cells]),
+            )
+            nodes.append(shard_mod.NodeState(nd.store.cpu().numpy(), nd.ts.cpu().numpy(), cells))
+        outer, inner = params_mod.family_to_numpy(*core.family)
+        return {"nodes": nodes, "family": {"outer": outer, "inner": inner}}, {"rr": core.rr}
+    data = st["data"].cpu().numpy()
+    if index.deploy.kind == "single":
+        return {"index": params_mod.index_to_numpy(st["index"]), "data": data}, {}
+    cells = [params_mod.index_to_numpy(c) for c in st["index"]]
+    tree = {"index": _stack(cells, (index.deploy.nu, index.deploy.p)), "data": data}
+    plan = st.get("plan")
+    if plan is not None:
+        tree["plan"] = {
+            "occupancy": plan.occupancy.cpu().numpy(),
+            "replicas": np.asarray(plan.replicas, np.int32),
+            "heat": np.asarray(plan.heat, np.float32),
+            "cell_device": np.asarray(plan.cell_device, np.int32),
+        }
+    return tree, {}
+
+
+def _skel_index() -> pipeline.SLSHIndex:
+    """A structure-only SLSHIndex (placeholder leaves) for restore."""
+    return pipeline.SLSHIndex(
+        hashing.BitSampleParams(0, 0, 0),
+        hashing.SignRPParams(0, 0),
+        tables.TableSet(0, 0),
+        tables.HeavyBuckets(0, 0, 0, 0, 0),
+        0, 0, 0,
+    )
+
+
+def _state_skeleton(deploy: Deployment) -> dict:
+    if deploy.kind == "streaming":
+        cell = shard_mod.CellState(_skel_index(), delta_mod.DeltaIndex(0, 0, 0, 0), 0)
+        return {
+            "nodes": [shard_mod.NodeState(0, 0, cell) for _ in range(deploy.nu)],
+            "family": {"outer": hashing.BitSampleParams(0, 0, 0), "inner": hashing.SignRPParams(0, 0)},
+        }
+    tree = {"index": _skel_index(), "data": 0}
+    if deploy.routed:
+        tree["plan"] = {"occupancy": 0, "replicas": 0, "heat": 0, "cell_device": 0}
+    return tree
+
+
+def _rehydrate(deploy: Deployment, cfg: SLSHConfig, state: dict, extra: dict, dev: torch.device,
+               obs: obs_mod.Obs | None) -> Index:
+    """The handle over restored numpy ``state``, moved to ``dev``."""
+    def on(a, dtype=None):
+        t = torch.as_tensor(np.asarray(a, np.int64) if dtype == torch.int64 else np.asarray(a), device=dev)
+        return t if dtype is None else t.to(dtype)
+
+    if deploy.kind == "streaming":
+        nodes = []
+        for nd in state["nodes"]:
+            c = nd.cells
+            cells = [
+                shard_mod.CellState(
+                    params_mod.index_from_numpy(_tree_map(lambda a, i=i: a[i], c.base), dev),
+                    delta_mod.DeltaIndex(
+                        on(c.delta.outer_keys[i], torch.int64), on(c.delta.inner_keys[i], torch.int64),
+                        int(c.delta.count[i]), int(c.delta.dropped[i]),
+                    ),
+                    on(c.occ[i]),
+                )
+                for i in range(deploy.p)
+            ]
+            nodes.append(shard_mod.NodeState(on(nd.store), on(nd.ts), cells))
+        family = params_mod.from_jax_params(state["family"]["outer"], state["family"]["inner"], dev)
+        core = shard_mod.ShardedStream.from_state(
+            nodes, family, cfg, deploy.grid,
+            node_capacity=deploy.node_capacity, delta_cap=deploy.delta_cap,
+            retention_s=deploy.retention_s, route=deploy.routed,
+            route_bits=deploy.route_bits, rr=int(extra.get("rr", 0)), device=dev,
+        )
+        return Index(deploy, cfg, {"core": core}, obs)
+    data = on(state["data"])
+    ix = state["index"]
+    if deploy.kind == "single":
+        return Index(deploy, cfg, {"index": params_mod.index_from_numpy(ix, dev), "data": data}, obs)
+    cells = [
+        params_mod.index_from_numpy(_tree_map(lambda a, j=j, c=c: a[j, c], ix), dev)
+        for j in range(deploy.nu)
+        for c in range(deploy.p)
+    ]
+    new_state = {"index": cells, "data": data}
+    if deploy.routed and "plan" in state:
+        p = state["plan"]
+        new_state["plan"] = routing.RoutingPlan(
+            occupancy=on(p["occupancy"]),
+            replicas=np.asarray(p["replicas"], np.int32),
+            heat=np.asarray(p["heat"], np.float32),
+            cell_device=np.asarray(p["cell_device"], np.int32),
+        )
+    return Index(deploy, cfg, new_state, obs)

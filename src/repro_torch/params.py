@@ -6,7 +6,9 @@ and ``api.build(..., params=...)`` — take a hash family as numpy arrays
 the port's parameter types; a quantized payload crosses the same way, so
 both packages can run the payload tail on the same rows, and so does a dense
 LM's parameter tree, so both packages compute with the same weights.
-Unsigned 32-bit values (salts, keys) become int64 holding the same values.
+Unsigned 32-bit values (salts, keys) become int64 holding the same values;
+:func:`index_to_numpy` goes the other way, for a checkpoint both packages
+read.
 """
 from __future__ import annotations
 
@@ -82,6 +84,45 @@ def index_from_numpy(ix: Any, device: torch.device | str | None = None) -> pipel
         int(np.asarray(ix.n)),
     )
 
+
+def u32(t: torch.Tensor) -> np.ndarray:
+    """An int64 tensor of unsigned 32-bit values (keys, salts) as the
+    ``uint32`` array the JAX package holds; refuses values outside
+    ``[0, 2**32)``."""
+    a = t.detach().cpu().numpy()
+    if a.size and (int(a.min()) < 0 or int(a.max()) >= 1 << 32):
+        raise ValueError("32-bit key values must lie in [0, 2**32)")
+    return a.astype(np.uint32)
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def family_to_numpy(
+    outer: hashing.BitSampleParams, inner: hashing.SignRPParams
+) -> tuple[hashing.BitSampleParams, hashing.SignRPParams]:
+    """The inverse of :func:`from_jax_params`: the pair as numpy arrays
+    with the JAX package's dtypes (salts ``uint32``)."""
+    return (
+        hashing.BitSampleParams(_np(outer.dims), _np(outer.thrs), u32(outer.salts)),
+        hashing.SignRPParams(_np(inner.proj), u32(inner.salts)),
+    )
+
+
+def index_to_numpy(ix: pipeline.SLSHIndex) -> pipeline.SLSHIndex:
+    """The inverse of :func:`index_from_numpy`: an ``SLSHIndex`` of numpy
+    arrays with the JAX package's dtypes (keys and salts ``uint32``, ``n``
+    an int32 scalar), for a checkpoint either package restores."""
+    hv = ix.heavy
+    return pipeline.SLSHIndex(
+        *family_to_numpy(ix.outer_params, ix.inner_params),
+        tables.TableSet(u32(ix.outer.sorted_keys), _np(ix.outer.sorted_idx)),
+        tables.HeavyBuckets(u32(hv.keys), _np(hv.start), _np(hv.size), _np(hv.valid), _np(hv.overflowed)),
+        u32(ix.inner_keys),
+        _np(ix.inner_idx),
+        np.int32(ix.n),
+    )
 
 
 def payload_from_numpy(qdata, meta, device: torch.device | str | None = None) -> payload_mod.Payload:

@@ -1,3 +1,4 @@
-"""Runtime services of the port: the compressed candidate payload and the
-index memory accountant (counterparts of ``repro.runtime.payload`` and
-``repro.runtime.memory``)."""
+"""Runtime services of the port: the compressed candidate payload, the
+index memory accountant, fault tolerance and elastic operations
+(counterparts of ``repro.runtime.payload``, ``memory``, ``ft`` and
+``elastic``)."""

@@ -1,1 +1,2 @@
-"""Serving of the port: the batched engine and the kNN-LM hook."""
+"""Serving of the port: the batched engine and the kNN-LM hook, and the
+multi-tenant query front end (admission, coalescing, deadline scheduling)."""

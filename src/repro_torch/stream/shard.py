@@ -204,6 +204,36 @@ class ShardedStream:
         ]
         self._make_programs()
 
+    @classmethod
+    def from_state(
+        cls,
+        state: list[NodeState],
+        family,
+        cfg: pipeline.SLSHConfig,
+        grid: D.Grid,
+        *,
+        node_capacity: int,
+        delta_cap: int,
+        retention_s: float = float("inf"),
+        route: bool = True,
+        route_bits: int = routing.DEFAULT_BITS,
+        rr: int = 0,
+        device: str | torch.device | None = None,
+    ) -> "ShardedStream":
+        """Rehydrate a driver from restored state (``dslsh.load``): the node
+        list, the root ``(outer, inner)`` family and the Forwarder cursor
+        ``rr``, all on ``device`` (the card unless told otherwise)."""
+        self = cls.__new__(cls)
+        self.cfg, self.grid, self.device = cfg, grid, device_mod.resolve(device)
+        self.node_capacity, self.delta_cap = node_capacity, delta_cap
+        self.retention_s = retention_s
+        self.route, self.route_bits = route, route_bits
+        self.family = family
+        self.rr = rr
+        self.state = list(state)
+        self._make_programs()
+        return self
+
     def _make_programs(self) -> None:
         # the counterpart of the JAX package's two jit programs: one
         # count each, shared by every clone (zero recounts per snapshot)

@@ -1,4 +1,5 @@
-"""The port's streaming quickstart twin against the JAX example's code.
+"""The port's streaming quickstart and ICU pipeline twins against the JAX
+examples' code.
 
 ``examples/stream_quickstart.py`` runs as written (``runpy``), with its
 beat generator handed 8 JAX-made records of 16,000 beats in place of
@@ -67,3 +68,24 @@ def test_stream_quickstart_twin_matches_jax_example(backend, monkeypatch, capsys
     for i, (a, b) in enumerate(zip(lines, jx["lines"])):
         if not b.startswith("prediction latency"):
             assert a == b, i
+
+
+def test_icu_pipeline_twin_matches_jax_example(monkeypatch, capsys):
+    """``examples/icu_pipeline.py`` as written, on 8 JAX-made records of
+    16,000 beats (60,000 in the example), against the port's twin on the
+    same beats with the JAX family: the same cluster line, the same three
+    MCCs and the same median comparisons per processor."""
+    mapv, valid = _beats()
+    with monkeypatch.context() as m:
+        m.setattr(abp, "synth_dataset_beats", lambda *a, **k: (mapv, valid))
+        g = runpy.run_path(str(ROOT / "examples" / "icu_pipeline.py"))
+    want = capsys.readouterr().out.splitlines()
+    family = params.from_jax_params(*jp.make_family(jax.random.PRNGKey(1), 30, g["cfg"]), "cpu")
+    spec = importlib.util.spec_from_file_location("_icu_twin", ROOT / "examples" / "torch_icu_pipeline.py")
+    twin = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twin)
+    out = twin.main(mapv, valid, params=family, device="cpu")
+    got = capsys.readouterr().out.splitlines()
+    assert len(got) == len(want) == 5
+    assert got == want
+    np.testing.assert_array_equal(out["comparisons"].numpy(), np.asarray(g["res"].comparisons))

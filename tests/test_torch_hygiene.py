@@ -36,7 +36,7 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
     )
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 66  # every module of the slices: runtime/, models/, serve/, configs/, obs/ and stream/ included
+    assert n_modules >= 73  # every module of the slices: checkpoint/, runtime/, models/, serve/, configs/, obs/ and stream/ included
 
 
 _BANNED = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+repro\b(?!_)|from\s+repro[.\s])", re.M)
@@ -45,7 +45,8 @@ _BANNED = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+repro\b(?!_)|from\s
 @pytest.mark.parametrize(
     "path",
     sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))
-    + ["chip_smoke.py", "examples/torch_quickstart.py", "examples/torch_stream_quickstart.py"],
+    + ["chip_smoke.py", "examples/torch_quickstart.py", "examples/torch_stream_quickstart.py",
+       "examples/torch_icu_pipeline.py"],
 )
 def test_source_has_no_jax_or_repro_import(path):
     text = (ROOT / path).read_text()
@@ -107,12 +108,18 @@ def test_family_constructors_refuse_to_fall_back_to_cpu(name):
     assert all(t.device == torch.device("cpu") for t in leaves)
 
 
-def test_unported_deployments_raise_not_implemented():
+def test_unported_deployments_raise_not_implemented(tmp_path):
+    import json
+
     from repro_torch import api
 
+    # an index saved from a mesh deployment (only its descriptor is read)
+    (tmp_path / "dslsh.json").write_text(json.dumps({"format": 1, "cfg": {}, "extra": {}, "deploy": {
+        "kind": "mesh", "nu": 2, "p": 2, "replication": 1, "routed": False, "route_bits": 12,
+        "reducer": "allgather", "degrade": None, "node_capacity": None, "delta_cap": 64, "retention_s": None}}))
     for call in (
         lambda: api.mesh(None),
-        lambda: api.load("somewhere"),
+        lambda: api.load(str(tmp_path), device="cpu"),
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
