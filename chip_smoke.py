@@ -80,6 +80,23 @@ exits non-zero:
                   library is built after warmup, and D launches once per
                   cell and 50-query chunk of every micro-batch.
    ``icu_serve_profile`` one 96-row micro-batch profiled.
+   ``mesh``       the paper's 40 processors as 40 SPMD ranks over
+                  ``torch.distributed`` (gloo; one process and CUDA context
+                  a rank on this card, started by ``launch.mesh.spawn`` after
+                  the kernels are built): ``make_local_mesh(10, 4)`` on the
+                  main path's data (a memory-mapped ``.npy``), family and
+                  config, each rank building and querying its own cell with
+                  A, B and D; the 2,000 queries with the all-gather Reducer
+                  and the tree, ``save`` from the mesh, ``load(device_mesh=)``
+                  and the queries again. Checks: every rank the same family
+                  and answer; counters equal to ``main_path``'s grid, top-k
+                  tie-aware; the tree and the reload equal the all-gather bit
+                  for bit; the ranks' launches of the build and of each query
+                  pass sum to ``main_path``'s. Then ``mesh_replicated``: an
+                  8-rank ``make_replicated_mesh(2, 2, 2)``, routed, tree
+                  Reducer, on the ``routes`` shard: routed, with node 1
+                  dropped and with ``max_cells=2``, each equal to the
+                  in-process routed ``grid(2, 2)`` bit for bit.
 9. ``stream``     the paper-scale streaming deployment: ``streaming(nu=10,
                   p=4, node_capacity=139,048, delta_cap=256)`` warmed on the
                   1,370,000 windows, then a ``StreamingMonitor`` streams
@@ -126,7 +143,8 @@ staged form's distance stage, is on no path of the ``"cuda"`` backend and
 counts 0 there), the payload phase's two compressed
 queries for E, the ``knn_lm`` phase for F; every row also gives its
 launches on the ``routes``, ``quickstart``, ``routed``, ``icu_serve``, ``stream``,
-``knn_lm`` and ``serve`` paths. Without a CUDA
+``knn_lm`` and ``serve`` paths, and A, B and D their launches summed over the
+``mesh`` phase's ranks (``mesh_launches``). Without a CUDA
 device, or without the repository's ``src/`` beside it, the script exits
 non-zero before printing any result.
 """
@@ -1019,7 +1037,9 @@ def run(dev, n: int, nq: int, lm_smoke: bool = False, ds_seqs: int = DS_SEQS) ->
     quickstart_launches = quickstart_phase(dev)
     routed_launches = routed_phase(dev, index, res, pts, qx, queries, cfg)
     icu_launches = icu_serve_phase(dev, index, qx, cfg)
-    del index, res
+    del index
+    mesh_launches = mesh_phase(dev, pts, qx, res, cfg, main_launches)
+    del res
     stream_launches = stream_phase(dev, pts, labs, qx, cfg, n)
     del data, queries, labels, truth
 
@@ -1051,6 +1071,7 @@ def run(dev, n: int, nq: int, lm_smoke: bool = False, ds_seqs: int = DS_SEQS) ->
         r["quickstart_launches"] = quickstart_launches.get(r["name"], 0)
         r["routed_launches"] = routed_launches.get(r["name"], 0)
         r["icu_serve_launches"] = icu_launches.get(r["name"], 0)
+        r["mesh_launches"] = mesh_launches.get(r["name"], 0)
         r["stream_launches"] = stream_launches.get(r["name"], 0)
         r["knn_lm_launches"] = lm_launches.get(r["name"], 0)
         r["serve_launches"] = serve_launches.get(r["name"], 0)
@@ -1311,6 +1332,170 @@ def routed_phase(dev, index, res, pts, qx, queries, cfg) -> dict:
          launches=launches)
     del routed, rep, capped, ref
     return launches
+
+
+# the mesh phase: the replicated world's shard, batch and downed node
+MESH_REP_N, MESH_REP_Q, MESH_REP_DOWN = 131_072, 500, [False, True]
+
+
+def _add(a: dict, b: dict) -> dict:
+    return {k: a.get(k, 0) + b.get(k, 0) for k in sorted(set(a) | set(b))}
+
+
+def _rank_sum(reports, pick) -> dict:
+    """A launch dict summed over the ranks' reports."""
+    out: dict = {}
+    for r in reports:
+        out = _add(out, pick(r))
+    return out
+
+
+def _mesh_checks(reports, what: str) -> list[dict]:
+    """Every rank holds the same root family and the same answer to each
+    query; returns rank 0's query steps."""
+    need(len({r["family_digest"] for r in reports}) == 1, f"{what}: the ranks hash with different families")
+    steps = reports[0]["steps"]
+    for i, st in enumerate(steps):
+        if st["op"] == "query":
+            need(len({r["steps"][i]["digest"] for r in reports}) == 1, f"{what}: the ranks' answers to step {i} differ")
+    return steps
+
+
+def _answers_equal(a: dict, b: dict) -> bool:
+    return all(np.array_equal(a[f], b[f]) for f in a)
+
+
+def mesh_phase(dev, pts, qx, res, cfg, main_launches: dict) -> dict:
+    """The paper's 40 processors as 40 SPMD ranks over ``torch.distributed``
+    (gloo on this one card), through ``launch.mesh.spawn`` running
+    ``launch.mesh_job.run``: ``make_local_mesh(10, 4)`` on the main path's
+    data (a memory-mapped ``.npy``), family (``SEED``) and config, queried
+    with the all-gather Reducer and the tree, saved from the mesh, loaded
+    back with ``load(device_mesh=)`` and queried again. Held against the
+    main path's grid answer ``res`` (counters exact, top-k tie-aware, the
+    reducers and the reload bit for bit), and the ranks' launches summed
+    over a build and a query pass against ``main_launches``. Then
+    ``make_replicated_mesh(2, 2, 2)``, routed, tree Reducer, on the
+    ``routes`` shard (131,072 points, 500 queries) against the in-process
+    routed ``grid(2, 2)``, bit for bit: plain, with node 1 dropped and with
+    ``max_cells=2``. Returns the ranks' launches over both worlds."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import dslsh
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.launch import mesh_job
+
+    t_phase = time.perf_counter()
+    ranks, nq = NU * P, qx.shape[0]
+    grid_ans = {f: getattr(res, f).cpu().numpy() for f in ("knn_dist", "knn_idx", "comparisons",
+                                                            "compaction_overflow", "routed")}
+    cfg_kw = {**CFG, "backend": "cuda"}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        np.save(os.path.join(tmp, "points.npy"), pts)
+        np.save(os.path.join(tmp, "queries.npy"), qx)
+        ck = os.path.join(tmp, "mesh_index")
+        job = mesh_job.MeshJob(
+            mesh=(NU, P), data=os.path.join(tmp, "points.npy"), queries=os.path.join(tmp, "queries.npy"),
+            cfg=cfg_kw, seed=SEED, device=dev.type,
+            steps=(("query", {}), ("query", {"reducer": "tree"}), ("save", ck), ("load", ck), ("query", {})),
+        )
+        t0 = time.perf_counter()
+        reports = launch_mesh.spawn(mesh_job.run, ranks, store_dir=os.path.join(tmp, "world40"), args=(job,),
+                                    timeout_s=600)
+        world_s = time.perf_counter() - t0
+        bytes_on_disk = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(ck) for f in fs)
+
+        steps = _mesh_checks(reports, "mesh")
+        ag, tree, loaded = (st["answer"] for st in steps if st["op"] == "query")
+        need(_answers_equal(tree, ag), "mesh: the tree Reducer's answer differs from the all-gather's")
+        need(_answers_equal(loaded, ag), "mesh: the loaded index answers otherwise than the one saved")
+        for f in ("comparisons", "compaction_overflow", "routed"):
+            need(np.array_equal(ag[f], grid_ans[f]), f"mesh: {f} differ from the main path grid's")
+        pts_t, q_t = torch.from_numpy(pts), torch.from_numpy(qx)
+        need_topk(torch.from_numpy(ag["knn_dist"]), torch.from_numpy(ag["knn_idx"]),
+                  torch.from_numpy(grid_ans["knn_dist"]), torch.from_numpy(grid_ans["knn_idx"]),
+                  point_dist_of(pts_t, q_t), "mesh: top-k differs from the main path grid's")
+        build_sum = _rank_sum(reports, lambda r: r["build_launches"])
+        pass_sums = [_rank_sum(reports, lambda r, i=i: r["steps"][i]["launches"])
+                     for i, st in enumerate(steps) if st["op"] == "query"]
+        for name in ("bitsample_pack", "proj_sign_pack", "query_tail"):
+            need(build_sum.get(name, 0) + pass_sums[0].get(name, 0) > 0, f"mesh: no rank launched {name}")
+        for i, ps in enumerate(pass_sums):
+            need(_add(build_sum, ps) == _add(main_launches, {}),
+                 f"mesh: build + query pass {i} launched {_add(build_sum, ps)}, the main path {main_launches}")
+
+        def per_step(key, i, scale=1.0):
+            return [r["steps"][i][key] * scale for r in reports]
+
+        q_idx = [i for i, st in enumerate(steps) if st["op"] == "query"]
+        red = [[r["steps"][i]["reducer"] for r in reports] for i in q_idx]
+        emit(
+            "mesh", ranks=ranks, mesh=[NU, P], backend="gloo", n=pts.shape[0], queries=nq,
+            cpu_count=os.cpu_count(), world_s=world_s,
+            build_s_max=max(r["build_s"] for r in reports), build_s_min=min(r["build_s"] for r in reports),
+            us_per_query={name: max(per_step("seconds", i)) / nq * 1e6
+                          for name, i in zip(("allgather", "tree", "allgather_loaded"), q_idx)},
+            reducer_ms_per_batch_max={name: max(x["seconds"] for x in rs) * 1e3
+                                      for name, rs in zip(("allgather", "tree", "allgather_loaded"), red)},
+            reducer_ms_per_batch_min={name: min(x["seconds"] for x in rs) * 1e3
+                                      for name, rs in zip(("allgather", "tree", "allgather_loaded"), red)},
+            reducer_host_copy_bytes={name: sum(x["host_copy_bytes"] for x in rs)
+                                     for name, rs in zip(("allgather", "tree", "allgather_loaded"), red)},
+            reducer_sent_bytes={name: sum(x["sent_bytes"] for x in rs)
+                                for name, rs in zip(("allgather", "tree", "allgather_loaded"), red)},
+            save_s=max(per_step("seconds", 2)), load_s=max(per_step("seconds", 3)), bytes_on_disk=bytes_on_disk,
+            peak_mem_bytes=[r.get("peak_mem_bytes") for r in reports],
+            knn_idx_identical_to_grid=bool(np.array_equal(ag["knn_idx"], grid_ans["knn_idx"])),
+            max_abs_dist_err_vs_grid=float(np.nan_to_num(np.abs(ag["knn_dist"] - grid_ans["knn_dist"])).max()),
+            build_launches=build_sum, query_pass_launches=pass_sums[0], main_path_launches=main_launches,
+            seconds=time.perf_counter() - t_phase,
+        )
+        t_phase = time.perf_counter()
+
+        # replicated, routed and degraded: rep = 2 over a 2 x 2 grid
+        pts_r, q_r = pts[:MESH_REP_N], qx[:MESH_REP_Q]
+        np.save(os.path.join(tmp, "points_r.npy"), pts_r)
+        np.save(os.path.join(tmp, "queries_r.npy"), q_r)
+        job_r = mesh_job.MeshJob(
+            mesh=(2, 2, 2), data=os.path.join(tmp, "points_r.npy"), queries=os.path.join(tmp, "queries_r.npy"),
+            cfg=cfg_kw, seed=SEED, routed=True, device=dev.type,
+            steps=(("query", {"reducer": "tree"}), ("query", {"reducer": "tree", "drop_mask": MESH_REP_DOWN}),
+                   ("query", {"reducer": "tree", "max_cells": 2})),
+        )
+        t0 = time.perf_counter()
+        reports_r = launch_mesh.spawn(mesh_job.run, 8, store_dir=os.path.join(tmp, "world8"), args=(job_r,),
+                                      timeout_s=600)
+        world_r_s = time.perf_counter() - t0
+    steps_r = _mesh_checks(reports_r, "mesh_replicated")
+    grid = dslsh.build(SEED, pts_r, cfg, dslsh.grid(nu=2, p=2, routed=True), dev)
+    refs = (grid.query(q_r), grid.query(q_r, drop_mask=np.asarray(MESH_REP_DOWN)), grid.query(q_r, max_cells=2))
+    fields = ("knn_dist", "knn_idx", "comparisons", "compaction_overflow", "routed")
+    for case, st, ref in zip(("routed", "node_1_dropped", "max_cells_2"), steps_r, refs):
+        for f in fields:
+            need(np.array_equal(st["answer"][f], getattr(ref, f).cpu().numpy()),
+                 f"mesh_replicated {case}: {f} differs from the in-process routed grid's")
+    dropped = steps_r[1]["answer"]["knn_idx"]
+    need(bool((dropped < pts_r.shape[0] // 2).all()), "mesh_replicated: node 1's points answered while it was dropped")
+    need(bool((steps_r[2]["answer"]["routed"].sum(axis=(0, 1)) <= 2).all()), "mesh_replicated: max_cells=2 exceeded")
+    rep_launches = _rank_sum(reports_r, lambda r: _add(r["build_launches"],
+                                                       _rank_sum(r["steps"], lambda st: st.get("launches", {}))))
+    emit(
+        "mesh_replicated", ranks=8, mesh=[2, 2, 2], n=pts_r.shape[0], queries=q_r.shape[0], world_s=world_r_s,
+        build_s_max=max(r["build_s"] for r in reports_r),
+        us_per_query={c: max(r["steps"][i]["seconds"] for r in reports_r) / MESH_REP_Q * 1e6
+                      for i, c in enumerate(("routed", "node_1_dropped", "max_cells_2"))},
+        reducer_ms_per_batch_max=[max(r["steps"][i]["reducer"]["seconds"] for r in reports_r) * 1e3 for i in range(3)],
+        routed_frac=[float(st["answer"]["routed"].mean()) for st in steps_r],
+        peak_mem_bytes=[r.get("peak_mem_bytes") for r in reports_r],
+        launches=rep_launches, seconds=time.perf_counter() - t_phase,
+    )
+    del grid, refs
+    return _add(_add(build_sum, _rank_sum(pass_sums, lambda ps: ps)), rep_launches)
 
 
 # the icu_serve phase: the front end's ladder and degradation levels, four

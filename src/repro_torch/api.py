@@ -1,8 +1,9 @@
 """One typed DSLSH handle — the port's ``dslsh`` Deployment API.
 
-Counterpart of ``repro.api`` for the :func:`single` and :func:`grid`
-deployments. A frozen :class:`Deployment` says where the index runs, and
-one handle runs the lifecycle::
+Counterpart of ``repro.api``: the :func:`single`, :func:`grid`,
+:func:`mesh` and :func:`streaming` deployments. A frozen
+:class:`Deployment` says where the index runs, and one handle runs the
+lifecycle::
 
     cfg = dslsh.make_config(dslsh.FamilyConfig(...), dslsh.BudgetConfig(...))
     index = dslsh.build(seed, data, cfg, dslsh.grid(nu=2, p=8))
@@ -17,8 +18,10 @@ fused tail; a grid refuses it. A grid may be routed (DESIGN.md §10:
 ``index.save(path)`` / :func:`load` persist it in the JAX package's format
 (``checkpoint/store.py``), so either package loads what the other saved,
 and ``index.frontend(...)`` puts the multi-tenant serving front end
-(``serve/frontend.py``, DESIGN.md §15) before it. The mesh deployment is
-not ported yet; it raises ``NotImplementedError`` (see ROADMAP.md).
+(``serve/frontend.py``, DESIGN.md §15) before it. A :func:`mesh`
+deployment runs one rank per cell over ``torch.distributed``
+(``launch.mesh``): every rank calls ``build``, ``query``, ``save`` and
+``load`` alike, holds its own cell and gets the same merged answer.
 """
 from __future__ import annotations
 
@@ -50,6 +53,7 @@ from repro_torch.core.pipeline import (  # noqa: F401  (re-exported public API)
 )
 from repro_torch.runtime import memory as memory_mod
 from repro_torch.runtime import payload as payload_mod
+from repro_torch.sharding import ctx
 from repro_torch.stream import delta as delta_mod
 from repro_torch.stream import shard as shard_mod
 
@@ -61,6 +65,7 @@ __all__ = [
     "FamilyConfig",
     "Grid",
     "Index",
+    "MeshDeployment",
     "RuntimeConfig",
     "SLSHConfig",
     "build",
@@ -74,8 +79,7 @@ __all__ = [
     "streaming",
 ]
 
-_KINDS = ("single", "grid", "streaming")
-_NOT_PORTED = "is not ported to PyTorch yet (see ROADMAP.md, Queue 1)"
+_KINDS = ("single", "grid", "mesh", "streaming")
 
 
 def make_config(
@@ -92,11 +96,11 @@ def make_config(
 @dataclasses.dataclass(frozen=True)
 class Deployment:
     """Frozen descriptor of where a DSLSH index runs; build one with
-    :func:`single`, :func:`grid` or :func:`streaming`."""
+    :func:`single`, :func:`grid`, :func:`mesh` or :func:`streaming`."""
 
     kind: str
-    nu: int = 1  # nodes
-    p: int = 1  # cores per node
+    nu: int = 1  # nodes (mesh axis "data")
+    p: int = 1  # cores per node (mesh axis "model")
     replication: int = 1  # replica factor for hot cells (DESIGN.md §10)
     routed: bool = False  # key→cell routing (bit-exact)
     route_bits: int = routing.DEFAULT_BITS
@@ -123,7 +127,7 @@ class Deployment:
             f"replication={self.replication}: replica counts start at 1",
         )
         pipeline._require(
-            self.replication == 1 or self.routed,
+            self.replication == 1 or self.routed or self.kind == "mesh",
             f"replication={self.replication} without routed=True: replica"
             " placement rides the §10 routing plan — pass routed=True (the"
             " routed query stays bit-identical to the broadcast one)",
@@ -144,6 +148,13 @@ class Deployment:
                 f"delta_cap={self.delta_cap}: each node needs at least one"
                 " delta slot to ingest into",
             )
+        if self.kind == "mesh":
+            pipeline._require(
+                getattr(self, "mesh", None) is not None,
+                "mesh deployments need the device mesh: pass"
+                " dslsh.mesh(make_local_mesh(nu, p), ...)"
+                " (repro_torch.launch.mesh)",
+            )
 
     @property
     def grid(self) -> Grid:
@@ -154,6 +165,23 @@ class Deployment:
     def cells(self) -> int:
         """Total SLSH cells (the paper's nu*p)."""
         return self.nu * self.p
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshDeployment(Deployment):
+    """A :class:`Deployment` over a device mesh (:func:`mesh`): the grid's
+    fields and the two that only a mesh has."""
+
+    reducer: str = "allgather"  # the Reducer: "allgather" | "tree"
+    # this rank's device mesh (never serialized)
+    mesh: ctx.Mesh | None = dataclasses.field(default=None, compare=False)
+
+    def __post_init__(self):
+        super().__post_init__()
+        pipeline._require(
+            self.reducer in ("allgather", "tree"),
+            f"unknown reducer {self.reducer!r}; one of ('allgather', 'tree')",
+        )
 
 
 def single() -> Deployment:
@@ -216,9 +244,29 @@ def streaming(
     )
 
 
-def mesh(*args, **kwargs) -> Deployment:
-    """The grid over a device mesh (``torch.distributed``): not ported yet."""
-    raise NotImplementedError(f"the mesh deployment {_NOT_PORTED}")
+def mesh(
+    device_mesh: ctx.Mesh,
+    *,
+    reducer: str = "allgather",
+    routed: bool = False,
+    route_bits: int = routing.DEFAULT_BITS,
+    degrade: tuple | None = None,
+) -> Deployment:
+    """The cell grid over a device mesh, one rank per cell.
+
+    ``device_mesh`` (``launch.mesh``) must carry ``data`` and ``model``
+    axes; an optional leading ``rep`` axis replicates the index and
+    row-splits query batches across the replicas (§10). The grid shape is
+    read off the mesh. ``reducer`` merges the partial top-Ks by
+    ``"allgather"`` or by the ``"tree"`` tournament (equal answers).
+    """
+    shape = device_mesh.shape
+    return MeshDeployment(
+        kind="mesh", nu=int(shape["data"]), p=int(shape["model"]),
+        replication=int(shape.get("rep", 1)), routed=routed,
+        route_bits=route_bits, reducer=reducer, degrade=degrade,
+        mesh=device_mesh,
+    )
 
 
 class Index:
@@ -260,9 +308,9 @@ class Index:
 
     @property
     def pipeline_index(self):
-        """The built pipeline state: one ``SLSHIndex`` (single), the cell
-        indexes in flat (node, core) order (grid), or the per-node state
-        list (streaming)."""
+        """The built pipeline state: one ``SLSHIndex`` (single; this rank's
+        cell on a mesh), the cell indexes in flat (node, core) order
+        (grid), or the per-node state list (streaming)."""
         if self.deploy.kind == "streaming":
             return self._state["core"].state
         return self._state["index"]
@@ -271,18 +319,21 @@ class Index:
         """Points queryable right now."""
         if self.deploy.kind == "streaming":
             return self._state["core"].n_index()
+        if self.deploy.kind == "mesh":  # a rank holds its node's rows
+            return self.deploy.nu * int(self._state["data"].shape[0])
         return int(self._state["data"].shape[0])
 
     def memory_report(self) -> memory_mod.MemoryReport:
         """Per-cell byte accounting of the resident index (DESIGN.md §13):
         tables, heavy, inner, data and payload bytes from tensor shapes
-        alone, with no sync. Batch deployments only."""
+        alone, with no sync (on a mesh, what this rank holds). Batch
+        deployments only."""
         pipeline._require(
             self.deploy.kind != "streaming",
             "memory_report covers batch deployments — streaming capacity"
             " is tracked live by ingest/compact reports (DESIGN.md §9)",
         )
-        cells = (1, 1) if self.deploy.kind == "single" else (self.deploy.nu, self.deploy.p)
+        cells = (self.deploy.nu, self.deploy.p) if self.deploy.kind == "grid" else (1, 1)
         return memory_mod.index_report(
             self._state["index"], self._state["data"], self.cfg.payload, cells
         )
@@ -317,9 +368,11 @@ class Index:
         deployment's ``degrade`` levels to a probe-cell cap; ``max_cells``
         caps it directly (both need a routed deployment and are
         approximate by design). ``drop_mask`` (nu,) excludes straggler
-        nodes from the Reducer and ``drop_cells`` (nu, p) lost cells (grid
-        deployments). With an obs bundle the call records an
-        ``index.query`` span (synchronized) and feeds the query metrics.
+        nodes from the Reducer (grid and mesh deployments) and
+        ``drop_cells`` (nu, p) lost cells (grid deployments). On a mesh
+        every rank calls this with the same batch and gets the same result.
+        With an obs bundle the call records an ``index.query`` span
+        (synchronized) and feeds the query metrics.
         """
         if budget is not None:
             pipeline._require(
@@ -334,7 +387,15 @@ class Index:
             pipeline._require(
                 self.plan is not None,
                 "max_cells requires a routed deployment (dslsh.grid(...,"
-                " routed=True)) — the cap rides the §10 routing plan",
+                " routed=True) or dslsh.mesh(..., routed=True)) — the cap"
+                " rides the §10 routing plan",
+            )
+        if drop_cells is not None:
+            pipeline._require(
+                self.deploy.kind == "grid",
+                "drop_cells (per-cell failover drops) applies to grid"
+                " deployments — nodes on other deployments drop whole via"
+                " drop_mask",
             )
         ob = self._bound_obs()
         if ob is None:
@@ -356,16 +417,16 @@ class Index:
             pipeline._require(
                 drop_mask is None and drop_cells is None and max_cells is None,
                 "streaming deployments answer with their live cells — drop_mask"
-                " / drop_cells / max_cells degradation applies to grid deployments",
+                " / max_cells degradation applies to grid/mesh deployments",
             )
             return self._state["core"].query(queries)
         queries = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
         data, index = self._state["data"], self._state["index"]
         if kind == "single":
             pipeline._require(
-                drop_mask is None and drop_cells is None,
-                "drop_mask / drop_cells only apply to grid deployments (a"
-                " single shard has no nodes or cells to drop)",
+                drop_mask is None,
+                "drop_mask only applies to grid/mesh deployments (a single"
+                " shard has no straggler nodes to drop)",
             )
             res = pipeline.query_batch(index, data, queries, self.cfg, self._payload())
             return DistributedQueryResult(
@@ -375,6 +436,12 @@ class Index:
                 res.compaction_overflow[None, None],
                 torch.ones((1, 1, queries.shape[0]), dtype=torch.bool, device=self.device),
                 None if res.rerank_misses is None else res.rerank_misses[None, None],
+            )
+        if kind == "mesh":
+            return D.mesh_query(
+                self.deploy.mesh, index, data, queries, self.cfg, self.grid,
+                reducer=self.deploy.reducer, drop_mask=drop_mask, plan=self.plan,
+                max_cells=max_cells, family=self._state.get("family"),
             )
         return D.grid_query(
             index, data, queries, self.cfg, self.grid, plan=self.plan,
@@ -458,8 +525,8 @@ class Index:
         re-hash of the data); queries route, bit-identical to broadcast."""
         pipeline._require(
             self.deploy.kind == "grid",
-            "with_routing derives a plan from a grid deployment — streaming"
-            " deployments take routed=True at build time",
+            "with_routing derives a plan from a grid deployment — mesh"
+            " and streaming deployments take routed=True at build time",
         )
         plan = routing.make_plan(
             self._state["index"], self.cfg, self.grid, replication=replication, bits=route_bits
@@ -547,21 +614,27 @@ class Index:
         (atomic rename, one .npy per leaf, grid cells stacked ``(nu, p)``,
         keys and salts ``uint32``), the deployment, config and host-side
         cursors in ``dslsh.json``. :func:`load` restores the handle, and so
-        does ``repro.api.load``; round trips are bit-exact."""
+        does ``repro.api.load``; round trips are bit-exact. On a mesh every
+        rank calls it: rank 0 gathers the cells and the nodes' rows and
+        writes the JAX package's mesh checkpoint, and every rank returns
+        once it is written."""
         ob = self._bound_obs()
         span = ob.span("index.save", path=path) if ob is not None else obs_mod.NULL_SPAN
         with span:
             state, extra = _state_arrays(self)
-            os.makedirs(path, exist_ok=True)
-            ckpt_store.save({"state": state}, 0, path)
-            meta = {
-                "format": 1,
-                "cfg": _cfg_dict(self.cfg),
-                "deploy": _deploy_dict(self.deploy),
-                "extra": extra,
-            }
-            with open(os.path.join(path, "dslsh.json"), "w") as f:
-                json.dump(meta, f, indent=2)
+            if state is not None:
+                os.makedirs(path, exist_ok=True)
+                ckpt_store.save({"state": state}, 0, path)
+                meta = {
+                    "format": 1,
+                    "cfg": _cfg_dict(self.cfg),
+                    "deploy": _deploy_dict(self.deploy),
+                    "extra": extra,
+                }
+                with open(os.path.join(path, "dslsh.json"), "w") as f:
+                    json.dump(meta, f, indent=2)
+            if self.deploy.kind == "mesh":
+                ctx.barrier(self.deploy.mesh)
             return path
 
 
@@ -595,9 +668,20 @@ def build(
     stamps a streaming deployment's warm-up windows. ``obs`` binds an
     observability bundle: the build records an ``index.build`` span and
     the handle is instrumented. Runs on the CUDA card unless ``device``
-    says otherwise.
+    says otherwise; a mesh deployment runs on its mesh's device. On a mesh
+    every rank calls ``build`` with the same arguments (``data`` may be a
+    memory-mapped array: a rank reads only its node's rows), so every rank
+    hashes with the same family, and keeps its own cell.
     """
-    dev = device_mod.resolve(device)
+    if deploy.kind == "mesh":
+        dev = deploy.mesh.device
+        pipeline._require(
+            device is None or torch.device(device) == dev,
+            f"device={device!r}: a mesh deployment builds on its mesh's"
+            f" device ({dev}) — pass the device to make_local_mesh",
+        )
+    else:
+        dev = device_mod.resolve(device)
     if obs is not None and obs.enabled:
         n = int(np.shape(data)[0])
         with obs.activate(), obs.span("index.build", deployment=deploy.kind, n=n):
@@ -611,10 +695,10 @@ def build(
 
 
 def _build_impl(seed, data, cfg, deploy, dev, params, t0, obs) -> Index:
-    data = torch.as_tensor(data, dtype=torch.float32, device=dev).contiguous()
-    n, d = data.shape
+    n, d = (int(s) for s in np.shape(data))
     family = _family(seed, d, cfg, dev, params)
     if deploy.kind == "single":
+        data = torch.as_tensor(data, dtype=torch.float32, device=dev).contiguous()
         index = pipeline.build_from_params(data, *family, cfg)
         return Index(deploy, cfg, {"index": index, "data": data}, obs)
     pipeline._require(
@@ -634,6 +718,17 @@ def _build_impl(seed, data, cfg, deploy, dev, params, t0, obs) -> Index:
         " dataset first (dslsh.pad_to_multiple(points, labels,"
         f" {deploy.cells}))",
     )
+    if deploy.kind == "mesh":
+        mesh, g = deploy.mesh, deploy.grid
+        local = D.node_rows(mesh, data, g)
+        state = {"index": D.dslsh_build(mesh, family, local, cfg, g), "data": local}
+        if deploy.routed:
+            state["family"] = family[0]
+            state["plan"] = routing.make_mesh_plan(
+                mesh, state["index"], cfg, g, replication=1, bits=deploy.route_bits
+            )
+        return Index(deploy, cfg, state, obs)
+    data = torch.as_tensor(data, dtype=torch.float32, device=dev).contiguous()
     if deploy.kind == "streaming":
         core = shard_mod.ShardedStream(
             family, data, cfg, deploy.grid,
@@ -651,35 +746,73 @@ def _build_impl(seed, data, cfg, deploy, dev, params, t0, obs) -> Index:
     return Index(deploy, cfg, state, obs)
 
 
-def load(path: str, *, device: str | torch.device | None = None, obs: obs_mod.Obs | None = None) -> Index:
+def load(
+    path: str, *, device_mesh: ctx.Mesh | None = None,
+    device: str | torch.device | None = None, obs: obs_mod.Obs | None = None,
+) -> Index:
     """Restore an :class:`Index` saved by :meth:`Index.save` or by the JAX
     package's ``Index.save``, on ``device`` (the card unless told
-    otherwise). ``obs`` instruments the restored handle and records an
-    ``index.load`` span around the restore. A mesh deployment raises
-    ``NotImplementedError`` (not ported yet)."""
+    otherwise). An index saved from a mesh needs a mesh of the same shape
+    handed back in ``device_mesh``; every rank then calls ``load`` and
+    reads only its own cell and its node's rows, on the mesh's device.
+    ``obs`` instruments the restored handle and records an ``index.load``
+    span around the restore."""
     with open(os.path.join(path, "dslsh.json")) as f:
         meta = json.load(f)
     dep = dict(meta["deploy"])
     if dep["kind"] == "mesh":
-        raise NotImplementedError(f"the mesh deployment {_NOT_PORTED}")
-    dep.pop("reducer", None)  # a mesh Reducer knob
+        pipeline._require(
+            device_mesh is not None,
+            "this index was saved from a mesh deployment; device meshes"
+            " are not serializable — pass load(path,"
+            " device_mesh=make_local_mesh(nu, p)) (repro_torch.launch.mesh)",
+        )
+        shape = device_mesh.shape
+        pipeline._require(
+            (shape.get("rep", 1), shape.get("data"), shape.get("model"))
+            == (dep["replication"], dep["nu"], dep["p"]),
+            f"the index was saved from a rep x data x model ="
+            f" {dep['replication']}x{dep['nu']}x{dep['p']} mesh; device_mesh"
+            f" has {shape}",
+        )
+        pipeline._require(
+            device is None or torch.device(device) == device_mesh.device,
+            f"device={device!r}: a mesh index loads on its mesh's device"
+            f" ({device_mesh.device})",
+        )
+        dep["mesh"] = device_mesh
+    else:
+        dep.pop("reducer", None)  # a mesh's knob
     if dep.get("retention_s") is None:
         dep["retention_s"] = float("inf")
     if dep.get("degrade") is not None:
         dep["degrade"] = tuple(tuple(level) for level in dep["degrade"])
-    deploy = Deployment(**dep)
+    deploy = (MeshDeployment if dep["kind"] == "mesh" else Deployment)(**dep)
     cfg_kw = dict(meta["cfg"])
     cfg_kw["backend"] = _PORT_BACKEND.get(cfg_kw["backend"], cfg_kw["backend"])
     cfg_kw["interpret"] = None  # a JAX execution knob the port has no use for
     cfg = SLSHConfig.compose(**cfg_kw)
-    dev = device_mod.resolve(device)
+    dev = device_mesh.device if deploy.kind == "mesh" else device_mod.resolve(device)
     ob = obs if obs is not None and obs.enabled else None
     if ob is None:
-        state = ckpt_store.restore({"state": _state_skeleton(deploy)}, 0, path)["state"]
-        return _rehydrate(deploy, cfg, state, meta["extra"], dev, obs)
+        return _rehydrate(deploy, cfg, _restore(deploy, path), meta["extra"], dev, obs)
     with ob.activate(), ob.span("index.load", path=path):
-        state = ckpt_store.restore({"state": _state_skeleton(deploy)}, 0, path)["state"]
-        return _rehydrate(deploy, cfg, state, meta["extra"], dev, obs)
+        return _rehydrate(deploy, cfg, _restore(deploy, path), meta["extra"], dev, obs)
+
+
+def _restore(deploy: Deployment, path: str) -> dict:
+    """The saved state tree: numpy leaves, or on a mesh this rank's blocks
+    (cells split ``(data, model)``, rows ``data``) as tensors on its
+    device."""
+    skel = _state_skeleton(deploy)
+    if deploy.kind != "mesh":
+        return ckpt_store.restore({"state": skel}, 0, path)["state"]
+    mesh = deploy.mesh
+    cell = ctx.NamedSharding(mesh, ("data", "model"))
+    shardings = {"index": _tree_map(lambda _: cell, skel["index"]), "data": ctx.NamedSharding(mesh, ("data",))}
+    if "plan" in skel:
+        shardings["plan"] = {k: ctx.NamedSharding(mesh) for k in skel["plan"]}
+    return ckpt_store.restore({"state": skel}, 0, path, shardings={"state": shardings})["state"]
 
 
 # ----------------------------------------------------- persistence helpers
@@ -697,8 +830,8 @@ def _cfg_dict(cfg: SLSHConfig) -> dict:
 
 
 def _deploy_dict(deploy: Deployment) -> dict:
-    out = {f.name: getattr(deploy, f.name) for f in dataclasses.fields(Deployment)}
-    out["reducer"] = "allgather"  # the JAX package's mesh Reducer field, at its default
+    out = {f.name: getattr(deploy, f.name) for f in dataclasses.fields(deploy) if f.name != "mesh"}
+    out.setdefault("reducer", "allgather")  # the JAX package's mesh Reducer field, at its default
     if not np.isfinite(out["retention_s"]):
         out["retention_s"] = None  # JSON has no inf
     return out
@@ -720,10 +853,13 @@ def _stack(trees: list, shape: tuple[int, ...]):
     return np.stack([np.asarray(t) for t in trees]).reshape(shape + np.shape(first))
 
 
-def _state_arrays(index: Index) -> tuple[dict, dict]:
+def _state_arrays(index: Index) -> tuple[dict | None, dict]:
     """(the tree to checkpoint, host-side extras for the JSON sidecar), in
-    the JAX package's layout."""
+    the JAX package's layout; on a mesh a collective, whose tree is None
+    on every rank but 0."""
     st = index._state
+    if index.deploy.kind == "mesh":
+        return _gather_mesh_state(index), {}
     if index.deploy.kind == "streaming":
         core: shard_mod.ShardedStream = st["core"]
         p = index.deploy.p
@@ -745,9 +881,12 @@ def _state_arrays(index: Index) -> tuple[dict, dict]:
     data = st["data"].cpu().numpy()
     if index.deploy.kind == "single":
         return {"index": params_mod.index_to_numpy(st["index"]), "data": data}, {}
-    cells = [params_mod.index_to_numpy(c) for c in st["index"]]
-    tree = {"index": _stack(cells, (index.deploy.nu, index.deploy.p)), "data": data}
-    plan = st.get("plan")
+    return _grid_tree(index.deploy, st["index"], data, st.get("plan")), {}
+
+
+def _grid_tree(deploy: Deployment, cells: list, data: np.ndarray, plan) -> dict:
+    """A grid's (or mesh's) checkpoint tree: cells stacked ``(nu, p)``."""
+    tree = {"index": _stack([params_mod.index_to_numpy(c) for c in cells], (deploy.nu, deploy.p)), "data": data}
     if plan is not None:
         tree["plan"] = {
             "occupancy": plan.occupancy.cpu().numpy(),
@@ -755,7 +894,26 @@ def _state_arrays(index: Index) -> tuple[dict, dict]:
             "heat": np.asarray(plan.heat, np.float32),
             "cell_device": np.asarray(plan.cell_device, np.int32),
         }
-    return tree, {}
+    return tree
+
+
+def _gather_mesh_state(index: Index) -> dict | None:
+    """(collective) Rank 0 gathers every cell of replica 0 and every
+    node's rows (from its core 0) and returns the grid's checkpoint tree;
+    every other rank returns None."""
+    dep, st = index.deploy, index._state
+    mesh = dep.mesh
+    lead = (0,) if "rep" in mesh.shape else ()
+    cells = [mesh.rank_of(lead + (j, c)) for j in range(dep.nu) for c in range(dep.p)]
+    cell = st["index"]
+    cell = cell._replace(n=torch.tensor(cell.n, device=st["data"].device))
+    got = _tree_map(lambda t: ctx.gather_to(mesh, t, cells), cell)
+    rows = ctx.gather_to(mesh, st["data"], [mesh.rank_of(lead + (j, 0)) for j in range(dep.nu)])
+    if rows is None:
+        return None
+    parts = [_tree_map(lambda lst, i=i: lst[i], got) for i in range(len(cells))]
+    parts = [c._replace(n=int(c.n)) for c in parts]
+    return _grid_tree(dep, parts, torch.cat(rows).numpy(), st.get("plan"))
 
 
 def _skel_index() -> pipeline.SLSHIndex:
@@ -813,6 +971,20 @@ def _rehydrate(deploy: Deployment, cfg: SLSHConfig, state: dict, extra: dict, de
             route_bits=deploy.route_bits, rr=int(extra.get("rr", 0)), device=dev,
         )
         return Index(deploy, cfg, {"core": core}, obs)
+    if deploy.kind == "mesh":  # this rank's blocks, already on its device
+        mesh = deploy.mesh
+        cell = params_mod.index_from_numpy(_tree_map(lambda t: t[0, 0], state["index"]), dev)
+        new_state = {"index": cell, "data": state["data"].to(torch.float32)}
+        if deploy.routed and "plan" in state:
+            p = state["plan"]
+            new_state["family"] = D.mesh_family(mesh, cell)
+            new_state["plan"] = routing.RoutingPlan(
+                occupancy=p["occupancy"].to(torch.bool),
+                replicas=p["replicas"].cpu().numpy().astype(np.int32),
+                heat=p["heat"].cpu().numpy().astype(np.float32),
+                cell_device=p["cell_device"].cpu().numpy().astype(np.int32),
+            )
+        return Index(deploy, cfg, new_state, obs)
     data = on(state["data"])
     ix = state["index"]
     if deploy.kind == "single":

@@ -125,23 +125,42 @@ def _leaf(arr: np.ndarray, dtype: str | None, device):
     return torch.as_tensor(arr, device=device)
 
 
-def restore(tree_like, step: int, ckpt_dir: str, device=None):
+def _sharded_leaf(file: str, dtype: str | None, sharding):
+    """This rank's block of a saved leaf, on its mesh's device; a split
+    leaf is read memory-mapped, so only the block leaves the disk."""
+    arr = np.load(file, mmap_mode="r" if sharding.spec else None)
+    return _leaf(np.array(sharding.block(arr)), dtype, sharding.mesh.device)
+
+
+def restore(tree_like, step: int, ckpt_dir: str, device=None, shardings=None):
     """Restore into the structure of ``tree_like`` (its leaves are only
     placeholders). With ``device=None`` leaves come back as numpy arrays
     (bfloat16 ones as CPU torch tensors, numpy having no such type); with a
     ``device`` every leaf is a torch tensor there, ``uint32`` widened to
-    ``int64`` as the port carries 32-bit keys."""
+    ``int64`` as the port carries 32-bit keys.
+
+    ``shardings``, a tree matching ``tree_like`` of
+    :class:`repro_torch.sharding.ctx.NamedSharding`, places each leaf on a
+    mesh instead: this rank keeps only its block (the leading dims its
+    spec splits over the mesh axes, indexed by its coordinates; a spec of
+    ``()`` keeps the whole leaf), as a tensor on the mesh's device. This
+    is how a restart onto another mesh re-shards the state."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     if manifest["step"] != step:
         raise ValueError(f"{path} holds step {manifest['step']}, not {step}")
     dtypes = manifest.get("dtypes", {})
+    names = leaf_names(tree_like)
+    files = [os.path.join(path, f"{n}.npy") for n in names]
+    if shardings is not None:
+        specs = [s for _, s in _flatten(shardings)]
+        if len(specs) != len(names):
+            raise ValueError(f"shardings has {len(specs)} leaves, the tree {len(names)}")
+        leaves = [_sharded_leaf(f, dtypes.get(n), s) for f, n, s in zip(files, names, specs)]
+        return _unflatten(tree_like, iter(leaves))
     dev = None if device is None else torch.device(device)
-    leaves = [
-        _leaf(np.load(os.path.join(path, f"{n}.npy")), dtypes.get(n), dev)
-        for n in leaf_names(tree_like)
-    ]
+    leaves = [_leaf(np.load(f), dtypes.get(n), dev) for f, n in zip(files, names)]
     return _unflatten(tree_like, iter(leaves))
 
 

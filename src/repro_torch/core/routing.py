@@ -9,9 +9,10 @@ top-Ks. Three pieces remove that wall:
   routed only to the cells one of its probe keys can land in; an
   unoccupied coarse slot proves the key is absent, so routing never
   changes a result bit.
-* **Replication plan** (:func:`make_plan`): hot cells (heavy-bucket mass)
-  get up to ``r`` replicas on a logical device pool, and a query batch
-  block-splits across each cell's replicas.
+* **Replication plan** (:func:`make_plan`; on a mesh
+  :func:`make_mesh_plan`, the same plan from the ranks' gathered cells):
+  hot cells (heavy-bucket mass) get up to ``r`` replicas on a logical
+  device pool, and a query batch block-splits across each cell's replicas.
 * **Tournament merge** (:func:`merge_partials_tree`): partial top-Ks merge
   through (dst, src) rounds that visit partials in ascending cell order,
   so the result equals the flat merge bit for bit, ties included.
@@ -32,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import hashing, pipeline, topk
+from repro_torch.sharding import ctx
 
 DEFAULT_BITS = 12  # coarse key-map slots per table = 2**bits
 
@@ -172,21 +174,39 @@ def deal_devices(replicas: np.ndarray) -> np.ndarray:
     return cell_device
 
 
-def make_plan(index, cfg, grid, *, replication: int = 1, bits: int = DEFAULT_BITS) -> RoutingPlan:
-    """Routing plan for a grid's flat (node, core) list of cell indexes.
+def cell_heat(cell) -> float:
+    """A cell's heat: the point mass of its valid heavy buckets."""
+    return float((cell.heavy.size * cell.heavy.valid).sum())
 
-    A cell's heat is its heavy-bucket mass; cells at or above the grid mean
-    get ``replication`` replicas, the rest one.
-    """
-    occ = torch.stack([cell_occupancy(c.outer.sorted_keys, c.n, bits) for c in index])
+
+def plan_from_cells(occ: torch.Tensor, heat: np.ndarray, grid, replication: int = 1) -> RoutingPlan:
+    """The plan from every cell's occupancy ``(cells, L_loc, 2**bits)`` and
+    heat ``(nu, p)``, cells in flat (node, core) order: cells at or above
+    the grid's mean heat get ``replication`` replicas, the rest one."""
     occupancy = occ.reshape(grid.nu, grid.p * occ.shape[1], occ.shape[2])
-    heat = np.asarray(
-        [float((c.heavy.size * c.heavy.valid).sum()) for c in index], np.float32
-    ).reshape(grid.nu, grid.p)
+    heat = np.asarray(heat, np.float32).reshape(grid.nu, grid.p)
     replicas = np.ones((grid.nu, grid.p), np.int32)
     if replication > 1:
         replicas[heat >= heat.mean()] = replication
     return RoutingPlan(occupancy, replicas, heat, deal_devices(replicas))
+
+
+def make_plan(index, cfg, grid, *, replication: int = 1, bits: int = DEFAULT_BITS) -> RoutingPlan:
+    """Routing plan for a grid's flat (node, core) list of cell indexes."""
+    occ = torch.stack([cell_occupancy(c.outer.sorted_keys, c.n, bits) for c in index])
+    return plan_from_cells(occ, np.asarray([cell_heat(c) for c in index], np.float32), grid, replication)
+
+
+def make_mesh_plan(mesh, cell, cfg, grid, *, replication: int = 1, bits: int = DEFAULT_BITS) -> RoutingPlan:
+    """The plan :func:`make_plan` builds from the whole cell list, built
+    on every rank of a mesh from this rank's ``cell``: each cell's
+    occupancy and heat are gathered over ``model``, then ``data``."""
+    occ = cell_occupancy(cell.outer.sorted_keys, cell.n, bits)
+    heat = torch.tensor([cell_heat(cell)], dtype=torch.float32, device=occ.device)
+    occ, heat = (
+        ctx.all_gather(mesh, "data", ctx.all_gather(mesh, "model", t)) for t in (occ, heat)
+    )
+    return plan_from_cells(occ.flatten(0, 1), heat.cpu().numpy(), grid, replication)
 
 
 def replan(plan: RoutingPlan, replicas: np.ndarray) -> RoutingPlan:

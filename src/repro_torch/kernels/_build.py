@@ -10,7 +10,10 @@ the checkout (listed in ``.gitignore``):
 The library name carries a hash of the sources, so an edited kernel is
 rebuilt and a stale one is never loaded. :func:`build` starts one nvcc per
 missing library, all at once, and waits for them together; ptxas's register
-and spill report lands in ``<name>-<hash>.log`` beside the library.
+and spill report lands in ``<name>-<hash>.log`` beside the library. nvcc
+writes to a name of its own process and the library is renamed into place
+(``os.replace``), so processes starting together (the ranks of a mesh)
+never load a half-written library.
 
 Every wrapper counts its launches in :data:`LAUNCHES` (one per launch of its
 kernel, nowhere else), so a run can show which kernels its path went
@@ -98,7 +101,9 @@ def build(names: tuple[str, ...] = SOURCES) -> dict[str, Path]:
     failed = []
     for name, (proc, tmp) in procs.items():
         out, _ = proc.communicate()
-        todo[name].with_suffix(".log").write_text(out)
+        log = todo[name].with_suffix(f".{os.getpid()}.logtmp")
+        log.write_text(out)
+        os.replace(log, todo[name].with_suffix(".log"))
         if proc.returncode != 0:
             failed.append(f"{name}.cu (exit {proc.returncode}):\n{out}")
             continue

@@ -28,6 +28,8 @@ def _fields(obj: Any) -> Mapping[str, Any]:
 
 
 def _t(a, dtype: torch.dtype, device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):  # a restored block, already widened
+        return a.to(device=device, dtype=dtype)
     arr = np.array(a)  # a writable copy
     if dtype == torch.int64:
         arr = arr.astype(np.int64)  # uint32 values, widened
@@ -45,7 +47,7 @@ def from_jax_params(
     device = device_mod.resolve(device)
     o, i = _fields(outer), _fields(inner)
     dims = _t(o["dims"], torch.int32, device)
-    d = int(np.asarray(i["proj"]).shape[1])
+    d = int(np.shape(i["proj"])[1])
     if dims.numel() and not (0 <= int(dims.min()) and int(dims.max()) < d):
         raise ValueError(f"bit-sampling dims must lie in [0, {d})")
     return (
@@ -60,8 +62,8 @@ def from_jax_params(
 
 def index_from_numpy(ix: Any, device: torch.device | str | None = None) -> pipeline.SLSHIndex:
     """An ``SLSHIndex`` from any object with the same leaves (for instance
-    the JAX package's index), read through ``np.asarray``, on ``device``
-    (the card unless told otherwise)."""
+    the JAX package's index, read through ``np.asarray``, or restored
+    tensors), on ``device`` (the card unless told otherwise)."""
     device = device_mod.resolve(device)
     outer, inner = from_jax_params(ix.outer_params, ix.inner_params, device)
     hv = ix.heavy
@@ -81,7 +83,7 @@ def index_from_numpy(ix: Any, device: torch.device | str | None = None) -> pipel
         ),
         _t(ix.inner_keys, torch.int64, device),
         _t(ix.inner_idx, torch.int32, device),
-        int(np.asarray(ix.n)),
+        int(ix.n),
     )
 
 

@@ -8,7 +8,8 @@ hold disjoint slices), so the recovery story is:
   per-node liveness (simulated here; on a real cluster this is the
   coordinator service). Missed deadline => node marked down.
 * **Straggler mitigation (serving)** — the Reducer proceeds with a
-  ``drop_mask`` excluding late nodes (``index.query(q, drop_mask=...)``):
+  ``drop_mask`` excluding late nodes (``index.query(q, drop_mask=...)``,
+  on a grid or a mesh):
   bounded tail latency at a small recall cost, the paper's latency-first
   design.
 * **Elastic repair** — on permanent failure the lost nodes' cells are

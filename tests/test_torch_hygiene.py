@@ -36,7 +36,7 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
     )
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 73  # every module of the slices: checkpoint/, runtime/, models/, serve/, configs/, obs/ and stream/ included
+    assert n_modules >= 77  # every module of the slices: checkpoint/, runtime/, models/, serve/, configs/, obs/, stream/, sharding/ and launch/mesh* included
 
 
 _BANNED = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+repro\b(?!_)|from\s+repro[.\s])", re.M)
@@ -109,6 +109,10 @@ def test_family_constructors_refuse_to_fall_back_to_cpu(name):
 
 
 def test_unported_deployments_raise_not_implemented(tmp_path):
+    """The mesh deployment is ported: where it once raised
+    ``NotImplementedError``, the port now refuses what the JAX package
+    refuses, with a ``ConfigError``: a mesh deployment without a device
+    mesh, and an index saved from a mesh loaded without one."""
     import json
 
     from repro_torch import api
@@ -117,9 +121,7 @@ def test_unported_deployments_raise_not_implemented(tmp_path):
     (tmp_path / "dslsh.json").write_text(json.dumps({"format": 1, "cfg": {}, "extra": {}, "deploy": {
         "kind": "mesh", "nu": 2, "p": 2, "replication": 1, "routed": False, "route_bits": 12,
         "reducer": "allgather", "degrade": None, "node_capacity": None, "delta_cap": 64, "retention_s": None}}))
-    for call in (
-        lambda: api.mesh(None),
-        lambda: api.load(str(tmp_path), device="cpu"),
-    ):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    with pytest.raises(api.ConfigError, match="need the device mesh"):
+        api.Deployment(kind="mesh", nu=2, p=2)
+    with pytest.raises(api.ConfigError, match="saved from a mesh deployment.*device_mesh="):
+        api.load(str(tmp_path), device="cpu")
