@@ -2,9 +2,9 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs eleven
-phases, printing one JSON line each; any failed check raises, so the script
-exits non-zero:
+Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs
+thirteen phases, printing one JSON line each; any failed check raises, so
+the script exits non-zero:
 
 1. ``device``     the card's name and power limit (``nvidia-smi``).
 2. ``kernels``    each hand-written kernel against its plain PyTorch version
@@ -135,6 +135,30 @@ exits non-zero:
 11. ``serve``     ``repro_torch.launch.serve.main --arch granite-8b`` with
                   its defaults: 4 requests through ``ServeEngine`` on the
                   card.
+12. ``serve_twin`` ``examples/torch_serve_knn_lm.main`` with its ``"cuda"``
+                  backend: trains the serve-demo LM (120 steps), builds
+                  the DSLSH datastore over its hidden states on
+                  ``grid(nu=2, p=4)`` and serves 6 requests with lmbda 0
+                  and 0.3. Checks: the loss falls, A, B, D and F launch,
+                  the hook's output equals ``knn_interpolate`` on the
+                  index's and the ``"torch"`` backend's answers.
+13. ``train``     LM training at hubert-xlarge's FULL size (48 layers,
+                  d_model 1280, 0.95 B parameters, no cut) through
+                  ``launch.train``'s step and audio batches (8 x 1,024
+                  frames, 30 % masked): step 0's loss and every leaf's
+                  gradient against a plain path (no remat, one attention
+                  block, whole logits, ``F.cross_entropy``) on 2 rows;
+                  6 timed steps of float32 AdamW with remat "dots" (loss,
+                  grad_norm, lr, ms each; median ms, frames per second,
+                  peak memory; every leaf moves after the first update);
+                  ``train_profile``: the step split into loss-and-gradients
+                  and update (each timed alone, median of 3), then 2 steps
+                  profiled (the device's idle share). Then kernel F
+                  refusing a q that requires gradients, two AdamW updates of ``layers/wq`` on the
+                  card against the CPU (32- and 8-bit moments), and
+                  ``ft.simulate_training_failure_and_restart`` at
+                  granite's smoke config under deterministic algorithms,
+                  bit for bit against an uninterrupted run.
 
 The ``kernels`` line comes last but two, then the ``nvidia-smi`` line, and
 the last line is ``{"ok": true, "device": {...}}``. A kernel's ``launches``
@@ -143,7 +167,8 @@ staged form's distance stage, is on no path of the ``"cuda"`` backend and
 counts 0 there), the payload phase's two compressed
 queries for E, the ``knn_lm`` phase for F; every row also gives its
 launches on the ``routes``, ``quickstart``, ``routed``, ``icu_serve``, ``stream``,
-``knn_lm`` and ``serve`` paths, and A, B and D their launches summed over the
+``knn_lm``, ``serve``, ``serve_twin`` and ``train`` paths (no kernel runs on
+the training path, as none does on the JAX package's), and A, B and D their launches summed over the
 ``mesh`` phase's ranks (``mesh_launches``). Without a CUDA
 device, or without the repository's ``src/`` beside it, the script exits
 non-zero before printing any result.
@@ -218,6 +243,29 @@ FA_RTOL, FA_ATOL = 2.0**-7, 1e-3
 # one bf16 ulp at 4-8. The tight gate on F is flash_row's, per element at
 # each shape; this one must still catch the GATED_FAULTS the phase plants.
 LOGIT_ATOL = 2.0**-5
+
+# the training slice: hubert-xlarge's FULL config, no cut (48 layers,
+# d_model 1280, 16 heads of 80, d_ff 5120, gelu, vocabulary 504, non-causal,
+# 512-wide frames), on the JAX launcher's audio batches at 8 x 1,024 frames
+TRAIN_ARCH = "hubert-xlarge"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_PROFILED = 8, 1024, 6, 2
+# The step-0 check holds the training path (remat "dots", chunked attention
+# and loss, each chunk under a checkpoint) to a plain path (no remat, one
+# attention block, whole logits, F.cross_entropy) on the batch's first 2
+# rows: the plain path keeps every layer's activations, past 80 GB at 8. The
+# two run the same bf16 matmuls, but attention and loss in other shapes and
+# orders, so an element may land a bf16 ulp apart, which later layers carry
+# on; as tests/test_torch_train.py holds the port to JAX: the loss within
+# rtol 1e-3, each leaf's gradient within 2^-5 of its largest element and at
+# a cosine of at least 0.999.
+TRAIN_CHECK_ROWS = 2
+TRAIN_LOSS_RTOL, TRAIN_GRAD_FRAC, TRAIN_GRAD_COS = 1e-3, 2.0**-5, 0.999
+# AdamW on the card against the CPU on one stacked leaf: parameters within
+# rtol 1e-6 (the schedule's pow and the divisions may round an ulp apart),
+# float32 moments and block scales within 4 ulps (rtol 2^-21; the clip
+# scale comes from a norm summed in another order)
+UPDATE_LEAF = "wq"
+UPDATE_P_RTOL, UPDATE_M_RTOL = 1e-6, 2.0**-21
 
 
 def emit(phase: str, **fields) -> None:
@@ -315,14 +363,18 @@ def profile_activities(dev) -> list:
     return acts
 
 
-def profile_query(dev, fn, queries: int = 200) -> dict:
+def profile_query(dev, fn, queries: int = 200, host_ops: bool = True) -> dict:
     """Wall time of ``fn()`` under the profiler, the summed time of its
     kernels on the card (device busy), the device's idle share, the eight
     longest kernels and the port's own, each with its share of the busy
-    time."""
+    time. ``host_ops=False`` traces the card's kernels only, which spares
+    the host the per-op records that slow a path of many ops."""
     import torch
 
-    with torch.profiler.profile(activities=profile_activities(dev)) as prof:
+    acts = profile_activities(dev)
+    if not host_ops and dev.type == "cuda":
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         sync(dev)
@@ -1047,6 +1099,8 @@ def run(dev, n: int, nq: int, lm_smoke: bool = False, ds_seqs: int = DS_SEQS) ->
     f_row, knn, lm_launches = knn_lm_phase(dev, lm_smoke, ds_seqs, lambda: scratch.zero_())
     del scratch
     serve_launches = serve_phase(["--arch", LM_ARCH] + (["--smoke", "--device", dev.type] if lm_smoke else []))
+    twin_launches = serve_twin_phase(dev)
+    train_launches = train_phase(dev, lm_smoke)
     for r in rows:
         extra = knn.get(r["name"])
         if extra is None:
@@ -1075,6 +1129,8 @@ def run(dev, n: int, nq: int, lm_smoke: bool = False, ds_seqs: int = DS_SEQS) ->
         r["stream_launches"] = stream_launches.get(r["name"], 0)
         r["knn_lm_launches"] = lm_launches.get(r["name"], 0)
         r["serve_launches"] = serve_launches.get(r["name"], 0)
+        r["serve_twin_launches"] = twin_launches.get(r["name"], 0)
+        r["train_launches"] = train_launches.get(r["name"], 0)
     print(json.dumps({"kernels": rows}), flush=True)
 
 
@@ -2174,6 +2230,46 @@ def continuation_accuracy(stream, prompts, gens) -> float:
     return float(np.mean(acc))
 
 
+def hook_checks(what: str, index, scfg, grid, labels, vocab: int, calls, checks: list) -> dict:
+    """The kNN-LM hook on every call it made (``calls``: logits in, logits
+    out, query hidden state, lmbda 0.3), against ``knn_interpolate`` on the
+    cuda index's own answer for its query (every row), and on the
+    ``"torch"`` backend's answer where both backends return the same
+    neighbours (``need_topk`` holds the two answers together on every row,
+    ties included). There the distances still differ by float32 rounding
+    (the backends sum over d in another order), which the softmax weights
+    carry on: with z = -dist / T (T = 1, the hook's default),
+    ||dw||_1 <= 2 max|dz| and so each probability moves by at most
+    lmbda * 2 max|d dist|. The mixed probabilities are held to that, plus
+    1e-6 for their own rounding. Appends the checks to ``checks``; returns
+    the fields for the phase's line."""
+    import torch
+
+    from repro_torch.core import distributed as D
+    from repro_torch.serve import engine
+
+    logits_in, mixed, hq = (torch.cat(t) for t in zip(*calls))
+    res_c = [index.query(h[None]) for h in hq]
+    idx_c, dist_c = torch.cat([r.knn_idx for r in res_c]), torch.cat([r.knn_dist for r in res_c])
+    want_c = engine.knn_interpolate(logits_in, idx_c, dist_c, labels, vocab, 0.3)
+    checks.append((bool(torch.allclose(mixed, want_c, rtol=1e-5, atol=1e-5)),
+                   f"{what}: the hook's output differs from knn_interpolate on the index's answer"))
+    res_t = D.grid_query(index.pipeline_index, index._state["data"], hq.float(), scfg.replace(backend="torch"), grid)
+    need_topk(dist_c, idx_c, res_t.knn_dist, res_t.knn_idx,
+              point_dist_of(index._state["data"], hq.float()), f"{what}: cuda and torch retrieval differ")
+    want_t = engine.knn_interpolate(logits_in, res_t.knn_idx, res_t.knn_dist, labels, vocab, 0.3)
+    same = (idx_c == res_t.knn_idx).all(dim=1)
+    real = same[:, None] & (idx_c >= 0)
+    dist_gap = float((dist_c - res_t.knn_dist).abs()[real].max()) if real.any() else 0.0
+    p_err = float((mixed[same].exp() - want_t[same].exp()).abs().max()) if same.any() else 0.0
+    p_tol = 0.3 * 2 * dist_gap + 1e-6
+    checks.append((p_err <= p_tol, f"{what}: the hook's probabilities differ from knn_interpolate on the torch"
+                                   f" backend's neighbours by {p_err} > {p_tol}"))
+    return dict(hook_calls=int(same.numel()), hook_rows_identical_to_torch_backend=int(same.sum()),
+                hook_torch_backend_dist_gap=dist_gap, hook_torch_backend_p_err=p_err,
+                hook_torch_backend_p_tol=p_tol)
+
+
 def knn_lm_phase(dev, smoke: bool, ds_seqs: int, flush) -> tuple[dict, dict, dict, dict]:
     """The kNN-LM serving path of examples/serve_knn_lm.py steps 2-3 at
     granite-8b's full width and depth, weights from a seeded generator:
@@ -2189,7 +2285,6 @@ def knn_lm_phase(dev, smoke: bool, ds_seqs: int, flush) -> tuple[dict, dict, dic
     import torch
 
     from repro_torch import configs, dslsh
-    from repro_torch.core import distributed as D
     from repro_torch.core import pipeline
     from repro_torch.data.lm_data import TokenStream
     from repro_torch.kernels import _build
@@ -2372,33 +2467,8 @@ def knn_lm_phase(dev, smoke: bool, ds_seqs: int, flush) -> tuple[dict, dict, dic
                 logits, cache = model.decode_step(lm, cache, torch.tensor([[tok]], dtype=torch.int32, device=dev))
     checks.append((not token_diffs, f"knn_lm: greedy tokens {token_diffs} (request, step) differ from the plain model's"))
 
-    # the hook on every call it made: against knn_interpolate on the cuda
-    # index's own answer for its query (every row), and on the "torch"
-    # backend's answer where both backends return the same neighbours
-    # (need_topk holds the two answers together on every row, ties included).
-    # There the distances still differ by float32 rounding (the backends sum
-    # over d in another order), which the softmax weights carry on: with
-    # z = -dist / T (T = 1, the hook's default), ||dw||_1 <= 2 max|dz| and
-    # so each probability moves by at most lmbda * 2 max|d dist|. The mixed
-    # probabilities are held to that, plus 1e-6 for their own rounding.
-    logits_in, mixed, hq = (torch.cat(t) for t in zip(*hook_log["calls"]))
-    res_c = [index.query(h[None]) for h in hq]
-    idx_c, dist_c = torch.cat([r.knn_idx for r in res_c]), torch.cat([r.knn_dist for r in res_c])
-    want_c = engine.knn_interpolate(logits_in, idx_c, dist_c, labels, cfg.vocab, 0.3)
-    checks.append((bool(torch.allclose(mixed, want_c, rtol=1e-5, atol=1e-5)),
-                   "knn_lm: the hook's output differs from knn_interpolate on the index's answer"))
-    res_t = D.grid_query(index.pipeline_index, index._state["data"], hq.float(),
-                         scfg.replace(backend="torch"), deploy.grid)
-    need_topk(dist_c, idx_c, res_t.knn_dist, res_t.knn_idx,
-              point_dist_of(index._state["data"], hq.float()), "knn_lm: cuda and torch retrieval differ")
-    want_t = engine.knn_interpolate(logits_in, res_t.knn_idx, res_t.knn_dist, labels, cfg.vocab, 0.3)
-    same = (idx_c == res_t.knn_idx).all(dim=1)
-    real = same[:, None] & (idx_c >= 0)
-    dist_gap = float((dist_c - res_t.knn_dist).abs()[real].max()) if real.any() else 0.0
-    p_err = float((mixed[same].exp() - want_t[same].exp()).abs().max()) if same.any() else 0.0
-    p_tol = 0.3 * 2 * dist_gap + 1e-6
-    checks.append((p_err <= p_tol, f"knn_lm: the hook's probabilities differ from knn_interpolate on the torch"
-                                   f" backend's neighbours by {p_err} > {p_tol}"))
+    # the hook on every call it made, against knn_interpolate
+    hook_fields = hook_checks("knn_lm", index, scfg, deploy.grid, labels, cfg.vocab, hook_log["calls"], checks)
 
     # A and B at the datastore's width (one cell's keys for A, the first
     # 1,024 for B, whose inner layer hashes only heavy-bucket points, and
@@ -2442,8 +2512,7 @@ def knn_lm_phase(dev, smoke: bool, ds_seqs: int, flush) -> tuple[dict, dict, dic
         logits_max_abs_err_vs_plain=logit_err, logits_plain_vs_attention_ref=logit_floor,
         logit_tolerance=logit_tol, logits_planted_fault_err=fault_err, greedy_tokens_checked=checked,
         greedy_tokens_within_tolerance_margin=skipped, greedy_tokens_equal_to_plain=tokens_equal,
-        hook_calls=int(same.numel()), hook_rows_identical_to_torch_backend=int(same.sum()),
-        hook_torch_backend_dist_gap=dist_gap, hook_torch_backend_p_err=p_err, hook_torch_backend_p_tol=p_tol,
+        **hook_fields,
         accuracy_lm_only=continuation_accuracy(stream, prompts, gens0),
         accuracy_with_knn=continuation_accuracy(stream, prompts, gens3),
         tokens_lmbda_0=gens0, tokens_lmbda_03=gens3,
@@ -2456,6 +2525,289 @@ def knn_lm_phase(dev, smoke: bool, ds_seqs: int, flush) -> tuple[dict, dict, dic
     for name, extra in knn.items():
         extra["knn_lm_launch_shapes"] = lm_shapes.get(name, {})
     return f_row, knn, launches
+
+
+def plain_loss(cfg, params, batch):
+    """The plain path of the masked-prediction loss: every block without
+    remat and with its attention in one block of all queries, the whole
+    (B, S, V) logits, ``F.cross_entropy`` over the masked frames."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import common as C
+    from repro_torch.models import dense
+
+    x, mask = dense._embed_inputs(cfg, params, batch)
+    s = x.shape[1]
+    pos = torch.arange(s, device=x.device)
+
+    def whole(q, k, v, *, causal, window, q_chunk):
+        return C._chunked_attention_plain(q, k, v, causal, window, 0, None, s)
+
+    for p in dense._layers(params):
+        x = dense._block(cfg, p, x, pos, whole)[0]
+    x = C.rms_norm(x, params["final_norm"])
+    logits = (x.to(torch.bfloat16) @ dense._lm_head(cfg, params).to(torch.bfloat16)).float()
+    return F.cross_entropy(logits[mask], batch["targets"][mask].long())
+
+
+def _flat(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k in sorted(tree):
+        out.update(_flat(tree[k], f"{prefix}{k}/") if isinstance(tree[k], dict) else {f"{prefix}{k}": tree[k]})
+    return out
+
+
+def update_check(p, g, bits: int) -> dict:
+    """Two ``adamw.update`` calls on one stacked leaf and its gradient, on
+    the card and on a CPU copy: parameters and moments compared."""
+    import torch
+
+    from repro_torch.optim import adamw
+
+    opt = adamw.AdamWConfig(peak_lr=1e-3, warmup_steps=1, total_steps=TRAIN_STEPS, state_bits=bits)
+    card, host = {"w": p.detach().clone()}, {"w": p.detach().cpu()}
+    s_card, s_host = adamw.init(card, opt), adamw.init(host, opt)
+    out = dict(state_bits=bits, shape=list(p.shape), updates=2)
+    for _ in range(2):
+        _, s_card, m_card = adamw.update(opt, {"w": g}, s_card, card)
+        _, s_host, m_host = adamw.update(opt, {"w": g.cpu()}, s_host, host)
+    want, got = host["w"], card["w"].cpu()
+    out["param_max_abs"] = float(want.abs().max())
+    out["param_max_abs_err"] = float((got - want).abs().max())
+    out["params_differing"] = int((got != want).sum())
+    need(bool(torch.allclose(got, want, rtol=UPDATE_P_RTOL, atol=UPDATE_P_RTOL * out["param_max_abs"])),
+         f"train: the card's update of {UPDATE_LEAF} ({bits}-bit) differs from the CPU's by {out['param_max_abs_err']}")
+    out["grad_norm"] = [float(m_card["grad_norm"]), float(m_host["grad_norm"])]
+    flips, elems = 0, 0
+    for name, a in _flat({"m": s_card.m, "v": s_card.v}).items():
+        b = _flat({"m": s_host.m, "v": s_host.v})[name]
+        a = a.cpu()
+        if name.endswith("/q"):
+            d = (a.int() - b.int()).abs()
+            need(int(d.max()) <= 1, f"train: {name} of the {bits}-bit update differs by {int(d.max())} counts")
+            flips += int((d > 0).sum())
+            elems += d.numel()
+        else:
+            need(bool(torch.allclose(a, b, rtol=UPDATE_M_RTOL, atol=UPDATE_M_RTOL * float(b.abs().max()))),
+                 f"train: {name} of the {bits}-bit update differs from the CPU's")
+    if bits == 8:
+        out.update(q_counts_off_by_one=flips, q_counts=elems, q_off_by_one_why=(
+            "the clip scale comes from a global norm summed in another order on the card, and v's fourth root is"
+            " the card's powf, each possibly an ulp apart; a count flips where a scaled moment sits on a"
+            " rounding boundary"))
+    return out
+
+
+def train_phase(dev, smoke: bool = False) -> dict:
+    """LM training at hubert-xlarge's full size through ``launch.train``'s
+    step and batches: the step-0 check against the plain path, 6 timed
+    steps of float32 AdamW with remat "dots", 2 profiled steps, then kernel
+    F's refusal of gradient-carrying inputs, the card-vs-CPU update of one
+    stacked leaf, and the restart check at granite's smoke config under
+    deterministic algorithms (``warn_only``: cuBLAS's alert about its
+    workspace setting, which only this phase would need, is recorded, not
+    raised). ``smoke`` takes hubert's smoke config at 4 x 64 frames.
+    Returns the training path's launches."""
+    import tempfile
+    import warnings
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data.lm_data import TokenStream
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import api as mapi
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import ft
+    from repro_torch.train import loop as tl
+
+    cfg = configs.get(TRAIN_ARCH, smoke=smoke)
+    batch_n, seq = (4, 64) if smoke else (TRAIN_BATCH, TRAIN_SEQ)
+    model = mapi.build_model(cfg)
+    sync(dev)
+    t0 = time.perf_counter()
+    params = model.init_masters(SEED, dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    stream = TokenStream(cfg.vocab, seed=0)
+    batches = [launch_train.make_batch(cfg, stream.batch(batch_n, seq), i, dev)
+               for i in range(TRAIN_STEPS + TRAIN_PROFILED)]
+
+    # 1. step 0: the training path against the plain path, on the first rows
+    rows = {k: v[:TRAIN_CHECK_ROWS] for k, v in batches[0].items()}
+    leaves = tl._leaves(params)
+    names = list(_flat(params))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    loss_t, grads_t = tl._value_and_grad(model, params, rows)
+    loss_p = plain_loss(cfg, params, rows)
+    grads_p = torch.autograd.grad(loss_p, leaves, allow_unused=True)
+    loss_p = loss_p.detach()
+    check_peak_gb = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None
+    need(bool(torch.isclose(loss_t, loss_p, rtol=TRAIN_LOSS_RTOL)),
+         f"train: step-0 loss {float(loss_t)} differs from the plain path's {float(loss_p)}")
+    worst_frac, worst_cos = 0.0, 1.0
+    for name, gt, gp in zip(names, grads_t, grads_p):
+        need(bool(torch.isfinite(gt).all()), f"train: the gradient of {name} is not finite")
+        gp = torch.zeros_like(gt) if gp is None else gp
+        scale = float(gp.abs().max())
+        if scale == 0.0:  # a leaf the loss never reads (embed)
+            need(not bool(gt.any()), f"train: {name} has a gradient the plain path has not")
+            continue
+        frac = float((gt - gp).abs().max()) / scale
+        cos = float((gt.double() * gp.double()).sum() / (gt.double().norm() * gp.double().norm()))
+        worst_frac, worst_cos = max(worst_frac, frac), min(worst_cos, cos)
+        need(frac <= TRAIN_GRAD_FRAC and cos >= TRAIN_GRAD_COS,
+             f"train: the gradient of {name} differs from the plain path's ({frac} of its max, cosine {cos})")
+    update_rows = [update_check(params["layers"][UPDATE_LEAF], grads_t[names.index(f"layers/{UPDATE_LEAF}")], bits)
+                   for bits in (32, 8)]
+    del grads_t, grads_p
+
+    # 2. the timed steps, through launch.train's step function
+    opt_cfg = adamw.AdamWConfig(peak_lr=1e-3, warmup_steps=max(TRAIN_STEPS // 10, 1), total_steps=TRAIN_STEPS,
+                                state_bits=cfg.opt_state_bits)
+    state = adamw.init(params, opt_cfg)
+    step_fn = tl.make_train_step(model, opt_cfg)
+    before = {n: t.detach().clone() for n, t in _flat(params).items()}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    steps = []
+    for i in range(TRAIN_STEPS):
+        sync(dev)
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batches[i])
+        sync(dev)
+        steps.append(dict(step=i, ms=(time.perf_counter() - t0) * 1e3, **{k: float(v) for k, v in m.items()}))
+        if i == 0:
+            moved = [n for n, t in _flat(params).items() if not torch.equal(t.detach(), before[n])]
+            need(moved == list(before), f"train: leaves that did not move after one update:"
+                                        f" {sorted(set(before) - set(moved))}")
+            del before
+    launches = dict(_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None
+    need(all(np.isfinite([s_["loss"], s_["grad_norm"]]).all() for s_ in steps), f"train: a non-finite step {steps}")
+    med_ms = float(np.median([s_["ms"] for s_ in steps]))
+
+    # the step split: the loss and gradients, then the update, each timed
+    # alone, three times (medians)
+    split = dict(loss_and_grads_ms=[], adamw_update_ms=[])
+    for _ in range(3):
+        sync(dev)
+        t0 = time.perf_counter()
+        _, grads = tl._value_and_grad(model, params, batches[0])
+        sync(dev)
+        t1 = time.perf_counter()
+        adamw.update(opt_cfg, tl._unflatten(params, iter(grads)), state, params)
+        sync(dev)
+        split["loss_and_grads_ms"].append((t1 - t0) * 1e3)
+        split["adamw_update_ms"].append((time.perf_counter() - t1) * 1e3)
+        del grads
+    split = {k: float(np.median(v)) for k, v in split.items()}
+
+    def profiled():
+        nonlocal params, state
+        for b in batches[TRAIN_STEPS:]:
+            params, state, _ = step_fn(params, state, b)
+
+    prof = profile_query(dev, profiled, queries=TRAIN_PROFILED, host_ops=False)
+    prof["steps"] = prof.pop("queries")
+    emit("train_profile", arch=cfg.name, **split, **prof)
+    del params, state, batches
+
+    # 3. kernel F refuses inputs that carry gradients while grad mode is on
+    g = torch.Generator(dev).manual_seed(SEED)
+    q = torch.randn((1, cfg.n_heads, 128, cfg.head_dim), generator=g, device=dev, dtype=torch.bfloat16)
+    refused = None
+    if dev.type == "cuda":
+        try:
+            fa_ops.flash_attention(q.requires_grad_(), q.detach(), q.detach(), causal=False)
+        except RuntimeError as e:
+            refused = str(e)
+        need(refused is not None and "no backward pass" in refused, "train: flash_attention took a q that requires"
+                                                                  " gradients under grad mode")
+        with torch.no_grad():  # the serving paths' way: accepted
+            need(bool(torch.isfinite(fa_ops.flash_attention(q, q.detach(), q.detach(), causal=False).float()).all()),
+                 "train: flash_attention under no_grad")
+
+    # 4. restart continuity at granite's smoke config, bit for bit
+    rcfg = configs.get("granite-8b", smoke=True)
+    rmodel = mapi.build_model(rcfg)
+    ropt = adamw.AdamWConfig(peak_lr=1e-3, warmup_steps=2, total_steps=10)
+
+    def batch_fn(i):
+        return launch_train.make_batch(rcfg, TokenStream(rcfg.vocab, seed=100 + i).batch(4, 64), i, dev)
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught, \
+                tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+            warnings.simplefilter("always")
+            first, resumed = ft.simulate_training_failure_and_restart(rmodel, ropt, tmp, 3, batch_fn, dev)
+            rp = rmodel.init_masters(0, dev)
+            rs = adamw.init(rp, ropt)
+            rstep = tl.make_train_step(rmodel, ropt)
+            straight = []
+            for i in range(6):
+                rp, rs, m = rstep(rp, rs, batch_fn(i))
+                straight.append(float(m["loss"]))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    need(first == straight[:3] and resumed == straight[3:],
+         f"train: the restart's losses {first} + {resumed} are not the uninterrupted run's {straight}")
+
+    emit(
+        "train", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads],
+        head_dim=cfg.head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab, frontend_dim=cfg.frontend_dim,
+        n_params=model.n_params, cut=None, batch=[batch_n, seq], frame_mask=0.3, remat=cfg.remat,
+        state_bits=opt_cfg.state_bits, init_s=init_s, steps=steps, median_step_ms=med_ms,
+        frames_per_s=batch_n * seq / (med_ms / 1e3), peak_mem_gb=peak_gb,
+        device_idle_share=prof["device_idle_share"], launches=launches,
+        step0_check=dict(rows=TRAIN_CHECK_ROWS, loss=float(loss_t), plain_loss=float(loss_p),
+                         grad_max_frac_err=worst_frac, grad_min_cosine=worst_cos, leaves=len(names),
+                         peak_mem_gb=check_peak_gb),
+        every_leaf_moved=True, update_check=update_rows,
+        flash_attention_refuses_grad_inputs=refused,
+        restart=dict(arch=rcfg.name, losses_before=first, losses_after=resumed, uninterrupted=straight,
+                     deterministic=True, warnings=sorted({str(w.message)[:160] for w in caught})),
+    )
+    return launches
+
+
+def serve_twin_phase(dev) -> dict:
+    """``examples/torch_serve_knn_lm.main`` on the card with its own
+    ``"cuda"`` backend: train the serve-demo LM, build the datastore over
+    its hidden states, serve 6 requests with lmbda 0 and 0.3. The loss must
+    fall, kernels A, B, D and F launch, and the hook's output must equal
+    ``knn_interpolate`` on the index's and the ``"torch"`` backend's
+    answers."""
+    from repro_torch.kernels import _build
+
+    twin = _load_example("torch_serve_knn_lm")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = twin.main(device=dev)
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    losses = out["losses"]
+    checks = [(losses[-1] < losses[0], f"serve_twin: the loss did not fall ({losses[0]} -> {losses[-1]})")]
+    if dev.type == "cuda":
+        checks += [(launches.get(name, 0) > 0, f"serve_twin never launched {name}")
+                   for name in ("bitsample_pack", "proj_sign_pack", "query_tail", "flash_attention")]
+    index = out["index"]
+    hook_fields = hook_checks("serve_twin", index, out["config"], index.deploy.grid, out["labels"], twin.CFG.vocab,
+                              out["hook_calls"], checks)
+    emit("serve_twin", arch=twin.CFG.name, train_steps=len(losses), loss_first=losses[0], loss_last=losses[-1],
+         seconds=seconds, accuracy_lm_only=out["accuracy"][0.0], accuracy_with_knn=out["accuracy"][0.3],
+         tokens_lmbda_0=out["tokens"][0.0], tokens_lmbda_03=out["tokens"][0.3], launches=launches, **hook_fields)
+    for ok, msg in checks:
+        need(ok, msg)
+    return launches
 
 
 def serve_phase(argv: list[str]) -> dict:

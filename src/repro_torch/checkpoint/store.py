@@ -60,25 +60,29 @@ def leaf_names(tree) -> list[str]:
     return ["_".join(_SAFE.sub("-", p) for p in path) or "root" for path, _ in _flatten(tree)]
 
 
-def _host(leaf) -> tuple[np.ndarray, str]:
-    """A leaf as the numpy array to write and the manifest's dtype name."""
+def _host(leaf, copy: bool) -> tuple[np.ndarray, str]:
+    """A leaf as the numpy array to write and the manifest's dtype name.
+    With ``copy`` the array owns its memory: ``.cpu()`` of a CPU tensor (and
+    ``np.asarray`` of an array) is the same memory, which an in-place update
+    would change under a writer thread."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = leaf.detach().to("cpu", copy=copy)
         if t.dtype == torch.bfloat16:  # numpy has no bfloat16: store its bits
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
         arr = t.numpy()
     else:
-        arr = np.asarray(leaf)
+        arr = np.array(leaf, copy=copy) if copy else np.asarray(leaf)
     return arr, str(arr.dtype)
 
 
 def save(tree, step: int, ckpt_dir: str, *, blocking: bool = True):
     """Save a tree checkpoint. Returns the final directory path, or
     ``(path, thread)`` with ``blocking=False`` (the write runs on the
-    thread; the tensors are copied to the host before it starts)."""
+    thread; the leaves are copied to the host before it starts, so the
+    caller may update them in place at once)."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
-    host = [(name, *_host(leaf)) for name, (_, leaf) in zip(leaf_names(tree), _flatten(tree))]
+    host = [(name, *_host(leaf, copy=not blocking)) for name, (_, leaf) in zip(leaf_names(tree), _flatten(tree))]
 
     def _write():
         os.makedirs(tmp, exist_ok=True)

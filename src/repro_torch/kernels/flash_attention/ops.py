@@ -12,6 +12,11 @@ the output keeps q's strides. ``q_offset`` and ``kv_len`` are per batch row
 decode step whose rows have their own cache lengths. A CPU tensor takes
 the plain version (``ref.attention_ref``); a CUDA tensor launches the
 kernel or raises.
+
+The kernel has no backward pass (nor has the Pallas kernel it replaces),
+so a CUDA input that requires gradients while grad mode is on is refused:
+its output would carry no gradient. The loss path takes
+``models.common.chunked_attention_train`` instead.
 """
 from __future__ import annotations
 
@@ -52,6 +57,9 @@ def flash_attention(
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q (B, Hq, Sq, dh) and k, v (B, Hkv, Skv, dh) expected, got"
                          f" {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention has no backward pass: its inputs require gradients, and its output"
+                           " would carry none; differentiate models.common.chunked_attention_train instead")
     b, hq, sq, dh = q.shape
     _, hkv, skv, _ = k.shape
     if k.shape[0] != b or k.shape[3] != dh or hkv < 1 or hq % hkv:

@@ -1,18 +1,29 @@
-"""Model configuration and registry of the port.
+"""Model configuration, registry and the (architecture x input-shape)
+cell contract of the port.
 
 Counterpart of ``repro.models.api``: the same :class:`ModelConfig` (same
-fields and defaults) and ``build_model(cfg)``, which returns a handle with
-``cfg``, ``n_params``, ``init``, ``prefill``, ``decode_step`` and
-``init_cache``. Only the dense family is ported; ``moe``, ``ssm`` and
+fields and defaults), ``SHAPE_CELLS``, ``cell_skip_reason`` and
+``build_model(cfg)``, which returns a handle with ``cfg``, ``defs`` (the
+masters' declarations, float32 leaves cast to ``param_dtype`` as the JAX
+package casts them), ``n_params``, ``init``, ``init_masters``,
+``serving``, ``loss_fn``, ``prefill``, ``decode_step``, ``init_cache`` and
+``input_defs``. Only the dense family is ported; ``moe``, ``ssm`` and
 ``hybrid`` raise ``NotImplementedError``. The JAX package's sharding
 helpers (param specs, structs, input specs, cache structs) have no
 counterpart here.
 
-``init(seed, device=None)`` draws the weights from a ``torch.Generator``
-seeded with ``seed`` on ``device`` (the card unless told otherwise) and
-returns the model (a ``torch.nn.Module``), which ``prefill(params, batch,
-max_len)`` and ``decode_step(params, cache, tokens)`` take as their
-``params``, as the JAX handle takes its param tree.
+The weights come in two forms (``models.dense``), each drawn from a
+``torch.Generator`` seeded with ``seed`` on ``device`` (the card unless
+told otherwise):
+
+* ``init(seed, device=None)`` returns the frozen serving model (a
+  ``torch.nn.Module``), which ``prefill(params, batch, max_len)`` and
+  ``decode_step(params, cache, tokens)`` take as their ``params``, as the
+  JAX handle takes its param tree.
+* ``init_masters(seed, device=None)`` returns the training masters, the
+  JAX package's tree in ``param_dtype``, requiring gradients;
+  ``loss_fn(params, batch)`` takes them, with the config's ``remat``, and
+  ``serving(params)`` turns them into a serving model.
 """
 from __future__ import annotations
 
@@ -78,6 +89,25 @@ class ModelConfig:
         return self.causal
 
 
+# Shape cells assigned to every LM arch (seq_len, global_batch, kind)
+SHAPE_CELLS = {
+    "train_4k": dict(seq=4096, batch=256, kind="train"),
+    "prefill_32k": dict(seq=32768, batch=32, kind="prefill"),
+    "decode_32k": dict(seq=32768, batch=128, kind="decode"),
+    "long_500k": dict(seq=524288, batch=1, kind="decode"),
+}
+
+
+def cell_skip_reason(cfg: ModelConfig, cell: str) -> str | None:
+    """None if the (arch, cell) pair runs; otherwise the documented skip."""
+    c = SHAPE_CELLS[cell]
+    if c["kind"] == "decode" and not cfg.supports_decode:
+        return "encoder-only arch: no decode step"
+    if cell == "long_500k" and not cfg.sub_quadratic:
+        return "pure full-attention arch: long_500k needs sub-quadratic attention"
+    return None
+
+
 def _family_module(cfg: ModelConfig):
     if cfg.family != "dense":
         raise NotImplementedError(f"the {cfg.family!r} model family {_NOT_PORTED}")
@@ -88,16 +118,43 @@ def _family_module(cfg: ModelConfig):
 
 def build_model(cfg: ModelConfig) -> SimpleNamespace:
     mod = _family_module(cfg)
-    defs = mod.model_defs(cfg)
+    defs = PM.param_dtype_defs(mod.model_defs(cfg), cfg.param_dtype)
+
+    def draw(seed: int, device, leaf_defs: dict) -> dict:
+        return PM.init_params(leaf_defs, torch.Generator(device_mod.resolve(device)).manual_seed(seed))
 
     def init(seed: int, device: str | torch.device | None = None):
-        gen = torch.Generator(device_mod.resolve(device)).manual_seed(seed)
-        return mod.DenseLM(cfg, PM.init_params(defs, gen))
+        return mod.DenseLM(cfg, draw(seed, device, mod.storage_defs(defs)))
+
+    def init_masters(seed: int, device: str | torch.device | None = None) -> dict:
+        return mod.master_tree(draw(seed, device, defs))
+
+    def input_defs(cell: str) -> dict:
+        """Model inputs for a cell as ``name -> (shape, dtype)``."""
+        c = SHAPE_CELLS[cell]
+        s, b = c["seq"], c["batch"]
+        if c["kind"] == "decode":
+            return {"tokens": ((b, 1), torch.int32)}
+        if cfg.frontend == "audio":
+            return {
+                "frames": ((b, s, cfg.frontend_dim), torch.float32),
+                "frame_mask": ((b, s), torch.bool),
+                "targets": ((b, s), torch.int32),
+            }
+        io = {"tokens": ((b, s), torch.int32)}
+        if cfg.frontend == "vision":
+            io["patch_embeds"] = ((b, cfg.frontend_len, cfg.frontend_dim), torch.float32)
+        return io
 
     return SimpleNamespace(
         cfg=cfg,
+        defs=defs,
         init=init,
+        init_masters=init_masters,
+        serving=lambda params: mod.serving_model(cfg, params),
         n_params=PM.count_params(defs),
+        loss_fn=lambda params, batch: mod.loss_fn(cfg, params, batch, cfg.remat),
+        input_defs=input_defs,
         prefill=lambda params, batch, max_len: mod.prefill(cfg, params, batch, max_len),
         decode_step=lambda params, cache, tokens: mod.decode_step(cfg, params, cache, tokens),
         init_cache=lambda b, s, device=None: mod.init_cache(cfg, b, s, device=device_mod.resolve(device)),

@@ -1,15 +1,19 @@
-"""Transformer building blocks of the port (forward only).
+"""Transformer building blocks of the port.
 
-Counterpart of the forward parts of ``repro.models.common``: matmuls take
-bf16 operands, norms, rotary embeddings and softmax run in float32, and
-each function returns its input's dtype, as in the JAX package. There is
-no mesh: the sharding constraints and the context-parallel decode merge
-have nothing to do on one card.
+Counterpart of ``repro.models.common``: matmuls take bf16 operands, norms,
+rotary embeddings and softmax run in float32, and each function returns
+its input's dtype, as in the JAX package. There is no mesh: the sharding
+constraints and the context-parallel decode merge have nothing to do on
+one card.
 
-Both attention functions run the flash kernel (kernel F,
+Both inference attention functions run the flash kernel (kernel F,
 ``kernels/flash_attention``) on a CUDA tensor. Their plain versions,
 direct ports of ``chunked_attention``'s and ``_partial_attn_local``'s
-arithmetic, run on a CPU tensor.
+arithmetic, run on a CPU tensor. Kernel F has no backward pass (nor has
+the Pallas kernel it replaces): the loss path takes
+:func:`chunked_attention_train`, the plain arithmetic with a checkpoint
+per query chunk, on every device, as the JAX package's training path
+takes the XLA ``chunked_attention``.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ from typing import Mapping
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
@@ -75,10 +80,12 @@ def chunked_attention(
     return _chunked_attention_plain(q, k, v, causal, window, q_offset, kv_len, q_chunk)
 
 
-def _chunked_attention_plain(q, k, v, causal, window, q_offset, kv_len, q_chunk):
+def _chunked_attention_plain(q, k, v, causal, window, q_offset, kv_len, q_chunk, remat=False):
     """``repro.models.common.chunked_attention``'s arithmetic, one query
     chunk at a time (q scaled before the dot, scores masked to -inf, the row
-    max clamped at -1e30, the sum at 1e-30)."""
+    max clamped at -1e30, the sum at 1e-30). With ``remat`` each chunk runs
+    under a checkpoint, so the backward pass recomputes its scores instead
+    of holding every chunk's (``jax.checkpoint`` around the chunk body)."""
     b, sq, hq, dh = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -89,26 +96,47 @@ def _chunked_attention_plain(q, k, v, causal, window, q_offset, kv_len, q_chunk)
     k_pos = torch.arange(skv, device=q.device)
     qo = fa_ref.per_row(q_offset, b, q.device)
     kl = None if kv_len is None else fa_ref.per_row(kv_len, b, q.device)
-    outs = []
-    for c0 in range(0, sq, q_chunk):
-        qc = qf[:, c0 : c0 + q_chunk]
+
+    def one_chunk(qc, c0: int):
         n = qc.shape[1]
         s = torch.einsum("bqhgd,bkhd->bhgqk", qc, kf)  # (B, hkv, g, qc, skv)
-        q_pos = qo[:, None] + c0 + torch.arange(n, device=q.device)  # (B, qc)
-        ok = torch.ones((b, n, skv), dtype=torch.bool, device=q.device)
-        if causal:
-            ok &= k_pos <= q_pos[:, :, None]
-        if window is not None:
-            ok &= k_pos > q_pos[:, :, None] - window
-        if kl is not None:
-            ok &= k_pos < kl[:, None, None]
-        s = s.masked_fill(~ok[:, None, None], float("-inf"))
+        if causal or window is not None or kl is not None:  # else every key is visible
+            q_pos = qo[:, None] + c0 + torch.arange(n, device=q.device)  # (B, qc)
+            ok = torch.ones((b, n, skv), dtype=torch.bool, device=q.device)
+            if causal:
+                ok &= k_pos <= q_pos[:, :, None]
+            if window is not None:
+                ok &= k_pos > q_pos[:, :, None] - window
+            if kl is not None:
+                ok &= k_pos < kl[:, None, None]
+            s = s.masked_fill(~ok[:, None, None], float("-inf"))
         m = torch.amax(s, dim=-1, keepdim=True).clamp_min(-1e30)  # fully masked rows
         p = torch.exp(s - m)
         l = torch.sum(p, dim=-1, keepdim=True)
         o = torch.einsum("bhgqk,bkhd->bhgqd", p, vf) / l.clamp_min(1e-30)
-        outs.append(o.permute(0, 3, 1, 2, 4).reshape(b, n, hq, dh))
+        return o.permute(0, 3, 1, 2, 4).reshape(b, n, hq, dh)
+
+    chunks = [qf[:, c0 : c0 + q_chunk] for c0 in range(0, sq, q_chunk)]
+    if remat and len(chunks) > 1:
+        outs = [checkpoint(one_chunk, qc, i * q_chunk, use_reentrant=False) for i, qc in enumerate(chunks)]
+    else:
+        outs = [one_chunk(qc, i * q_chunk) for i, qc in enumerate(chunks)]
     return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def chunked_attention_train(
+    q: torch.Tensor,  # (B, Sq, Hq, dh)
+    k: torch.Tensor,  # (B, Skv, Hkv, dh)
+    v: torch.Tensor,  # (B, Skv, Hkv, dh)
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    q_chunk: int = 512,
+) -> torch.Tensor:
+    """The differentiable form of :func:`chunked_attention` for the loss
+    path, on every device: its plain arithmetic, each of several query
+    chunks under a checkpoint (the JAX package's training attention)."""
+    return _chunked_attention_plain(q, k, v, causal, window, 0, None, q_chunk, remat=True)
 
 
 def decode_attention_cp(
@@ -174,6 +202,39 @@ def mlp_apply(params: Mapping[str, torch.Tensor], x: torch.Tensor, kind: str) ->
     return (h @ w("w_down")).to(x.dtype)
 
 
-# ------------------------------------------------------------- embeddings
+# --------------------------------------------------------- embeddings / CE
 def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return embed[tokens.long()].to(COMPUTE_DTYPE)
+
+
+def chunked_softmax_xent(
+    x: torch.Tensor,  # (B, S, D) final hidden
+    lm_head: torch.Tensor,  # (D, V)
+    labels: torch.Tensor,  # (B, S) int
+    mask: torch.Tensor,  # (B, S) bool
+    seq_chunk: int = 1024,
+) -> torch.Tensor:
+    """Mean cross entropy over the masked positions, without stacking
+    (B, S, V) logits: each sequence chunk's bf16 logits are made, reduced
+    and, when there are several chunks, recomputed in the backward pass
+    under a checkpoint (``repro.models.common.chunked_softmax_xent``)."""
+    b, s, _ = x.shape
+    seq_chunk = min(seq_chunk, s)
+    if s % seq_chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of the loss chunk {seq_chunk}")
+    head = lm_head.to(COMPUTE_DTYPE)  # cast once; the gradient still reaches the master
+
+    def one(xi, li, mi):
+        logits = (xi.to(COMPUTE_DTYPE) @ head).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, li.long()[..., None])[..., 0]
+        nll = torch.where(mi, lse - gold, 0.0)
+        return torch.stack([nll.sum(), mi.float().sum()])
+
+    parts = [(x[:, c0 : c0 + seq_chunk], labels[:, c0 : c0 + seq_chunk], mask[:, c0 : c0 + seq_chunk])
+             for c0 in range(0, s, seq_chunk)]
+    if len(parts) == 1:
+        tot, cnt = one(*parts[0])
+    else:
+        tot, cnt = torch.stack([checkpoint(one, *part, use_reentrant=False) for part in parts]).sum(0)
+    return tot / cnt.clamp_min(1.0)

@@ -1,14 +1,24 @@
-"""Dense GQA transformer LM of the port (forward: prefill, decode, hidden
-states).
+"""Dense GQA transformer LM of the port: training (loss and gradients)
+and serving (prefill, decode, hidden states).
 
-Counterpart of ``repro.models.dense`` for token inputs. A
-:class:`DenseLM` holds the weights, one :class:`DenseBlock` per layer in a
-``ModuleList``. Matmul weights (and the embedding) are held in bf16, cast
-once at load: the JAX package keeps float32 weights and casts them to bf16
-at every matmul, so the numbers are the same and the weights take half the
-memory. Norm weights stay float32 (the config's ``param_dtype`` when it is
-narrower). Large products are ``torch.matmul``; attention is the flash
-kernel on the card (``models.common``).
+Counterpart of ``repro.models.dense``. The model exists in two forms:
+
+* **Training**: the JAX package's parameter tree itself, nested dicts with
+  stacked ``(L, ...)`` layer leaves, held as master tensors in the
+  config's ``param_dtype`` that require gradients (:func:`master_tree`).
+  The forward pass casts every matmul weight and the embedding to bf16
+  where it uses them, as the JAX package does, so AdamW updates float32
+  masters and an update below a bf16 ulp is kept. :func:`loss_fn` is
+  the loss; its attention is the differentiable
+  :func:`~repro_torch.models.common.chunked_attention_train` on every
+  device, and ``remat`` picks what the backward pass recomputes.
+* **Serving**: a :class:`DenseLM` holds the weights, one
+  :class:`DenseBlock` per layer in a ``ModuleList``, frozen. Matmul
+  weights and the embedding are held in bf16, cast once at load, so the
+  numbers are those of the JAX package's cast at every matmul and the
+  weights take half the memory; norm weights stay in ``param_dtype``.
+  Attention is the flash kernel on the card (``models.common``).
+  :func:`serving_model` turns trained masters into one.
 
 The KV cache ``{"k", "v": (L, B, S_max, Hkv, dh) bf16, "len": (B,) int32}``
 is written in place: ``prefill`` fills a new cache, and ``decode_step``
@@ -23,61 +33,77 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.models import common as C
+from repro_torch.models import params as PM
 from repro_torch.models.params import PDef, stack
 
 F32 = torch.float32
 BF16 = torch.bfloat16
-_NOT_PORTED = "is not ported to PyTorch yet (see ROADMAP.md, Queue 1)"
+# leaves a serving model holds in bf16 (the matmul operands)
+_BF16_LEAVES = frozenset(
+    {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "embed", "lm_head", "patch_proj", "frame_proj",
+     "mask_embed"}
+)
+REMAT_POLICIES = ("none", "dots", "full")
 
 
 # ------------------------------------------------------------ param defs
-def _norm_dtype(cfg) -> torch.dtype:
-    return BF16 if cfg.param_dtype == "bfloat16" else F32
-
-
 def layer_defs(cfg) -> dict:
+    """One layer's leaves, float32 as the JAX package declares them
+    (``build_model`` casts them to ``param_dtype``)."""
     d, hq, hkv, dh, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
-    nd = _norm_dtype(cfg)
     defs = {
-        "ln1": PDef((d,), "ones", nd),
-        "ln2": PDef((d,), "ones", nd),
-        "wq": PDef((d, hq * dh), dtype=BF16),
-        "wk": PDef((d, hkv * dh), dtype=BF16),
-        "wv": PDef((d, hkv * dh), dtype=BF16),
-        "wo": PDef((hq * dh, d), dtype=BF16),
+        "ln1": PDef((d,), "ones"),
+        "ln2": PDef((d,), "ones"),
+        "wq": PDef((d, hq * dh)),
+        "wk": PDef((d, hkv * dh)),
+        "wv": PDef((d, hkv * dh)),
+        "wo": PDef((hq * dh, d)),
     }
     if cfg.qk_norm:
-        defs["q_norm"] = PDef((dh,), "ones", nd)
-        defs["k_norm"] = PDef((dh,), "ones", nd)
+        defs["q_norm"] = PDef((dh,), "ones")
+        defs["k_norm"] = PDef((dh,), "ones")
     if cfg.mlp == "swiglu":
-        defs["w_gate"] = PDef((d, f), dtype=BF16)
-    defs["w_up"] = PDef((d, f), dtype=BF16)
-    defs["w_down"] = PDef((f, d), dtype=BF16)
+        defs["w_gate"] = PDef((d, f))
+    defs["w_up"] = PDef((d, f))
+    defs["w_down"] = PDef((f, d))
     return defs
 
 
 def model_defs(cfg) -> dict:
     d, v = cfg.d_model, cfg.vocab
-    nd = _norm_dtype(cfg)
     defs: dict[str, Any] = {
-        "embed": PDef((v, d), "embed", BF16),
+        "embed": PDef((v, d), "embed"),
         "layers": stack(layer_defs(cfg), cfg.n_layers),
-        "final_norm": PDef((d,), "ones", nd),
+        "final_norm": PDef((d,), "ones"),
     }
     if not cfg.tie_embeddings:
-        defs["lm_head"] = PDef((d, v), dtype=BF16)
+        defs["lm_head"] = PDef((d, v))
     if cfg.frontend == "vision":
-        defs["patch_proj"] = PDef((cfg.frontend_dim, d), dtype=BF16)
+        defs["patch_proj"] = PDef((cfg.frontend_dim, d))
     elif cfg.frontend == "audio":
-        defs["frame_proj"] = PDef((cfg.frontend_dim, d), dtype=BF16)
-        defs["mask_embed"] = PDef((d,), "embed", BF16)
+        defs["frame_proj"] = PDef((cfg.frontend_dim, d))
+        defs["mask_embed"] = PDef((d,), "embed")
     return defs
 
 
-def _storage_dtype(p: PDef | dict) -> Any:
-    return {k: _storage_dtype(v) for k, v in p.items()} if isinstance(p, dict) else p.dtype
+def storage_defs(defs: dict) -> dict:
+    """``defs`` (the masters' dtypes) with the serving storage dtypes: bf16
+    for the matmul weights and the embedding, the rest as they are."""
+    return {
+        k: storage_defs(p) if isinstance(p, dict) else p._replace(dtype=BF16) if k in _BF16_LEAVES else p
+        for k, p in defs.items()
+    }
+
+
+def _dtypes(defs: dict) -> Any:
+    return {k: _dtypes(v) if isinstance(v, dict) else v.dtype for k, v in defs.items()}
+
+
+def _serving_dtypes(cfg) -> dict:
+    return _dtypes(storage_defs(PM.param_dtype_defs(model_defs(cfg), cfg.param_dtype)))
 
 
 # ------------------------------------------------------------ modules
@@ -99,16 +125,16 @@ class DenseBlock(_Weights):
 
 
 class DenseLM(_Weights):
-    """The dense LM's weights: ``layers`` (a ``ModuleList`` of
+    """The dense LM's serving weights: ``layers`` (a ``ModuleList`` of
     :class:`DenseBlock`), ``embed``, ``final_norm`` and, when untied,
-    ``lm_head``.
+    ``lm_head`` (and the front end's projections).
 
     ``tree`` is the JAX package's parameter layout with stacked ``(L, ...)``
     layer leaves; each leaf is cast to its storage dtype (bf16 for matmul
     weights) and layer ``i`` holds views of row ``i``."""
 
     def __init__(self, cfg, tree: dict):
-        dtypes = _storage_dtype(model_defs(cfg))
+        dtypes = _serving_dtypes(cfg)
         super().__init__({k: t.to(dtypes[k]) for k, t in tree.items() if k != "layers"})
         self.cfg = cfg
         layers = {k: t.to(dtypes["layers"][k]) for k, t in tree["layers"].items()}
@@ -121,39 +147,71 @@ class DenseLM(_Weights):
         return self["embed"].device
 
 
+def master_tree(tree: dict) -> dict:
+    """``tree`` (nested dicts of tensors in the JAX layout) as training
+    masters: every leaf a tensor that requires gradients."""
+    return {k: master_tree(t) if isinstance(t, dict) else t.detach().requires_grad_() for k, t in tree.items()}
+
+
+def serving_model(cfg, params: dict) -> DenseLM:
+    """A frozen serving :class:`DenseLM` from training masters, copied (it
+    does not follow later updates of the masters)."""
+    def copy(node, dtypes):
+        if isinstance(node, dict):
+            return {k: copy(t, dtypes[k]) for k, t in node.items()}
+        return node.detach().to(dtypes, copy=True)
+
+    return DenseLM(cfg, copy(params, _serving_dtypes(cfg)))
+
+
+def _layers(params) -> list:
+    """Per-layer parameter views: a :class:`DenseLM`'s blocks, or row ``i``
+    of every stacked leaf of a master tree. The rows come from one
+    ``unbind`` per leaf, whose backward stacks the layers' gradients once;
+    indexing row by row would give each row's gradient a zero-filled
+    copy of the whole stacked leaf, L of them added up per leaf."""
+    if isinstance(params, DenseLM):
+        return list(params.layers)
+    rows = {k: t.unbind(0) for k, t in params["layers"].items()}
+    n = len(next(iter(rows.values())))
+    return [{k: r[i] for k, r in rows.items()} for i in range(n)]
+
+
 # ------------------------------------------------------------ layer fwd
 def _qkv(cfg, p, h):
     b, s, _ = h.shape
     hc = h.to(BF16)
-    q = (hc @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = (hc @ p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = (hc @ p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = (hc @ p["wq"].to(BF16)).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = (hc @ p["wk"].to(BF16)).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = (hc @ p["wv"].to(BF16)).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = C.rms_norm(q, p["q_norm"])
         k = C.rms_norm(k, p["k_norm"])
     return q, k, v
 
 
-def _block(cfg, p, x, positions):
+def _block(cfg, p, x, positions, attention=None):
     """Full-sequence block -> (x, k, v); k and v are the rotated keys and
-    the values, the cache's entries."""
+    the values, the cache's entries. ``attention`` is the loss path's
+    differentiable one; None is ``common.chunked_attention`` (kernel F on
+    the card), looked up at each call."""
+    attention = attention or C.chunked_attention
     h = C.rms_norm(x, p["ln1"])
     q, k, v = _qkv(cfg, p, h)
     q = C.apply_rope(q, positions, cfg.rope_theta)
     k = C.apply_rope(k, positions, cfg.rope_theta)
-    attn = C.chunked_attention(
-        q, k, v, causal=cfg.causal, window=cfg.window, q_chunk=cfg.q_chunk
-    )
+    attn = attention(q, k, v, causal=cfg.causal, window=cfg.window, q_chunk=cfg.q_chunk)
     attn = attn.reshape(x.shape[0], x.shape[1], -1)
-    x = x + (attn.to(BF16) @ p["wo"]).to(x.dtype)
+    x = x + (attn.to(BF16) @ p["wo"].to(BF16)).to(x.dtype)
     h2 = C.rms_norm(x, p["ln2"])
     x = x + C.mlp_apply(p, h2, cfg.mlp).to(x.dtype)
     return x, k, v
 
 
 def block_train(cfg, p, x, positions):
-    """Full-sequence block (encoding; forward only). x: (B, S, D)."""
-    return _block(cfg, p, x, positions)[0]
+    """Full-sequence block of the loss path (differentiable attention).
+    x: (B, S, D)."""
+    return _block(cfg, p, x, positions, C.chunked_attention_train)[0]
 
 
 def block_decode(cfg, p, x, k_cache, v_cache, cur_len):
@@ -170,32 +228,103 @@ def block_decode(cfg, p, x, k_cache, v_cache, cur_len):
     v_cache[rows, cur_len.long()] = v[:, 0].to(v_cache.dtype)
     attn = C.decode_attention_cp(q, k_cache, v_cache, cur_len + 1)
     attn = attn.reshape(b, 1, -1)
-    x = x + (attn.to(BF16) @ p["wo"]).to(x.dtype)
+    x = x + (attn.to(BF16) @ p["wo"].to(BF16)).to(x.dtype)
     h2 = C.rms_norm(x, p["ln2"])
     x = x + C.mlp_apply(p, h2, cfg.mlp).to(x.dtype)
     return x
 
 
 # ------------------------------------------------------------- backbone
-def _embed_inputs(cfg, model, batch):
-    """Token embedding -> (x, loss_mask). The vision and audio front ends
-    are not ported."""
-    if cfg.frontend is not None:
-        raise NotImplementedError(f"the {cfg.frontend} front end {_NOT_PORTED}")
-    tokens = torch.as_tensor(batch["tokens"], device=model.device)
-    x = C.embed_tokens(model["embed"], tokens)
-    return x, torch.ones(tokens.shape, dtype=torch.bool, device=x.device)
+def _device(params) -> torch.device:
+    return params["embed"].device
 
 
-def _run_layers(cfg, model, x, positions):
-    """Every block, then the final norm: the hidden states (B, S, D)."""
-    for p in model.layers:
-        x = block_train(cfg, p, x, positions)
-    return C.rms_norm(x, model["final_norm"])
+def _embed_inputs(cfg, params, batch):
+    """Token (+ modality-prefix) embedding -> (x bf16, loss_mask).
+
+    Audio (hubert): the frames ``(B, S, frontend_dim)`` through
+    ``frame_proj``, each frame of ``frame_mask`` replaced by ``mask_embed``;
+    the loss mask is ``frame_mask``. Vision: ``patch_embeds`` ``(B, P,
+    frontend_dim)`` through ``patch_proj`` replace the first P token
+    positions, which the loss mask leaves out."""
+    dev = _device(params)
+    if cfg.frontend == "audio":
+        frames = torch.as_tensor(batch["frames"], device=dev).to(BF16)
+        x = frames @ params["frame_proj"].to(BF16)
+        m = torch.as_tensor(batch["frame_mask"], device=dev).bool()
+        # HuBERT masking: replace masked frames with the learned embedding
+        x = torch.where(m[..., None], params["mask_embed"].to(BF16), x)
+        return x, m  # loss only on masked frames
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    x = C.embed_tokens(params["embed"], tokens)
+    mask = torch.ones(tokens.shape, dtype=torch.bool, device=dev)
+    if cfg.frontend == "vision":
+        patches = torch.as_tensor(batch["patch_embeds"], device=dev).to(BF16)
+        pre = patches @ params["patch_proj"].to(BF16)
+        x = torch.cat([pre, x[:, pre.shape[1] :]], dim=1)
+        mask[:, : pre.shape[1]] = False
+    return x, mask
 
 
-def _lm_head(cfg, model):
-    return model["embed"].T if cfg.tie_embeddings else model["lm_head"]
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the outputs of the batch-free matmuls
+    (activations times a weight), recompute the rest, as
+    ``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims`` does;
+    attention's einsums are batched (``bmm``) and recomputed."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_save_matmuls)
+
+
+def _run_layers(cfg, params, x, positions, remat_policy: str | None = None):
+    """Every block, then the final norm: the hidden states (B, S, D).
+
+    ``remat_policy=None`` is the inference pass: kernel F on the card, no
+    checkpoints (the datastore, the hook's query and serving take it).
+    ``"none"``, ``"dots"`` or ``"full"`` is the loss path's pass, with the
+    differentiable attention, and sets what each block's backward pass
+    recomputes: nothing, all but the weight matmuls' outputs, or the whole
+    block (``torch.utils.checkpoint``, non-reentrant). The policy changes
+    memory, never numbers."""
+    if remat_policy is None:
+        for p in _layers(params):
+            x = _block(cfg, p, x, positions)[0]
+        return C.rms_norm(x, params["final_norm"])
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {remat_policy!r} is not one of {REMAT_POLICIES}")
+    for p in _layers(params):
+        if remat_policy == "none":
+            x = block_train(cfg, p, x, positions)
+        else:
+            kw = dict(context_fn=_dots_context) if remat_policy == "dots" else {}
+            x = checkpoint(block_train, cfg, p, x, positions, use_reentrant=False, **kw)
+    return C.rms_norm(x, params["final_norm"])
+
+
+def _lm_head(cfg, params):
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def loss_fn(cfg, params, batch, remat_policy: str = "dots") -> torch.Tensor:
+    """Mean cross entropy of a master tree on ``batch``: hubert's masked
+    prediction of ``targets`` on the masked frames when the batch has
+    them, else the next-token objective (labels are the tokens shifted by
+    one; the last position is left out)."""
+    x, mask = _embed_inputs(cfg, params, batch)
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)
+    x = _run_layers(cfg, params, x, positions, remat_policy)
+    if "targets" in batch:  # masked-prediction objective (hubert)
+        labels = torch.as_tensor(batch["targets"], device=x.device)
+    else:  # next-token LM objective
+        tokens = torch.as_tensor(batch["tokens"], device=x.device)
+        labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+        mask = mask & (positions < s - 1)[None, :]
+    return C.chunked_softmax_xent(x, _lm_head(cfg, params), labels, mask, cfg.loss_chunk)
 
 
 # ------------------------------------------------------------- public API
@@ -216,12 +345,12 @@ def prefill(cfg, model, batch, max_len: int):
         raise ValueError(f"prompt of {s} tokens does not fit a cache of {max_len}")
     positions = torch.arange(s, device=x.device)
     cache = init_cache(cfg, b, max_len, device=x.device)
-    for i, p in enumerate(model.layers):
+    for i, p in enumerate(_layers(model)):
         x, k, v = _block(cfg, p, x, positions)
         cache["k"][i, :, :s] = k.to(BF16)
         cache["v"][i, :, :s] = v.to(BF16)
     x = C.rms_norm(x, model["final_norm"])
-    logits = (x[:, -1].to(BF16) @ _lm_head(cfg, model)).to(F32)
+    logits = (x[:, -1].to(BF16) @ _lm_head(cfg, model).to(BF16)).to(F32)
     cache["len"].fill_(s)
     return logits, cache
 
@@ -231,13 +360,13 @@ def decode_step(cfg, model, cache, tokens):
     returned cache holds the same k and v tensors, written in place, and
     ``len + 1``. Raises when a row's cache is full (the JAX package drops
     that write)."""
-    tokens = torch.as_tensor(tokens, device=model.device)
+    tokens = torch.as_tensor(tokens, device=_device(model))
     cur = cache["len"]
     if int(cur.max()) >= cache["k"].shape[2]:
         raise ValueError(f"a row's cache is full ({cache['k'].shape[2]} positions)")
     x = C.embed_tokens(model["embed"], tokens)
-    for i, p in enumerate(model.layers):
+    for i, p in enumerate(_layers(model)):
         x = block_decode(cfg, p, x, cache["k"][i], cache["v"][i], cur)
     x = C.rms_norm(x, model["final_norm"])
-    logits = (x[:, 0].to(BF16) @ _lm_head(cfg, model)).to(F32)
+    logits = (x[:, 0].to(BF16) @ _lm_head(cfg, model).to(BF16)).to(F32)
     return logits, {"k": cache["k"], "v": cache["v"], "len": cur + 1}

@@ -40,6 +40,18 @@ def stack(defs: dict, n: int) -> dict:
     }
 
 
+def param_dtype_defs(defs: dict, param_dtype: str) -> dict:
+    """``defs`` with every float32 leaf cast to ``param_dtype`` (a torch
+    dtype's name, ``"float32"`` or ``"bfloat16"``), as the JAX package's
+    ``build_model`` casts its defs."""
+    pd = getattr(torch, param_dtype)
+    return {
+        k: param_dtype_defs(p, param_dtype) if isinstance(p, dict)
+        else p._replace(dtype=pd) if p.dtype == torch.float32 else p
+        for k, p in defs.items()
+    }
+
+
 def _init_leaf(p: PDef, gen: torch.Generator) -> torch.Tensor:
     dev = gen.device
     if p.init == "zeros":

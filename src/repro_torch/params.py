@@ -5,7 +5,8 @@ and ``api.build(..., params=...)`` — take a hash family as numpy arrays
 (for instance the JAX package's ``make_family`` output) and turn it into
 the port's parameter types; a quantized payload crosses the same way, so
 both packages can run the payload tail on the same rows, and so does a dense
-LM's parameter tree, so both packages compute with the same weights.
+LM's parameter tree, so both packages compute with the same weights, and
+a training state (master weights and AdamW moments).
 Unsigned 32-bit values (salts, keys) become int64 holding the same values;
 :func:`index_to_numpy` goes the other way, for a checkpoint both packages
 read.
@@ -20,6 +21,7 @@ import torch
 from repro_torch import device as device_mod
 from repro_torch.core import hashing, pipeline, tables
 from repro_torch.models import dense
+from repro_torch.optim import adamw
 from repro_torch.runtime import payload as payload_mod
 
 
@@ -158,3 +160,60 @@ def model_params_from_numpy(cfg, tree: Mapping[str, Any], device: torch.device |
     if cfg.family != "dense":
         raise NotImplementedError(f"the {cfg.family!r} model family is not ported yet (see ROADMAP.md, Queue 1)")
     return dense.DenseLM(cfg, conv(tree))
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A numpy array (``ml_dtypes`` bfloat16 included, read by its bits) or
+    a tensor as a tensor of its own dtype on ``device``."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(device)
+    arr = np.array(a)
+    if arr.dtype.name == "bfloat16":  # numpy has no bfloat16: carry its bits
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.as_tensor(arr, device=device)
+
+
+def _map(fn, tree):
+    return {k: _map(fn, v) for k, v in tree.items()} if isinstance(tree, Mapping) else fn(tree)
+
+
+def train_state_from_numpy(
+    cfg, params: Mapping[str, Any], opt_state=None, device: torch.device | str | None = None
+) -> tuple[dict, adamw.AdamWState | None]:
+    """Training masters and an AdamW state from the JAX package's (for
+    instance ``build_model(cfg).init(key)`` and ``adamw.init``, or a
+    restored checkpoint), read through ``np.asarray``, on ``device`` (the
+    card unless told otherwise).
+
+    The masters come back in ``cfg.param_dtype`` and require gradients;
+    the moments keep their dtypes (float32, or int8 ``q`` of m, uint8 ``q``
+    of v and float32 ``s``) and ``step`` is an int32 0-d tensor.
+    ``opt_state`` is any object with ``m``, ``v`` and ``step``; None gives
+    None."""
+    device = device_mod.resolve(device)
+    if cfg.family != "dense":
+        raise NotImplementedError(f"the {cfg.family!r} model family is not ported yet (see ROADMAP.md, Queue 1)")
+    pd = getattr(torch, cfg.param_dtype)
+    masters = dense.master_tree(_map(lambda a: _tensor(a, device).to(pd), params))
+    if opt_state is None:
+        return masters, None
+    conv = lambda a: _tensor(a, device)  # noqa: E731
+    return masters, adamw.AdamWState(
+        _map(conv, opt_state.m), _map(conv, opt_state.v), _tensor(opt_state.step, device).to(torch.int32)
+    )
+
+
+def _host_leaf(t) -> np.ndarray:
+    t = torch.as_tensor(t).detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def train_state_to_numpy(params: Mapping[str, Any], opt_state=None) -> tuple[dict, adamw.AdamWState | None]:
+    """The inverse of :func:`train_state_from_numpy`: numpy trees with the
+    JAX package's dtypes, except that bfloat16 masters widen to float32
+    (exactly; numpy has no bfloat16)."""
+    host = _map(_host_leaf, params)
+    if opt_state is None:
+        return host, None
+    return host, adamw.AdamWState(_map(_host_leaf, opt_state.m), _map(_host_leaf, opt_state.v),
+                                  _host_leaf(opt_state.step))

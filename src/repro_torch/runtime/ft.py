@@ -17,9 +17,9 @@ hold disjoint slices), so the recovery story is:
   (:func:`elastic_restore_cells`); the surviving cells are reused as they
   are.
 * **Retry wrapper** — transient errors retry with exponential backoff.
-
-The JAX package's ``simulate_training_failure_and_restart`` waits for the
-port's training slice (see ROADMAP.md).
+* **Training restart** — :func:`simulate_training_failure_and_restart`
+  trains, checkpoints, drops everything, re-initialises and resumes from
+  the checkpoint.
 """
 from __future__ import annotations
 
@@ -199,3 +199,42 @@ def elastic_reshard_index(seed, points, labels, cfg, deploy, failed_nodes: list[
     dev = device_mod.resolve(device)
     index = api.build(seed, pts, cfg, new_deploy, dev)
     return index, torch.as_tensor(labs, device=dev), n_real
+
+
+def simulate_training_failure_and_restart(
+    model, opt_cfg, ckpt_dir: str, steps_before: int, batch_fn, device=None
+):
+    """Train, checkpoint, 'crash', restore, continue — returns both loss
+    traces (``steps_before`` losses, then 3) so tests can assert
+    continuity. ``model`` is a ``build_model`` handle, ``batch_fn(i)`` the
+    batch of step ``i``; the run is on ``device`` (the card unless told
+    otherwise)."""
+    from repro_torch.checkpoint import store
+    from repro_torch.models import dense
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop as tl
+
+    params = model.init_masters(0, device)
+    state = adamw.init(params, opt_cfg)
+    step = tl.make_train_step(model, opt_cfg)
+    losses = []
+    for i in range(steps_before):
+        params, state, m = step(params, state, batch_fn(i))
+        losses.append(float(m["loss"]))
+    store.save({"params": params, "opt": state}, steps_before, ckpt_dir)
+    dev = params["embed"].device
+    del params, state
+
+    # ----- crash: lose everything; restart from checkpoint
+    params2 = model.init_masters(999, dev)  # fresh process, wrong init
+    state2 = adamw.init(params2, opt_cfg)
+    restored, at = store.restore_latest({"params": params2, "opt": state2}, ckpt_dir, dev)
+    if at != steps_before:
+        raise RuntimeError(f"restored step {at}, not {steps_before}")
+    params2, state2 = dense.master_tree(restored["params"]), restored["opt"]
+    losses2 = []
+    for i in range(steps_before, steps_before + 3):
+        params2, state2, m = step(params2, state2, batch_fn(i))
+        losses2.append(float(m["loss"]))
+    return losses, losses2
+

@@ -93,6 +93,38 @@ def test_store_round_trips_and_names_as_jax(tmp_path):
     assert back["k"].tolist() == [0, 1, 2] and back["k"].dtype == torch.int64
 
 
+def test_store_async_save_keeps_the_values_of_its_call(tmp_path, monkeypatch):
+    """A save without blocking writes the tree as it was when ``save`` was
+    called, though the caller updates the CPU tensors in place (as the train
+    step does) before the writer thread runs."""
+    import threading
+
+    tree = {"params": {"w": torch.arange(6, dtype=torch.float32), "h": torch.ones(3, dtype=torch.bfloat16)},
+            "step": torch.tensor(4, dtype=torch.int32), "host": np.arange(3, dtype=np.int64)}
+    want = {"w": tree["params"]["w"].clone(), "h": tree["params"]["h"].clone(), "host": tree["host"].copy()}
+    updated = threading.Event()
+    real = np.save
+
+    def after_the_update(path, arr):
+        updated.wait(timeout=30)
+        real(path, arr)
+
+    monkeypatch.setattr(np, "save", after_the_update)
+    _, t = store.save(tree, 1, str(tmp_path), blocking=False)
+    with torch.no_grad():
+        tree["params"]["w"].add_(100.0)
+        tree["params"]["h"].mul_(3.0)
+        tree["step"].add_(1)
+    tree["host"] += 7
+    updated.set()
+    t.join(timeout=30)
+    monkeypatch.setattr(np, "save", real)
+    back, step = store.restore_latest(tree, str(tmp_path), device="cpu")
+    assert step == 1 and int(back["step"]) == 4
+    assert torch.equal(back["params"]["w"], want["w"]) and torch.equal(back["params"]["h"], want["h"])
+    np.testing.assert_array_equal(back["host"].numpy(), want["host"])
+
+
 def test_store_async_save_and_crash_mid_write(tmp_path, monkeypatch):
     tree, _ = _tree()
     _, t = store.save(tree, 1, str(tmp_path), blocking=False)

@@ -102,11 +102,26 @@ def test_unported_families_raise():
     for arch in ("olmoe-1b-7b", "mamba2-780m", "hymba-1.5b"):
         with pytest.raises(NotImplementedError, match="not ported"):
             tapi.build_model(tconfigs.get(arch, smoke=True))
-    cfg = tconfigs.get("phi-3-vision-4.2b", smoke=True)
-    model = tapi.build_model(cfg)
-    lm = model.init(0, "cpu")
-    with pytest.raises(NotImplementedError, match="front end"):
-        model.prefill(lm, {"tokens": np.zeros((1, 4), np.int32)}, 8)
+    # the vision front end is ported: patch embeddings replace the first
+    # frontend_len positions, and prefill gives the JAX package's logits
+    jcfg, jparams, tcfg, lm = _models("phi-3-vision-4.2b")
+    rng = np.random.default_rng(4)
+    batch = {"tokens": rng.integers(0, tcfg.vocab, (2, 12)).astype(np.int32),
+             "patch_embeds": _rand(rng, 2, tcfg.frontend_len, tcfg.frontend_dim)}
+    jl, _ = jdense.prefill(jcfg, jparams, {k: jnp.asarray(v) for k, v in batch.items()}, 16)
+    tl, _ = tdense.prefill(tcfg, lm, {k: torch.tensor(v) for k, v in batch.items()}, 16)
+    # the projected patches are about 1 in size, fifty times the token
+    # embeddings, so the logits reach about 1.5: held to 2^-5 of their
+    # largest magnitude (four bf16 ulps there) in place of LOGIT_ATOL
+    atol = 2.0**-5 * float(np.abs(_np(jl)).max())
+    np.testing.assert_allclose(_np(tl), _np(jl), rtol=0.0, atol=atol)
+    top2 = np.sort(_np(jl), axis=-1)[:, -2:]
+    sure = top2[:, 1] - top2[:, 0] > 2 * atol
+    np.testing.assert_array_equal(_np(tl).argmax(-1)[sure], _np(jl).argmax(-1)[sure])
+    jx, jmask = jdense._embed_inputs(jcfg, jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    tx, tmask = tdense._embed_inputs(tcfg, lm, batch)
+    np.testing.assert_array_equal(tmask.numpy(), np.asarray(jmask))
+    np.testing.assert_allclose(_np(tx), _np(jx), rtol=2.0**-7, atol=1e-3)
 
 
 def test_init_defaults_to_the_card():
@@ -307,3 +322,35 @@ def test_decode_cache_is_written_in_place_and_full_cache_raises():
     assert cache2["k"][:, 0, 3].abs().sum() > 0
     with pytest.raises(ValueError, match="full"):
         model.decode_step(lm, cache2, torch.tensor([[1]], dtype=torch.int32))
+
+
+def test_model_looks_up_its_attention_at_each_call(monkeypatch):
+    """Prefill, the hidden-state pass and decode reach attention through
+    ``common.chunked_attention`` and ``common.decode_attention_cp`` as
+    they stand at the call, so a caller can swap them (the card's smoke run
+    plants faults in kernel F that way); the loss path keeps its own
+    differentiable attention."""
+    cfg = tconfigs.get("granite-8b", smoke=True)
+    model = tapi.build_model(cfg)
+    lm = model.init(0, "cpu")
+    toks = torch.tensor([[3, 5, 7, 9]], dtype=torch.int32)
+    calls = []
+    real_chunked, real_decode = tC.chunked_attention, tC.decode_attention_cp
+
+    def chunked(*a, **kw):
+        calls.append("chunked")
+        return real_chunked(*a, **kw)
+
+    def decode(*a, **kw):
+        calls.append("decode")
+        return real_decode(*a, **kw)
+
+    monkeypatch.setattr(tC, "chunked_attention", chunked)
+    monkeypatch.setattr(tC, "decode_attention_cp", decode)
+    _, cache = model.prefill(lm, {"tokens": toks}, 8)
+    model.decode_step(lm, cache, torch.tensor([[1]], dtype=torch.int32))
+    tdense._run_layers(cfg, lm, tdense._embed_inputs(cfg, lm, {"tokens": toks})[0], torch.arange(4))
+    assert calls == ["chunked"] * cfg.n_layers + ["decode"] * cfg.n_layers + ["chunked"] * cfg.n_layers
+    calls.clear()
+    model.loss_fn(model.init_masters(0, "cpu"), {"tokens": toks.numpy()})
+    assert calls == []
