@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs
-thirteen phases, printing one JSON line each; any failed check raises, so
+fourteen phases, printing one JSON line each; any failed check raises, so
 the script exits non-zero:
 
 1. ``device``     the card's name and power limit (``nvidia-smi``).
@@ -111,7 +111,9 @@ the script exits non-zero:
                   steps 2-3 at granite-8b's full width and depth (36 layers,
                   d_model 4,096, weights from a seeded generator): kernel F
                   (flash attention) first against its plain version at the
-                  path's five shapes and two at nemotron-4-340b's heads;
+                  path's five shapes, two at nemotron-4-340b's heads and
+                  one at hymba-1.5b's sliding-window prefill with its 128
+                  meta tokens as attention sinks (``sink``);
                   then a datastore of 65,536 hidden
                   states (64 sequences in chunks of 8), DSLSH over it on
                   ``grid(nu=2, p=4)`` with the ``"cuda"`` backend, and 4
@@ -142,7 +144,19 @@ the script exits non-zero:
                   and 0.3. Checks: the loss falls, A, B, D and F launch,
                   the hook's output equals ``knn_interpolate`` on the
                   index's and the ``"torch"`` backend's answers.
-13. ``train``     LM training at hubert-xlarge's FULL size (48 layers,
+13. ``families``  the moe, ssm and hybrid families served whole: olmoe-1b-7b
+                  (64 experts, top-8), mamba2-780m and hymba-1.5b at their
+                  FULL widths and depths with seeded weights, B = 2 prompts
+                  of 512, 1,000 and 1,920 tokens, 8 greedy decode steps.
+                  Checks: kernel F launched per prefill and decode step as
+                  each family's attention calls it (16 a pass for olmoe, 32
+                  a prefill and 3 a decode step for hymba, none for
+                  mamba2) and no other kernel; the logit gate on olmoe and
+                  hymba with its planted faults (``fault_sink`` on hymba);
+                  decode after ``prefill(s)`` against ``prefill(s + 1)`` on
+                  mamba2 and hymba; ``ssd_chunked`` against ``ssd_reference``
+                  at mamba2's dims; then ``launch.serve`` for each family.
+14. ``train``     LM training at hubert-xlarge's FULL size (48 layers,
                   d_model 1280, 0.95 B parameters, no cut) through
                   ``launch.train``'s step and audio batches (8 x 1,024
                   frames, 30 % masked): step 0's loss and every leaf's
@@ -167,7 +181,7 @@ staged form's distance stage, is on no path of the ``"cuda"`` backend and
 counts 0 there), the payload phase's two compressed
 queries for E, the ``knn_lm`` phase for F; every row also gives its
 launches on the ``routes``, ``quickstart``, ``routed``, ``icu_serve``, ``stream``,
-``knn_lm``, ``serve``, ``serve_twin`` and ``train`` paths (no kernel runs on
+``knn_lm``, ``serve``, ``serve_twin``, ``families`` and ``train`` paths (no kernel runs on
 the training path, as none does on the JAX package's), and A, B and D their launches summed over the
 ``mesh`` phase's ranks (``mesh_launches``). Without a CUDA
 device, or without the repository's ``src/`` beside it, the script exits
@@ -266,6 +280,25 @@ TRAIN_LOSS_RTOL, TRAIN_GRAD_FRAC, TRAIN_GRAD_COS = 1e-3, 2.0**-5, 0.999
 # scale comes from a norm summed in another order)
 UPDATE_LEAF = "wq"
 UPDATE_P_RTOL, UPDATE_M_RTOL = 1e-6, 2.0**-21
+
+# the moe, ssm and hybrid families' serving path: each FULL config whole,
+# B = 2 prompts of these lengths (mamba2's not a multiple of its 128 chunk;
+# hymba's 1,920 + 128 meta tokens = 2,048 positions, past its window 1,024 +
+# 128 meta tokens), then 8 greedy decode steps
+FAMILY_PROMPTS = {"olmoe-1b-7b": 512, "mamba2-780m": 1000, "hymba-1.5b": 1920}
+FAMILY_BATCH, FAMILY_STEPS = 2, 8
+SINK_ARCH = "hymba-1.5b"  # its sliding-window prefill is kernel F's sink case
+# Decode after prefill(s) against prefill(s + 1): the two paths round
+# differently (the chunked SSD returns bf16 chunk outputs, the recurrent
+# step keeps float32; F against the ring's torch attention), which each
+# layer carries on. Held to 2^-3 of the largest logit (16 bf16 ulps there,
+# about 0.5 for logits of about 4): a state or conv tail not carried over,
+# or a wrong ring, moves the logits by their own size.
+CONT_FRAC = 2.0**-3
+# ssd_chunked against ssd_reference in float32 at FULL's dims: the same sums
+# grouped by chunk, within 1e-4 of the largest output (the JAX package's own
+# test holds them to 1e-4)
+SSD_RTOL = 1e-4
 
 
 def emit(phase: str, **fields) -> None:
@@ -1100,6 +1133,7 @@ def run(dev, n: int, nq: int, lm_smoke: bool = False, ds_seqs: int = DS_SEQS) ->
     del scratch
     serve_launches = serve_phase(["--arch", LM_ARCH] + (["--smoke", "--device", dev.type] if lm_smoke else []))
     twin_launches = serve_twin_phase(dev)
+    families_launches = families_phase(dev, lm_smoke)
     train_launches = train_phase(dev, lm_smoke)
     for r in rows:
         extra = knn.get(r["name"])
@@ -1130,6 +1164,7 @@ def run(dev, n: int, nq: int, lm_smoke: bool = False, ds_seqs: int = DS_SEQS) ->
         r["knn_lm_launches"] = lm_launches.get(r["name"], 0)
         r["serve_launches"] = serve_launches.get(r["name"], 0)
         r["serve_twin_launches"] = twin_launches.get(r["name"], 0)
+        r["families_launches"] = families_launches.get(r["name"], 0)
         r["train_launches"] = train_launches.get(r["name"], 0)
     print(json.dumps({"kernels": rows}), flush=True)
 
@@ -1958,13 +1993,16 @@ def stream_phase(dev, pts, labs, qx, cfg, n: int) -> dict:
 # ---------------------------------------------------------------- the kNN-LM slice
 
 
-def flash_row(dev, cfg, wide_cfg, max_len: int, flush) -> dict:
+def flash_row(dev, cfg, wide_cfg, sink_cfg, max_len: int, flush) -> dict:
     """Kernel F against its plain version (float32, cast once to bf16) at the
     slice's shapes, in the model's layouts: q, k, v are transposed views of
     (B, S, H, dh) activations or of the (B, S_max, Hkv, dh) cache. The
     row's own numbers are the datastore pass's shape; ``cases`` holds all
-    seven: five at ``cfg``'s heads and two at ``wide_cfg``'s (head_dim 192,
-    a GQA group of 12: the widest ring and a packed decode tile).
+    eight: five at ``cfg``'s heads, two at ``wide_cfg``'s (head_dim 192,
+    a GQA group of 12: the widest ring and a packed decode tile) and one at
+    ``sink_cfg``'s sliding-window prefill (hymba: its window and its meta
+    tokens as attention sinks, over the 2,048 positions of the families
+    phase's prompt).
     ``library_ms`` is one ``scaled_dot_product_attention`` call
     (``enable_gqa``), timed here only; ``library_ratio`` is ms over it."""
     import torch
@@ -1974,6 +2012,7 @@ def flash_row(dev, cfg, wide_cfg, max_len: int, flush) -> dict:
 
     heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
     wide = (wide_cfg.n_heads, wide_cfg.n_kv_heads, wide_cfg.head_dim)
+    s_sink = FAMILY_PROMPTS[SINK_ARCH] + sink_cfg.meta_tokens
     ragged = torch.tensor([max_len - 15, max_len - 7, max_len - 3, max_len], dtype=torch.int32, device=dev)
     cases = [
         dict(case="datastore", b=DS_CHUNK, sq=DS_LEN - 1, skv=DS_LEN - 1, causal=True),
@@ -1983,13 +2022,16 @@ def flash_row(dev, cfg, wide_cfg, max_len: int, flush) -> dict:
         dict(case="q_offset", b=1, sq=64, skv=max_len, causal=True, q_offset=max_len - 64),
         dict(case="dh192_prefill", b=1, sq=256, skv=256, causal=True, heads=wide),
         dict(case="dh192_decode", b=1, sq=1, skv=256, causal=False, q_offset=255, kv_len=256, heads=wide),
+        dict(case="sink", b=1, sq=s_sink, skv=s_sink, causal=True, window=sink_cfg.window,
+             sink=sink_cfg.meta_tokens, heads=(sink_cfg.n_heads, sink_cfg.n_kv_heads, sink_cfg.head_dim)),
     ]
     g = torch.Generator(dev).manual_seed(SEED)
     out = []
     for c in cases:
         b, sq, skv = c["b"], c["sq"], c["skv"]
         hq, hkv, dh = c.get("heads", heads)
-        kw = dict(causal=c["causal"], window=c.get("window"), q_offset=c.get("q_offset", 0), kv_len=c.get("kv_len"))
+        kw = dict(causal=c["causal"], window=c.get("window"), q_offset=c.get("q_offset", 0), kv_len=c.get("kv_len"),
+                  sink=c.get("sink", 0))
         q = torch.randn((b, sq, hq, dh), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
         k, v = (torch.randn((b, skv, hkv, dh), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
                 for _ in range(2))
@@ -2019,7 +2061,8 @@ def flash_row(dev, cfg, wide_cfg, max_len: int, flush) -> dict:
         out.append(dict(
             case=c["case"],
             shape=(f"q ({b}, {hq}, {sq}, {dh}), k/v ({b}, {hkv}, {skv}, {dh}) bf16, causal={kw['causal']},"
-                   f" window={kw['window']}, q_offset={_show(kw['q_offset'])}, kv_len={_show(kw['kv_len'])}"),
+                   f" window={kw['window']}, q_offset={_show(kw['q_offset'])}, kv_len={_show(kw['kv_len'])}"
+                   + (f", sink={kw['sink']}" if kw["sink"] else "")),
             visible_pairs=pairs, max_abs_err=float(err.max()), library_max_abs_err=lib_err,
             ms=timed_ms(lambda: fa.flash_attention(q, k, v, **kw), 20, flush),
             plain_ms=timed_ms(lambda: fa_ref.attention_ref(q, k, v, **kw), 5, flush),
@@ -2178,6 +2221,10 @@ def launch_shapes(logs: dict):
 # gate: flash_row's decode case is the check that catches it, per element.
 ATTENTION_FAULTS = ("fault_causal_edge", "fault_scale", "fault_last_key")
 GATED_FAULTS = ATTENTION_FAULTS[:2]
+# kernel F with the attention-sink mask ignored (hymba's meta tokens drop
+# out of its sliding-window layers' prefill): the families phase's gate on
+# hymba must catch it too
+SINK_FAULT = "fault_sink"
 
 
 @contextlib.contextmanager
@@ -2191,15 +2238,17 @@ def model_attention(kind: str):
     saved = common.chunked_attention, common.decode_attention_cp
     attend = fa_ref.attention_ref if kind == "attention_ref" else fa_ops.flash_attention
 
-    def chunked(q, k, v, *, causal=True, window=None, q_offset=0, kv_len=None, q_chunk=512):
+    def chunked(q, k, v, *, causal=True, window=None, sink=0, q_offset=0, kv_len=None, q_chunk=512):
         if kind == "plain":
-            return common._chunked_attention_plain(q, k, v, causal, window, q_offset, kv_len, q_chunk)
+            return common._chunked_attention_plain(q, k, v, causal, window, q_offset, kv_len, q_chunk, sink=sink)
         if kind == "fault_causal_edge" and causal:
             q_offset = q_offset - 1
         if kind == "fault_scale":
             q = q * q.shape[-1] ** -0.5
+        if kind == SINK_FAULT:
+            sink = 0
         return attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal,
-                      window=window, q_offset=q_offset, kv_len=kv_len).transpose(1, 2)
+                      window=window, q_offset=q_offset, kv_len=kv_len, sink=sink).transpose(1, 2)
 
     def decode(q, k_cache, v_cache, cur_len):
         cl = fa_ref.per_row(cur_len, q.shape[0], q.device)
@@ -2294,7 +2343,8 @@ def knn_lm_phase(dev, smoke: bool, ds_seqs: int, flush) -> tuple[dict, dict, dic
 
     cfg = configs.get(LM_ARCH, smoke=smoke)
     max_len = PROMPT_LEN + MAX_NEW + 8  # as the serving launcher sizes its cache
-    f_row = flash_row(dev, cfg, configs.get(WIDE_ARCH, smoke=smoke), max_len, flush)
+    f_row = flash_row(dev, cfg, configs.get(WIDE_ARCH, smoke=smoke), configs.get(SINK_ARCH, smoke=smoke), max_len,
+                      flush)
 
     model = mapi.build_model(cfg)
     sync(dev)
@@ -2831,12 +2881,195 @@ def serve_phase(argv: list[str]) -> dict:
     need(all(r.done and not r.timed_out and len(r.result) == max_new for r in done), "serve: a request did not finish")
     need(all(0 <= t < cfg.vocab for r in done for t in r.result), "serve: a token outside the vocabulary")
     passes = len(done) + max_new  # one prefill per request, one batched decode per step
-    need(launches.get("flash_attention", 0) >= cfg.n_layers * passes,
-         f"serve: {launches.get('flash_attention', 0)} flash_attention launches for {passes} forward passes")
+    per_prefill, per_decode = flash_per_pass(cfg)
+    want = len(done) * per_prefill + max_new * per_decode
+    if torch.cuda.is_available():
+        need(launches.get("flash_attention", 0) == want,
+             f"serve: {launches.get('flash_attention', 0)} flash_attention launches for {passes} forward passes,"
+             f" not {want}")
     emit("serve", argv=argv, arch=cfg.name, requests=len(done), new_tokens=max_new, seconds=seconds,
          latency_ms=[r.latency_s * 1e3 for r in done], tokens=[r.result for r in done],
-         forward_passes=passes, launches=launches)
+         forward_passes=passes, launches=launches, flash_attention_launches_expected=want)
     return launches
+
+
+def flash_per_pass(cfg) -> tuple[int, int]:
+    """Kernel F's launches in one prefill and in one decode step of
+    ``cfg``'s model: one per layer's attention, none in mamba2 (no
+    attention), and in hymba's decode step only the global layers' (its
+    sliding-window layers attend over their ring in torch ops, as the JAX
+    package's do in XLA)."""
+    if cfg.family == "ssm":
+        return 0, 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers, len(cfg.global_layers)
+    return cfg.n_layers, cfg.n_layers
+
+
+def families_phase(dev, smoke: bool = False) -> dict:
+    """The moe, ssm and hybrid families served whole: olmoe-1b-7b,
+    mamba2-780m and hymba-1.5b at their FULL widths and depths (their smoke
+    configs with ``smoke``), weights from a seeded generator, B = 2 prompts
+    of FAMILY_PROMPTS tokens (mamba2's not a multiple of its 128 chunk;
+    hymba's 1,920 behind 128 meta tokens, past window + meta tokens, so the
+    window, the sink and the ring's wrap all bite), then FAMILY_STEPS greedy
+    decode steps. Per family: prefill ms, ms per decode step, peak memory,
+    F's launches against ``flash_per_pass`` (checked on the card); on olmoe
+    and hymba the logit gate (first prefill and decode logits with F
+    against the plain attention, planted faults caught, ``fault_sink`` on
+    hymba); on mamba2 and hymba decode after ``prefill(s)`` against
+    ``prefill(s + 1)``; on mamba2 ``ssd_chunked`` against ``ssd_reference``
+    at FULL's dims; ``families_profile``: the path once more, profiled (the
+    card's kernels only); then ``launch.serve`` for the family. Returns the
+    launches of all of it but the profiled pass."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data.lm_data import TokenStream
+    from repro_torch.kernels import _build
+    from repro_torch.models import api as mapi
+    from repro_torch.models import mamba2
+
+    total: dict = {}
+    for arch, plen in FAMILY_PROMPTS.items():
+        cfg = configs.get(arch, smoke=smoke)
+        if smoke:  # the same cases at the smoke configs' chunk (16) and window (16)
+            plen = {"olmoe-1b-7b": 40, "mamba2-780m": 37, "hymba-1.5b": 24}[arch]
+        model = mapi.build_model(cfg)
+        sync(dev)
+        t0 = time.perf_counter()
+        params = model.init(SEED, dev)
+        sync(dev)
+        init_s = time.perf_counter() - t0
+        toks = torch.as_tensor(TokenStream(cfg.vocab, seed=5).batch(FAMILY_BATCH, plen + 1), device=dev)
+        prompt = {"tokens": toks[:, :plen]}
+        max_len = plen + cfg.meta_tokens + FAMILY_STEPS + 1
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        checks: list = []
+
+        # the path: prefill, then greedy decode steps
+        sync(dev)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, prompt, max_len)
+        sync(dev)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        first = [logits]
+        decode_ms, gen = [], []
+        for _ in range(FAMILY_STEPS):
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+            gen.append(nxt[:, 0].tolist())
+            t0 = time.perf_counter()
+            logits, cache = model.decode_step(params, cache, nxt)
+            sync(dev)
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+            if len(first) == 1:
+                first.append(logits)
+        launches = dict(_build.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None
+        per_prefill, per_decode = flash_per_pass(cfg)
+        want_f = per_prefill + FAMILY_STEPS * per_decode
+        if dev.type == "cuda":
+            checks.append((launches == ({"flash_attention": want_f} if want_f else {}),
+                           f"{arch}: launches {launches}, not {want_f} of flash_attention alone"))
+        checks.append((tuple(logits.shape) == (FAMILY_BATCH, cfg.vocab) and bool(torch.isfinite(logits).all())
+                       and all(bool(torch.isfinite(t).all()) for t in first),
+                       f"{arch}: logits of shape {tuple(logits.shape)}, or not finite"))
+        checks.append((cache["len"].tolist() == [plen + cfg.meta_tokens + FAMILY_STEPS] * FAMILY_BATCH,
+                       f"{arch}: cache len {cache['len'].tolist()}"))
+        del cache
+        fields = dict(arch=cfg.name, family=cfg.family, n_layers=cfg.n_layers, d_model=cfg.d_model,
+                      n_params=model.n_params, init_s=init_s, batch=FAMILY_BATCH, prompt_len=plen,
+                      positions=plen + cfg.meta_tokens, decode_steps=FAMILY_STEPS, prefill_ms=prefill_ms,
+                      decode_step_ms=float(np.median(decode_ms)), decode_step_ms_each=decode_ms, peak_mem_gb=peak_gb,
+                      flash_attention_launches=launches.get("flash_attention", 0),
+                      flash_attention_launches_expected=want_f, launches=launches, tokens=gen)
+
+        # the logit gate: the model with F against the same model with the
+        # plain attention on the first prefill and decode step (as knn_lm's)
+        if per_prefill:
+            tok0 = torch.argmax(first[0], dim=-1).to(torch.int32)[:, None]
+
+            def first_logits():
+                lg, c = model.prefill(params, prompt, max_len)
+                return lg, model.decode_step(params, c, tok0)[0]
+
+            with model_attention("plain"):
+                plain = first_logits()
+            with model_attention("attention_ref"):
+                alt = first_logits()
+
+            def logit_errs(got):
+                return [float((a - b).abs().max()) for a, b in zip(got, plain)]
+
+            logit_err, logit_floor = logit_errs(first[:2]), logit_errs(alt)
+            logit_tol = 2 * max(logit_floor) + LOGIT_ATOL
+            checks.append((max(logit_err) <= logit_tol,
+                           f"{arch}: logits differ from the plain model's by {logit_err} > {logit_tol}"))
+            faults = GATED_FAULTS + ((SINK_FAULT,) if cfg.meta_tokens else ())
+            fault_err = {}
+            for kind in faults:
+                with model_attention(kind):
+                    fault_err[kind] = logit_errs(first_logits())
+            checks += [(max(fault_err[kind]) > logit_tol,
+                        f"{arch}: the logit gate {logit_tol} misses {kind} (errors {fault_err[kind]})")
+                       for kind in faults]
+            fields.update(logits_max_abs=[float(x.abs().max()) for x in plain], logits_max_abs_err_vs_plain=logit_err,
+                          logits_plain_vs_attention_ref=logit_floor, logit_tolerance=logit_tol,
+                          logits_planted_fault_err=fault_err)
+
+        # decode after prefill(s) continues prefill(s + 1) (not for moe: its
+        # capacity drops other tokens at T = s and T = 1)
+        if cfg.family in ("ssm", "hybrid"):
+            _, c = model.prefill(params, prompt, max_len)
+            stepped = model.decode_step(params, c, toks[:, plen:])[0]
+            whole = model.prefill(params, {"tokens": toks}, max_len)[0]
+            gap, scale = float((stepped - whole).abs().max()), float(whole.abs().max())
+            checks.append((gap <= CONT_FRAC * scale,
+                           f"{arch}: decode after prefill({plen}) differs from prefill({plen + 1}) by {gap} >"
+                           f" {CONT_FRAC} * {scale}"))
+            fields.update(continuation_max_abs_err=gap, continuation_tolerance=CONT_FRAC * scale)
+            del c
+        if cfg.family == "ssm":  # the chunked SSD against the exact recurrence at FULL's dims
+            _, n_heads, _, _ = mamba2.dims(cfg)
+            g = torch.Generator(dev).manual_seed(SEED)
+
+            def rnd(*shape):
+                return torch.randn(shape, generator=g, device=dev)
+
+            xh, bm, cm = rnd(FAMILY_BATCH, plen, n_heads, cfg.ssm_headdim), rnd(FAMILY_BATCH, plen, cfg.ssm_state), \
+                rnd(FAMILY_BATCH, plen, cfg.ssm_state)
+            dt, a = torch.nn.functional.softplus(rnd(FAMILY_BATCH, plen, n_heads)), -torch.exp(0.5 * rnd(n_heads))
+            yc, hc = mamba2.ssd_chunked(xh, dt, a, bm, cm, cfg.ssm_chunk)
+            yr, hr = mamba2.ssd_reference(xh, dt, a, bm, cm)
+            y_err = float((yc - yr).abs().max()) / float(yr.abs().max())
+            h_err = float((hc - hr).abs().max()) / float(hr.abs().max())
+            checks.append((max(y_err, h_err) <= SSD_RTOL,
+                           f"{arch}: ssd_chunked differs from ssd_reference by {y_err}, {h_err} of the largest"))
+            fields.update(ssd_shape=[FAMILY_BATCH, plen, n_heads, cfg.ssm_headdim, cfg.ssm_state],
+                          ssd_chunked_vs_reference=dict(y=y_err, state=h_err, tolerance=SSD_RTOL))
+            del xh, bm, cm, dt, yc, yr, hc, hr
+        emit("families", **fields)
+        for ok, msg in checks:
+            need(ok, msg)
+
+        def served():  # the path once more: prefill and the greedy steps
+            lg, c = model.prefill(params, prompt, max_len)
+            for _ in range(FAMILY_STEPS):
+                lg, c = model.decode_step(params, c, torch.argmax(lg, dim=-1).to(torch.int32)[:, None])
+
+        # where its time goes: the card's kernels only (hymba's prefill is
+        # some 10^5 small ops, whose host records would slow it)
+        emit("families_profile", arch=cfg.name, **profile_query(dev, served, queries=FAMILY_STEPS, host_ops=False))
+        del params, first, logits
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        serve = serve_phase(["--arch", arch] + (["--smoke", "--device", dev.type] if smoke else []))
+        for part in (launches, serve):
+            for name, n in part.items():
+                total[name] = total.get(name, 0) + n
+    return total
 
 
 if __name__ == "__main__":

@@ -1,16 +1,19 @@
 // Flash attention, forward (kernel F of the port): online-softmax GQA
-// attention with causal, sliding-window, kv-length and q-offset masks, on
-// the tensor cores.
+// attention with causal, sliding-window (with attention sinks), kv-length
+// and q-offset masks, on the tensor cores.
 //
 // Replaces the JAX package's repro/kernels/flash_attention/flash_attention.py:
 // flash_attention_pallas (_flash_kernel, flash_attention.py:125). For q
 // (B, Hq, Sq, dh) and k, v (B, Hkv, Skv, dh), query row i of batch row b
 // sits at position q_offset[b] + i and may see key j when j < kv_len[b],
-// j <= q position (causal) and j > q position - window (window > 0). Output
+// j <= q position (causal) and j > q position - window or j < sink (window
+// > 0; the first sink keys are attention sinks, hymba's meta tokens). Output
 // o = softmax(q k^T / sqrt(dh)) v per (b, q-head), with q-head h reading
 // kv-head h / (Hq / Hkv); a row that sees no key gives 0.
 //
-// Differences from the Pallas kernel, all of them its calling convention:
+// Differences from the Pallas kernel: the sink mask, which the JAX package
+// applies in its plain chunked_attention (repro/models/common.py:93-94)
+// and not in the Pallas kernel; the rest is its calling convention:
 // q_offset and kv_len are per-row int32 device arrays, so one launch serves
 // a prefill (equal offsets) and a batched decode step whose rows each have
 // their own cache length; the kernel masks the ragged edges of Sq, Skv and
@@ -69,9 +72,11 @@
 //    case) the rows are packed: the (q-head in the group, q row) pairs of
 //    the kv-head in order, 64 per row tile, so each K/V tile is read once
 //    for the whole group and a decode tile has `group` busy rows instead of
-//    one. Masks use each row's own q position. The key loop starts at the
-//    block's window edge and stops at its causal edge; only the tiles on an
-//    edge are masked.
+//    one. Masks use each row's own q position. The key loop visits the
+//    sink's tiles first, then starts at the block's window edge (past the
+//    sink's tiles, so no tile is read twice) and stops at its causal edge;
+//    only the tiles on an edge (including one that crosses the sink's end)
+//    are masked.
 #include "common.cuh"
 
 #include <cuda_bf16.h>
@@ -110,6 +115,7 @@ struct Args {
   int Hq, Hkv, Sq, Skv, dh;
   float scale_log2;  // 1/sqrt(dh) * log2(e)
   int causal, window;
+  int sink;    // with a window: keys below it stay visible (0: none)
   int packed;  // rows are (q-head in group, q row) pairs of one kv-head
   int vec;     // 16-byte rows and pointers: stage by cp.async
   const int* q_offset;
@@ -324,9 +330,15 @@ __global__ void __launch_bounds__(FA_THREADS, fa_min_blocks(DHP)) flash_attentio
   }
   int hi = kl;
   if (a.causal) hi = min(hi, qo + i_hi + 1);
+  hi = max(hi, 0);
   const int lo = a.window > 0 ? max(0, qo + i_lo - a.window + 1) : 0;
-  const int k_first = (lo / FA_BK) * FA_BK;
-  const int n_tiles = hi > k_first ? (hi - k_first + FA_BK - 1) / FA_BK : 0;
+  // the sink's tiles [0, sink_tiles) come first, then the window's from
+  // k_first, which starts past them: no tile is visited twice
+  const int sink_tiles =
+      a.window > 0 && a.sink > 0 ? min((a.sink + FA_BK - 1) / FA_BK, (hi + FA_BK - 1) / FA_BK) : 0;
+  const int k_first = max((lo / FA_BK) * FA_BK, sink_tiles * FA_BK);
+  const int n_tiles = sink_tiles + (hi > k_first ? (hi - k_first + FA_BK - 1) / FA_BK : 0);
+  auto tile_k0 = [&](int t) { return t < sink_tiles ? t * FA_BK : k_first + (t - sink_tiles) * FA_BK; };
 
   // this thread's two rows (g and g + 8 of its warp's 16) and positions
   const int r0 = warp * 16 + g;
@@ -339,10 +351,10 @@ __global__ void __launch_bounds__(FA_THREADS, fa_min_blocks(DHP)) flash_attentio
   const T* vb = a.v + b * a.vs.b + hk * a.vs.h;
   // K and V rings of two slots each: tile t in slot t % 2
   auto stage_k = [&](int tile) {
-    fa_stage_kv<DHP>(Ks + (tile & 1) * FA_BK * DHP, kb, a.ks.s, k_first + tile * FA_BK, kl, a.dh, a.vec);
+    fa_stage_kv<DHP>(Ks + (tile & 1) * FA_BK * DHP, kb, a.ks.s, tile_k0(tile), kl, a.dh, a.vec);
   };
   auto stage_v = [&](int tile) {
-    fa_stage_kv<DHP>(Vs + (tile & 1) * FA_BK * DHP, vb, a.vs.s, k_first + tile * FA_BK, kl, a.dh, a.vec);
+    fa_stage_kv<DHP>(Vs + (tile & 1) * FA_BK * DHP, vb, a.vs.s, tile_k0(tile), kl, a.dh, a.vec);
   };
 
   float acc[NO][4];
@@ -411,7 +423,7 @@ __global__ void __launch_bounds__(FA_THREADS, fa_min_blocks(DHP)) flash_attentio
   cp_async_commit();
 
   for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = k_first + it * FA_BK;
+    const int k0 = tile_k0(it);
     // K and V of tile it have landed; every warp is done with tile it - 1,
     // whose slots take tile it + 1
     cp_async_wait<0>();
@@ -430,10 +442,11 @@ __global__ void __launch_bounds__(FA_THREADS, fa_min_blocks(DHP)) flash_attentio
 
     // the scores into p (s is written by wgmma alone: an accumulator
     // register defined by another instruction makes ptxas serialize every
-    // wgmma), masked only on a tile that crosses an edge
+    // wgmma), masked only on a tile that crosses an edge; a tile wholly
+    // inside the sink needs no window mask
     float p[8][4];
     const bool edge = k0 + FA_BK > kl || (a.causal && k0 + FA_BK - 1 > qo + i_lo) ||
-                      (a.window > 0 && k0 <= qo + i_hi - a.window);
+                      (a.window > 0 && k0 + FA_BK > a.sink && k0 <= qo + i_hi - a.window);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -444,7 +457,7 @@ __global__ void __launch_bounds__(FA_THREADS, fa_min_blocks(DHP)) flash_attentio
           const int qp = e < 2 ? qp0 : qp1;
           bool ok = kp < kl;
           if (a.causal) ok = ok && kp <= qp;
-          if (a.window > 0) ok = ok && kp > qp - a.window;
+          if (a.window > 0) ok = ok && (kp > qp - a.window || kp < a.sink);
           if (!ok) p[j][e] = -INFINITY;
         }
       }
@@ -555,7 +568,7 @@ extern "C" int flash_attention_launch(
     int Hq, int Hkv, int Sq, int Skv, int dh, long long qsb, long long qsh,
     long long qss, long long ksb, long long ksh, long long kss, long long vsb,
     long long vsh, long long vss, long long osb, long long osh, long long oss,
-    float scale, int causal, int window, const int* q_offset,
+    float scale, int causal, int window, int sink, const int* q_offset,
     const int* kv_len, void* stream) {
   if (B > 0 && Hq > 0 && Sq > 0) {
     if (dh < 1 || dh > FA_DH_MAX || Hkv < 1 || Hq % Hkv != 0)
@@ -577,6 +590,7 @@ extern "C" int flash_attention_launch(
     a.scale_log2 = scale * 1.4426950408889634f;
     a.causal = causal;
     a.window = window;
+    a.sink = window > 0 ? sink : 0;
     a.packed = Sq < FA_BQ;
     bool vec = dh % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o);
     for (long long s : {qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss})

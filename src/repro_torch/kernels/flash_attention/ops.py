@@ -31,7 +31,7 @@ DH_MAX = 256  # FA_DH_MAX in flash_attention.cu
 _I64 = ctypes.c_longlong
 _SIGNATURES = {
     "flash_attention_launch": [_build.PTR] * 4 + [_build.INT] * 6 + [_I64] * 12
-    + [ctypes.c_float] + [_build.INT] * 2 + [_build.PTR] * 3,
+    + [ctypes.c_float] + [_build.INT] * 3 + [_build.PTR] * 3,
 }
 
 
@@ -44,16 +44,18 @@ def flash_attention(
     window: int | None = None,
     q_offset=0,
     kv_len=None,
+    sink: int = 0,
 ) -> torch.Tensor:
     """Attention of q ``(B, Hq, Sq, dh)`` over k, v ``(B, Hkv, Skv, dh)``
     with q-head ``h`` reading kv-head ``h // (Hq / Hkv)``; query row ``i``
     of batch row ``b`` sits at ``q_offset[b] + i`` and sees keys below
     ``kv_len[b]`` (default Skv), at or before it when ``causal``, and within
-    ``window`` of it. Float32 accumulation; output in q's dtype. The kernel
-    takes bfloat16, the model path's dtype; the plain version on a CPU
-    tensor takes any float dtype."""
+    ``window`` of it or among the first ``sink`` keys (attention sinks; no
+    effect without a window). Float32 accumulation; output in q's dtype.
+    The kernel takes bfloat16, the model path's dtype; the plain version on
+    a CPU tensor takes any float dtype."""
     if q.device.type == "cpu":
-        return ref.attention_ref(q, k, v, causal=causal, window=window, kv_len=kv_len, q_offset=q_offset)
+        return ref.attention_ref(q, k, v, causal=causal, window=window, kv_len=kv_len, q_offset=q_offset, sink=sink)
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q (B, Hq, Sq, dh) and k, v (B, Hkv, Skv, dh) expected, got"
                          f" {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -74,6 +76,8 @@ def flash_attention(
         raise ValueError("the head_dim axis of q, k and v must be contiguous")
     if window is not None and window < 1:
         raise ValueError(f"window={window} must be at least 1")
+    if sink < 0:
+        raise ValueError(f"sink={sink} must not be negative")
     qo = ref.per_row(q_offset, b, q.device)
     kl = ref.per_row(skv if kv_len is None else kv_len, b, q.device)
     out = torch.empty_like(q)  # q's strides, so a transposed view stays one
@@ -81,7 +85,7 @@ def flash_attention(
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, sq, skv, dh,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        1.0 / dh**0.5, int(causal), 0 if window is None else int(window),
+        1.0 / dh**0.5, int(causal), 0 if window is None else int(window), 0 if window is None else int(sink),
         qo.data_ptr(), kl.data_ptr(), _build.stream_ptr(q),
     )
     _build.check(lib, err, "flash_attention")

@@ -7,19 +7,21 @@ fields and defaults), ``SHAPE_CELLS``, ``cell_skip_reason`` and
 masters' declarations, float32 leaves cast to ``param_dtype`` as the JAX
 package casts them), ``n_params``, ``init``, ``init_masters``,
 ``serving``, ``loss_fn``, ``prefill``, ``decode_step``, ``init_cache`` and
-``input_defs``. Only the dense family is ported; ``moe``, ``ssm`` and
-``hybrid`` raise ``NotImplementedError``. The JAX package's sharding
-helpers (param specs, structs, input specs, cache structs) have no
-counterpart here.
+``input_defs``. All four families serve (``dense``, ``moe``, ``ssm``,
+``hybrid``); only the dense family trains so far: the others'
+``init_masters``, ``loss_fn`` and ``serving`` raise ``NotImplementedError``
+(ROADMAP.md, Queue 1). The JAX package's sharding helpers (param specs,
+structs, input specs, cache structs) have no counterpart here.
 
-The weights come in two forms (``models.dense``), each drawn from a
-``torch.Generator`` seeded with ``seed`` on ``device`` (the card unless
-told otherwise):
+The weights come in two forms, each drawn from a ``torch.Generator``
+seeded with ``seed`` on ``device`` (the card unless told otherwise):
 
 * ``init(seed, device=None)`` returns the frozen serving model (a
-  ``torch.nn.Module``), which ``prefill(params, batch, max_len)`` and
-  ``decode_step(params, cache, tokens)`` take as their ``params``, as the
-  JAX handle takes its param tree.
+  ``torch.nn.Module``: ``dense.DenseLM``, or for the other families one
+  ``dense.frozen`` tree in the JAX layout, see :func:`serving_weights`),
+  which ``prefill(params, batch, max_len)`` and ``decode_step(params,
+  cache, tokens)`` take as their ``params``, as the JAX handle takes its
+  param tree.
 * ``init_masters(seed, device=None)`` returns the training masters, the
   JAX package's tree in ``param_dtype``, requiring gradients;
   ``loss_fn(params, batch)`` takes them, with the config's ``remat``, and
@@ -109,11 +111,30 @@ def cell_skip_reason(cfg: ModelConfig, cell: str) -> str | None:
 
 
 def _family_module(cfg: ModelConfig):
-    if cfg.family != "dense":
-        raise NotImplementedError(f"the {cfg.family!r} model family {_NOT_PORTED}")
+    from repro_torch.models import dense, hymba, mamba2, moe
+
+    return {"dense": dense, "moe": moe, "ssm": mamba2, "hybrid": hymba}[cfg.family]
+
+
+def serving_weights(cfg: ModelConfig, tree: dict) -> torch.nn.Module:
+    """The frozen serving model of ``cfg`` from ``tree`` (the JAX package's
+    parameter layout, nested dicts with stacked ``(L, ...)`` layer leaves),
+    each leaf cast to its storage dtype: bf16 for the matmul weights and
+    the embeddings, ``param_dtype`` for the rest."""
     from repro_torch.models import dense
 
-    return dense
+    mod = _family_module(cfg)
+    if mod is dense:
+        return dense.DenseLM(cfg, tree)
+    defs = mod.storage_defs(PM.param_dtype_defs(mod.model_defs(cfg), cfg.param_dtype))
+    return dense.frozen(tree, dense._dtypes(defs))
+
+
+def _not_trained(cfg: ModelConfig, what: str):
+    def refuse(*args, **kwargs):
+        raise NotImplementedError(f"{what} of the {cfg.family!r} model family {_NOT_PORTED}")
+
+    return refuse
 
 
 def build_model(cfg: ModelConfig) -> SimpleNamespace:
@@ -124,10 +145,12 @@ def build_model(cfg: ModelConfig) -> SimpleNamespace:
         return PM.init_params(leaf_defs, torch.Generator(device_mod.resolve(device)).manual_seed(seed))
 
     def init(seed: int, device: str | torch.device | None = None):
-        return mod.DenseLM(cfg, draw(seed, device, mod.storage_defs(defs)))
+        return serving_weights(cfg, draw(seed, device, mod.storage_defs(defs)))
 
     def init_masters(seed: int, device: str | torch.device | None = None) -> dict:
         return mod.master_tree(draw(seed, device, defs))
+
+    trains = cfg.family == "dense"
 
     def input_defs(cell: str) -> dict:
         """Model inputs for a cell as ``name -> (shape, dtype)``."""
@@ -150,10 +173,11 @@ def build_model(cfg: ModelConfig) -> SimpleNamespace:
         cfg=cfg,
         defs=defs,
         init=init,
-        init_masters=init_masters,
-        serving=lambda params: mod.serving_model(cfg, params),
+        init_masters=init_masters if trains else _not_trained(cfg, "init_masters (the training masters)"),
+        serving=(lambda params: mod.serving_model(cfg, params)) if trains else _not_trained(cfg, "serving(masters)"),
         n_params=PM.count_params(defs),
-        loss_fn=lambda params, batch: mod.loss_fn(cfg, params, batch, cfg.remat),
+        loss_fn=(lambda params, batch: mod.loss_fn(cfg, params, batch, cfg.remat)) if trains
+        else _not_trained(cfg, "loss_fn (the loss path)"),
         input_defs=input_defs,
         prefill=lambda params, batch, max_len: mod.prefill(cfg, params, batch, max_len),
         decode_step=lambda params, cache, tokens: mod.decode_step(cfg, params, cache, tokens),

@@ -62,6 +62,7 @@ def chunked_attention(
     *,
     causal: bool = True,
     window: int | None = None,
+    sink: int = 0,  # with a window, the first ``sink`` keys stay visible (meta tokens)
     q_offset=0,
     kv_len=None,
     q_chunk: int = 512,
@@ -74,16 +75,17 @@ def chunked_attention(
     if q.device.type == "cuda":
         out = fa_ops.flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=causal, window=window, q_offset=q_offset, kv_len=kv_len,
+            causal=causal, window=window, q_offset=q_offset, kv_len=kv_len, sink=sink,
         )
         return out.transpose(1, 2)
-    return _chunked_attention_plain(q, k, v, causal, window, q_offset, kv_len, q_chunk)
+    return _chunked_attention_plain(q, k, v, causal, window, q_offset, kv_len, q_chunk, sink=sink)
 
 
-def _chunked_attention_plain(q, k, v, causal, window, q_offset, kv_len, q_chunk, remat=False):
+def _chunked_attention_plain(q, k, v, causal, window, q_offset, kv_len, q_chunk, remat=False, sink=0):
     """``repro.models.common.chunked_attention``'s arithmetic, one query
     chunk at a time (q scaled before the dot, scores masked to -inf, the row
-    max clamped at -1e30, the sum at 1e-30). With ``remat`` each chunk runs
+    max clamped at -1e30, the sum at 1e-30; with a window, keys below
+    ``sink`` stay visible). With ``remat`` each chunk runs
     under a checkpoint, so the backward pass recomputes its scores instead
     of holding every chunk's (``jax.checkpoint`` around the chunk body)."""
     b, sq, hq, dh = q.shape
@@ -106,7 +108,7 @@ def _chunked_attention_plain(q, k, v, causal, window, q_offset, kv_len, q_chunk,
             if causal:
                 ok &= k_pos <= q_pos[:, :, None]
             if window is not None:
-                ok &= k_pos > q_pos[:, :, None] - window
+                ok &= (k_pos > q_pos[:, :, None] - window) | (k_pos < sink)
             if kl is not None:
                 ok &= k_pos < kl[:, None, None]
             s = s.masked_fill(~ok[:, None, None], float("-inf"))

@@ -89,11 +89,13 @@ def model_defs(cfg) -> dict:
     return defs
 
 
-def storage_defs(defs: dict) -> dict:
+def storage_defs(defs: dict, bf16_leaves: frozenset = _BF16_LEAVES) -> dict:
     """``defs`` (the masters' dtypes) with the serving storage dtypes: bf16
-    for the matmul weights and the embedding, the rest as they are."""
+    for the matmul weights and the embedding (``bf16_leaves``), the rest as
+    they are."""
     return {
-        k: storage_defs(p) if isinstance(p, dict) else p._replace(dtype=BF16) if k in _BF16_LEAVES else p
+        k: storage_defs(p, bf16_leaves) if isinstance(p, dict)
+        else p._replace(dtype=BF16) if k in bf16_leaves else p
         for k, p in defs.items()
     }
 
@@ -109,15 +111,39 @@ def _serving_dtypes(cfg) -> dict:
 # ------------------------------------------------------------ modules
 class _Weights(nn.Module):
     """Named, frozen parameters, readable as ``p["name"]`` like the JAX
-    package's param dicts."""
+    package's param dicts; a nested dict becomes a nested ``_Weights``."""
 
-    def __init__(self, tensors: dict[str, torch.Tensor]):
+    def __init__(self, tensors: dict):
         super().__init__()
         for name, t in tensors.items():
-            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+            if isinstance(t, dict):
+                self.add_module(name, _Weights(t))
+            else:
+                self.register_parameter(name, nn.Parameter(t, requires_grad=False))
 
-    def __getitem__(self, name: str) -> torch.Tensor:
+    def __getitem__(self, name: str):
         return getattr(self, name)
+
+
+def frozen(tree: dict, dtypes: dict) -> _Weights:
+    """The serving weights of the moe, ssm and hybrid families: ``tree``
+    (the JAX package's layout, stacked ``(L, ...)`` layer leaves) as one
+    frozen :class:`_Weights` tree, each leaf cast to its storage dtype in
+    ``dtypes`` (the same nesting)."""
+    def cast(node, dt):
+        return {k: cast(t, dt[k]) for k, t in node.items()} if isinstance(node, dict) else node.to(dt)
+
+    return _Weights(cast(tree, dtypes))
+
+
+def layer_rows(stacked) -> list[dict]:
+    """Row ``i`` of every stacked ``(L, ...)`` leaf of ``stacked`` (a dict
+    or a :class:`_Weights`), for each layer ``i``: one ``unbind`` per leaf,
+    so the rows are views."""
+    leaves = dict(stacked.named_parameters(recurse=False)) if isinstance(stacked, nn.Module) else stacked
+    rows = {k: t.unbind(0) for k, t in leaves.items()}
+    n = len(next(iter(rows.values())))
+    return [{k: r[i] for k, r in rows.items()} for i in range(n)]
 
 
 class DenseBlock(_Weights):
@@ -172,9 +198,7 @@ def _layers(params) -> list:
     copy of the whole stacked leaf, L of them added up per leaf."""
     if isinstance(params, DenseLM):
         return list(params.layers)
-    rows = {k: t.unbind(0) for k, t in params["layers"].items()}
-    n = len(next(iter(rows.values())))
-    return [{k: r[i] for k, r in rows.items()} for i in range(n)]
+    return layer_rows(params["layers"])
 
 
 # ------------------------------------------------------------ layer fwd

@@ -4,9 +4,9 @@ JAX and PyTorch cannot draw the same numbers from one seed, so the tests —
 and ``api.build(..., params=...)`` — take a hash family as numpy arrays
 (for instance the JAX package's ``make_family`` output) and turn it into
 the port's parameter types; a quantized payload crosses the same way, so
-both packages can run the payload tail on the same rows, and so does a dense
-LM's parameter tree, so both packages compute with the same weights, and
-a training state (master weights and AdamW moments).
+both packages can run the payload tail on the same rows, and so does an
+LM's parameter tree (every family), so both packages compute with the same
+weights, and a dense LM's training state (master weights and AdamW moments).
 Unsigned 32-bit values (salts, keys) become int64 holding the same values;
 :func:`index_to_numpy` goes the other way, for a checkpoint both packages
 read.
@@ -20,6 +20,7 @@ import torch
 
 from repro_torch import device as device_mod
 from repro_torch.core import hashing, pipeline, tables
+from repro_torch.models import api as model_api
 from repro_torch.models import dense
 from repro_torch.optim import adamw
 from repro_torch.runtime import payload as payload_mod
@@ -144,12 +145,15 @@ def payload_from_numpy(qdata, meta, device: torch.device | str | None = None) ->
     return payload_mod.Payload(torch.as_tensor(q, device=device), torch.as_tensor(m, device=device))
 
 
-def model_params_from_numpy(cfg, tree: Mapping[str, Any], device: torch.device | str | None = None) -> dense.DenseLM:
-    """A :class:`~repro_torch.models.dense.DenseLM` for ``cfg`` from the JAX
-    package's dense parameter tree (nested mappings with stacked ``(L, ...)``
-    layer leaves, for instance ``repro.models.api.build_model(cfg).init(key)``),
-    read through ``np.asarray`` as float32 and cast to the port's storage
-    dtypes, on ``device`` (the card unless told otherwise)."""
+def model_params_from_numpy(cfg, tree: Mapping[str, Any], device: torch.device | str | None = None) -> torch.nn.Module:
+    """The serving model for ``cfg`` (a :class:`~repro_torch.models.dense.DenseLM`
+    for the dense family, a frozen ``dense.frozen`` tree for the moe, ssm
+    and hybrid ones) from the JAX package's parameter tree (nested mappings
+    with stacked ``(L, ...)`` layer leaves, hymba's ``segments`` and
+    ``meta`` included, for instance
+    ``repro.models.api.build_model(cfg).init(key)``), read through
+    ``np.asarray`` as float32 and cast to the port's storage dtypes, on
+    ``device`` (the card unless told otherwise)."""
     device = device_mod.resolve(device)
 
     def conv(node):
@@ -157,9 +161,7 @@ def model_params_from_numpy(cfg, tree: Mapping[str, Any], device: torch.device |
             return {k: conv(v) for k, v in node.items()}
         return torch.as_tensor(np.array(node, dtype=np.float32), device=device)
 
-    if cfg.family != "dense":
-        raise NotImplementedError(f"the {cfg.family!r} model family is not ported yet (see ROADMAP.md, Queue 1)")
-    return dense.DenseLM(cfg, conv(tree))
+    return model_api.serving_weights(cfg, conv(tree))
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -192,7 +194,8 @@ def train_state_from_numpy(
     None."""
     device = device_mod.resolve(device)
     if cfg.family != "dense":
-        raise NotImplementedError(f"the {cfg.family!r} model family is not ported yet (see ROADMAP.md, Queue 1)")
+        raise NotImplementedError(f"training the {cfg.family!r} model family is not ported yet (see ROADMAP.md,"
+                                  " Queue 1)")
     pd = getattr(torch, cfg.param_dtype)
     masters = dense.master_tree(_map(lambda a: _tensor(a, device).to(pd), params))
     if opt_state is None:

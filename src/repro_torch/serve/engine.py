@@ -102,11 +102,7 @@ class ServeEngine:
             lg, ch = self._prefill_one(r)
             caches.append(ch)
             logits_list.append(lg)
-        # stack the B=1 caches: k, v are (L, B, ...), len is (B,)
-        cache = {
-            name: torch.cat([c[name] for c in caches], dim=0 if name == "len" else 1)
-            for name in caches[0]
-        }
+        cache = _stack_caches(caches)
         del caches
         logits = torch.cat(logits_list, dim=0)
         steps = max(r.max_new for r in group)
@@ -141,6 +137,16 @@ class ServeEngine:
         for r in group:
             if not r.done:
                 self._finalize(r, t_end - r.submitted_at)
+
+
+def _stack_caches(caches: list):
+    """The B=1 caches stacked along the batch axis, tree-wise (hymba's is
+    nested): a leaf of one dimension (``len``) on axis 0, any other (a
+    stacked ``(L, B, ...)`` leaf) on axis 1, as the JAX engine's
+    ``_batch_axis_guess`` does."""
+    if isinstance(caches[0], dict):
+        return {name: _stack_caches([c[name] for c in caches]) for name in caches[0]}
+    return torch.cat(caches, dim=0 if caches[0].dim() == 1 else 1)
 
 
 def make_knn_lm_hook(
