@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs
-fourteen phases, printing one JSON line each; any failed check raises, so
+fifteen phases, printing one JSON line each; any failed check raises, so
 the script exits non-zero:
 
 1. ``device``     the card's name and power limit (``nvidia-smi``).
@@ -173,6 +173,23 @@ the script exits non-zero:
                   ``ft.simulate_training_failure_and_restart`` at
                   granite's smoke config under deterministic algorithms,
                   bit for bit against an uninterrupted run.
+15. ``families_train`` the moe, ssm and hybrid families trained at FULL
+                  size: olmoe-1b-7b (bf16 masters and 8-bit moments, the
+                  stated cut: float32 state would be about 110 GB),
+                  mamba2-780m and hymba-1.5b (float32 AdamW, remat "full",
+                  hymba's two microbatches), 4 x 512, 4 x 1,024 and 2 x 512
+                  tokens. Checks: step 0's loss and every gradient finite
+                  and within tolerance of a plain path (one attention
+                  block, whole logits; ``ssd_reference`` for mamba2 and
+                  hymba on a 256-token prefix), olmoe's gradients equal on
+                  two calls; 3 timed steps (every leaf moves but bf16
+                  norm weights under half an ulp, the loss finite; median
+                  ms, tokens per second, peak memory) and
+                  ``families_train_profile``; the trained masters served
+                  through ``serving``: prefill and 4 decode steps, F's
+                  launches as ``flash_per_pass`` says, the logit gate;
+                  then the restart at olmoe's smoke config under
+                  deterministic algorithms, bit for bit.
 
 The ``kernels`` line comes last but two, then the ``nvidia-smi`` line, and
 the last line is ``{"ok": true, "device": {...}}``. A kernel's ``launches``
@@ -181,8 +198,9 @@ staged form's distance stage, is on no path of the ``"cuda"`` backend and
 counts 0 there), the payload phase's two compressed
 queries for E, the ``knn_lm`` phase for F; every row also gives its
 launches on the ``routes``, ``quickstart``, ``routed``, ``icu_serve``, ``stream``,
-``knn_lm``, ``serve``, ``serve_twin``, ``families`` and ``train`` paths (no kernel runs on
-the training path, as none does on the JAX package's), and A, B and D their launches summed over the
+``knn_lm``, ``serve``, ``serve_twin``, ``families``, ``train`` and ``families_train``
+paths (no kernel runs on a training step, as none does on the JAX
+package's; ``families_train`` counts F in the trained masters' serving), and A, B and D their launches summed over the
 ``mesh`` phase's ranks (``mesh_launches``). Without a CUDA
 device, or without the repository's ``src/`` beside it, the script exits
 non-zero before printing any result.
@@ -295,6 +313,33 @@ SINK_ARCH = "hymba-1.5b"  # its sliding-window prefill is kernel F's sink case
 # about 0.5 for logits of about 4): a state or conv tail not carried over,
 # or a wrong ring, moves the logits by their own size.
 CONT_FRAC = 2.0**-3
+# the moe, ssm and hybrid families' training (families_train): each FULL
+# config, masters from a seeded generator, (batch, tokens) a step; hymba's
+# tokens run behind its 128 meta tokens
+FT_BATCH = {"olmoe-1b-7b": (4, 512), "mamba2-780m": (4, 1024), "hymba-1.5b": (2, 512)}
+FT_CUT = {"olmoe-1b-7b": dict(param_dtype="bfloat16", opt_state_bits=8)}
+FT_CUT_WHY = {"olmoe-1b-7b": (
+    "param_dtype bfloat16 and opt_state_bits 8, the JAX config's fields for this case: 6.92 B parameters in"
+    " float32 masters, gradients and two moments come to about 110 GB, past the card's 80 GB; all 16 layers kept")}
+FT_STEPS, FT_PROFILED = 3, 1
+# the step-0 check's (rows, tokens): the first rows of step 0's batch; mamba2
+# and hymba on a prefix, since ssd_reference runs a per-token loop (two and
+# three of their 128-token chunks, hymba's meta tokens included)
+FT_CHECK = {"olmoe-1b-7b": (2, 512), "mamba2-780m": (1, 256), "hymba-1.5b": (1, 256)}
+# The step-0 check holds the training path to the plain one as the train
+# phase holds hubert's (loss rtol 1e-3, each gradient within 2^-5 of its
+# largest element at a cosine of 0.999), widened by twice the training
+# path's own gap to the same arithmetic in other float32 orders, as
+# tests/test_torch_families_train.py widens it by JAX's gap between its two
+# compilations: the SSD and hymba's two heads sum bf16-rounded terms with
+# cancellation, so a small leaf (dt_bias, A_log) moves by a larger share
+# of itself than a dense leaf does.
+FT_LOSS_RTOL = 1e-3
+# serving the trained masters: B = FAMILY_BATCH prompts of these lengths
+# (hymba's 1,024 + 128 meta tokens past its 1,024 window, so F's sink bites),
+# then FT_SERVE_STEPS greedy decode steps
+FT_SERVE_PROMPT = {"olmoe-1b-7b": 512, "mamba2-780m": 1000, "hymba-1.5b": 1024}
+FT_SERVE_STEPS = 4
 # ssd_chunked against ssd_reference in float32 at FULL's dims: the same sums
 # grouped by chunk, within 1e-4 of the largest output (the JAX package's own
 # test holds them to 1e-4)
@@ -1135,6 +1180,7 @@ def run(dev, n: int, nq: int, lm_smoke: bool = False, ds_seqs: int = DS_SEQS) ->
     twin_launches = serve_twin_phase(dev)
     families_launches = families_phase(dev, lm_smoke)
     train_launches = train_phase(dev, lm_smoke)
+    families_train_launches = families_train_phase(dev, lm_smoke)
     for r in rows:
         extra = knn.get(r["name"])
         if extra is None:
@@ -1166,6 +1212,7 @@ def run(dev, n: int, nq: int, lm_smoke: bool = False, ds_seqs: int = DS_SEQS) ->
         r["serve_twin_launches"] = twin_launches.get(r["name"], 0)
         r["families_launches"] = families_launches.get(r["name"], 0)
         r["train_launches"] = train_launches.get(r["name"], 0)
+        r["families_train_launches"] = families_train_launches.get(r["name"], 0)
     print(json.dumps({"kernels": rows}), flush=True)
 
 
@@ -2906,6 +2953,46 @@ def flash_per_pass(cfg) -> tuple[int, int]:
     return cfg.n_layers, cfg.n_layers
 
 
+def logit_gate(arch: str, cfg, model, params, prompt, max_len: int, first,
+               gate_faults: bool = True) -> tuple[list, dict]:
+    """The model with F against the same model with the plain attention on
+    the first prefill and decode step: ``first`` holds the path's logits
+    of both; the tolerance is twice the gap to the model with F's plain
+    version plus ``LOGIT_ATOL``, and with ``gate_faults`` it must catch the
+    planted faults (``fault_sink`` where the model has meta tokens), which
+    are otherwise only read. Returns the checks and the readings."""
+    import torch
+
+    tok0 = torch.argmax(first[0], dim=-1).to(torch.int32)[:, None]
+
+    def first_logits():
+        lg, c = model.prefill(params, prompt, max_len)
+        return lg, model.decode_step(params, c, tok0)[0]
+
+    with model_attention("plain"):
+        plain = first_logits()
+    with model_attention("attention_ref"):
+        alt = first_logits()
+
+    def logit_errs(got):
+        return [float((a - b).abs().max()) for a, b in zip(got, plain)]
+
+    logit_err, logit_floor = logit_errs(first[:2]), logit_errs(alt)
+    logit_tol = 2 * max(logit_floor) + LOGIT_ATOL
+    checks = [(max(logit_err) <= logit_tol, f"{arch}: logits differ from the plain model's by {logit_err} > {logit_tol}")]
+    faults = GATED_FAULTS + ((SINK_FAULT,) if cfg.meta_tokens else ())
+    fault_err = {}
+    for kind in faults:
+        with model_attention(kind):
+            fault_err[kind] = logit_errs(first_logits())
+    checks += [(max(fault_err[kind]) > logit_tol,
+                f"{arch}: the logit gate {logit_tol} misses {kind} (errors {fault_err[kind]})")
+               for kind in faults if gate_faults]
+    return checks, dict(logits_max_abs=[float(x.abs().max()) for x in plain], logits_max_abs_err_vs_plain=logit_err,
+                        logits_plain_vs_attention_ref=logit_floor, logit_tolerance=logit_tol,
+                        logits_planted_fault_err=fault_err)
+
+
 def families_phase(dev, smoke: bool = False) -> dict:
     """The moe, ssm and hybrid families served whole: olmoe-1b-7b,
     mamba2-780m and hymba-1.5b at their FULL widths and depths (their smoke
@@ -2989,35 +3076,9 @@ def families_phase(dev, smoke: bool = False) -> dict:
         # the logit gate: the model with F against the same model with the
         # plain attention on the first prefill and decode step (as knn_lm's)
         if per_prefill:
-            tok0 = torch.argmax(first[0], dim=-1).to(torch.int32)[:, None]
-
-            def first_logits():
-                lg, c = model.prefill(params, prompt, max_len)
-                return lg, model.decode_step(params, c, tok0)[0]
-
-            with model_attention("plain"):
-                plain = first_logits()
-            with model_attention("attention_ref"):
-                alt = first_logits()
-
-            def logit_errs(got):
-                return [float((a - b).abs().max()) for a, b in zip(got, plain)]
-
-            logit_err, logit_floor = logit_errs(first[:2]), logit_errs(alt)
-            logit_tol = 2 * max(logit_floor) + LOGIT_ATOL
-            checks.append((max(logit_err) <= logit_tol,
-                           f"{arch}: logits differ from the plain model's by {logit_err} > {logit_tol}"))
-            faults = GATED_FAULTS + ((SINK_FAULT,) if cfg.meta_tokens else ())
-            fault_err = {}
-            for kind in faults:
-                with model_attention(kind):
-                    fault_err[kind] = logit_errs(first_logits())
-            checks += [(max(fault_err[kind]) > logit_tol,
-                        f"{arch}: the logit gate {logit_tol} misses {kind} (errors {fault_err[kind]})")
-                       for kind in faults]
-            fields.update(logits_max_abs=[float(x.abs().max()) for x in plain], logits_max_abs_err_vs_plain=logit_err,
-                          logits_plain_vs_attention_ref=logit_floor, logit_tolerance=logit_tol,
-                          logits_planted_fault_err=fault_err)
+            gate_checks, gate_fields = logit_gate(arch, cfg, model, params, prompt, max_len, first)
+            checks += gate_checks
+            fields.update(gate_fields)
 
         # decode after prefill(s) continues prefill(s + 1) (not for moe: its
         # capacity drops other tokens at T = s and T = 1)
@@ -3071,6 +3132,293 @@ def families_phase(dev, smoke: bool = False) -> dict:
                 total[name] = total.get(name, 0) + n
     return total
 
+
+
+@contextlib.contextmanager
+def plain_ssd():
+    """``ssd_reference``, the exact per-token recurrence, in place of
+    ``ssd_chunked`` in the mixer (its output in x's dtype, as the chunked
+    form returns it)."""
+    from repro_torch.models import mamba2
+
+    saved = mamba2.ssd_chunked
+
+    def reference(xh, dt, a, bm, cm, chunk):
+        y, h = mamba2.ssd_reference(xh.float(), dt, a, bm, cm)
+        return y.to(xh.dtype), h
+
+    mamba2.ssd_chunked = reference
+    try:
+        yield
+    finally:
+        mamba2.ssd_chunked = saved
+
+
+def family_loss_variant(cfg, params, rows, kind: str):
+    """The loss and the gradient of every master leaf on ``rows`` by one of
+    three paths: ``"train"`` the model's own (``loss_fn`` with the config's
+    remat); ``"other_order"`` the same arithmetic in other float32 orders
+    (attention in query blocks of half the size, the SSD in chunks of half
+    the size), whose gap to ``"train"`` is the rounding floor; ``"plain"``
+    attention in one block of all queries, whole logits in one chunk, for
+    moe no remat, for mamba2 and hymba ``ssd_reference`` in place of
+    ``ssd_chunked`` with every layer under a full checkpoint (the
+    recurrence would keep each token's state for the backward pass)."""
+    import dataclasses
+
+    from repro_torch.models import api as mapi
+    from repro_torch.train import loop as tl
+
+    s_tot = rows["tokens"].shape[1] + cfg.meta_tokens
+    if kind == "other_order":
+        cfg = dataclasses.replace(cfg, q_chunk=max(cfg.q_chunk // 2, 1), ssm_chunk=max(cfg.ssm_chunk // 2, 1))
+    elif kind == "plain":
+        cfg = dataclasses.replace(cfg, q_chunk=s_tot, loss_chunk=rows["tokens"].shape[1],
+                                  remat="none" if cfg.family == "moe" else "full")
+    model = mapi.build_model(cfg)
+    with plain_ssd() if kind == "plain" and cfg.family in ("ssm", "hybrid") else contextlib.nullcontext():
+        loss, grads = tl._value_and_grad(model, params, rows)
+    del model
+    return loss, grads
+
+
+def grad_stats(a, b) -> tuple[float, float, float]:
+    """(max |a - b|, max |b|, cosine of a and b) of two gradients of a leaf,
+    in float64 one layer slice at a time (olmoe's expert stacks hold 2.1 B
+    elements)."""
+    import torch
+
+    err = scale = dot = na = nb = 0.0
+    for x, y in zip(*((t.unbind(0) if t.dim() >= 3 else (t,)) for t in (a, b))):
+        x, y = x.double(), y.double()
+        err, scale = max(err, float((x - y).abs().max())), max(scale, float(y.abs().max()))
+        dot, na, nb = dot + float((x * y).sum()), na + float((x * x).sum()), nb + float((y * y).sum())
+    return err, scale, dot / max((na * nb) ** 0.5, torch.finfo(torch.float64).tiny)
+
+
+def families_train_phase(dev, smoke: bool = False) -> dict:
+    """The moe, ssm and hybrid families trained at FULL size, then served
+    from their trained masters: olmoe-1b-7b (with bf16 masters and 8-bit
+    moments, the stated cut), mamba2-780m and hymba-1.5b (float32 AdamW,
+    their configs' remat "full", hymba's two microbatches), masters from a
+    seeded generator. Per family: the step-0 check on the first rows (the
+    training path's loss and every gradient, which must be finite, against
+    the plain path of ``family_loss_variant``, the tolerance widened by the
+    training path's own gap to ``"other_order"``; on olmoe the gradients of
+    two identical calls compared bit for bit), FT_STEPS timed steps through
+    ``train.loop.make_train_step`` (every leaf moves after the first, the
+    loss stays finite), ``families_train_profile`` (one more step,
+    profiled), then ``serving(masters)``: prefill and FT_SERVE_STEPS greedy
+    decode steps with F's launches counted against ``flash_per_pass`` and
+    the logit gate of the ``families`` phase. Last, the restart check at
+    olmoe's smoke config under deterministic algorithms. ``smoke`` takes
+    the smoke configs at small batches. Returns the launches of the
+    training steps and the serving passes."""
+    import dataclasses
+    import tempfile
+    import warnings
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data.lm_data import TokenStream
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import api as mapi
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import ft
+    from repro_torch.train import loop as tl
+
+    total: dict = {}
+    for arch, (batch_n, seq) in FT_BATCH.items():
+        cut = FT_CUT.get(arch, {})
+        cfg = dataclasses.replace(configs.get(arch, smoke=smoke), **cut)
+        rows_n, prefix = FT_CHECK[arch]
+        serve_len = FT_SERVE_PROMPT[arch]
+        if smoke:
+            batch_n, seq, rows_n, prefix, serve_len = 4, 32, 2, 32, 24
+        model = mapi.build_model(cfg)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        sync(dev)
+        t0 = time.perf_counter()
+        params = model.init_masters(SEED, dev)
+        sync(dev)
+        init_s = time.perf_counter() - t0
+        stream = TokenStream(cfg.vocab, seed=3)
+        batches = [launch_train.make_batch(cfg, stream.batch(batch_n, seq), i, dev)
+                   for i in range(FT_STEPS + FT_PROFILED)]
+        names = list(_flat(params))
+        checks: list = []
+
+        # 1. step 0 on the first rows: the training path against the plain one
+        rows = {"tokens": batches[0]["tokens"][:rows_n, :prefix]}
+        loss_t, grads_t = family_loss_variant(cfg, params, rows, "train")
+        nonfinite = [n for n, g in zip(names, grads_t) if not bool(torch.isfinite(g).all())]
+        need(not nonfinite, f"families_train {arch}: step-0 gradients not finite: {nonfinite[:8]}")
+        # each other path's gradients are reduced to per-leaf readings at once
+        # (olmoe's are 13.8 GB a set)
+        loss_o, grads = family_loss_variant(cfg, params, rows, "other_order")
+        gaps = [grad_stats(gt, go) for gt, go in zip(grads_t, grads)]
+        del grads
+        loss_p, grads = family_loss_variant(cfg, params, rows, "plain")
+        errs = [grad_stats(gt, gp) for gt, gp in zip(grads_t, grads)]
+        del grads
+        check_peak_gb = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None
+        loss_tol = FT_LOSS_RTOL * abs(float(loss_p)) + 2 * abs(float(loss_t - loss_o))
+        checks.append((abs(float(loss_t - loss_p)) <= loss_tol,
+                       f"{arch}: step-0 loss {float(loss_t)} differs from the plain path's {float(loss_p)} by more"
+                       f" than {loss_tol}"))
+        worst_frac, worst_cos, worst_excess = 0.0, 1.0, 0.0
+        for name, (gap, _, cos_gap), (err, scale, cos) in zip(names, gaps, errs):
+            frac_tol = TRAIN_GRAD_FRAC * scale + 2 * gap
+            cos_floor = TRAIN_GRAD_COS - 2 * (1.0 - cos_gap)
+            worst_frac, worst_cos = max(worst_frac, err / max(scale, 1e-30)), min(worst_cos, cos)
+            worst_excess = max(worst_excess, err / max(frac_tol, 1e-30))
+            checks.append((scale > 0.0 and err <= frac_tol and cos >= cos_floor,
+                           f"{arch}: the step-0 gradient of {name} differs from the plain path's ({err} > {frac_tol}"
+                           f" or cosine {cos} < {cos_floor})"))
+        step0 = dict(rows=rows_n, tokens=prefix, loss=float(loss_t), plain_loss=float(loss_p),
+                     other_order_loss=float(loss_o), loss_tolerance=loss_tol, grad_max_frac_err=worst_frac,
+                     grad_min_cosine=worst_cos, grad_err_over_tolerance=worst_excess, leaves=len(names),
+                     peak_mem_gb=check_peak_gb)
+        if cfg.family == "moe":  # the index backward passes accumulate into rows: the same bits twice?
+            _, again = family_loss_variant(cfg, params, rows, "train")
+            differ = [n for n, a, b in zip(names, grads_t, again) if not torch.equal(a, b)]
+            step0["grads_repeat_bitwise_equal"] = not differ
+            step0["grads_repeat_differing_leaves"] = differ
+            checks.append((not differ, f"{arch}: two identical step-0 calls give other gradient bits in {differ}"))
+            del again
+        del grads_t
+
+        # 2. the timed steps
+        opt_cfg = adamw.AdamWConfig(peak_lr=1e-3, warmup_steps=1, total_steps=FT_STEPS + FT_PROFILED,
+                                    state_bits=cfg.opt_state_bits)
+        state = adamw.init(params, opt_cfg)
+        step_fn = tl.make_train_step(model, opt_cfg)
+        before = {n: t.detach().to("cpu", copy=True) for n, t in _flat(params).items()}  # host copies (13.8 GB on olmoe)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        steps = []
+        for i in range(FT_STEPS):
+            sync(dev)
+            t0 = time.perf_counter()
+            params, state, m = step_fn(params, state, batches[i])
+            sync(dev)
+            steps.append(dict(step=i, ms=(time.perf_counter() - t0) * 1e3, **{k: float(v) for k, v in m.items()}))
+            if i == 0:
+                still = sorted(n for n, t in _flat(params).items() if torch.equal(t.detach().cpu(), before[n]))
+                # bf16 masters keep no update below half a bf16 ulp: a norm
+                # weight at its init of 1.0 moves by lr * (1 + weight decay),
+                # 0.0011, under half the 0.0039 bf16 step below 1.0
+                kept = [n for n in still if cfg.param_dtype == "bfloat16" and bool((before[n] == 1.0).all())]
+                need(still == kept, f"families_train {arch}: leaves that did not move after one update: {still}")
+                del before
+        launches = dict(_build.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None
+        need(all(np.isfinite([s_["loss"], s_["grad_norm"]]).all() for s_ in steps),
+             f"families_train {arch}: a non-finite step {steps}")
+        if dev.type == "cuda":
+            checks.append((not launches, f"{arch}: the training steps launched {launches}"))
+        med_ms = float(np.median([s_["ms"] for s_ in steps]))
+
+        def profiled():
+            nonlocal params, state
+            for b in batches[FT_STEPS:]:
+                params, state, _ = step_fn(params, state, b)
+
+        prof = profile_query(dev, profiled, queries=FT_PROFILED, host_ops=False)
+        prof["steps"] = prof.pop("queries")
+        emit("families_train_profile", arch=cfg.name, **prof)
+        del state, batches
+
+        # 3. serving the trained masters
+        served = model.serving(params)
+        toks = torch.as_tensor(TokenStream(cfg.vocab, seed=5).batch(FAMILY_BATCH, serve_len), device=dev)
+        prompt = {"tokens": toks}
+        max_len = serve_len + cfg.meta_tokens + FT_SERVE_STEPS + 1
+        sync(dev)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(served, prompt, max_len)
+        first = [logits]
+        for _ in range(FT_SERVE_STEPS):
+            logits, cache = model.decode_step(served, cache, torch.argmax(logits, dim=-1).to(torch.int32)[:, None])
+            if len(first) == 1:
+                first.append(logits)
+        sync(dev)
+        serve_s = time.perf_counter() - t0
+        serve_launches = dict(_build.LAUNCHES)
+        per_prefill, per_decode = flash_per_pass(cfg)
+        want_f = per_prefill + FT_SERVE_STEPS * per_decode
+        if dev.type == "cuda":
+            checks.append((serve_launches == ({"flash_attention": want_f} if want_f else {}),
+                           f"{arch}: serving the trained masters launched {serve_launches}, not {want_f} of"
+                           f" flash_attention alone"))
+        checks.append((tuple(logits.shape) == (FAMILY_BATCH, cfg.vocab)
+                       and all(bool(torch.isfinite(t).all()) for t in first + [logits]),
+                       f"{arch}: served logits of shape {tuple(logits.shape)}, or not finite"))
+        del cache
+        gate = {}
+        if per_prefill:
+            # the planted faults are read, not gated: four steps on the
+            # synthetic stream leave logits of about 16, where a bf16 ulp is
+            # 0.125, and a model that barely reads attention yet, so shifting
+            # every query's causal edge moved olmoe's logits by one ulp (my
+            # chip run 2); the families phase gates them on the same code
+            gate_checks, gate = logit_gate(arch, cfg, model, served, prompt, max_len, first, gate_faults=False)
+            checks += gate_checks
+        for part in (launches, serve_launches):
+            for name, n in part.items():
+                total[name] = total.get(name, 0) + n
+        tokens_per_step = batch_n * seq
+        emit("families_train", arch=cfg.name, family=cfg.family, n_layers=cfg.n_layers, d_model=cfg.d_model,
+             n_params=model.n_params, cut=FT_CUT_WHY.get(arch) if cut else None, param_dtype=cfg.param_dtype,
+             state_bits=opt_cfg.state_bits, remat=cfg.remat, microbatches=cfg.microbatches,
+             batch=[batch_n, seq], positions=seq + cfg.meta_tokens, init_s=init_s, step0_check=step0,
+             unmoved_after_one_update=kept,
+             steps=steps, median_step_ms=med_ms, tokens_per_s=tokens_per_step / (med_ms / 1e3), peak_mem_gb=peak_gb,
+             device_idle_share=prof["device_idle_share"], launches=launches,
+             serve=dict(prompt_len=serve_len, decode_steps=FT_SERVE_STEPS, seconds=serve_s,
+                        flash_attention_launches=serve_launches.get("flash_attention", 0),
+                        flash_attention_launches_expected=want_f, launches=serve_launches, **gate))
+        for ok, msg in checks:
+            need(ok, f"families_train {msg}")
+        del params, served, first, logits, model
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # 4. restart continuity at olmoe's smoke config, bit for bit
+    rcfg = configs.get("olmoe-1b-7b", smoke=True)
+    rmodel = mapi.build_model(rcfg)
+    ropt = adamw.AdamWConfig(peak_lr=1e-3, warmup_steps=2, total_steps=10)
+
+    def batch_fn(i):
+        return launch_train.make_batch(rcfg, TokenStream(rcfg.vocab, seed=100 + i).batch(4, 64), i, dev)
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught, \
+                tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+            warnings.simplefilter("always")
+            first_run, resumed = ft.simulate_training_failure_and_restart(rmodel, ropt, tmp, 3, batch_fn, dev)
+            rp = rmodel.init_masters(0, dev)
+            rs = adamw.init(rp, ropt)
+            rstep = tl.make_train_step(rmodel, ropt)
+            straight = []
+            for i in range(6):
+                rp, rs, m = rstep(rp, rs, batch_fn(i))
+                straight.append(float(m["loss"]))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    emit("families_train_restart", arch=rcfg.name, losses_before=first_run, losses_after=resumed,
+         uninterrupted=straight, deterministic=True, warnings=sorted({str(w.message)[:160] for w in caught}))
+    need(first_run == straight[:3] and resumed == straight[3:],
+         f"families_train: the restart's losses {first_run} + {resumed} are not the uninterrupted run's {straight}")
+    return total
 
 if __name__ == "__main__":
     sys.exit(main())

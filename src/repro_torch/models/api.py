@@ -7,11 +7,10 @@ fields and defaults), ``SHAPE_CELLS``, ``cell_skip_reason`` and
 masters' declarations, float32 leaves cast to ``param_dtype`` as the JAX
 package casts them), ``n_params``, ``init``, ``init_masters``,
 ``serving``, ``loss_fn``, ``prefill``, ``decode_step``, ``init_cache`` and
-``input_defs``. All four families serve (``dense``, ``moe``, ``ssm``,
-``hybrid``); only the dense family trains so far: the others'
-``init_masters``, ``loss_fn`` and ``serving`` raise ``NotImplementedError``
-(ROADMAP.md, Queue 1). The JAX package's sharding helpers (param specs,
-structs, input specs, cache structs) have no counterpart here.
+``input_defs``. All four families (``dense``, ``moe``, ``ssm``,
+``hybrid``) serve and train. The JAX package's sharding helpers (param
+specs, structs, input specs, cache structs) have no counterpart here
+(ROADMAP.md, Queue 1).
 
 The weights come in two forms, each drawn from a ``torch.Generator``
 seeded with ``seed`` on ``device`` (the card unless told otherwise):
@@ -36,9 +35,6 @@ import torch
 
 from repro_torch import device as device_mod
 from repro_torch.models import params as PM
-
-_NOT_PORTED = "is not ported to PyTorch yet (see ROADMAP.md, Queue 1)"
-
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -116,28 +112,25 @@ def _family_module(cfg: ModelConfig):
     return {"dense": dense, "moe": moe, "ssm": mamba2, "hybrid": hymba}[cfg.family]
 
 
-def serving_weights(cfg: ModelConfig, tree: dict) -> torch.nn.Module:
+def serving_weights(cfg: ModelConfig, tree: dict, copy: bool = False) -> torch.nn.Module:
     """The frozen serving model of ``cfg`` from ``tree`` (the JAX package's
     parameter layout, nested dicts with stacked ``(L, ...)`` layer leaves),
     each leaf cast to its storage dtype: bf16 for the matmul weights and
-    the embeddings, ``param_dtype`` for the rest."""
+    the embeddings, ``param_dtype`` for the rest. With ``copy`` (training
+    masters) the model holds copies, and does not follow later updates of
+    ``tree``."""
     from repro_torch.models import dense
 
     mod = _family_module(cfg)
     if mod is dense:
-        return dense.DenseLM(cfg, tree)
+        return dense.serving_model(cfg, tree) if copy else dense.DenseLM(cfg, tree)
     defs = mod.storage_defs(PM.param_dtype_defs(mod.model_defs(cfg), cfg.param_dtype))
-    return dense.frozen(tree, dense._dtypes(defs))
-
-
-def _not_trained(cfg: ModelConfig, what: str):
-    def refuse(*args, **kwargs):
-        raise NotImplementedError(f"{what} of the {cfg.family!r} model family {_NOT_PORTED}")
-
-    return refuse
+    return dense.frozen(tree, dense._dtypes(defs), copy)
 
 
 def build_model(cfg: ModelConfig) -> SimpleNamespace:
+    from repro_torch.models import dense
+
     mod = _family_module(cfg)
     defs = PM.param_dtype_defs(mod.model_defs(cfg), cfg.param_dtype)
 
@@ -148,9 +141,7 @@ def build_model(cfg: ModelConfig) -> SimpleNamespace:
         return serving_weights(cfg, draw(seed, device, mod.storage_defs(defs)))
 
     def init_masters(seed: int, device: str | torch.device | None = None) -> dict:
-        return mod.master_tree(draw(seed, device, defs))
-
-    trains = cfg.family == "dense"
+        return dense.master_tree(draw(seed, device, defs))
 
     def input_defs(cell: str) -> dict:
         """Model inputs for a cell as ``name -> (shape, dtype)``."""
@@ -173,11 +164,10 @@ def build_model(cfg: ModelConfig) -> SimpleNamespace:
         cfg=cfg,
         defs=defs,
         init=init,
-        init_masters=init_masters if trains else _not_trained(cfg, "init_masters (the training masters)"),
-        serving=(lambda params: mod.serving_model(cfg, params)) if trains else _not_trained(cfg, "serving(masters)"),
+        init_masters=init_masters,
+        serving=lambda params: serving_weights(cfg, params, copy=True),
         n_params=PM.count_params(defs),
-        loss_fn=(lambda params, batch: mod.loss_fn(cfg, params, batch, cfg.remat)) if trains
-        else _not_trained(cfg, "loss_fn (the loss path)"),
+        loss_fn=lambda params, batch: mod.loss_fn(cfg, params, batch, cfg.remat),
         input_defs=input_defs,
         prefill=lambda params, batch, max_len: mod.prefill(cfg, params, batch, max_len),
         decode_step=lambda params, cache, tokens: mod.decode_step(cfg, params, cache, tokens),

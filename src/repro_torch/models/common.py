@@ -133,12 +133,13 @@ def chunked_attention_train(
     *,
     causal: bool = True,
     window: int | None = None,
+    sink: int = 0,  # with a window, the first ``sink`` keys stay visible (hymba's meta tokens)
     q_chunk: int = 512,
 ) -> torch.Tensor:
     """The differentiable form of :func:`chunked_attention` for the loss
     path, on every device: its plain arithmetic, each of several query
     chunks under a checkpoint (the JAX package's training attention)."""
-    return _chunked_attention_plain(q, k, v, causal, window, 0, None, q_chunk, remat=True)
+    return _chunked_attention_plain(q, k, v, causal, window, 0, None, q_chunk, remat=True, sink=sink)
 
 
 def decode_attention_cp(

@@ -125,13 +125,16 @@ class _Weights(nn.Module):
         return getattr(self, name)
 
 
-def frozen(tree: dict, dtypes: dict) -> _Weights:
+def frozen(tree: dict, dtypes: dict, copy: bool = False) -> _Weights:
     """The serving weights of the moe, ssm and hybrid families: ``tree``
     (the JAX package's layout, stacked ``(L, ...)`` layer leaves) as one
     frozen :class:`_Weights` tree, each leaf cast to its storage dtype in
-    ``dtypes`` (the same nesting)."""
+    ``dtypes`` (the same nesting); with ``copy`` every leaf is a copy, so
+    the tree does not follow later updates of ``tree`` (training masters)."""
     def cast(node, dt):
-        return {k: cast(t, dt[k]) for k, t in node.items()} if isinstance(node, dict) else node.to(dt)
+        if isinstance(node, dict):
+            return {k: cast(t, dt[k]) for k, t in node.items()}
+        return node.detach().to(dt, copy=copy)
 
     return _Weights(cast(tree, dtypes))
 
@@ -304,28 +307,34 @@ def _dots_context():
     return create_selective_checkpoint_contexts(_save_matmuls)
 
 
+def remat_block(remat_policy: str, block, *args):
+    """``block(*args)`` on the loss path, whatever it returns (dense's,
+    mamba2's and hymba's ``x``, moe's ``(x, aux)``), with ``remat_policy``
+    setting what its backward pass recomputes: ``"none"`` nothing, ``"dots"``
+    all but the weight matmuls' outputs, ``"full"`` the whole block
+    (``torch.utils.checkpoint``, non-reentrant; the JAX package's
+    ``jax.checkpoint`` around the scan body). The policy changes memory,
+    never numbers."""
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {remat_policy!r} is not one of {REMAT_POLICIES}")
+    if remat_policy == "none":
+        return block(*args)
+    kw = dict(context_fn=_dots_context) if remat_policy == "dots" else {}
+    return checkpoint(block, *args, use_reentrant=False, **kw)
+
+
 def _run_layers(cfg, params, x, positions, remat_policy: str | None = None):
     """Every block, then the final norm: the hidden states (B, S, D).
 
     ``remat_policy=None`` is the inference pass: kernel F on the card, no
     checkpoints (the datastore, the hook's query and serving take it).
     ``"none"``, ``"dots"`` or ``"full"`` is the loss path's pass, with the
-    differentiable attention, and sets what each block's backward pass
-    recomputes: nothing, all but the weight matmuls' outputs, or the whole
-    block (``torch.utils.checkpoint``, non-reentrant). The policy changes
-    memory, never numbers."""
-    if remat_policy is None:
-        for p in _layers(params):
-            x = _block(cfg, p, x, positions)[0]
-        return C.rms_norm(x, params["final_norm"])
-    if remat_policy not in REMAT_POLICIES:
-        raise ValueError(f"remat_policy {remat_policy!r} is not one of {REMAT_POLICIES}")
+    differentiable attention, each block under :func:`remat_block`."""
     for p in _layers(params):
-        if remat_policy == "none":
-            x = block_train(cfg, p, x, positions)
+        if remat_policy is None:
+            x = _block(cfg, p, x, positions)[0]
         else:
-            kw = dict(context_fn=_dots_context) if remat_policy == "dots" else {}
-            x = checkpoint(block_train, cfg, p, x, positions, use_reentrant=False, **kw)
+            x = remat_block(remat_policy, block_train, cfg, p, x, positions)
     return C.rms_norm(x, params["final_norm"])
 
 

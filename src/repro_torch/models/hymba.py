@@ -1,5 +1,5 @@
-"""Hymba, the hybrid-head LM of the port (arXiv:2411.13676): the serving
-path.
+"""Hymba, the hybrid-head LM of the port (arXiv:2411.13676): the loss
+path and the serving path.
 
 Counterpart of ``repro.models.hymba``: each layer runs attention and a
 Mamba-2 (SSD) mixer in parallel on the same normed input and averages
@@ -7,8 +7,10 @@ their normed outputs; 128 learned meta tokens lead every sequence and stay
 visible as attention sinks; attention is sliding-window (``cfg.window``)
 everywhere except the few ``cfg.global_layers``. Layers are grouped into
 *segments*, runs of SWA layers and single global layers, whose caches
-differ in shape. The loss path and the training masters wait for the next
-slice (ROADMAP.md, Queue 1).
+differ in shape. :func:`loss_fn` runs every layer through :func:`_block`,
+as ``prefill`` does, with the differentiable attention (whose
+sliding-window layers keep the meta tokens as sinks too), and the meta
+tokens get their gradient.
 
 Where attention runs: prefill's attention, SWA (window and sink) and
 global alike, and the global layers' decode attention are
@@ -104,6 +106,61 @@ def _embed_with_meta(cfg, model, tokens):
 def _mix(p, attn_out, ssm_out):
     """The two heads' normed outputs, averaged."""
     return 0.5 * (C.rms_norm(attn_out, p["attn_out_norm"]) + C.rms_norm(ssm_out, p["ssm_out_norm"]))
+
+
+# ------------------------------------------------------------- blocks
+def _block(cfg, p, x, positions, window, attention=None):
+    """Full-sequence layer -> (x, k, v, SSM state, conv tail): k and v are
+    the rotated keys and the values, the cache's entries. Sliding-window
+    layers (``window`` set) keep the meta tokens visible as sinks; global
+    ones (None) attend causally. ``attention`` is the loss path's
+    differentiable one; None is ``common.chunked_attention`` (kernel F on
+    the card), looked up at each call."""
+    attention = attention or C.chunked_attention
+    b, s, _ = x.shape
+    h = C.rms_norm(x, p["ln1"])
+    q, k, v = dense._qkv(cfg, p, h)
+    q = C.apply_rope(q, positions, cfg.rope_theta)
+    k = C.apply_rope(k, positions, cfg.rope_theta)
+    attn = attention(q, k, v, causal=True, window=window, sink=cfg.meta_tokens if window else 0,
+                     q_chunk=cfg.q_chunk)
+    attn_out = (attn.reshape(b, s, -1).to(BF16) @ p["wo"].to(BF16)).to(x.dtype)
+    ssm_out, hs, cs = mamba2.ssm_mix(cfg, p, h)
+    x = x + _mix(p, attn_out, ssm_out).to(x.dtype)
+    h2 = C.rms_norm(x, p["ln2"])
+    x = x + C.mlp_apply(p, h2, cfg.mlp).to(x.dtype)
+    return x, k, v, hs, cs
+
+
+def _block_train(cfg, p, x, positions, window):
+    """One layer of the loss path (differentiable attention) -> x."""
+    return _block(cfg, p, x, positions, window, C.chunked_attention_train)[0]
+
+
+def _run_segments(cfg, params, x, positions, remat_policy: str = "dots"):
+    """Every layer of every segment on the loss path, each under
+    ``remat_policy`` (``dense.remat_block``) -> x before the final norm."""
+    for kind, _, layers in _segments(cfg, params):
+        window = cfg.window if kind == "swa" else None
+        for p in layers:
+            x = dense.remat_block(remat_policy, _block_train, cfg, p, x, positions, window)
+    return x
+
+
+def loss_fn(cfg, params, batch, remat_policy: str = "dots") -> torch.Tensor:
+    """The next-token cross entropy of a master tree on ``batch``: the
+    tokens run behind the meta tokens (whose rows get gradients), whose
+    positions are dropped before the head; labels are the tokens shifted
+    by one, the last position left out."""
+    tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
+    x = _embed_with_meta(cfg, params, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x = _run_segments(cfg, params, x, positions, remat_policy)
+    x = C.rms_norm(x, params["final_norm"])[:, cfg.meta_tokens :]
+    s = tokens.shape[1]
+    labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    mask = (torch.arange(s, device=x.device) < s - 1)[None, :].expand(tokens.shape)
+    return C.chunked_softmax_xent(x, params["lm_head"], labels, mask, cfg.loss_chunk)
 
 
 # ------------------------------------------------------------- caches
@@ -249,17 +306,7 @@ def prefill(cfg, model, batch, max_len: int):
         window = w if kind == "swa" else None
         ks, vs, states, convs = [], [], [], []
         for p in layers:
-            h = C.rms_norm(x, p["ln1"])
-            q, k, v = dense._qkv(cfg, p, h)
-            q = C.apply_rope(q, positions, cfg.rope_theta)
-            k = C.apply_rope(k, positions, cfg.rope_theta)
-            attn = C.chunked_attention(q, k, v, causal=True, window=window, sink=mt if window else 0,
-                                       q_chunk=cfg.q_chunk)
-            attn_out = (attn.reshape(b, s_tot, -1).to(BF16) @ p["wo"].to(BF16)).to(x.dtype)
-            ssm_out, hs, cs = mamba2.ssm_mix(cfg, p, h)
-            x = x + _mix(p, attn_out, ssm_out).to(x.dtype)
-            h2 = C.rms_norm(x, p["ln2"])
-            x = x + C.mlp_apply(p, h2, cfg.mlp).to(x.dtype)
+            x, k, v, hs, cs = _block(cfg, p, x, positions, window)
             ks.append(k.to(BF16))
             vs.append(v.to(BF16))
             states.append(hs)

@@ -1,5 +1,5 @@
 """Mamba-2 (SSD, state-space duality) LM of the port, attention-free: the
-serving path.
+loss path and the serving path.
 
 Counterpart of ``repro.models.mamba2``: the chunked SSD algorithm
 (arXiv:2405.21060), an intra-chunk quadratic form and an inter-chunk state
@@ -7,8 +7,19 @@ recurrence (the JAX package's ``lax.scan``, a loop over chunks here);
 ``ssd_reference`` is the exact sequential recurrence that the tests hold it
 to. The one-token decode step, ``ssm_step``, runs that recurrence. No
 kernel runs on this path, as none does on the JAX package's (XLA computes
-its SSD). The loss path and the training masters wait for the next slice
-(ROADMAP.md, Queue 1).
+its SSD). :func:`loss_fn` is the JAX package's; each layer runs under the
+config's remat policy. ``ssd_chunked`` keeps no checkpoint per chunk,
+where the JAX package wraps its chunk body in ``jax.checkpoint`` (a
+memory choice): under remat "full" one layer's chunks are live at a time,
+and mamba2-780m's training step at 4 x 1,024 tokens peaks at 16.6 GB on
+the card.
+
+One deliberate divergence from the JAX package: ``ssd_chunked`` masks
+the intra-chunk decay's exponent before the exp (``exp(where(causal,
+li, -inf))``), where the JAX package computes ``where(causal, exp(li),
+0)``. The forward output is the same bit for bit; the JAX form's gradient
+is not finite once an exponent above the diagonal passes float32's exp
+range (ROADMAP.md, Queue 3; ``tests/test_torch_families_train.py``).
 
 The dtypes are the JAX package's, which round at fixed places:
 
@@ -152,7 +163,11 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int):
             sl = slice(g * hg, (g + 1) * hg)
             csg = cs[:, :, sl]  # (B,Q,hg)
             li = csg[:, :, None, :] - csg[:, None, :, :]  # (B,Q,Q,hg)
-            lmat = torch.where(causal, torch.exp(li), 0.0)
+            # masked before the exp: above the diagonal li sums up to Q - 1
+            # positive dt * |A| terms, past float32's exp range at Q = 128
+            # once dt averages over 0.7, and where(causal, exp(li), 0)
+            # would back-propagate 0 * inf = NaN (ROADMAP.md, Queue 3)
+            lmat = torch.exp(torch.where(causal, li, float("-inf")))
             m = cb[..., None] * lmat * dtq[:, None, :, sl]
             groups.append(torch.einsum("bijh,bjhp->bihp", m, xqf[:, :, sl]))
         y_intra = torch.cat(groups, dim=2)  # (B,Q,H,P)
@@ -223,6 +238,26 @@ def ssm_step(cfg, p, x, h_state, conv_state):
 
 
 # ------------------------------------------------------------- model API
+def _block_train(cfg, p, x):
+    """One layer of the loss path: x + the mixer on the normed x."""
+    return x + ssm_mix(cfg, p, C.rms_norm(x, p["ln"]))[0]
+
+
+def loss_fn(cfg, params, batch, remat_policy: str = "dots") -> torch.Tensor:
+    """The next-token cross entropy of a master tree on ``batch`` (labels
+    the tokens shifted by one; the last position left out), each layer
+    under ``remat_policy`` (``dense.remat_block``)."""
+    tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
+    x = C.embed_tokens(params["embed"], tokens)
+    s = x.shape[1]
+    for p in dense.layer_rows(params["layers"]):
+        x = dense.remat_block(remat_policy, _block_train, cfg, p, x)
+    x = C.rms_norm(x, params["final_norm"])
+    labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    mask = (torch.arange(s, device=x.device) < s - 1)[None, :].expand(tokens.shape)
+    return C.chunked_softmax_xent(x, params["lm_head"], labels, mask, cfg.loss_chunk)
+
+
 def init_cache(cfg, batch_size: int, max_len: int, dtype=BF16, device=None) -> dict:
     d_inner, n_heads, conv_dim, _ = dims(cfg)
     return {

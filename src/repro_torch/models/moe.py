@@ -1,13 +1,14 @@
 """Mixture-of-Experts LM of the port (phi3.5-moe 16e top-2, olmoe 64e
-top-8): the serving path.
+top-8): the loss path and the serving path.
 
 Counterpart of ``repro.models.moe``'s local path, which the JAX package
 calls its semantic reference: top-k routing with a capacity per expert,
 every expert on the one card. ``moe_apply`` always takes it, as the JAX
 package does without a mesh; ``cfg.moe_impl`` is read by the
 expert-parallel bodies (``gather``, ``a2a``), which wait for ROADMAP.md
-Queue 1 item 3, and has no effect here. The loss path and the training
-masters wait for the next slice (ROADMAP.md, Queue 1).
+Queue 1 item 3, and has no effect here. :func:`loss_fn` adds the layers'
+load-balancing loss to the cross entropy, as the JAX package's does; its
+attention is the differentiable ``common.chunked_attention_train``.
 
 Two choices keep the port on the JAX package's integers and bits:
 
@@ -18,7 +19,10 @@ Two choices keep the port on the JAX package's integers and bits:
   each token's up to ``top_k`` expert rows are gathered and summed in
   ascending expert order, starting from zero, as XLA applies the updates.
   A float ``index_add_`` would use atomics on the card, whose order, and
-  so whose bits, change from run to run.
+  so whose bits, change from run to run. The backward passes of the
+  gathers (``x[top_pos]``, ``flat[picked]``) accumulate by index with
+  PyTorch's sort-based indexing backward, which gave the same gradient
+  bits on two calls on the card (``chip_smoke.py``, ``families_train``).
 
 The serving weights are one frozen tree in the JAX layout
 (:func:`~repro_torch.models.dense.frozen`): the attention weights, the
@@ -156,20 +160,30 @@ def moe_apply(p, x, cfg):
 
 
 # ------------------------------------------------------------- blocks
-def _block(cfg, p, x, positions):
-    """Full-sequence block -> (x, k, v), the rotated keys and the values
-    being the cache's entries. Attention is ``common.chunked_attention``
-    (kernel F on the card), looked up at each call."""
+def _block(cfg, p, x, positions, attention=None):
+    """Full-sequence block -> (x, k, v, aux), the rotated keys and the
+    values being the cache's entries and ``aux`` the layer's load-balancing
+    loss. ``attention`` is the loss path's differentiable one; None is
+    ``common.chunked_attention`` (kernel F on the card), looked up at each
+    call."""
+    attention = attention or C.chunked_attention
     b, s, _ = x.shape
     h = C.rms_norm(x, p["ln1"])
     q, k, v = dense._qkv(cfg, p, h)
     q = C.apply_rope(q, positions, cfg.rope_theta)
     k = C.apply_rope(k, positions, cfg.rope_theta)
-    attn = C.chunked_attention(q, k, v, causal=cfg.causal, window=cfg.window, q_chunk=cfg.q_chunk)
+    attn = attention(q, k, v, causal=cfg.causal, window=cfg.window, q_chunk=cfg.q_chunk)
     x = x + (attn.reshape(b, s, -1).to(BF16) @ p["wo"].to(BF16)).to(x.dtype)
     h2 = C.rms_norm(x, p["ln2"])
-    x = x + moe_apply(p, h2, cfg)[0].to(x.dtype)
-    return x, k, v
+    mo, aux = moe_apply(p, h2, cfg)
+    return x + mo.to(x.dtype), k, v, aux
+
+
+def block_train(cfg, p, x, positions):
+    """Full-sequence block of the loss path (differentiable attention) ->
+    (x, aux)."""
+    x, _, _, aux = _block(cfg, p, x, positions, C.chunked_attention_train)
+    return x, aux
 
 
 def _block_decode(cfg, p, x, k_cache, v_cache, cur):
@@ -194,6 +208,26 @@ def _block_decode(cfg, p, x, k_cache, v_cache, cur):
 init_cache = dense.init_cache
 
 
+def loss_fn(cfg, params, batch, remat_policy: str = "dots") -> torch.Tensor:
+    """The next-token cross entropy of a master tree on ``batch`` plus the
+    load-balancing term, ``aux_loss_coef`` times the layers' mean aux
+    loss; the aux losses are summed in float32 from 0 in layer order, as
+    the JAX package's scan carries them."""
+    x, mask = dense._embed_inputs(cfg, params, batch)
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)
+    aux_sum = torch.zeros((), dtype=F32, device=x.device)
+    for p in dense.layer_rows(params["layers"]):
+        x, aux = dense.remat_block(remat_policy, block_train, cfg, p, x, positions)
+        aux_sum = aux_sum + aux
+    x = C.rms_norm(x, params["final_norm"])
+    tokens = torch.as_tensor(batch["tokens"], device=x.device)
+    labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    mask = mask & (positions < s - 1)[None, :]
+    ce = C.chunked_softmax_xent(x, dense._lm_head(cfg, params), labels, mask, cfg.loss_chunk)
+    return ce + cfg.aux_loss_coef * aux_sum / cfg.n_layers
+
+
 def prefill(cfg, model, batch, max_len: int):
     """Encode a prompt -> (last-position logits (B, V) f32, filled cache)."""
     x, _ = dense._embed_inputs(cfg, model, batch)
@@ -203,7 +237,7 @@ def prefill(cfg, model, batch, max_len: int):
     positions = torch.arange(s, device=x.device)
     cache = init_cache(cfg, b, max_len, device=x.device)
     for i, p in enumerate(dense.layer_rows(model["layers"])):
-        x, k, v = _block(cfg, p, x, positions)
+        x, k, v, _ = _block(cfg, p, x, positions)
         cache["k"][i, :, :s] = k.to(BF16)
         cache["v"][i, :, :s] = v.to(BF16)
     x = C.rms_norm(x, model["final_norm"])

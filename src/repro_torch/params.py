@@ -6,7 +6,7 @@ and ``api.build(..., params=...)`` — take a hash family as numpy arrays
 the port's parameter types; a quantized payload crosses the same way, so
 both packages can run the payload tail on the same rows, and so does an
 LM's parameter tree (every family), so both packages compute with the same
-weights, and a dense LM's training state (master weights and AdamW moments).
+weights, and an LM's training state (master weights and AdamW moments).
 Unsigned 32-bit values (salts, keys) become int64 holding the same values;
 :func:`index_to_numpy` goes the other way, for a checkpoint both packages
 read.
@@ -185,17 +185,16 @@ def train_state_from_numpy(
     """Training masters and an AdamW state from the JAX package's (for
     instance ``build_model(cfg).init(key)`` and ``adamw.init``, or a
     restored checkpoint), read through ``np.asarray``, on ``device`` (the
-    card unless told otherwise).
+    card unless told otherwise), for every model family.
 
-    The masters come back in ``cfg.param_dtype`` and require gradients;
+    The masters come back in ``cfg.param_dtype`` with the JAX tree's leaf
+    names (hymba's ``segments/seg<i>/...``, moe's ``e_gate``/``e_up``/
+    ``e_down`` expert stacks) and require gradients;
     the moments keep their dtypes (float32, or int8 ``q`` of m, uint8 ``q``
     of v and float32 ``s``) and ``step`` is an int32 0-d tensor.
     ``opt_state`` is any object with ``m``, ``v`` and ``step``; None gives
     None."""
     device = device_mod.resolve(device)
-    if cfg.family != "dense":
-        raise NotImplementedError(f"training the {cfg.family!r} model family is not ported yet (see ROADMAP.md,"
-                                  " Queue 1)")
     pd = getattr(torch, cfg.param_dtype)
     masters = dense.master_tree(_map(lambda a: _tensor(a, device).to(pd), params))
     if opt_state is None:

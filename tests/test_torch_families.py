@@ -54,6 +54,7 @@ from repro import configs as jconfigs
 from repro.models import api as japi
 from repro.models import mamba2 as jmamba2
 from repro.models import moe as jmoe
+from repro.optim import adamw as jadamw
 from repro.serve import engine as jengine
 from repro_torch import configs as tconfigs
 from repro_torch import params as tparams
@@ -384,18 +385,40 @@ def _leaves(tree, prefix=""):
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-780m", "hymba-1.5b"])
 def test_training_of_the_new_families_is_refused(arch):
-    """Serving is ported; the loss path, the masters and the training state
-    wait for the next slice, and say where it is planned."""
-    cfg = tconfigs.get(arch, smoke=True)
-    model = tapi.build_model(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.init_masters(0, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.loss_fn({}, {"tokens": np.zeros((1, 4), np.int32)})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.serving({})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tparams.train_state_from_numpy(cfg, {}, device="cpu")
+    """The training entry points of the three families (which refused them
+    until they were ported; ``tests/test_torch_families_train.py`` holds
+    their losses, gradients and steps to the JAX package).
+    ``init_masters`` gives the JAX tree's leaf names and shapes in
+    ``param_dtype``, requiring gradients; ``serving(masters)`` gives the
+    logits of ``init``'s frozen model (the same draws) and of the JAX
+    weights carried for serving, and is a copy that a later update of the
+    masters leaves as it was; ``train_state_from_numpy`` carries JAX's
+    masters and AdamW state (8-bit moments in their layout)."""
+    pr = pair(arch)
+    want = {name: tuple(np.shape(v)) for name, v in _leaves(jax.tree.map(np.asarray, pr.jp))}
+    for dtype in ("float32", "bfloat16"):
+        model = tapi.build_model(dataclasses.replace(pr.tcfg, param_dtype=dtype))
+        masters = dict(_leaves(model.init_masters(0, "cpu")))
+        assert {k: tuple(t.shape) for k, t in masters.items()} == want
+        assert all(t.dtype == getattr(torch, dtype) and t.requires_grad for t in masters.values())
+    toks = {"tokens": torch.tensor(np.random.default_rng(5).integers(0, pr.tcfg.vocab, (2, 12)).astype(np.int32))}
+    served = pr.tm.serving(pr.tm.init_masters(0, "cpu"))
+    assert torch.equal(pr.tm.prefill(served, toks, 32)[0], pr.tm.prefill(pr.tm.init(0, "cpu"), toks, 32)[0])
+    jopt = jadamw.AdamWConfig(state_bits=8)
+    jstate = jadamw.init(pr.jp, jopt)
+    masters, state = tparams.train_state_from_numpy(pr.tcfg, jax.tree.map(np.asarray, pr.jp), jstate, "cpu")
+    for name, w in _leaves(jax.tree.map(np.asarray, pr.jp)):
+        np.testing.assert_array_equal(_np(dict(_leaves(masters))[name]), w, err_msg=name)
+    got_state = dict(_leaves({"m": state.m, "v": state.v}))
+    assert {k: (str(t.dtype), tuple(t.shape)) for k, t in got_state.items()} == {
+        k: ("torch." + str(np.asarray(a).dtype), np.shape(a)) for k, a in _leaves({"m": jstate.m, "v": jstate.v})}
+    served = pr.tm.serving(masters)
+    logits = pr.tm.prefill(served, toks, 32)[0]
+    assert torch.equal(logits, pr.tm.prefill(pr.lm, toks, 32)[0])
+    with torch.no_grad():
+        for t in dict(_leaves(masters)).values():
+            t.add_(1.0)
+    assert torch.equal(pr.tm.prefill(served, toks, 32)[0], logits)
 
 
 # ------------------------------------------------------------ the engine
