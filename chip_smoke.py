@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs
-fifteen phases, printing one JSON line each; any failed check raises, so
+sixteen phases, printing one JSON line each; any failed check raises, so
 the script exits non-zero:
 
 1. ``device``     the card's name and power limit (``nvidia-smi``).
@@ -106,7 +106,7 @@ the script exits non-zero:
                   clone; after ``compact`` node 0's cells equal a scratch
                   build; A, B and D launch; every node compacts; the
                   rolling MCC within 0.1 of PKNN's on the live windows.
-   ``stream_profile`` the last 32 events profiled: the device idle share.
+   ``stream_profile`` the last 8 events profiled: the device idle share.
 10. ``knn_lm``    the kNN-LM serving path of examples/serve_knn_lm.py
                   steps 2-3 at granite-8b's full width and depth (36 layers,
                   d_model 4,096, weights from a seeded generator): kernel F
@@ -182,14 +182,35 @@ the script exits non-zero:
                   and within tolerance of a plain path (one attention
                   block, whole logits; ``ssd_reference`` for mamba2 and
                   hymba on a 256-token prefix), olmoe's gradients equal on
-                  two calls; 3 timed steps (every leaf moves but bf16
-                  norm weights under half an ulp, the loss finite; median
-                  ms, tokens per second, peak memory) and
-                  ``families_train_profile``; the trained masters served
+                  two calls; 3 timed steps, mamba2's and hymba's 1, the
+                  last profiled (``families_train_profile``; every leaf
+                  moves but bf16 norm weights under half an ulp, the loss
+                  finite; median ms, tokens per second, peak memory); the
+                  trained masters served
                   through ``serving``: prefill and 4 decode steps, F's
                   launches as ``flash_per_pass`` says, the logit gate;
                   then the restart at olmoe's smoke config under
                   deterministic algorithms, bit for bit.
+16. ``lm_mesh``   the LM families under a mesh: 4 gloo ranks on this card
+                  (``launch.mesh.spawn`` running ``launch.lm_mesh_job``).
+                  phi3.5-moe-42b-a6.6b at full width cut to 8 of 32
+                  layers, served on ``make_local_mesh(1, 4)`` (its experts
+                  over 4 ranks, the cache's positions in 4 blocks) with
+                  both combines, ``gather`` at capacity 1.25 and ``a2a`` at
+                  8.0: prefill of 2 x 512 and 8 decode steps against the
+                  same model in this process, route by route (moe's routes
+                  recorded on both sides: a row whose read token routes
+                  alike within logit_gate's tolerance, a flip owed to a
+                  near tie, greedy tokens where the top-2 gap exceeds the
+                  tolerance, every rank alike, F once a layer in each
+                  rank's prefill), and three planted faults the check must
+                  catch. In the same world olmoe-1b-7b at full width cut
+                  to 4 of 16 layers (bf16 masters, 8-bit moments, capacity
+                  8.0, ``gather``) trained on ``make_local_mesh(2, 2)``
+                  through ``launch.train.train``: the step-0 loss and every
+                  rank's reduced gradients against this process's (the
+                  ``families_train`` rule), 2 steps, the replicas bit for
+                  bit, the expert blocks' moments against this process's.
 
 The ``kernels`` line comes last but two, then the ``nvidia-smi`` line, and
 the last line is ``{"ok": true, "device": {...}}``. A kernel's ``launches``
@@ -200,8 +221,10 @@ queries for E, the ``knn_lm`` phase for F; every row also gives its
 launches on the ``routes``, ``quickstart``, ``routed``, ``icu_serve``, ``stream``,
 ``knn_lm``, ``serve``, ``serve_twin``, ``families``, ``train`` and ``families_train``
 paths (no kernel runs on a training step, as none does on the JAX
-package's; ``families_train`` counts F in the trained masters' serving), and A, B and D their launches summed over the
-``mesh`` phase's ranks (``mesh_launches``). Without a CUDA
+package's; ``families_train`` counts F in the trained masters' serving), A, B and D their launches summed over the
+``mesh`` phase's ranks (``mesh_launches``), and every kernel its launches
+summed over the ``lm_mesh`` phase's ranks (``lm_mesh_launches``: F's, 0
+for A-E). Without a CUDA
 device, or without the repository's ``src/`` beside it, the script exits
 non-zero before printing any result.
 """
@@ -321,7 +344,12 @@ FT_CUT = {"olmoe-1b-7b": dict(param_dtype="bfloat16", opt_state_bits=8)}
 FT_CUT_WHY = {"olmoe-1b-7b": (
     "param_dtype bfloat16 and opt_state_bits 8, the JAX config's fields for this case: 6.92 B parameters in"
     " float32 masters, gradients and two moments come to about 110 GB, past the card's 80 GB; all 16 layers kept")}
-FT_STEPS, FT_PROFILED = 3, 1
+# timed steps a family, the last under the profiler (the card's kernels
+# only: CUPTI's records add about a microsecond a launch, 0.13 s to hymba's
+# 132,588): mamba2's and hymba's host-bound steps (4-6 s and 16-27 s on an
+# H100 80GB HBM3 at 700 W) take one, which keeps the whole script inside
+# its 1,200 s limit on a slow host
+FT_STEPS = {"olmoe-1b-7b": 3, "mamba2-780m": 1, "hymba-1.5b": 1}
 # the step-0 check's (rows, tokens): the first rows of step 0's batch; mamba2
 # and hymba on a prefix, since ssd_reference runs a per-token loop (two and
 # three of their 128-token chunks, hymba's meta tokens included)
@@ -344,10 +372,74 @@ FT_SERVE_STEPS = 4
 # grouped by chunk, within 1e-4 of the largest output (the JAX package's own
 # test holds them to 1e-4)
 SSD_RTOL = 1e-4
+# the LM families under a mesh (lm_mesh), 4 gloo ranks on this one card.
+# Serving: phi3.5-moe-42b-a6.6b at full width, cut to 8 of its 32 layers
+# (whole it is 84 GB in bf16, past one card; at 8 layers a rank holds its 4
+# experts x 8 layers, 5.0 GB, and 1.2 GB replicated, the one-process
+# reference 21 GB), on make_local_mesh(1, 4): the experts over 4 ranks and
+# the cache's positions in 4 blocks; 2 prompts of 512 tokens, 8 decode
+# steps fed with the reference's greedy tokens (max_len 520, a multiple of
+# 4, so decode attention runs context-parallel). Both combines: gather at
+# the config's capacity factor, a2a at n_experts / top_k (a2a caps per
+# destination rank, so at 1.25 its drops would legitimately differ from
+# the local path's; tests/test_moe_ep.py raises its capacity for the same
+# reason).
+LMM_SERVE_ARCH, LMM_SERVE_LAYERS, LMM_SERVE_MESH = "phi3.5-moe-42b-a6.6b", 8, (1, 4)
+LMM_SERVE_BATCH, LMM_SERVE_PROMPT, LMM_SERVE_STEPS = 2, 512, 8
+# Training: olmoe-1b-7b at full width, cut to 4 of its 16 layers (the
+# gradients cross gloo through the host, about 2.2 GB of bf16 a rank a step
+# at 4 layers), bf16 masters and 8-bit moments as families_train has them,
+# capacity factor n_experts / top_k (a data shard's capacity comes from its
+# own tokens), on make_local_mesh(2, 2): data parallel 2 x expert parallel
+# 2; 2 steps of 4 x 512 tokens through launch.train.train. The step-0
+# check takes the first 2 rows of step 0's batch (one per data rank). The
+# gather combine: olmoe's config names a2a, whose capacity is applied twice
+# (per destination rank, then per expert, c_in = ep * cap * cf / e_loc), so
+# at capacity factor 8 each of a rank's 32 experts gets 8,192 slots for
+# about 128 copies, and the padded activations ran a rank out of memory
+# (an H100 80GB HBM3 at 700 W); serving runs both combines.
+LMM_TRAIN_ARCH, LMM_TRAIN_LAYERS, LMM_TRAIN_MESH = "olmoe-1b-7b", 4, (2, 2)
+LMM_TRAIN_BATCH, LMM_TRAIN_SEQ, LMM_TRAIN_STEPS, LMM_TRAIN_ROWS = 4, 512, 2, 2
+# The served logits are held route by route. Every rank and the one-process
+# reference record moe's routes (moe.ROUTES); in each pass, a row whose read
+# token (the last position) took the same experts at every layer as in the
+# reference is held within logit_gate's tolerance, twice the gap between the
+# reference's plain attention and attention_ref on the rows where those two
+# route alike, plus LOGIT_ATOL, and its greedy token must be the reference's
+# where the reference's top-2 gap exceeds it. A row whose read token took
+# other experts is a route flip: at the first layer where they differ, each
+# differing decision must be a near tie of the reference's, its k-th and
+# (k+1)-th router probabilities (or, where the same experts were chosen and
+# a capacity slot went elsewhere, the token's weight and the capacity's
+# edge) within LMM_ROUTE_TIE of each other, relative (the later layers route
+# a token whose state that swap has changed: run 7 read first-layer margins
+# of 0.002-0.017 and later ones up to 0.44); and at least half the
+# row-passes must route alike. One expert swapped at the read token moves
+# phi3.5's logits by up to 1.7, as in one process between F and the plain
+# attention (my chip run 6: 0.80 at a first decode, where plain against
+# attention_ref read 0.055).
+LMM_ROUTE_TIE = 2.0**-4
+# planted faults the serving check must catch, each run for the prefill and
+# one decode step with the combine named: the experts of the model axis's
+# rank 1 adding nothing, and context-parallel decode shifting each block's
+# softmax by the block's own max instead of the global one
+LMM_FAULTS = (("fault_expert_share", "gather"), ("fault_expert_share", "a2a"), ("fault_cp_max", "gather"))
+# the expert blocks' moments after one step against the matching blocks of
+# the one-process moments, both dequantized: m and sqrt(v) are the step-0
+# gradient scaled ((1 - b1) g and sqrt(1 - b2) |g|, times the clip scale),
+# so they are held as the gradients are, within twice 2^-5 of the block's
+# largest (no other-order gap exists for them); a block quantized along
+# another axis than the whole leaf's would be off by its own size
+LMM_MOMENT_FRAC = 2 * TRAIN_GRAD_FRAC
+
+
+_STARTED = time.perf_counter()
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line of readings, ``at_s`` the seconds since the script
+    started (where a phase's time goes)."""
+    print(json.dumps({"phase": phase, **fields, "at_s": time.perf_counter() - _STARTED}), flush=True)
 
 
 def need(ok: bool, msg: str) -> None:
@@ -432,26 +524,17 @@ def sync(dev) -> None:
         torch.cuda.synchronize()
 
 
-def profile_activities(dev) -> list:
-    import torch
-
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if dev.type == "cuda":
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    return acts
-
-
-def profile_query(dev, fn, queries: int = 200, host_ops: bool = True) -> dict:
+def profile_query(dev, fn, queries: int = 200) -> dict:
     """Wall time of ``fn()`` under the profiler, the summed time of its
     kernels on the card (device busy), the device's idle share, the eight
     longest kernels and the port's own, each with its share of the busy
-    time. ``host_ops=False`` traces the card's kernels only, which spares
-    the host the per-op records that slow a path of many ops."""
+    time. On the card only its kernels are traced: per-op host records
+    slow a path of many ops and took the profiler 45 s to process for the
+    stream's 32 profiled events (an H100 80GB HBM3 host at 700 W)."""
     import torch
 
-    acts = profile_activities(dev)
-    if not host_ops and dev.type == "cuda":
-        acts = [torch.profiler.ProfilerActivity.CUDA]
+    kind = torch.profiler.ProfilerActivity
+    acts = [kind.CUDA] if dev.type == "cuda" else [kind.CPU]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
@@ -1181,6 +1264,7 @@ def run(dev, n: int, nq: int, lm_smoke: bool = False, ds_seqs: int = DS_SEQS) ->
     families_launches = families_phase(dev, lm_smoke)
     train_launches = train_phase(dev, lm_smoke)
     families_train_launches = families_train_phase(dev, lm_smoke)
+    lm_mesh_launches = lm_mesh_phase(dev, lm_smoke)
     for r in rows:
         extra = knn.get(r["name"])
         if extra is None:
@@ -1213,6 +1297,7 @@ def run(dev, n: int, nq: int, lm_smoke: bool = False, ds_seqs: int = DS_SEQS) ->
         r["families_launches"] = families_launches.get(r["name"], 0)
         r["train_launches"] = train_launches.get(r["name"], 0)
         r["families_train_launches"] = families_train_launches.get(r["name"], 0)
+        r["lm_mesh_launches"] = lm_mesh_launches.get(r["name"], 0)
     print(json.dumps({"kernels": rows}), flush=True)
 
 
@@ -1889,7 +1974,7 @@ def icu_serve_phase(dev, index, qx, cfg) -> dict:
 
 
 STREAM_CAP, STREAM_DELTA, STREAM_LIVE, STREAM_BATCH = 139_048, 256, 4_096, 16
-STREAM_CHECK_EVENT, STREAM_PROFILE_EVENTS = 8, 32
+STREAM_CHECK_EVENT, STREAM_PROFILE_EVENTS = 8, 8
 
 
 def stream_phase(dev, pts, labs, qx, cfg, n: int) -> dict:
@@ -2297,7 +2382,9 @@ def model_attention(kind: str):
         return attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal,
                       window=window, q_offset=q_offset, kv_len=kv_len, sink=sink).transpose(1, 2)
 
-    def decode(q, k_cache, v_cache, cur_len):
+    def decode(q, k_cache, v_cache, cur_len, seq_blocks=1):
+        if seq_blocks != 1:
+            raise ValueError("model_attention swaps the one-process attention, not the mesh's")
         cl = fa_ref.per_row(cur_len, q.shape[0], q.device)
         if kind == "plain":
             return common._decode_attention_plain(q, k_cache, v_cache, cl)
@@ -2811,7 +2898,7 @@ def train_phase(dev, smoke: bool = False) -> dict:
         for b in batches[TRAIN_STEPS:]:
             params, state, _ = step_fn(params, state, b)
 
-    prof = profile_query(dev, profiled, queries=TRAIN_PROFILED, host_ops=False)
+    prof = profile_query(dev, profiled, queries=TRAIN_PROFILED)
     prof["steps"] = prof.pop("queries")
     emit("train_profile", arch=cfg.name, **split, **prof)
     del params, state, batches
@@ -3122,7 +3209,7 @@ def families_phase(dev, smoke: bool = False) -> dict:
 
         # where its time goes: the card's kernels only (hymba's prefill is
         # some 10^5 small ops, whose host records would slow it)
-        emit("families_profile", arch=cfg.name, **profile_query(dev, served, queries=FAMILY_STEPS, host_ops=False))
+        emit("families_profile", arch=cfg.name, **profile_query(dev, served, queries=FAMILY_STEPS))
         del params, first, logits
         if dev.type == "cuda":
             torch.cuda.empty_cache()
@@ -3205,10 +3292,10 @@ def families_train_phase(dev, smoke: bool = False) -> dict:
     training path's loss and every gradient, which must be finite, against
     the plain path of ``family_loss_variant``, the tolerance widened by the
     training path's own gap to ``"other_order"``; on olmoe the gradients of
-    two identical calls compared bit for bit), FT_STEPS timed steps through
+    two identical calls compared bit for bit), ``FT_STEPS`` timed steps through
     ``train.loop.make_train_step`` (every leaf moves after the first, the
-    loss stays finite), ``families_train_profile`` (one more step,
-    profiled), then ``serving(masters)``: prefill and FT_SERVE_STEPS greedy
+    loss stays finite; the last of them profiled, ``families_train_profile``),
+    then ``serving(masters)``: prefill and FT_SERVE_STEPS greedy
     decode steps with F's launches counted against ``flash_per_pass`` and
     the logit gate of the ``families`` phase. Last, the restart check at
     olmoe's smoke config under deterministic algorithms. ``smoke`` takes
@@ -3248,7 +3335,7 @@ def families_train_phase(dev, smoke: bool = False) -> dict:
         init_s = time.perf_counter() - t0
         stream = TokenStream(cfg.vocab, seed=3)
         batches = [launch_train.make_batch(cfg, stream.batch(batch_n, seq), i, dev)
-                   for i in range(FT_STEPS + FT_PROFILED)]
+                   for i in range(FT_STEPS[arch])]
         names = list(_flat(params))
         checks: list = []
 
@@ -3293,7 +3380,7 @@ def families_train_phase(dev, smoke: bool = False) -> dict:
         del grads_t
 
         # 2. the timed steps
-        opt_cfg = adamw.AdamWConfig(peak_lr=1e-3, warmup_steps=1, total_steps=FT_STEPS + FT_PROFILED,
+        opt_cfg = adamw.AdamWConfig(peak_lr=1e-3, warmup_steps=1, total_steps=FT_STEPS[arch],
                                     state_bits=cfg.opt_state_bits)
         state = adamw.init(params, opt_cfg)
         step_fn = tl.make_train_step(model, opt_cfg)
@@ -3303,12 +3390,23 @@ def families_train_phase(dev, smoke: bool = False) -> dict:
             torch.cuda.reset_peak_memory_stats()
         _build.reset_launches()
         steps = []
-        for i in range(FT_STEPS):
+        for i in range(FT_STEPS[arch]):
+            out = {}
+
+            def one(i=i, out=out):
+                nonlocal params, state
+                params, state, out["m"] = step_fn(params, state, batches[i])
+
             sync(dev)
             t0 = time.perf_counter()
-            params, state, m = step_fn(params, state, batches[i])
-            sync(dev)
-            steps.append(dict(step=i, ms=(time.perf_counter() - t0) * 1e3, **{k: float(v) for k, v in m.items()}))
+            if i == FT_STEPS[arch] - 1:
+                prof = profile_query(dev, one, queries=1)
+                ms = prof["wall_s"] * 1e3
+            else:
+                one()
+                sync(dev)
+                ms = (time.perf_counter() - t0) * 1e3
+            steps.append(dict(step=i, ms=ms, **{k: float(v) for k, v in out["m"].items()}))
             if i == 0:
                 still = sorted(n for n, t in _flat(params).items() if torch.equal(t.detach().cpu(), before[n]))
                 # bf16 masters keep no update below half a bf16 ulp: a norm
@@ -3324,13 +3422,6 @@ def families_train_phase(dev, smoke: bool = False) -> dict:
         if dev.type == "cuda":
             checks.append((not launches, f"{arch}: the training steps launched {launches}"))
         med_ms = float(np.median([s_["ms"] for s_ in steps]))
-
-        def profiled():
-            nonlocal params, state
-            for b in batches[FT_STEPS:]:
-                params, state, _ = step_fn(params, state, b)
-
-        prof = profile_query(dev, profiled, queries=FT_PROFILED, host_ops=False)
         prof["steps"] = prof.pop("queries")
         emit("families_train_profile", arch=cfg.name, **prof)
         del state, batches
@@ -3419,6 +3510,448 @@ def families_train_phase(dev, smoke: bool = False) -> dict:
     need(first_run == straight[:3] and resumed == straight[3:],
          f"families_train: the restart's losses {first_run} + {resumed} are not the uninterrupted run's {straight}")
     return total
+
+@contextlib.contextmanager
+def mesh_fault(kind: str):
+    """Plant one of ``LMM_FAULTS`` in this process's model code while the
+    block runs."""
+    from repro_torch.models import moe as tmoe
+    from repro_torch.sharding import ctx
+
+    if kind == "fault_expert_share":
+        module, name = tmoe, "_expert_compute"
+        saved = tmoe._expert_compute
+
+        def planted(*args):
+            out = saved(*args)
+            mesh = ctx.get_mesh()
+            return out * 0 if mesh is not None and ctx.axis_index(mesh, "model") == 1 else out
+    elif kind == "fault_cp_max":
+        module, name = ctx, "pmax"
+        saved = ctx.pmax
+
+        def planted(mesh, axes, x):
+            return x.detach()
+    else:
+        raise ValueError(f"unknown planted fault {kind!r}")
+    setattr(module, name, planted)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def lm_mesh_rank(job, faults=(), then=None) -> list:
+    """A rank of the lm_mesh phase: ``launch.lm_mesh_job.run(job)``, then
+    each ``(kind, job)`` of ``faults`` with that fault planted, then, the
+    serving weights freed, ``then`` -> the reports, in that order."""
+    import torch
+
+    from repro_torch.launch import lm_mesh_job
+
+    reports = [lm_mesh_job.run(job)]
+    for kind, fjob in faults:
+        with mesh_fault(kind):
+            reports.append(lm_mesh_job.run(fjob))
+    if then is not None:
+        lm_mesh_job._SERVED.clear()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        reports.append(lm_mesh_job.run(then))
+    return reports
+
+
+def served_with_routes(model, params, prompt, max_len: int, steps: int, feed=None):
+    """Prefill, then ``steps`` decode steps in this process, greedy or fed
+    with ``feed`` (B, steps), moe's routes recorded -> (each pass's logits
+    as float32 numpy, each pass's routes as ``moe.routes_table`` puts them,
+    the tokens decoded)."""
+    import torch
+
+    from repro_torch.models import moe as tmoe
+
+    logits_out, routes = [], []
+
+    def noted(fn):
+        tmoe.ROUTES = []
+        try:
+            lg, c = fn()
+        finally:
+            rec, tmoe.ROUTES = tmoe.ROUTES, None
+        logits_out.append(lg.float().cpu().numpy())
+        routes.append(tmoe.routes_table([rec]))
+        return lg, c
+
+    toks = []
+    with torch.no_grad():
+        lg, cache = noted(lambda: model.prefill(params, prompt, max_len))
+        for i in range(steps):
+            nxt = torch.argmax(lg, dim=-1).to(torch.int32)[:, None] if feed is None else \
+                torch.as_tensor(feed[:, i : i + 1], dtype=torch.int32, device=lg.device)
+            toks.append(nxt.cpu().numpy())
+            lg, cache = noted(lambda: model.decode_step(params, cache, nxt))
+    return logits_out, routes, (np.concatenate(toks, 1) if toks else None)
+
+
+def route_flips(ref: list, got: list, row: int, cfg) -> list:
+    """The decisions of one pass's read token (the last position) of
+    ``row`` that differ between two runs' routes (``moe.routes_table``
+    entries, one a layer) -> [(layer, kind, margin)]: ``top_k`` where the
+    chosen experts differ, margin the reference's k-th and (k+1)-th router
+    probabilities' gap over the k-th; ``capacity`` where the same experts
+    were chosen and a slot went elsewhere, margin the gap between the
+    token's weight and the capacity's edge (the last kept weight if the
+    reference dropped it, the first dropped if it kept it) over the larger;
+    inf where no near tie can explain the flip."""
+    from repro_torch.models import moe as tmoe
+
+    k = cfg.top_k
+    out = []
+    for layer, (r, g) in enumerate(zip(ref, got)):
+        if np.array_equal(r["used"][row, -1], g["used"][row, -1]):
+            continue
+        p, e = r["top_p"][row, -1], r["top_e"][row, -1]
+        if set(e[:k]) != set(g["top_e"][row, -1, :k]):
+            out.append((layer, "top_k", float((p[k - 1] - p[k]) / p[k - 1])))
+            continue
+        w_all = r["top_p"][..., :k] / r["top_p"][..., :k].sum(-1, keepdims=True)
+        cap = tmoe._capacity(r["used"].shape[0] * r["used"].shape[1], cfg)
+        for x in np.flatnonzero(r["used"][row, -1] != g["used"][row, -1]):
+            scores = np.sort(w_all[r["top_e"][..., :k] == x])[::-1]
+            w = float(w_all[row, -1][list(e[:k]).index(x)])
+            if len(scores) <= cap:
+                out.append((layer, "capacity", float("inf")))
+                continue
+            edge = float(scores[cap] if r["used"][row, -1, x] else scores[cap - 1])
+            out.append((layer, "capacity", abs(w - edge) / max(w, edge)))
+    return out
+
+
+def served_checks(tag: str, ref_logits, ref_routes, got_logits, got_routes, tol: float, cfg) -> tuple[list, dict]:
+    """One served run's passes (``got``, the global batch's logits and
+    routes of each pass) against the reference's, route by route (see
+    ``LMM_ROUTE_TIE``; ``route_flips`` lists a row's differing decisions by
+    layer) -> (checks, readings)."""
+    checks, errs, flips, clean = [], [], [], []
+    for j, (rl, rr, gl, gr) in enumerate(zip(ref_logits, ref_routes, got_logits, got_routes)):
+        errs.append([float(np.abs(gl[r] - rl[r]).max()) for r in range(rl.shape[0])])
+        for r in range(rl.shape[0]):
+            fl = route_flips(rr, gr, r, cfg)
+            clean.append(not fl)
+            if fl:
+                first = [m for layer, _, m in fl if layer == fl[0][0]]
+                flips.append(dict(pass_=j, row=r, logit_err=errs[-1][r], decisions=fl))
+                checks.append((max(first) <= LMM_ROUTE_TIE,
+                               f"{tag}: pass {j} row {r}'s routes first differ from one process's at layer"
+                               f" {fl[0][0]} past a near tie {fl}"))
+                continue
+            checks.append((errs[-1][r] <= tol, f"{tag}: pass {j} row {r}'s logits differ from one process's by"
+                                               f" {errs[-1][r]} > {tol}, its routes alike"))
+            top2 = np.sort(rl[r])[-2:]
+            if top2[1] - top2[0] > tol:
+                checks.append((int(np.argmax(gl[r])) == int(np.argmax(rl[r])),
+                               f"{tag}: pass {j} row {r}'s greedy token differs from one process's past the tolerance"))
+        dropped = sum(x["dropped"] for x in gr)
+        checks.append((dropped == 0, f"{tag}: pass {j}: a2a's receivers dropped {dropped} copies"))
+    checks.append((2 * sum(clean) >= len(clean),
+                   f"{tag}: only {sum(clean)} of {len(clean)} row-passes route as one process does"))
+    first = [m for f in flips for layer, _, m in f["decisions"] if layer == f["decisions"][0][0]]
+    return checks, dict(logits_max_abs_err=errs, routes_alike=sum(clean), row_passes=len(clean), flips=flips,
+                        first_flip_margin_max=max(first, default=None))
+
+
+def lm_mesh_phase(dev, smoke: bool = False) -> dict:
+    """The LM families under a mesh: 4 gloo ranks on this one card, started
+    by ``launch.mesh.spawn`` (every rank's device ``cuda:0``). (a)
+    phi3.5-moe-42b-a6.6b served by ``make_local_mesh(1, 4)`` with both
+    combines (``lm_mesh_rank``: ``launch.lm_mesh_job.run``), held against
+    the same 8-layer model in this process (drawn, run and freed before the
+    spawn) pass by pass and row by row, moe's routes recorded on both
+    sides (``served_checks``): where a row's read token took the same
+    experts, its logits within ``logit_gate``'s tolerance and its greedy
+    token the reference's wherever the reference's top-2 gap exceeds it;
+    where it did not, every differing decision a near tie of the
+    reference's; decode fed with the reference's tokens; every rank's
+    tokens equal; F launched once a layer in each rank's prefill (the
+    decode attention is context-parallel torch); the same world then runs
+    ``LMM_FAULTS``, each of which the check must catch. (b) olmoe-1b-7b
+    trained on ``make_local_mesh(2, 2)``: the step-0 loss and every rank's
+    reduced gradients against this process's on the same 2 rows (the
+    ``families_train`` rule: 2^-5 of a leaf's largest element plus twice
+    the training path's gap to another float32 order), then 2 steps
+    through ``launch.train.train``: the losses against this process's,
+    the replicated leaves bit for bit across the ranks, the expert blocks
+    across the data axis, and each expert block's moments after one step
+    against the matching block of this process's. ``smoke`` takes the
+    smoke configs at 16- and 32-token rows. Returns F's launches summed
+    over the ranks."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data.lm_data import TokenStream
+    from repro_torch.launch import lm_mesh_job
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import api as mapi
+    from repro_torch.models.moe import routes_table as moe_routes
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    checks: list = []
+
+    # (a) serving: the one-process reference of each combine, its routes
+    # recorded; the tolerance from its plain attention against
+    # attention_ref on the rows where those two route alike
+    base = configs.get(LMM_SERVE_ARCH, smoke=smoke)
+    s_over = {} if smoke else {"n_layers": LMM_SERVE_LAYERS}
+    plen = 16 if smoke else LMM_SERVE_PROMPT
+    steps = LMM_SERVE_STEPS
+    max_len = plen + steps
+    need(max_len % LMM_SERVE_MESH[1] == 0, f"lm_mesh: max_len {max_len} does not split over the seq axis")
+    cfg0 = dataclasses.replace(base, **s_over)
+    combines = {"gather": cfg0.capacity_factor, "a2a": cfg0.n_experts / cfg0.top_k}
+    prompts = TokenStream(cfg0.vocab, seed=7).batch(LMM_SERVE_BATCH, plen)
+    prompt = {"tokens": torch.as_tensor(prompts, device=dev)}
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = mapi.build_model(cfg0).init(SEED, dev)
+    ref: dict = {}
+    for impl, cf in combines.items():
+        cfg = dataclasses.replace(cfg0, moe_impl=impl, capacity_factor=cf)
+        model = mapi.build_model(cfg)
+        logits, routes, toks = served_with_routes(model, params, prompt, max_len, steps)
+        with model_attention("plain"):
+            plain = served_with_routes(model, params, prompt, max_len, 1, toks)
+        with model_attention("attention_ref"):
+            alt = served_with_routes(model, params, prompt, max_len, 1, toks)
+        floor = [float(np.abs(plain[0][j][r] - alt[0][j][r]).max()) for j in range(2) for r in range(LMM_SERVE_BATCH)
+                 if not route_flips(plain[1][j], alt[1][j], r, cfg)]
+        checks.append((bool(floor), f"lm_mesh {impl}: no row routes alike under the plain attention and attention_ref"))
+        tol = 2 * max(floor, default=0.0) + LOGIT_ATOL
+        # F at phi3.5's shape against the plain attention, route by route
+        f_checks, f_read = served_checks(f"lm_mesh {impl}: one process with F against the plain attention",
+                                         plain[0], plain[1], logits[:2], routes[:2], tol, cfg)
+        checks += f_checks
+        ref[impl] = dict(logits=logits, routes=routes, tokens=toks, tol=tol, floor=floor, f_vs_plain=f_read,
+                         logits_max_abs=[float(np.abs(x).max()) for x in logits])
+        del plain, alt
+    ref_peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    ref_s = time.perf_counter() - t0
+    del params
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (b) training: the one-process step-0 gradients, their gap to another
+    # float32 order, and the moments after one step of the same run
+    tbase = configs.get(LMM_TRAIN_ARCH, smoke=smoke)
+    t_over = dict(capacity_factor=tbase.n_experts / tbase.top_k, moe_impl="gather")
+    if not smoke:
+        t_over.update(n_layers=LMM_TRAIN_LAYERS, param_dtype="bfloat16", opt_state_bits=8)
+    tcfg = dataclasses.replace(tbase, **t_over)
+    tseq = 32 if smoke else LMM_TRAIN_SEQ
+    batch0 = next(TokenStream(tcfg.vocab, seed=0).batches(1, LMM_TRAIN_BATCH, tseq))["tokens"]
+    rows_np = batch0[:LMM_TRAIN_ROWS]
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    shm = "/dev/shm" if os.path.isdir("/dev/shm") else os.path.join(ROOT, "build")
+    with tempfile.TemporaryDirectory(dir=shm) as tmp, \
+            tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as store_tmp:
+        t0 = time.perf_counter()
+        tmodel = mapi.build_model(tcfg)
+        masters = tmodel.init_masters(0, dev)
+        rows = {"tokens": torch.as_tensor(rows_np, device=dev)}
+        loss_t, grads_t = family_loss_variant(tcfg, masters, rows, "train")
+        names = list(_flat(masters))
+        loss_o, grads = family_loss_variant(tcfg, masters, rows, "other_order")
+        gaps = {n: (g_, c_) for n, (g_, _, c_) in zip(names, (grad_stats(a, b) for a, b in zip(grads_t, grads)))}
+        del grads
+        grads_path = os.path.join(tmp, "grads.pt")
+        torch.save({"grads": {n: g.detach().cpu() for n, g in zip(names, grads_t)}, "gaps": gaps,
+                    "loss": float(loss_t)}, grads_path)
+        del grads_t
+        expert = [n for n in names if n.split("/")[-1] in ("e_gate", "e_up", "e_down")]
+        moments: dict = {}
+
+        def grab(i, p_, st):
+            if i == 0:
+                for which, tree in (("m", st.m), ("v", st.v)):
+                    for n, t in _flat(tree).items():
+                        leaf = n.rsplit("/", 1)[0] if n.endswith(("/q", "/s")) else n
+                        if leaf in expert:
+                            key = f"{which}/{leaf}"
+                            if leaf == n:
+                                moments[key] = t.detach().cpu()
+                            else:
+                                moments.setdefault(key, {})[n[-1]] = t.detach().cpu()
+
+        one_hist = launch_train.train(tcfg, steps=LMM_TRAIN_STEPS, batch=LMM_TRAIN_BATCH, seq=tseq,
+                                      device=dev, params=masters, log=lambda *_: None, on_step=grab)[0]
+        moments_path = os.path.join(tmp, "moments.pt")
+        torch.save(moments, moments_path)
+        train_ref_s = time.perf_counter() - t0
+        train_ref_peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+        del masters, moments, tmodel
+        if on_card:
+            torch.cuda.empty_cache()
+        np.save(os.path.join(tmp, "prompts.npy"), prompts)
+        parent_reserved_gb = torch.cuda.memory_reserved() / 1e9 if on_card else None
+
+        # one world: serving, the planted faults, then training
+        def serve_step(impl, decode):
+            return ("serve", dict(arch=LMM_SERVE_ARCH, smoke=smoke,
+                                  overrides=dict(s_over, moe_impl=impl, capacity_factor=combines[impl]), seed=SEED,
+                                  prompts=os.path.join(tmp, "prompts.npy"), max_len=max_len, decode=decode,
+                                  feed=ref[impl]["tokens"][:, :decode], routes=True))
+
+        def serve_job(*steps_):
+            return lm_mesh_job.LMMeshJob(mesh=LMM_SERVE_MESH, steps=steps_, device=dev.type)
+
+        # the masters are drawn on every rank at once: olmoe's largest leaf
+        # at 4 layers is 2.1 GB in float32 (phi3.5's, drawn in turn, 13 GB)
+        train_steps = (
+            ("grads", dict(arch=LMM_TRAIN_ARCH, smoke=smoke, overrides=t_over, rows=rows_np, compare=grads_path)),
+            ("train", dict(arch=LMM_TRAIN_ARCH, smoke=smoke, overrides=t_over, steps=LMM_TRAIN_STEPS,
+                           batch=LMM_TRAIN_BATCH, seq=tseq, compare_moments=moments_path)),
+        )
+        import chip_smoke  # the ranks' function, importable by name
+
+        t0 = time.perf_counter()
+        world = launch_mesh.spawn(
+            chip_smoke.lm_mesh_rank, 4, store_dir=os.path.join(store_tmp, "world"), timeout_s=900,
+            args=(serve_job(*(serve_step(impl, steps) for impl in combines)),
+                  tuple((kind, serve_job(serve_step(impl, 1))) for kind, impl in LMM_FAULTS),
+                  lm_mesh_job.LMMeshJob(mesh=LMM_TRAIN_MESH, steps=train_steps, device=dev.type)))
+        world_s = time.perf_counter() - t0
+        served, train_reports = [r[:-1] for r in world], [r[-1] for r in world]
+        serve_reports = [r[0] for r in served]
+
+    # (a) the served logits and routes, route by route, and the planted faults
+    launches: dict = {}
+    serve_out = {}
+    n_attn = flash_per_pass(cfg0)[0]
+
+    def global_passes(outs, n):
+        need(all(o["rows"] == list(range(LMM_SERVE_BATCH)) for o in outs), "lm_mesh: a rank lacks a row")
+        return ([outs[0]["passes"][j]["logits"] for j in range(n)],
+                [moe_routes([o["passes"][j]["routes"] for o in outs]) for j in range(n)])
+
+    for si, impl in enumerate(combines):
+        r_ref = ref[impl]
+        cfg = dataclasses.replace(cfg0, moe_impl=impl, capacity_factor=combines[impl])
+        outs = [r["steps"][si] for r in serve_reports]
+        got_logits, got_routes = global_passes(outs, len(r_ref["logits"]))
+        held, reading = served_checks(f"lm_mesh {impl}", r_ref["logits"], r_ref["routes"], got_logits, got_routes,
+                                      r_ref["tol"], cfg)
+        checks += held
+        argmaxes = [[np.argmax(p["logits"], -1) for p in o["passes"]] for o in outs]
+        checks.append((all(all(np.array_equal(a, b) for a, b in zip(am, argmaxes[0])) for am in argmaxes),
+                       f"lm_mesh {impl}: the ranks' greedy tokens differ"))
+        f_per_rank = [sum(p["launches"].get("flash_attention", 0) for p in o["passes"]) for o in outs]
+        if on_card:
+            checks.append((f_per_rank == [n_attn] * 4,
+                           f"lm_mesh {impl}: F launched {f_per_rank} times per rank, not {n_attn} (one a layer in"
+                           f" prefill; decode attention is context-parallel torch)"))
+            other = [set(p["launches"]) - {"flash_attention"} for o in outs for p in o["passes"]]
+            checks.append((not any(other), f"lm_mesh {impl}: other kernels launched {other}"))
+        for o in outs:
+            for p in o["passes"]:
+                launches = _add(launches, p["launches"])
+        decode_ms = [max(o["passes"][j]["seconds"] for o in outs) * 1e3 for j in range(1, len(r_ref["logits"]))]
+        serve_out[impl] = dict(
+            capacity_factor=combines[impl], prefill_ms=max(o["passes"][0]["seconds"] for o in outs) * 1e3,
+            decode_ms_per_step=decode_ms, median_decode_ms=float(np.median(decode_ms)),
+            logit_tolerance=r_ref["tol"], **reading,
+            flash_attention_launches_per_rank=f_per_rank, seq_blocks=outs[0]["seq_blocks"],
+            traffic_per_rank=[_rank_sum(o["passes"], lambda p: p["traffic"]) for o in outs],
+            reference=dict(logits_max_abs=r_ref["logits_max_abs"], plain_vs_attention_ref_alike=r_ref["floor"],
+                           f_vs_plain=r_ref["f_vs_plain"]))
+    faults_out = {}
+    for fi, (kind, impl) in enumerate(LMM_FAULTS):
+        cfg = dataclasses.replace(cfg0, moe_impl=impl, capacity_factor=combines[impl])
+        outs = [r[fi + 1]["steps"][0] for r in served]
+        got_logits, got_routes = global_passes(outs, 2)
+        held, reading = served_checks(f"{kind} {impl}", ref[impl]["logits"][:2], ref[impl]["routes"][:2],
+                                      got_logits, got_routes, ref[impl]["tol"], cfg)
+        missed = all(ok for ok, _ in held)
+        faults_out[f"{kind}/{impl}"] = dict(caught_by=[msg for ok, msg in held if not ok][:3], **reading)
+        checks.append((not missed, f"lm_mesh: the serving check misses {kind} under {impl} ({reading})"))
+
+    # (b) the step-0 gradients, the steps, the replicas and the moments
+    grad_reps = [r["steps"][0] for r in train_reports]
+    train_reps = [r["steps"][1] for r in train_reports]
+    loss_tol = FT_LOSS_RTOL * abs(float(loss_t)) + 2 * abs(float(loss_t - loss_o))
+    mesh_loss = grad_reps[0]["loss"]
+    checks.append((len({g["loss"] for g in grad_reps}) == 1, "lm_mesh train: the ranks' step-0 losses differ"))
+    checks.append((abs(mesh_loss - float(loss_t)) <= loss_tol,
+                   f"lm_mesh train: step-0 loss {mesh_loss} differs from one process's {float(loss_t)} by more than"
+                   f" {loss_tol}"))
+    worst_frac, worst_excess, worst_cos = 0.0, 0.0, 1.0
+    for rank, g in enumerate(grad_reps):
+        for name, (err, scale, cos, (gap, cos_gap)) in g["check"].items():
+            frac_tol = TRAIN_GRAD_FRAC * scale + 2 * gap
+            cos_floor = TRAIN_GRAD_COS - 2 * (1.0 - cos_gap)
+            worst_frac = max(worst_frac, err / max(scale, 1e-30))
+            worst_excess, worst_cos = max(worst_excess, err / max(frac_tol, 1e-30)), min(worst_cos, cos)
+            checks.append((err <= frac_tol and cos >= cos_floor,
+                           f"lm_mesh train: rank {rank}'s step-0 gradient of {name} differs from"
+                           f" one process's ({err} > {frac_tol} or cosine {cos} < {cos_floor})"))
+    losses = [[h["loss"] for h in t["history"]] for t in train_reps]
+    checks.append((all(x == losses[0] for x in losses), f"lm_mesh train: the ranks' losses differ {losses}"))
+    one_losses = [h["loss"] for h in one_hist]
+    checks.append((abs(losses[0][0] - one_losses[0]) <= FT_LOSS_RTOL * abs(one_losses[0]),
+                   f"lm_mesh train: step 0's loss {losses[0][0]} against one process's {one_losses[0]}"))
+    coords = [tuple(r["coords"]) for r in train_reports]
+    digests = [t["params_digest"] for t in train_reps]
+    split = [n for n in digests[0] if n.split("/")[-1] in ("e_gate", "e_up", "e_down")]
+    whole_differ = sorted({n for d in digests for n in d if n not in split and d[n] != digests[0][n]})
+    checks.append((not whole_differ, f"lm_mesh train: replicated leaves differ across the ranks: {whole_differ}"))
+    by_model: dict = {}
+    for c, d in zip(coords, digests):
+        by_model.setdefault(c[1], []).append(d)
+    block_differ = sorted({n for ds in by_model.values() for d in ds for n in split if d[n] != ds[0][n]})
+    checks.append((not block_differ, f"lm_mesh train: expert blocks differ across the data axis: {block_differ}"))
+    moment_worst = 0.0
+    for t in train_reps:
+        for name, (err, scale) in t["check"].items():
+            moment_worst = max(moment_worst, err / max(scale, 1e-30))
+            if on_card:  # the smoke configs' few tokens flip routes at a bf16 ulp (a reading there)
+                checks.append((err <= LMM_MOMENT_FRAC * scale,
+                               f"lm_mesh train: {name} of an expert block differs from one process's by {err}"
+                               f" > {LMM_MOMENT_FRAC} x {scale}"))
+    step_ms = [[ms for ms in t["step_ms"]] for t in train_reps]
+    emit("lm_mesh", ranks=4, backend="gloo", device_per_rank=dev.type, parent_reserved_gb=parent_reserved_gb,
+         world_s=world_s,
+         serve=dict(arch=cfg0.name, n_layers=cfg0.n_layers, cut=None if smoke else (
+             f"{LMM_SERVE_LAYERS} of 32 layers: the whole model is 84 GB in bf16, past one card"),
+             mesh=list(LMM_SERVE_MESH), batch=LMM_SERVE_BATCH, prompt_len=plen, decode_steps=steps, max_len=max_len,
+             reference_s=ref_s, reference_peak_gb=ref_peak,
+             peak_mem_gb_per_rank=[(r.get("peak_mem_bytes") or 0) / 1e9 for r in serve_reports], **serve_out),
+         train=dict(arch=tcfg.name, n_layers=tcfg.n_layers, cut=None if smoke else (
+             f"{LMM_TRAIN_LAYERS} of 16 layers: the gradients cross gloo through the host"),
+             mesh=list(LMM_TRAIN_MESH), moe_impl=tcfg.moe_impl, capacity_factor=tcfg.capacity_factor,
+             param_dtype=tcfg.param_dtype, state_bits=tcfg.opt_state_bits, batch=[LMM_TRAIN_BATCH, tseq],
+             check_rows=LMM_TRAIN_ROWS, reference_s=train_ref_s,
+             reference_peak_gb=train_ref_peak, step0=dict(
+                 loss=mesh_loss, one_process_loss=float(loss_t), other_order_loss=float(loss_o), loss_tolerance=loss_tol,
+                 grad_max_frac_err=worst_frac, grad_err_over_tolerance=worst_excess, grad_min_cosine=worst_cos,
+                 grad_seconds_per_rank=[g["seconds"] for g in grad_reps],
+                 gloo_sent_bytes_per_rank=[g["traffic"]["sent_bytes"] for g in grad_reps]),
+             losses=losses[0], one_process_losses=one_losses, step_ms_per_rank=step_ms,
+             median_step_ms=float(np.median([max(x) for x in zip(*step_ms)])),
+             moments_max_frac_err=moment_worst,
+             gloo_sent_bytes_per_rank=[t["traffic"]["sent_bytes"] for t in train_reps],
+             host_copy_bytes_per_rank=[t["traffic"]["host_copy_bytes"] for t in train_reps],
+             peak_mem_gb_per_rank=[(t.get("peak_mem_bytes") or 0) / 1e9 for t in train_reps]),
+         planted_faults=faults_out, launches=launches, seconds=time.perf_counter() - t_phase)
+    for ok, msg in checks:
+        need(ok, msg)
+    return launches
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -7,10 +7,15 @@ fields and defaults), ``SHAPE_CELLS``, ``cell_skip_reason`` and
 masters' declarations, float32 leaves cast to ``param_dtype`` as the JAX
 package casts them), ``n_params``, ``init``, ``init_masters``,
 ``serving``, ``loss_fn``, ``prefill``, ``decode_step``, ``init_cache`` and
-``input_defs``. All four families (``dense``, ``moe``, ``ssm``,
-``hybrid``) serve and train. The JAX package's sharding helpers (param
-specs, structs, input specs, cache structs) have no counterpart here
-(ROADMAP.md, Queue 1).
+``input_defs``, and the JAX handle's sharding helpers: ``param_specs``,
+``param_structs``, ``input_specs``, ``cache_structs`` and
+``cache_logical_axes`` (structs are ``meta`` tensors with a ``sharding``
+attribute, see ``models.params.struct``). All four families (``dense``,
+``moe``, ``ssm``, ``hybrid``) serve and train, on one device or under an
+ambient mesh (``sharding.ctx.use_mesh``), where every function takes and
+returns this rank's blocks (the holding rule of ``sharding.ctx``):
+``init`` and ``init_masters`` draw each leaf whole and keep the rank's
+block, so a rank holds the values the one-process model holds there.
 
 The weights come in two forms, each drawn from a ``torch.Generator``
 seeded with ``seed`` on ``device`` (the card unless told otherwise):
@@ -35,6 +40,7 @@ import torch
 
 from repro_torch import device as device_mod
 from repro_torch.models import params as PM
+from repro_torch.sharding import ctx
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -135,7 +141,9 @@ def build_model(cfg: ModelConfig) -> SimpleNamespace:
     defs = PM.param_dtype_defs(mod.model_defs(cfg), cfg.param_dtype)
 
     def draw(seed: int, device, leaf_defs: dict) -> dict:
-        return PM.init_params(leaf_defs, torch.Generator(device_mod.resolve(device)).manual_seed(seed))
+        mesh = ctx.get_mesh()
+        keep = None if mesh is None else (lambda p, t: PM.sharding_of(p, mesh).block(t).clone())
+        return PM.init_params(leaf_defs, torch.Generator(device_mod.resolve(device)).manual_seed(seed), keep)
 
     def init(seed: int, device: str | torch.device | None = None):
         return serving_weights(cfg, draw(seed, device, mod.storage_defs(defs)))
@@ -160,9 +168,42 @@ def build_model(cfg: ModelConfig) -> SimpleNamespace:
             io["patch_embeds"] = ((b, cfg.frontend_len, cfg.frontend_dim), torch.float32)
         return io
 
+    def input_logical(cell: str) -> dict:
+        """Each input's logical axes: the batch on dim 0, the rest whole."""
+        return {k: ("batch",) + (None,) * (len(shape) - 1) for k, (shape, _) in input_defs(cell).items()}
+
+    def input_specs(cell: str, mesh=None) -> dict:
+        """Each input of ``cell`` as a struct (``models.params.struct``),
+        with its sharding on ``mesh`` (or the ambient one)."""
+        mesh = mesh or ctx.get_mesh()
+        logical = input_logical(cell)
+        return {
+            k: PM.struct(shape, dtype, None if mesh is None else ctx.sharding_for(mesh, logical[k], shape))
+            for k, (shape, dtype) in input_defs(cell).items()
+        }
+
+    def cache_structs(cell: str, mesh=None) -> dict:
+        """The decode cache of ``cell`` (global batch, ``seq`` positions) as
+        structs, with each leaf's sharding on ``mesh`` (or the ambient one)."""
+        c = SHAPE_CELLS[cell]
+        cache = mod.init_cache(cfg, c["batch"], c["seq"], device="meta")
+        mesh = mesh or ctx.get_mesh()
+
+        def leafify(t, logical):
+            if isinstance(t, dict):
+                return {k: leafify(t[k], logical[k]) for k in t}
+            return PM.struct(t.shape, t.dtype, None if mesh is None else ctx.sharding_for(mesh, logical, t.shape))
+
+        return leafify(cache, mod.cache_logical_axes(cfg))
+
     return SimpleNamespace(
         cfg=cfg,
         defs=defs,
+        param_specs=lambda: PM.param_specs(defs),
+        param_structs=lambda mesh=None: PM.param_structs(defs, mesh),
+        input_specs=input_specs,
+        cache_structs=cache_structs,
+        cache_logical_axes=lambda: mod.cache_logical_axes(cfg),
         init=init,
         init_masters=init_masters,
         serving=lambda params: serving_weights(cfg, params, copy=True),

@@ -2,9 +2,17 @@
 
 Counterpart of ``repro.models.common``: matmuls take bf16 operands, norms,
 rotary embeddings and softmax run in float32, and each function returns
-its input's dtype, as in the JAX package. There is no mesh: the sharding
-constraints and the context-parallel decode merge have nothing to do on
-one card.
+its input's dtype, as in the JAX package. Under an ambient mesh
+(``sharding.ctx.use_mesh``) every function works on this rank's block:
+:func:`constrain` checks the JAX package's logical names and moves
+nothing; :func:`chunked_softmax_xent` returns the global batch's loss
+(numerator and token count summed over the batch axes);
+:func:`decode_attention_cp` merges the partial softmax of the cache's
+sequence blocks over the ``seq`` axes (context parallelism), with the JAX
+package's fallback to local attention when the cache's length does not
+split. An attention cache under a mesh carries ``"seq_blocks"``, the
+number of blocks its sequence dim is cut into (:func:`seq_cut`), since a
+block's length alone does not tell whether it is one.
 
 Both inference attention functions run the flash kernel (kernel F,
 ``kernels/flash_attention``) on a CUDA tensor. Their plain versions,
@@ -25,6 +33,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.sharding import ctx
+from repro_torch.sharding.ctx import constrain
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -144,15 +154,39 @@ def chunked_attention_train(
 
 def decode_attention_cp(
     q: torch.Tensor,  # (B, 1, Hq, dh)
-    k_cache: torch.Tensor,  # (B, S_max, Hkv, dh)
+    k_cache: torch.Tensor,  # (B, S_max, Hkv, dh), or this rank's seq block
     v_cache: torch.Tensor,
     cur_len: torch.Tensor,  # () or (B,) int — number of valid cache positions
+    seq_blocks: int = 1,
 ) -> torch.Tensor:
     """One query token per row over its first ``cur_len[b]`` cache
-    positions -> (B, 1, Hq, dh). On a CUDA tensor: one flash-kernel launch
-    with ``q_offset = cur_len - 1`` and ``kv_len = cur_len`` per row."""
+    positions -> (B, 1, Hq, dh).
+
+    Local form (no mesh, or a cache held whole, ``seq_blocks`` 1): on a
+    CUDA tensor one flash-kernel launch with ``q_offset = cur_len - 1`` and
+    ``kv_len = cur_len`` per row; on the CPU ``_partial_attn_local``'s
+    arithmetic. Context-parallel form (the cache's sequence cut into
+    ``seq_blocks`` over the mesh's ``seq`` axes): each rank computes the
+    partial softmax statistics ``(m, l, acc)`` of its block, its positions
+    offset by ``block index * block length``, then ``m`` is maxed, and
+    ``l`` and ``acc`` rescaled and summed, over the ``seq`` axes (the JAX
+    package's shard body; plain torch on every device, as the JAX
+    package's is XLA code). The batch is the rank's block on both sides,
+    as the JAX package's batch-spec rule keeps it."""
     b, _, hq, dh = q.shape
     cl = fa_ref.per_row(cur_len, b, q.device)
+    if seq_blocks > 1:
+        mesh = ctx.get_mesh()
+        axis = _seq_axes(mesh)[0]
+        s_loc = k_cache.shape[1]
+        off = ctx.axis_index(mesh, axis) * s_loc
+        m, l, acc = _partial_attn_local(q[:, 0], k_cache, v_cache, off, cl)
+        g_m = ctx.pmax(mesh, axis, m)
+        corr = torch.exp(m - g_m)
+        g_l = ctx.psum(mesh, axis, l * corr)
+        g_acc = ctx.psum(mesh, axis, acc * corr)
+        out = g_acc / g_l.clamp_min(1e-30)
+        return out.reshape(b, 1, hq, dh).to(q.dtype)
     if q.device.type == "cuda":
         out = fa_ops.flash_attention(
             q.transpose(1, 2), k_cache.transpose(1, 2), v_cache.transpose(1, 2),
@@ -162,21 +196,83 @@ def decode_attention_cp(
     return _decode_attention_plain(q, k_cache, v_cache, cl)
 
 
-def _decode_attention_plain(q, k_cache, v_cache, cl):
-    """``repro.models.common._partial_attn_local``'s arithmetic over the
-    first ``cl[b]`` cache positions of each row (q scaled before the dot)."""
-    b, _, hq, dh = q.shape
-    s_max, hkv = k_cache.shape[1], k_cache.shape[2]
+def _seq_axes(mesh) -> tuple:
+    return tuple(a for a in ctx.get_rules().seq if a in mesh.shape)
+
+
+def seq_cut(max_len: int) -> tuple[int, int]:
+    """(blocks, this rank's block) of an attention cache of ``max_len``
+    positions under the ambient mesh: the ``seq`` axes' size when it
+    divides ``max_len``, else one block (the JAX package's fallback rule);
+    ``(1, 0)`` without a mesh."""
+    mesh = ctx.get_mesh()
+    if mesh is None:
+        return 1, 0
+    tp = _seq_axes(mesh)
+    n = ctx.mesh_axis_size(*tp)
+    if n == 1 or max_len % n:
+        return 1, 0
+    return n, ctx.axis_index(mesh, tp[0])
+
+
+def cache_fill(dst: torch.Tensor, src: torch.Tensor, blocks: int, block: int) -> None:
+    """Prefill's keys or values ``src`` (B, S, Hkv, dh), computed whole,
+    into ``dst`` (B, S_max / blocks, Hkv, dh), this rank's block of the
+    cache: the positions of the block that the prompt covers."""
+    s_loc = dst.shape[1]
+    lo = block * s_loc
+    n = max(0, min(src.shape[1] - lo, s_loc))
+    if n:
+        dst[:, :n] = src[:, lo : lo + n].to(dst.dtype)
+
+
+def cache_write(dst: torch.Tensor, new: torch.Tensor, cur: torch.Tensor, blocks: int = 1, block: int = 0) -> None:
+    """Each row's new key or value ``new`` (B, Hkv, dh) at its position
+    ``cur[b]`` of ``dst`` (B, S_loc, Hkv, dh), this rank's block of a cache
+    cut into ``blocks``: written only on the rank whose block holds the
+    position."""
+    b, s_loc = dst.shape[:2]
+    rows = torch.arange(b, device=dst.device)
+    if blocks == 1:
+        dst[rows, cur.long()] = new.to(dst.dtype)
+        return
+    local = cur.long() - block * s_loc
+    mine = (local >= 0) & (local < s_loc)
+    at = local.clamp(0, s_loc - 1)
+    dst[rows, at] = torch.where(mine[:, None, None], new.to(dst.dtype), dst[rows, at])
+
+
+def cache_room(cur: torch.Tensor, positions: int) -> None:
+    """Raise when a row's cache of ``positions`` is full (the JAX package
+    drops that write); a meta tensor (the dry-run) is not read."""
+    if cur.device.type != "meta" and int(cur.max()) >= positions:
+        raise ValueError(f"a row's cache is full ({positions} positions)")
+
+
+def _partial_attn_local(q1, kf, vf, pos_offset, cl):
+    """``repro.models.common._partial_attn_local``: the masked partial
+    softmax of q1 (B, Hq, dh) over a cache slice (B, s_loc, Hkv, dh) whose
+    first position is ``pos_offset`` -> ``(m, l, acc)`` (q scaled before
+    the dot, the row max clamped at -1e30)."""
+    b, hq, dh = q1.shape
+    s_loc, hkv = kf.shape[1], kf.shape[2]
     group = hq // hkv
-    scale = 1.0 / (dh**0.5)
-    qq = q[:, 0].reshape(b, hkv, group, dh).float() * scale
-    s = torch.einsum("bhgd,bkhd->bhgk", qq, k_cache.float())
-    ok = torch.arange(s_max, device=q.device)[None, :] < cl[:, None]  # (B, S_max)
+    qq = q1.reshape(b, hkv, group, dh).float() * (1.0 / (dh**0.5))
+    s = torch.einsum("bhgd,bkhd->bhgk", qq, kf.float())
+    ok = (pos_offset + torch.arange(s_loc, device=q1.device))[None, :] < cl[:, None]  # (B, s_loc)
     s = s.masked_fill(~ok[:, None, None, :], float("-inf"))
     m = torch.amax(s, dim=-1, keepdim=True).clamp_min(-1e30)
     p = torch.exp(s - m)
     l = torch.sum(p, dim=-1, keepdim=True)
-    acc = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    acc = torch.einsum("bhgk,bkhd->bhgd", p, vf.float())
+    return m, l, acc
+
+
+def _decode_attention_plain(q, k_cache, v_cache, cl):
+    """``repro.models.common._partial_attn_local``'s arithmetic over the
+    first ``cl[b]`` cache positions of each row (q scaled before the dot)."""
+    b, _, hq, dh = q.shape
+    _, l, acc = _partial_attn_local(q[:, 0], k_cache, v_cache, 0, cl)
     out = acc / l.clamp_min(1e-30)
     return out.reshape(b, 1, hq, dh).to(q.dtype)
 
@@ -202,12 +298,13 @@ def mlp_apply(params: Mapping[str, torch.Tensor], x: torch.Tensor, kind: str) ->
         h = F.gelu(h.float(), approximate="tanh").to(COMPUTE_DTYPE)
     else:
         raise ValueError(kind)
+    h = constrain(h, "batch", None, "tensor")
     return (h @ w("w_down")).to(x.dtype)
 
 
 # --------------------------------------------------------- embeddings / CE
 def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return embed[tokens.long()].to(COMPUTE_DTYPE)
+    return constrain(embed[tokens.long()].to(COMPUTE_DTYPE), "batch", "seq", None)
 
 
 def chunked_softmax_xent(
@@ -220,7 +317,11 @@ def chunked_softmax_xent(
     """Mean cross entropy over the masked positions, without stacking
     (B, S, V) logits: each sequence chunk's bf16 logits are made, reduced
     and, when there are several chunks, recomputed in the backward pass
-    under a checkpoint (``repro.models.common.chunked_softmax_xent``)."""
+    under a checkpoint (``repro.models.common.chunked_softmax_xent``).
+    Under a mesh the rows are this rank's block, and the numerator and the
+    count are summed over the batch axes: every rank returns the global
+    batch's mean (a mean of the ranks' means would be wrong wherever the
+    masks differ)."""
     b, s, _ = x.shape
     seq_chunk = min(seq_chunk, s)
     if s % seq_chunk:
@@ -228,7 +329,7 @@ def chunked_softmax_xent(
     head = lm_head.to(COMPUTE_DTYPE)  # cast once; the gradient still reaches the master
 
     def one(xi, li, mi):
-        logits = (xi.to(COMPUTE_DTYPE) @ head).float()
+        logits = constrain((xi.to(COMPUTE_DTYPE) @ head).float(), "batch", None, "tensor")
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, li.long()[..., None])[..., 0]
         nll = torch.where(mi, lse - gold, 0.0)
@@ -240,4 +341,8 @@ def chunked_softmax_xent(
         tot, cnt = one(*parts[0])
     else:
         tot, cnt = torch.stack([checkpoint(one, *part, use_reentrant=False) for part in parts]).sum(0)
+    mesh = ctx.get_mesh()
+    if mesh is not None:
+        axes = ctx.batch_axes(mesh)
+        tot, cnt = ctx.psum(mesh, axes, tot), ctx.psum(mesh, axes, cnt.detach())
     return tot / cnt.clamp_min(1.0)

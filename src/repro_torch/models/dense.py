@@ -25,7 +25,12 @@ is written in place: ``prefill`` fills a new cache, and ``decode_step``
 writes each row's new key and value at position ``len[b]`` of the tensors
 it was given, where the JAX package's ``.at[].set`` returns new arrays.
 Positions at or past a row's ``len`` are never read, so decoding twice from
-one cache still gives the JAX package's answers.
+one cache still gives the JAX package's answers. Under a mesh the cache
+holds this rank's rows and, when the ``seq`` axes split ``max_len``, its
+block of positions (``"seq_blocks"`` says how many): prefill computes K
+and V whole and keeps the block, decode writes a position only on the
+rank whose block holds it, and ``common.decode_attention_cp`` merges the
+blocks' partial softmax.
 """
 from __future__ import annotations
 
@@ -38,6 +43,8 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 from repro_torch.models import common as C
 from repro_torch.models import params as PM
 from repro_torch.models.params import PDef, stack
+from repro_torch.sharding import ctx
+from repro_torch.sharding.ctx import constrain
 
 F32 = torch.float32
 BF16 = torch.bfloat16
@@ -55,37 +62,37 @@ def layer_defs(cfg) -> dict:
     (``build_model`` casts them to ``param_dtype``)."""
     d, hq, hkv, dh, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
     defs = {
-        "ln1": PDef((d,), "ones"),
-        "ln2": PDef((d,), "ones"),
-        "wq": PDef((d, hq * dh)),
-        "wk": PDef((d, hkv * dh)),
-        "wv": PDef((d, hkv * dh)),
-        "wo": PDef((hq * dh, d)),
+        "ln1": PDef((d,), "ones", logical=(None,)),
+        "ln2": PDef((d,), "ones", logical=(None,)),
+        "wq": PDef((d, hq * dh), logical=("fsdp", "tensor")),
+        "wk": PDef((d, hkv * dh), logical=("fsdp", "tensor")),
+        "wv": PDef((d, hkv * dh), logical=("fsdp", "tensor")),
+        "wo": PDef((hq * dh, d), logical=("tensor", "fsdp")),
     }
     if cfg.qk_norm:
-        defs["q_norm"] = PDef((dh,), "ones")
-        defs["k_norm"] = PDef((dh,), "ones")
+        defs["q_norm"] = PDef((dh,), "ones", logical=(None,))
+        defs["k_norm"] = PDef((dh,), "ones", logical=(None,))
     if cfg.mlp == "swiglu":
-        defs["w_gate"] = PDef((d, f))
-    defs["w_up"] = PDef((d, f))
-    defs["w_down"] = PDef((f, d))
+        defs["w_gate"] = PDef((d, f), logical=("fsdp", "tensor"))
+    defs["w_up"] = PDef((d, f), logical=("fsdp", "tensor"))
+    defs["w_down"] = PDef((f, d), logical=("tensor", "fsdp"))
     return defs
 
 
 def model_defs(cfg) -> dict:
     d, v = cfg.d_model, cfg.vocab
     defs: dict[str, Any] = {
-        "embed": PDef((v, d), "embed"),
+        "embed": PDef((v, d), "embed", logical=("tensor", "fsdp")),
         "layers": stack(layer_defs(cfg), cfg.n_layers),
-        "final_norm": PDef((d,), "ones"),
+        "final_norm": PDef((d,), "ones", logical=(None,)),
     }
     if not cfg.tie_embeddings:
-        defs["lm_head"] = PDef((d, v))
+        defs["lm_head"] = PDef((d, v), logical=("fsdp", "tensor"))
     if cfg.frontend == "vision":
-        defs["patch_proj"] = PDef((cfg.frontend_dim, d))
+        defs["patch_proj"] = PDef((cfg.frontend_dim, d), logical=("fsdp", "tensor"))
     elif cfg.frontend == "audio":
-        defs["frame_proj"] = PDef((cfg.frontend_dim, d))
-        defs["mask_embed"] = PDef((d,), "embed")
+        defs["frame_proj"] = PDef((cfg.frontend_dim, d), logical=("fsdp", "tensor"))
+        defs["mask_embed"] = PDef((d,), "embed", logical=(None,))
     return defs
 
 
@@ -230,9 +237,10 @@ def _block(cfg, p, x, positions, attention=None):
     attn = attention(q, k, v, causal=cfg.causal, window=cfg.window, q_chunk=cfg.q_chunk)
     attn = attn.reshape(x.shape[0], x.shape[1], -1)
     x = x + (attn.to(BF16) @ p["wo"].to(BF16)).to(x.dtype)
+    x = constrain(x, "batch", "seq", None)
     h2 = C.rms_norm(x, p["ln2"])
     x = x + C.mlp_apply(p, h2, cfg.mlp).to(x.dtype)
-    return x, k, v
+    return constrain(x, "batch", "seq", None), k, v
 
 
 def block_train(cfg, p, x, positions):
@@ -241,19 +249,19 @@ def block_train(cfg, p, x, positions):
     return _block(cfg, p, x, positions, C.chunked_attention_train)[0]
 
 
-def block_decode(cfg, p, x, k_cache, v_cache, cur_len):
-    """One-token block. x: (B, 1, D); caches (B, S_max, Hkv, dh), written in
-    place at each row's ``cur_len``."""
+def block_decode(cfg, p, x, k_cache, v_cache, cur_len, blocks: int = 1, block: int = 0):
+    """One-token block. x: (B, 1, D); caches (B, S_max, Hkv, dh), or this
+    rank's block of a cache cut into ``blocks`` along its positions,
+    written in place at each row's ``cur_len``."""
     b = x.shape[0]
     h = C.rms_norm(x, p["ln1"])
     q, k, v = _qkv(cfg, p, h)
     pos = cur_len[:, None]  # (B, 1)
     q = C.apply_rope(q, pos, cfg.rope_theta)
     k = C.apply_rope(k, pos, cfg.rope_theta)
-    rows = torch.arange(b, device=x.device)
-    k_cache[rows, cur_len.long()] = k[:, 0].to(k_cache.dtype)
-    v_cache[rows, cur_len.long()] = v[:, 0].to(v_cache.dtype)
-    attn = C.decode_attention_cp(q, k_cache, v_cache, cur_len + 1)
+    C.cache_write(k_cache, k[:, 0], cur_len, blocks, block)
+    C.cache_write(v_cache, v[:, 0], cur_len, blocks, block)
+    attn = C.decode_attention_cp(q, k_cache, v_cache, cur_len + 1, blocks)
     attn = attn.reshape(b, 1, -1)
     x = x + (attn.to(BF16) @ p["wo"].to(BF16)).to(x.dtype)
     h2 = C.rms_norm(x, p["ln2"])
@@ -281,7 +289,7 @@ def _embed_inputs(cfg, params, batch):
         m = torch.as_tensor(batch["frame_mask"], device=dev).bool()
         # HuBERT masking: replace masked frames with the learned embedding
         x = torch.where(m[..., None], params["mask_embed"].to(BF16), x)
-        return x, m  # loss only on masked frames
+        return constrain(x, "batch", "seq", None), m  # loss only on masked frames
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     x = C.embed_tokens(params["embed"], tokens)
     mask = torch.ones(tokens.shape, dtype=torch.bool, device=dev)
@@ -290,7 +298,7 @@ def _embed_inputs(cfg, params, batch):
         pre = patches @ params["patch_proj"].to(BF16)
         x = torch.cat([pre, x[:, pre.shape[1] :]], dim=1)
         mask[:, : pre.shape[1]] = False
-    return x, mask
+    return constrain(x, "batch", "seq", None), mask
 
 
 def _save_matmuls(ctx, op, *args, **kwargs):
@@ -370,21 +378,52 @@ def init_cache(cfg, batch_size: int, max_len: int, dtype=BF16, device=None) -> d
     }
 
 
-def prefill(cfg, model, batch, max_len: int):
-    """Encode a prompt -> (last-position logits (B, V) f32, filled cache)."""
-    x, _ = _embed_inputs(cfg, model, batch)
-    b, s, _ = x.shape
+def cache_logical_axes(cfg) -> dict:
+    return {
+        "k": (None, "batch", "seq", None, None),
+        "v": (None, "batch", "seq", None, None),
+        "len": ("batch",),
+    }
+
+
+def attention_cache(cfg, b: int, s: int, max_len: int, device, layers, block_fn) -> tuple:
+    """The prefill of the attention families: ``block_fn(p, x)`` over every
+    layer ``p`` of ``layers`` -> (x, k, v), its keys and values put in a
+    new cache of ``max_len`` positions, or this rank's block of one under a
+    mesh (``common.seq_cut``; the cache then carries ``"seq_blocks"``).
+    Returns (x, cache) with ``len`` at ``s``."""
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens does not fit a cache of {max_len}")
-    positions = torch.arange(s, device=x.device)
-    cache = init_cache(cfg, b, max_len, device=x.device)
-    for i, p in enumerate(_layers(model)):
-        x, k, v = _block(cfg, p, x, positions)
-        cache["k"][i, :, :s] = k.to(BF16)
-        cache["v"][i, :, :s] = v.to(BF16)
+    blocks, block = C.seq_cut(max_len)
+    cache = init_cache(cfg, b, max_len // blocks, device=device)
+    x = None
+    for i, p in enumerate(layers):
+        x, k, v = block_fn(p, x)
+        C.cache_fill(cache["k"][i], k, blocks, block)
+        C.cache_fill(cache["v"][i], v, blocks, block)
+    cache["len"].fill_(s)
+    if ctx.get_mesh() is not None:
+        cache["seq_blocks"] = blocks
+    return x, cache
+
+
+def cache_cut(cache: dict, key: str = "k") -> tuple[int, int, int]:
+    """(blocks, this rank's block, the positions of the whole cache) of an
+    attention cache, whose ``key`` leaf is (L, B, S_loc, Hkv, dh)."""
+    blocks = cache.get("seq_blocks", 1)
+    positions = cache[key].shape[2] * blocks
+    return blocks, C.seq_cut(positions)[1] if blocks > 1 else 0, positions
+
+
+def prefill(cfg, model, batch, max_len: int):
+    """Encode a prompt -> (last-position logits (B, V) f32, filled cache)."""
+    x0, _ = _embed_inputs(cfg, model, batch)
+    b, s, _ = x0.shape
+    positions = torch.arange(s, device=x0.device)
+    x, cache = attention_cache(cfg, b, s, max_len, x0.device, _layers(model),
+                               lambda p, x: _block(cfg, p, x0 if x is None else x, positions))
     x = C.rms_norm(x, model["final_norm"])
     logits = (x[:, -1].to(BF16) @ _lm_head(cfg, model).to(BF16)).to(F32)
-    cache["len"].fill_(s)
     return logits, cache
 
 
@@ -395,11 +434,11 @@ def decode_step(cfg, model, cache, tokens):
     that write)."""
     tokens = torch.as_tensor(tokens, device=_device(model))
     cur = cache["len"]
-    if int(cur.max()) >= cache["k"].shape[2]:
-        raise ValueError(f"a row's cache is full ({cache['k'].shape[2]} positions)")
+    blocks, block, positions = cache_cut(cache)
+    C.cache_room(cur, positions)
     x = C.embed_tokens(model["embed"], tokens)
     for i, p in enumerate(_layers(model)):
-        x = block_decode(cfg, p, x, cache["k"][i], cache["v"][i], cur)
+        x = block_decode(cfg, p, x, cache["k"][i], cache["v"][i], cur, blocks, block)
     x = C.rms_norm(x, model["final_norm"])
     logits = (x[:, 0].to(BF16) @ _lm_head(cfg, model).to(BF16)).to(F32)
-    return logits, {"k": cache["k"], "v": cache["v"], "len": cur + 1}
+    return logits, dict(cache, len=cur + 1)

@@ -25,7 +25,10 @@ segment holds its layers' SSM ``state`` (n, B, H, N, P) and ``conv``
 Hkv, dh); an SWA one the ring ``k``/``v`` (n, B, W, Hkv, dh), each ring
 slot's position ``pos`` (-1 for empty) and the meta tokens' ``sink_k``/
 ``sink_v``. ``decode_step`` writes K/V and the ring in place and returns
-new state and conv tensors.
+new state and conv tensors. Under a mesh the global layers' K/V hold this
+rank's block of positions, as dense's cache does (``"seq_blocks"``); the
+sliding-window layers' rings are held whole, as the JAX package's
+``cache_logical_axes`` leaves them unsplit.
 
 A fault of the JAX package that the port reproduces (ROADMAP.md, Queue 3):
 ``prefill`` puts positions 0..meta_tokens-1 both in ``sink_k`` and, while
@@ -41,6 +44,8 @@ import torch
 from repro_torch.models import common as C
 from repro_torch.models import dense, mamba2
 from repro_torch.models.params import PDef, stack
+from repro_torch.sharding import ctx
+from repro_torch.sharding.ctx import constrain
 
 BF16 = torch.bfloat16
 F32 = torch.float32
@@ -69,19 +74,19 @@ def layer_defs(cfg) -> dict:
     defs = dense.layer_defs(cfg)  # attention + swiglu mlp + ln1/ln2
     defs.update(mamba2.layer_defs(cfg))  # ssm branch ("ln" unused -> drop)
     defs.pop("ln")
-    defs["attn_out_norm"] = PDef((cfg.d_model,), "ones")
-    defs["ssm_out_norm"] = PDef((cfg.d_model,), "ones")
+    defs["attn_out_norm"] = PDef((cfg.d_model,), "ones", logical=(None,))
+    defs["ssm_out_norm"] = PDef((cfg.d_model,), "ones", logical=(None,))
     return defs
 
 
 def model_defs(cfg) -> dict:
     d = cfg.d_model
     return {
-        "embed": PDef((cfg.vocab, d), "embed"),
-        "meta": PDef((cfg.meta_tokens, d), "embed"),
+        "embed": PDef((cfg.vocab, d), "embed", logical=("tensor", "fsdp")),
+        "meta": PDef((cfg.meta_tokens, d), "embed", logical=(None, None)),
         "segments": {f"seg{i}": stack(layer_defs(cfg), n) for i, (_, n) in enumerate(segments(cfg))},
-        "final_norm": PDef((d,), "ones"),
-        "lm_head": PDef((d, cfg.vocab)),
+        "final_norm": PDef((d,), "ones", logical=(None,)),
+        "lm_head": PDef((d, cfg.vocab), logical=("fsdp", "tensor")),
     }
 
 
@@ -126,10 +131,10 @@ def _block(cfg, p, x, positions, window, attention=None):
                      q_chunk=cfg.q_chunk)
     attn_out = (attn.reshape(b, s, -1).to(BF16) @ p["wo"].to(BF16)).to(x.dtype)
     ssm_out, hs, cs = mamba2.ssm_mix(cfg, p, h)
-    x = x + _mix(p, attn_out, ssm_out).to(x.dtype)
+    x = constrain(x + _mix(p, attn_out, ssm_out).to(x.dtype), "batch", "seq", None)
     h2 = C.rms_norm(x, p["ln2"])
     x = x + C.mlp_apply(p, h2, cfg.mlp).to(x.dtype)
-    return x, k, v, hs, cs
+    return constrain(x, "batch", "seq", None), k, v, hs, cs
 
 
 def _block_train(cfg, p, x, positions, window):
@@ -190,6 +195,23 @@ def init_cache(cfg, batch_size: int, max_len: int, dtype=BF16, device=None) -> d
     return cache
 
 
+def cache_logical_axes(cfg) -> dict:
+    axes: dict = {"len": ("batch",), "segments": {}}
+    for i, (kind, _) in enumerate(segments(cfg)):
+        seg = {
+            "state": (None, "batch", "tensor", None, None),
+            "conv": (None, "batch", None, "tensor"),
+            "k": (None, "batch", "seq" if kind == "global" else None, None, None),
+            "v": (None, "batch", "seq" if kind == "global" else None, None, None),
+        }
+        if kind == "swa":
+            seg["pos"] = (None, "batch", None)
+            seg["sink_k"] = (None, "batch", None, None, None)
+            seg["sink_v"] = (None, "batch", None, None, None)
+        axes["segments"][f"seg{i}"] = seg
+    return axes
+
+
 # ------------------------------------------------------------- decode
 def _swa_decode_attn(cfg, q, seg_k, seg_v, seg_pos, sink_k, sink_v, cur):
     """q: (B,1,Hq,dh); ring (B,W,Hkv,dh) + sink (B,mt,Hkv,dh) -> (B,1,Hq,dh).
@@ -217,9 +239,10 @@ def _swa_decode_attn(cfg, q, seg_k, seg_v, seg_pos, sink_k, sink_v, cur):
     return out.reshape(b, 1, hq, dh).to(q.dtype)
 
 
-def _block_decode(cfg, p, x, seg, i: int, kind: str, cur):
+def _block_decode(cfg, p, x, seg, i: int, kind: str, cur, blocks: int = 1, block: int = 0):
     """Layer ``i`` of segment ``seg`` on one token. x: (B, 1, D). K/V (and
-    the ring's positions) are written in place; returns (x, new state, new
+    the ring's positions) are written in place, a global layer's into this
+    rank's block of a cache cut into ``blocks``; returns (x, new state, new
     conv window)."""
     b = x.shape[0]
     rows = torch.arange(b, device=x.device)
@@ -230,9 +253,9 @@ def _block_decode(cfg, p, x, seg, i: int, kind: str, cur):
     k = C.apply_rope(k, pos, cfg.rope_theta)
     kc, vc = seg["k"][i], seg["v"][i]
     if kind == "global":
-        kc[rows, cur.long()] = k[:, 0].to(kc.dtype)
-        vc[rows, cur.long()] = v[:, 0].to(vc.dtype)
-        attn = C.decode_attention_cp(q, kc, vc, cur + 1)
+        C.cache_write(kc, k[:, 0], cur, blocks, block)
+        C.cache_write(vc, v[:, 0], cur, blocks, block)
+        attn = C.decode_attention_cp(q, kc, vc, cur + 1, blocks)
     else:
         slot = (cur % cfg.window).long()
         kc[rows, slot] = k[:, 0].to(kc.dtype)
@@ -257,17 +280,19 @@ def decode_step(cfg, model, cache, tokens):
     new_segs = {}
     for kind, name, layers in _segments(cfg, model):
         seg = cache["segments"][name]
-        if kind == "global" and int(cur.max()) >= seg["k"].shape[2]:
-            raise ValueError(f"a row's cache is full ({seg['k'].shape[2]} positions)")
+        blocks, block = 1, 0
+        if kind == "global":
+            blocks, block, positions = dense.cache_cut(dict(seg, seq_blocks=cache.get("seq_blocks", 1)))
+            C.cache_room(cur, positions)
         states, convs = [], []
         for i, p in enumerate(layers):
-            x, hs, cs = _block_decode(cfg, p, x, seg, i, kind, cur)
+            x, hs, cs = _block_decode(cfg, p, x, seg, i, kind, cur, blocks, block)
             states.append(hs)
             convs.append(cs)
         new_segs[name] = dict(seg, state=torch.stack(states), conv=torch.stack(convs))
     x = C.rms_norm(x, model["final_norm"])
     logits = (x[:, 0].to(BF16) @ model["lm_head"].to(BF16)).to(F32)
-    return logits, {"len": cur + 1, "segments": new_segs}
+    return logits, dict(cache, len=cur + 1, segments=new_segs)
 
 
 # ------------------------------------------------------------- prefill
@@ -301,6 +326,7 @@ def prefill(cfg, model, batch, max_len: int):
         raise ValueError(f"prompt of {s_tot} positions (meta tokens included) does not fit a cache of {max_len}")
     positions = torch.arange(s_tot, device=x.device)
     mt, w = cfg.meta_tokens, cfg.window
+    blocks, block = C.seq_cut(max_len)
     new_segs = {}
     for kind, name, layers in _segments(cfg, model):
         window = w if kind == "swa" else None
@@ -314,10 +340,11 @@ def prefill(cfg, model, batch, max_len: int):
         k_all, v_all = torch.stack(ks), torch.stack(vs)  # (n, B, s_tot, Hkv, dh)
         seg: dict = {"state": torch.stack(states), "conv": torch.stack(convs)}
         if kind == "global":
-            seg["k"] = k_all.new_zeros((len(layers), b, max_len) + k_all.shape[3:])
+            seg["k"] = k_all.new_zeros((len(layers), b, max_len // blocks) + k_all.shape[3:])
             seg["v"] = torch.zeros_like(seg["k"])
-            seg["k"][:, :, :s_tot] = k_all
-            seg["v"][:, :, :s_tot] = v_all
+            for i in range(len(layers)):
+                C.cache_fill(seg["k"][i], k_all[i], blocks, block)
+                C.cache_fill(seg["v"][i], v_all[i], blocks, block)
         else:
             seg["k"], seg["pos"] = _ring(k_all, s_tot, w)
             seg["v"], _ = _ring(v_all, s_tot, w)
@@ -326,4 +353,7 @@ def prefill(cfg, model, batch, max_len: int):
         new_segs[name] = seg
     x = C.rms_norm(x, model["final_norm"])
     logits = (x[:, -1].to(BF16) @ model["lm_head"].to(BF16)).to(F32)
-    return logits, {"len": torch.full((b,), s_tot, dtype=torch.int32, device=x.device), "segments": new_segs}
+    cache = {"len": torch.full((b,), s_tot, dtype=torch.int32, device=x.device), "segments": new_segs}
+    if ctx.get_mesh() is not None:
+        cache["seq_blocks"] = blocks  # the global layers' K/V
+    return logits, cache

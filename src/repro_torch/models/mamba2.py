@@ -50,6 +50,7 @@ import torch.nn.functional as F
 from repro_torch.models import common as C
 from repro_torch.models import dense
 from repro_torch.models.params import PDef, stack
+from repro_torch.sharding.ctx import constrain
 
 BF16 = torch.bfloat16
 F32 = torch.float32
@@ -68,24 +69,24 @@ def layer_defs(cfg) -> dict:
     d = cfg.d_model
     d_inner, n_heads, conv_dim, d_proj = dims(cfg)
     return {
-        "ln": PDef((d,), "ones"),
-        "in_proj": PDef((d, d_proj)),
-        "conv_w": PDef((conv_dim, cfg.conv_kernel), scale=0.5),
-        "conv_b": PDef((conv_dim,), "zeros"),
-        "A_log": PDef((n_heads,), "zeros"),
-        "D_skip": PDef((n_heads,), "ones"),
-        "dt_bias": PDef((n_heads,), "zeros"),
-        "ssm_norm": PDef((d_inner,), "ones"),
-        "out_proj": PDef((d_inner, d)),
+        "ln": PDef((d,), "ones", logical=(None,)),
+        "in_proj": PDef((d, d_proj), logical=("fsdp", "tensor")),
+        "conv_w": PDef((conv_dim, cfg.conv_kernel), scale=0.5, logical=(None, None)),
+        "conv_b": PDef((conv_dim,), "zeros", logical=(None,)),
+        "A_log": PDef((n_heads,), "zeros", logical=(None,)),
+        "D_skip": PDef((n_heads,), "ones", logical=(None,)),
+        "dt_bias": PDef((n_heads,), "zeros", logical=(None,)),
+        "ssm_norm": PDef((d_inner,), "ones", logical=(None,)),
+        "out_proj": PDef((d_inner, d), logical=("tensor", "fsdp")),
     }
 
 
 def model_defs(cfg) -> dict:
     return {
-        "embed": PDef((cfg.vocab, cfg.d_model), "embed"),
+        "embed": PDef((cfg.vocab, cfg.d_model), "embed", logical=("tensor", "fsdp")),
         "layers": stack(layer_defs(cfg), cfg.n_layers),
-        "final_norm": PDef((cfg.d_model,), "ones"),
-        "lm_head": PDef((cfg.d_model, cfg.vocab)),
+        "final_norm": PDef((cfg.d_model,), "ones", logical=(None,)),
+        "lm_head": PDef((cfg.d_model, cfg.vocab), logical=("fsdp", "tensor")),
     }
 
 
@@ -240,7 +241,7 @@ def ssm_step(cfg, p, x, h_state, conv_state):
 # ------------------------------------------------------------- model API
 def _block_train(cfg, p, x):
     """One layer of the loss path: x + the mixer on the normed x."""
-    return x + ssm_mix(cfg, p, C.rms_norm(x, p["ln"]))[0]
+    return constrain(x + ssm_mix(cfg, p, C.rms_norm(x, p["ln"]))[0], "batch", "seq", None)
 
 
 def loss_fn(cfg, params, batch, remat_policy: str = "dots") -> torch.Tensor:
@@ -268,6 +269,14 @@ def init_cache(cfg, batch_size: int, max_len: int, dtype=BF16, device=None) -> d
     }
 
 
+def cache_logical_axes(cfg) -> dict:
+    return {
+        "state": (None, "batch", "tensor", None, None),
+        "conv": (None, "batch", None, "tensor"),
+        "len": ("batch",),
+    }
+
+
 def prefill(cfg, model, batch, max_len: int):
     """Encode a prompt -> (last-position logits (B, V) f32, cache);
     ``max_len`` sizes nothing (the state is fixed-size)."""
@@ -278,7 +287,7 @@ def prefill(cfg, model, batch, max_len: int):
     for p in dense.layer_rows(model["layers"]):
         h = C.rms_norm(x, p["ln"])
         out, h_t, conv_t = ssm_mix(cfg, p, h)
-        x = x + out
+        x = constrain(x + out, "batch", "seq", None)
         states.append(h_t)
         convs.append(conv_t)
     x = C.rms_norm(x, model["final_norm"])

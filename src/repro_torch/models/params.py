@@ -1,9 +1,12 @@
 """Parameter declarations and their initialisation.
 
-Counterpart of ``repro.models.params`` without the logical sharding axes:
-a model declares a nested dict of :class:`PDef` (shape, init rule, storage
-dtype), and one tree gives the parameter count and the initialised
-tensors. :func:`init_params` follows the JAX package's init rules (normal
+Counterpart of ``repro.models.params``: a model declares a nested dict of
+:class:`PDef` (shape, init rule, storage dtype, logical sharding axes),
+and one tree gives the parameter count, the initialised tensors, the
+specs on the ambient mesh (:func:`param_specs`) and the allocation-free
+structs of the dry-run (:func:`param_structs`). ``logical`` is the last
+field here (the JAX package's second), so a declaration without it keeps
+its meaning. :func:`init_params` follows the JAX package's init rules (normal
 with a fan-in scale, ``embed`` x0.02, ones, zeros) but draws from a
 ``torch.Generator``, so its numbers differ from ``jax.random``'s; tests
 that need the same weights in both packages carry the JAX tree across
@@ -16,12 +19,20 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.sharding import ctx
+
 
 class PDef(NamedTuple):
     shape: tuple
     init: str = "normal"  # normal | zeros | ones | embed
     dtype: torch.dtype = torch.float32  # storage dtype
     scale: float | None = None  # override fan-in scale
+    logical: tuple | None = None  # logical sharding axis per dim (None = replicated)
+
+    @property
+    def axes(self) -> tuple:
+        """``logical``, or every dim replicated."""
+        return self.logical if self.logical is not None else (None,) * len(self.shape)
 
 
 def _leaves(defs: dict, prefix: tuple = ()):
@@ -35,7 +46,7 @@ def _leaves(defs: dict, prefix: tuple = ()):
 def stack(defs: dict, n: int) -> dict:
     """Prepend a layer dimension of size ``n`` to every leaf."""
     return {
-        name: stack(p, n) if isinstance(p, dict) else p._replace(shape=(n,) + p.shape)
+        name: stack(p, n) if isinstance(p, dict) else p._replace(shape=(n,) + p.shape, logical=(None,) + p.axes)
         for name, p in defs.items()
     }
 
@@ -66,16 +77,51 @@ def _init_leaf(p: PDef, gen: torch.Generator) -> torch.Tensor:
     return x.mul_(scale).to(p.dtype)
 
 
-def init_params(defs: dict, gen: torch.Generator) -> dict:
+def init_params(defs: dict, gen: torch.Generator, keep=None) -> dict:
     """A tree of tensors on ``gen``'s device, one draw per leaf in
-    declaration order, each cast to its storage dtype as it is drawn."""
+    declaration order, each cast to its storage dtype as it is drawn.
+    ``keep(p, t)``, where given, maps each drawn leaf to what the tree holds
+    (a rank's block under a mesh) before the next leaf is drawn, so the
+    peak is one whole leaf."""
     out: dict = {}
     for path, p in _leaves(defs):
         node = out
         for name in path[:-1]:
             node = node.setdefault(name, {})
-        node[path[-1]] = _init_leaf(p, gen)
+        node[path[-1]] = _init_leaf(p, gen) if keep is None else keep(p, _init_leaf(p, gen))
     return out
+
+
+def tree_map(fn, defs: dict) -> dict:
+    """``fn`` over every :class:`PDef` of ``defs``, the nesting kept."""
+    return {k: tree_map(fn, p) if isinstance(p, dict) else fn(p) for k, p in defs.items()}
+
+
+def param_specs(defs: dict) -> dict:
+    """The JAX package's spec of every leaf on the ambient mesh (``()``
+    without one)."""
+    return tree_map(lambda p: ctx.spec_for(p.shape, *p.axes), defs)
+
+
+def sharding_of(p: PDef, mesh) -> ctx.NamedSharding:
+    """The leaf's :class:`~repro_torch.sharding.ctx.NamedSharding` on
+    ``mesh``: the block a rank holds, and the JAX layout as ``full``."""
+    return ctx.sharding_for(mesh, p.axes, p.shape)
+
+
+def struct(shape, dtype, sharding=None) -> torch.Tensor:
+    """A ``meta`` tensor standing for an array (``jax.ShapeDtypeStruct``),
+    with its ``sharding`` attribute (None without a mesh)."""
+    t = torch.empty(tuple(shape), dtype=dtype, device="meta")
+    t.sharding = sharding
+    return t
+
+
+def param_structs(defs: dict, mesh=None) -> dict:
+    """A meta tensor of every leaf's global shape and dtype, each with its
+    ``NamedSharding`` on ``mesh`` (or the ambient one), for the dry-run."""
+    mesh = mesh or ctx.get_mesh()
+    return tree_map(lambda p: struct(p.shape, p.dtype, None if mesh is None else sharding_of(p, mesh)), defs)
 
 
 def count_params(defs: dict) -> int:

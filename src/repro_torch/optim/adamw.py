@@ -181,8 +181,11 @@ def _moment_leaves(tree) -> list:
 
 
 @torch.no_grad()
-def update(cfg: AdamWConfig, grads: dict, state: AdamWState, params: dict) -> tuple[dict, AdamWState, dict]:
+def update(cfg: AdamWConfig, grads: dict, state: AdamWState, params: dict,
+           grad_norm: torch.Tensor | None = None) -> tuple[dict, AdamWState, dict]:
     """One AdamW step: clip by the global norm, update every leaf in place.
+    ``grad_norm`` is the norm to clip by when the tree holds blocks of a
+    sharded model (``train.loop`` under a mesh); None computes it here.
 
     ``grads`` mirrors ``params``; a leaf whose gradient is None (the loss
     never reads it, as hubert's ``embed``) counts as a zero gradient, as
@@ -194,7 +197,7 @@ def update(cfg: AdamWConfig, grads: dict, state: AdamWState, params: dict) -> tu
     m_flat, v_flat = _moment_leaves(state.m), _moment_leaves(state.v)
     if not len(p_flat) == len(g_flat) == len(m_flat) == len(v_flat):
         raise ValueError("params, grads and the moments must have the same leaves")
-    gnorm = global_norm(g_flat)
+    gnorm = global_norm(g_flat) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     lr = schedule(cfg, step)

@@ -1,15 +1,49 @@
-"""A device mesh over ``torch.distributed`` and the collectives the DSLSH
-mesh needs (the counterpart of ``repro.sharding.ctx``).
+"""A device mesh over ``torch.distributed``, the sharding rules, and the
+collectives of the DSLSH mesh and of the LM families under a mesh (the
+counterpart of ``repro.sharding.ctx``).
 
-JAX runs one program over a mesh of devices with ``shard_map``. The port
-runs one process per mesh cell instead (SPMD): every rank runs the body
-that ``shard_map`` would trace, and holds one :class:`Mesh` naming the
-axes, the mesh's shape, this rank's coordinates and its device, with one
-process group per axis line the rank sits on. ``lax.axis_index``,
-``lax.all_gather`` and ``lax.ppermute`` become :func:`axis_index`,
-:func:`all_gather` and :func:`ppermute`; JAX's ``axis_size`` and
-``mesh_axis_size`` read ``Mesh.shape``; a ``PartitionSpec`` becomes a
-tuple of axis names per leading dim (:class:`NamedSharding`).
+Execution model. JAX runs one program over a mesh of devices and places
+each tensor by GSPMD (``with_sharding_constraint``, ``shard_map``). The
+port runs one process per mesh cell instead (SPMD): every rank runs the
+program on its own block of each tensor and holds one :class:`Mesh`
+naming the axes, the mesh's shape, this rank's coordinates and its
+device, with one process group per axis line the rank sits on.
+``lax.axis_index``, ``lax.all_gather`` and ``lax.ppermute`` become
+:func:`axis_index`, :func:`all_gather` and :func:`ppermute`; JAX's
+``axis_size`` and ``mesh_axis_size`` read ``Mesh.shape``; a
+``PartitionSpec`` becomes a tuple of axis names per leading dim
+(:class:`NamedSharding`).
+
+The holding rule of the LM families. :class:`ShardingRules` maps the
+logical axis names of every parameter, input and cache leaf to mesh axes
+exactly as the JAX package does (:func:`logical_to_spec`, the same
+defaults and the same dropping of non-dividing axes), and the dry-run
+reports that layout. A rank of the port holds its block
+(:meth:`NamedSharding.block`) of a leaf only along the logical axes its
+program splits:
+
+* ``batch`` (inputs and caches: the rank's rows),
+* ``expert`` (the expert stacks: the rank's experts),
+* ``seq`` (attention caches, read by context-parallel decode attention),
+
+and holds the leaf whole along ``fsdp`` and ``tensor`` (:func:`held_spec`);
+storage sharding along those two (ZeRO gathers, tensor-parallel matmuls)
+is not ported (ROADMAP.md, Queue 1). Outside the moe and decode-attention
+bodies the ranks of one ``model`` line compute the same values.
+:func:`constrain` checks its logical names against ``x.ndim``, as the JAX
+function asserts, and moves nothing: a rank's tensors already have the
+layout the holding rule gives them.
+
+Gradients. The collectives of the LM path (:func:`psum`, :func:`pmean`,
+:func:`psum_scatter`, :func:`all_gather_tiled`, :func:`all_to_all`) are
+``torch.autograd.Function``s whose backward is the transpose of the
+forward, as JAX differentiates ``shard_map``: a psum's is a psum, a tiled
+all-gather's a psum-scatter and back, an all-to-all's the reverse
+all-to-all. With every rank computing the global loss, the gradient of
+``loss / mesh.size`` on each rank, summed over the mesh axes a leaf is
+replicated on, is the gradient of the one-process loss
+(``train.loop``). :func:`pmax` passes no gradient: decode attention uses
+it as a shift that cancels.
 
 Transport. The backend is the caller's explicit choice
 (``launch.mesh``), and gloo is the only one taken: :func:`make_mesh`
@@ -17,19 +51,25 @@ refuses any other (NCCL, one card per rank, waits for a machine with more
 cards; ROADMAP.md). Gloo moves host tensors only, so a collective copies a
 device tensor to the host and its result back, on purpose; :data:`TRAFFIC`
 counts those copies (``host_copy_bytes``) and the bytes this rank hands to
-the transport (``sent_bytes``).
+the transport (``sent_bytes``). A sum over ranks is an all-gather and a
+sum in rank order, so every rank gets the same bits whatever the dtype
+(gloo may lack a bf16 reduction).
 
 A mesh of one rank needs no process group: every collective is then the
 identity (``all_gather`` stacks the one tensor), so a single process runs
-``make_local_mesh(1, 1)`` as JAX runs it on one device.
-
-``ShardingRules``, ``logical_to_spec`` and ``constrain`` (LM training
-under a mesh) are not ported yet (ROADMAP.md, Queue 1).
+``make_local_mesh(1, 1)`` as JAX runs it on one device. A *dry* mesh
+(:func:`dry_mesh`) has the production mesh's shape, this rank's
+coordinates, no process group and the ``meta`` device: its collectives
+return outputs of the right shape and add their output bytes to
+:data:`DRY_BYTES` under the HLO names, which is how ``launch.dryrun``
+traces one rank's program.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+from typing import Any
 
 import numpy as np
 import torch
@@ -38,6 +78,8 @@ import torch.distributed as dist
 from repro_torch import device as device_mod
 
 TRAFFIC = {"host_copy_bytes": 0, "sent_bytes": 0}
+# a dry mesh's collectives: output bytes by HLO collective name
+DRY_BYTES: dict[str, float] = {}
 
 
 def check_backend(backend: str) -> None:
@@ -60,8 +102,13 @@ class Mesh:
     axis_sizes: tuple[int, ...]
     coords: tuple[int, ...]
     device: torch.device
-    backend: str | None = None
+    backend: str | None = None  # "gloo", None (one rank) or "dry"
     groups: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def dry(self) -> bool:
+        """A dry mesh: shapes and byte tallies, no transport."""
+        return self.backend == "dry"
 
     @property
     def shape(self) -> dict[str, int]:
@@ -233,8 +280,9 @@ def gather_to(mesh: Mesh, t: torch.Tensor, sources: list[int], dst: int = 0) -> 
 
 
 def barrier(mesh: Mesh) -> None:
-    """Wait for every rank of the mesh (nothing for a one-rank mesh)."""
-    if mesh.backend is not None:
+    """Wait for every rank of the mesh (nothing for a one-rank or a dry
+    mesh)."""
+    if mesh.backend == "gloo":
         dist.barrier()
 
 
@@ -243,29 +291,404 @@ class NamedSharding:
     """Which leading dims of an array are split over which mesh axes: the
     counterpart of ``NamedSharding(mesh, PartitionSpec(...))``. ``spec``
     holds, per leading dim, an axis name, a tuple of names (split over
-    their product, row-major) or None (whole); dims past it are whole."""
+    their product, row-major) or None (whole); dims past it are whole.
+    ``spec`` is what a rank holds (:meth:`block`); ``full``, where given, is
+    the layout the JAX package's rules give the leaf (its PartitionSpec),
+    which the port holds only along the held logical axes."""
 
     mesh: Mesh
     spec: tuple = ()
+    full: tuple | None = None
+
+    def _cuts(self, shape, spec):
+        """Per dim of ``shape``: (number of blocks, this rank's block)."""
+        out = []
+        for dim, axes in enumerate(spec):
+            if axes is None:
+                out.append((1, 0))
+                continue
+            axes = (axes,) if isinstance(axes, str) else tuple(axes)
+            sizes = tuple(self.mesh.shape[a] for a in axes)
+            i = int(np.ravel_multi_index(tuple(axis_index(self.mesh, a) for a in axes), sizes))
+            n = math.prod(sizes)
+            if shape[dim] % n:
+                raise ValueError(
+                    f"dim {dim} of size {shape[dim]} does not split over"
+                    f" {axes} ({n} blocks)"
+                )
+            out.append((n, i))
+        return out
+
+    def axes(self) -> tuple:
+        """The mesh axes that cut this rank's block, in spec order."""
+        return tuple(a for ax in self.spec if ax is not None for a in ((ax,) if isinstance(ax, str) else ax))
 
     def block(self, arr):
         """This rank's block of ``arr`` (numpy or torch, sliced lazily)."""
         index = []
-        shape = self.mesh.shape
-        for dim, axes in enumerate(self.spec):
-            if axes is None:
-                index.append(slice(None))
-                continue
-            axes = (axes,) if isinstance(axes, str) else tuple(axes)
-            n = math.prod(shape[a] for a in axes)
-            i = int(np.ravel_multi_index(
-                tuple(axis_index(self.mesh, a) for a in axes), tuple(shape[a] for a in axes)
-            ))
-            if arr.shape[dim] % n:
-                raise ValueError(
-                    f"dim {dim} of size {arr.shape[dim]} does not split over"
-                    f" {axes} ({n} blocks)"
-                )
+        for dim, (n, i) in enumerate(self._cuts(arr.shape, self.spec)):
             b = arr.shape[dim] // n
             index.append(slice(i * b, (i + 1) * b))
         return arr[tuple(index)]
+
+    def block_shape(self, shape) -> tuple:
+        """The shape of this rank's block of a ``shape`` array."""
+        cuts = self._cuts(shape, self.spec)
+        return tuple(s // cuts[d][0] if d < len(cuts) else s for d, s in enumerate(shape))
+
+    def full_block_shape(self, shape) -> tuple:
+        """The shape of one device's block under ``full`` (the JAX layout)."""
+        cuts = self._cuts(shape, self.spec if self.full is None else self.full)
+        return tuple(s // cuts[d][0] if d < len(cuts) else s for d, s in enumerate(shape))
+
+
+def dry_mesh(axis_names: tuple[str, ...], shape: tuple[int, ...], coords: tuple[int, ...] | None = None) -> Mesh:
+    """A mesh of ``shape`` seen from the rank at ``coords`` (the first by
+    default) with no process group, on the ``meta`` device: its
+    collectives tally bytes in :data:`DRY_BYTES` and move nothing."""
+    shape = tuple(int(s) for s in shape)
+    return Mesh(tuple(axis_names), shape, tuple(coords or (0,) * len(shape)), torch.device("meta"), "dry")
+
+
+# ------------------------------------------------------------ sharding rules
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    """Logical-axis -> mesh-axis mapping for the (pod, [rep,] data, model)
+    mesh. ``rep`` (replicated DSLSH cells, DESIGN.md §10) joins the batch
+    axes — replicas split query/batch rows — but never the parameter axes:
+    replicas hold identical state by construction."""
+
+    batch: tuple = ("pod", "rep", "data")  # data parallel (+ replica split)
+    fsdp: tuple = ("pod", "data")  # parameter/optimizer sharding (ZeRO)
+    tensor: tuple = ("model",)  # tensor parallel (heads / ffn / vocab / experts)
+    seq: tuple = ("model",)  # sequence parallel (activations between blocks)
+    expert: tuple = ("model",)  # expert parallel
+
+    def axes(self, logical: str | None) -> tuple:
+        if logical is None:
+            return (None,)
+        return getattr(self, logical)
+
+
+# the logical axes a rank of the port holds in blocks (the holding rule)
+HELD_AXES = ("batch", "expert", "seq")
+
+_STATE: dict[str, Any] = {"mesh": None, "rules": ShardingRules()}
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Mesh | None, rules: ShardingRules | None = None):
+    """Make ``mesh`` (and ``rules``) ambient for the model code run inside."""
+    old = dict(_STATE)
+    _STATE["mesh"] = mesh
+    if rules is not None:
+        _STATE["rules"] = rules
+    try:
+        yield
+    finally:
+        _STATE.update(old)
+
+
+def get_mesh() -> Mesh | None:
+    return _STATE["mesh"]
+
+
+def get_rules() -> ShardingRules:
+    return _STATE["rules"]
+
+
+def axis_size(mesh: Mesh, axes: tuple) -> int:
+    return math.prod(mesh.shape[a] for a in axes if a is not None and a in mesh.shape)
+
+
+def logical_to_spec(mesh, rules: ShardingRules, logical: tuple, shape: tuple) -> tuple:
+    """Resolve logical axes to a spec (a PartitionSpec's entries),
+    dropping non-divisible dims: an axis already used by an earlier dim is
+    skipped, and an axis tuple that does not divide the dim is cut to its
+    longest prefix that does. ``mesh`` needs only ``.shape``."""
+    spec = []
+    used: set = set()
+    for dim, name in enumerate(logical):
+        axes = tuple(
+            a
+            for a in rules.axes(name)
+            if a is not None and a in mesh.shape and a not in used
+        )
+        if not axes:
+            spec.append(None)
+            continue
+        size = math.prod(mesh.shape[a] for a in axes)
+        if shape[dim] % size != 0:
+            # try progressively shorter prefixes of the axis tuple
+            while axes and shape[dim] % math.prod(mesh.shape[a] for a in axes) != 0:
+                axes = axes[:-1]
+        if axes:
+            used.update(axes)
+            spec.append(axes if len(axes) > 1 else axes[0])
+        else:
+            spec.append(None)
+    return tuple(spec)
+
+
+def held_spec(spec: tuple, logical: tuple) -> tuple:
+    """The part of ``spec`` a rank of the port holds in blocks: the dims
+    whose logical axis is ``batch``, ``expert`` or ``seq``; whole along
+    ``fsdp`` and ``tensor``."""
+    return tuple(s if name in HELD_AXES else None for s, name in zip(spec, logical))
+
+
+def sharding_for(mesh: Mesh, logical: tuple, shape: tuple) -> NamedSharding:
+    """The leaf's :class:`NamedSharding` on ``mesh``: the rank's block
+    (:func:`held_spec`) and the JAX layout as ``full``."""
+    full = logical_to_spec(mesh, get_rules(), tuple(logical), tuple(shape))
+    return NamedSharding(mesh, held_spec(full, tuple(logical)), full)
+
+
+def constrain(x: torch.Tensor, *logical: str | None) -> torch.Tensor:
+    """The JAX package's sharding constraint by logical axis names: checks
+    the names against ``x.ndim`` under a mesh and returns ``x`` as it is (a
+    rank's tensor already has its layout; nothing moves)."""
+    if get_mesh() is None:
+        return x
+    assert len(logical) == x.ndim, (logical, tuple(x.shape))
+    return x
+
+
+def spec_for(shape: tuple, *logical: str | None) -> tuple:
+    """The JAX package's spec of a ``shape`` leaf on the ambient mesh (the
+    dry-run uses this); ``()`` without one."""
+    mesh = get_mesh()
+    if mesh is None:
+        return ()
+    return logical_to_spec(mesh, get_rules(), tuple(logical), shape)
+
+
+def mesh_axis_size(*axes_names: str) -> int:
+    mesh = get_mesh()
+    if mesh is None:
+        return 1
+    return math.prod(mesh.shape.get(a, 1) for a in axes_names)
+
+
+def batch_axes(mesh: Mesh | None = None) -> tuple:
+    """The mesh axes the batch is split over (the rules' ``batch`` axes the
+    mesh has, of size > 1)."""
+    mesh = mesh or get_mesh()
+    if mesh is None:
+        return ()
+    return tuple(a for a in get_rules().batch if a in mesh.shape and mesh.shape[a] > 1)
+
+
+# ------------------------------------------------------------ LM collectives
+def _live(mesh: Mesh, axes) -> tuple:
+    """The axes of ``axes`` (a name or a tuple) that the mesh has with size > 1."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    return tuple(a for a in axes if a in mesh.shape and mesh.shape[a] > 1)
+
+
+def _tally(kind: str, t: torch.Tensor) -> None:
+    DRY_BYTES[kind] = DRY_BYTES.get(kind, 0.0) + float(t.numel() * t.element_size())
+
+
+def _raw(t: torch.Tensor) -> torch.Tensor:
+    """A host tensor as gloo moves it: bf16 and f16 as their bytes (gloo
+    may lack both types)."""
+    return t.reshape(-1).view(torch.uint8) if t.dtype in (torch.bfloat16, torch.float16) else t
+
+
+def _cooked(r: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return r.view(like.dtype).reshape(like.shape) if r.dtype != like.dtype and like.dtype != torch.bool else r
+
+
+def _gather_parts(mesh: Mesh, axis: str, t: torch.Tensor) -> list[torch.Tensor]:
+    """``t`` from every rank on this rank's ``axis`` line, in axis order."""
+    host = _wire(t)
+    src = _raw(host)
+    out = [torch.empty_like(src) for _ in range(mesh.shape[axis])]
+    dist.all_gather(out, src, group=mesh.groups[axis])
+    TRAFFIC["sent_bytes"] += src.nbytes
+    return [_unwire(_cooked(o, host), t) for o in out]
+
+
+def _sum_over(mesh: Mesh, axes: tuple, t: torch.Tensor) -> torch.Tensor:
+    for a in axes:
+        parts = _gather_parts(mesh, a, t)
+        acc = parts[0]
+        for p in parts[1:]:  # rank order, in t's dtype
+            acc = acc + p
+        t = acc
+    return t
+
+
+def _gather_tiled(mesh: Mesh, axes: tuple, t: torch.Tensor, dim: int) -> torch.Tensor:
+    for a in reversed(axes):  # the last axis varies fastest in the block index
+        t = torch.cat(_gather_parts(mesh, a, t), dim=dim)
+    return t
+
+
+def _my_block(mesh: Mesh, axes: tuple, t: torch.Tensor, dim: int) -> torch.Tensor:
+    for a in axes:  # the first axis varies slowest
+        n = mesh.shape[a]
+        b = t.shape[dim] // n
+        t = t.narrow(dim, axis_index(mesh, a) * b, b)
+    return t
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx_, mesh, axes, x):
+        ctx_.mesh, ctx_.axes = mesh, axes
+        if mesh.dry:
+            _tally("all-reduce", x)
+            return x.clone()
+        return _sum_over(mesh, axes, x)
+
+    @staticmethod
+    def backward(ctx_, g):
+        return None, None, _Psum.apply(ctx_.mesh, ctx_.axes, g)
+
+
+class _AllGatherTiled(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx_, mesh, axes, x, dim):
+        ctx_.mesh, ctx_.axes, ctx_.dim = mesh, axes, dim
+        if mesh.dry:
+            out = torch.cat([x] * math.prod(mesh.shape[a] for a in axes), dim=dim)
+            _tally("all-gather", out)
+            return out
+        return _gather_tiled(mesh, axes, x, dim)
+
+    @staticmethod
+    def backward(ctx_, g):
+        return None, None, _PsumScatter.apply(ctx_.mesh, ctx_.axes, g, ctx_.dim), None
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx_, mesh, axes, x, dim):
+        ctx_.mesh, ctx_.axes, ctx_.dim = mesh, axes, dim
+        n = math.prod(mesh.shape[a] for a in axes)
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of size {x.shape[dim]} does not split over {axes} ({n} blocks)")
+        if mesh.dry:
+            out = x.narrow(dim, 0, x.shape[dim] // n).clone()
+            _tally("reduce-scatter", out)
+            return out
+        return _my_block(mesh, axes, _sum_over(mesh, axes, x), dim).contiguous()
+
+    @staticmethod
+    def backward(ctx_, g):
+        return None, None, _AllGatherTiled.apply(ctx_.mesh, ctx_.axes, g, ctx_.dim), None
+
+
+def _exchange(mesh: Mesh, axis: str, x: torch.Tensor) -> torch.Tensor:
+    """Chunk j of ``x``'s leading dim to rank j of the ``axis`` line; the
+    chunks received, in sender order, concatenated along dim 0."""
+    n = mesh.shape[axis]
+    me = axis_index(mesh, axis)
+    line = mesh.line(axis)
+    chunks = list(torch.chunk(x, n, dim=0))
+    hosts = [_wire(c) for c in chunks]
+    sends = [_raw(h) for h in hosts]
+    recv = [torch.empty_like(sends[j]) for j in range(n)]
+    reqs = []
+    for j in range(n):
+        if j == me:
+            recv[j] = sends[j]
+            continue
+        reqs.append(dist.isend(sends[j], line[j]))
+        reqs.append(dist.irecv(recv[j], line[j]))
+        TRAFFIC["sent_bytes"] += sends[j].nbytes
+    for r in reqs:
+        r.wait()
+    return _unwire(torch.cat([_cooked(r, h) for r, h in zip(recv, hosts)], dim=0), x)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx_, mesh, axis, x):
+        ctx_.mesh, ctx_.axis = mesh, axis
+        if x.shape[0] % mesh.shape[axis]:
+            raise ValueError(f"all_to_all: leading dim {x.shape[0]} does not split over {axis}")
+        if mesh.dry:
+            _tally("all-to-all", x)
+            return x.clone()
+        return _exchange(mesh, axis, x)
+
+    @staticmethod
+    def backward(ctx_, g):
+        return None, None, _AllToAll.apply(ctx_.mesh, ctx_.axis, g)
+
+
+def psum(mesh: Mesh, axes, x: torch.Tensor) -> torch.Tensor:
+    """``lax.psum``: the sum of ``x`` over the ranks of ``axes`` (a name or
+    a tuple), summed in rank order, the same bits on every rank."""
+    axes = _live(mesh, axes)
+    return _Psum.apply(mesh, axes, x) if axes else x
+
+
+def pmean(mesh: Mesh, axes, x: torch.Tensor) -> torch.Tensor:
+    """``lax.pmean``: :func:`psum` over the axes' size."""
+    live = _live(mesh, axes)
+    return psum(mesh, live, x) / math.prod(mesh.shape[a] for a in live) if live else x
+
+
+def pmax(mesh: Mesh, axes, x: torch.Tensor) -> torch.Tensor:
+    """``lax.pmax``: the elementwise max over the ranks of ``axes``; no
+    gradient passes (decode attention uses it as a shift that cancels)."""
+    axes = _live(mesh, axes)
+    x = x.detach()
+    if not axes:
+        return x
+    if mesh.dry:
+        _tally("all-reduce", x)
+        return x.clone()
+    for a in axes:
+        x = torch.stack(_gather_parts(mesh, a, x)).amax(0)
+    return x
+
+
+def all_gather_tiled(mesh: Mesh, axes, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``lax.all_gather(..., tiled=True)``: the blocks of ``axes``' ranks
+    concatenated along ``dim`` in block order (row-major over ``axes``)."""
+    axes = _live(mesh, axes)
+    return _AllGatherTiled.apply(mesh, axes, x, dim) if axes else x
+
+
+def psum_scatter(mesh: Mesh, axes, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``lax.psum_scatter(..., tiled=True)``: the sum over ``axes``' ranks,
+    of which this rank keeps its block along ``dim``."""
+    axes = _live(mesh, axes)
+    return _PsumScatter.apply(mesh, axes, x, dim) if axes else x
+
+
+def all_to_all(mesh: Mesh, axis: str, x: torch.Tensor) -> torch.Tensor:
+    """``lax.all_to_all(x, axis, 0, 0, tiled=True)``: the leading dim in
+    as many chunks as ``axis`` has ranks, chunk j sent to rank j; the
+    received chunks concatenated in sender order."""
+    return _AllToAll.apply(mesh, axis, x) if _live(mesh, axis) else x
+
+
+def block_along(mesh: Mesh, axes, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` over ``axes`` (a slice; its
+    gradient is zero outside the block)."""
+    axes = _live(mesh, axes)
+    return _my_block(mesh, axes, x, dim) if axes else x
+
+
+def all_reduce_(mesh: Mesh, axes, t: torch.Tensor) -> torch.Tensor:
+    """Sum ``t`` in place over ``axes`` through the transport's own
+    all-reduce in float32 (gradients: large tensors, one reduction a leaf);
+    every rank of an axis line gets the same bits."""
+    axes = _live(mesh, axes)
+    if not axes:
+        return t
+    if mesh.dry:
+        _tally("all-reduce", t)
+        return t
+    buf = _wire(t.float())
+    for a in axes:
+        dist.all_reduce(buf, group=mesh.groups[a])
+        TRAFFIC["sent_bytes"] += buf.nbytes
+    t.copy_(_unwire(buf, t))
+    return t

@@ -1,0 +1,540 @@
+"""The LM families under a mesh against the one-process port and the JAX
+package.
+
+One spawned 2 x 2 gloo world on the CPU (``launch.mesh.spawn`` running
+``lm_mesh_ranks.run``: the package's ``launch.lm_mesh_job`` and the tests'
+own steps, started in the background from the module's first test while
+this process computes the references) runs every case:
+
+* serving and the step-0 loss and gradients of the four families' smoke
+  configs against the one-process port on the same weights and rows: dense
+  (granite), ssm (mamba2) and hybrid (hymba) within one bf16 ulp of the
+  largest logit and 2^-6 of a gradient leaf's largest element (the data
+  ranks' bf16 gradients are summed after rounding); moe at one layer
+  (olmoe, both combines, capacity n_experts / top_k so none drops) within
+  2^-5 (the expert-parallel bodies sum bf16 partials, as the JAX package
+  does); moe at the smoke config's two layers (phi3.5-moe), where the
+  second layer's router sees those bf16 sums and a near-tied route may
+  flip, with the loss within rtol 1e-3 and every gradient at a cosine of
+  at least 0.95;
+* the moe bodies alone (``gather`` and ``a2a``) with their ``aux`` and the
+  gradients of x and every weight (aux included) against JAX's local
+  ``moe_apply`` at capacity 8.0, and decode's one token (the local path
+  over the gathered batch, experts summed over the expert axis) at 1.25,
+  within ``tests/test_moe_ep.py``'s tolerance; ``gather``'s aux is the
+  local path's, ``a2a``'s the mean over the expert axis's sequence blocks
+  of JAX's local aux of each block (every row of the batch); at capacity
+  1.25, where per-shard capacities drop other tokens, the outputs against
+  JAX's own expert-parallel bodies on a 2 x 2 mesh of 4 host devices (a
+  subprocess) and the aux against the same JAX witnesses;
+* context-parallel decode attention against JAX's local form at 1e-4 and
+  against JAX's own context-parallel form;
+* ``launch.train.train`` under the mesh with a checkpoint: rank 0 gathers
+  the expert blocks and writes the JAX format; restored here it equals the
+  mesh's tree, and a one-process run resumes from it at the mesh's loss.
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import os
+import subprocess
+import sys
+import textwrap
+from concurrent.futures import ThreadPoolExecutor
+
+import jax
+import jax.numpy as jnp
+import lm_mesh_ranks
+import numpy as np
+import pytest
+import torch
+
+from repro.models import common as jC
+from repro.models import moe as jmoe
+from repro.models.api import ModelConfig as JConfig
+from repro_torch import configs as tconfigs
+from repro_torch.checkpoint import store as tstore
+from repro_torch.launch import lm_mesh_job
+from repro_torch.launch import mesh as tmesh
+from repro_torch.launch import train as tlaunch
+from repro_torch.models import api as tapi
+from repro_torch.models import moe as tmoe
+from repro_torch.models import params as tPM
+from repro_torch.optim import adamw as tadamw
+from repro_torch.sharding import ctx
+from repro_torch.train import loop as tl
+
+MESH = (2, 2)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+EXACT = {"xla_allow_excess_precision": False}
+ULP = 2.0**-7  # one bf16 ulp, relative
+
+
+def _over(arch: str, **kw) -> dict:
+    cfg = tconfigs.get(arch, smoke=True)
+    if cfg.family == "moe":
+        kw.setdefault("capacity_factor", cfg.n_experts / cfg.top_k)
+    return kw
+
+
+# (arch, overrides, logit tolerance, gradient tolerance or "loose", loss rtol)
+FAMILIES = {
+    "dense": ("granite-8b", {}, ULP, 2.0**-6, 1e-5),
+    "ssm": ("mamba2-780m", {}, ULP, 2.0**-6, 1e-5),
+    "hybrid": ("hymba-1.5b", {}, ULP, 2.0**-6, 1e-5),
+    "moe_gather": ("olmoe-1b-7b", _over("olmoe-1b-7b", n_layers=1, moe_impl="gather"), 2.0**-5, 2.0**-5, 1e-3),
+    "moe_a2a": ("olmoe-1b-7b", _over("olmoe-1b-7b", n_layers=1, moe_impl="a2a"), 2.0**-5, 2.0**-5, 1e-3),
+    "moe_two_layers": ("phi3.5-moe-42b-a6.6b", _over("phi3.5-moe-42b-a6.6b"), 2.0**-4, "loose", 1e-3),
+}
+PROMPT, DECODE = 16, 3
+ROUTED = ("moe_gather", "moe_a2a")  # the cases whose ranks record moe's routes
+MOE_CFG = JConfig(name="m", family="moe", n_layers=1, d_model=32, n_heads=2, n_kv_heads=2, head_dim=16,
+                  d_ff=64, vocab=64, n_experts=8, top_k=2)
+CKPT_ARCH, CKPT_OVER = "olmoe-1b-7b", _over("olmoe-1b-7b", n_layers=1)
+
+
+def _cfg(arch: str, over: dict):
+    return dataclasses.replace(tconfigs.get(arch, smoke=True), **over)
+
+
+def _max_len(cfg, even: bool = True) -> int:
+    n = PROMPT + cfg.meta_tokens + DECODE + 1
+    return n + (n % 2 != (0 if even else 1))
+
+
+def _inputs(arch: str, seed: int):
+    cfg = tconfigs.get(arch, smoke=True)
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, cfg.vocab, (4, PROMPT)).astype(np.int32)
+    feed = rng.integers(0, cfg.vocab, (4, DECODE)).astype(np.int32)
+    return prompts, feed
+
+
+def _moe_inputs():
+    rng = np.random.default_rng(5)
+    d, f, e = MOE_CFG.d_model, MOE_CFG.d_ff, MOE_CFG.n_experts
+    p = {"router": (rng.standard_normal((d, e)) * 0.3).astype(np.float32),
+         "e_gate": (rng.standard_normal((e, d, f)) / 6).astype(np.float32),
+         "e_up": (rng.standard_normal((e, d, f)) / 6).astype(np.float32),
+         "e_down": (rng.standard_normal((e, f, d)) / 8).astype(np.float32)}
+    x = rng.standard_normal((4, 16, d)).astype(np.float32)
+    return p, x
+
+
+def _cp_inputs():
+    rng = np.random.default_rng(6)
+    b, hq, hkv, smax, dh = 4, 8, 4, 64, 16
+    q = rng.standard_normal((b, 1, hq, dh)).astype(np.float32)
+    k = rng.standard_normal((b, smax, hkv, dh)).astype(np.float32)
+    v = rng.standard_normal((b, smax, hkv, dh)).astype(np.float32)
+    return q, k, v, np.asarray([60, 17, 33, 64], np.int32)
+
+
+def _port_moe_cfg(cap: float, impl: str = "gather"):
+    return tapi.ModelConfig(**{**dataclasses.asdict(MOE_CFG), "capacity_factor": cap, "moe_impl": impl})
+
+
+def _job(ckpt_dir: str) -> lm_mesh_job.LMMeshJob:
+    steps = []
+    for name, (arch, over, *_) in FAMILIES.items():
+        prompts, feed = _inputs(arch, list(FAMILIES).index(name))
+        cfg = _cfg(arch, over)
+        steps.append(("serve", dict(arch=arch, smoke=True, overrides=over, prompts=prompts,
+                                    max_len=_max_len(cfg), decode=DECODE, feed=feed, routes=name in ROUTED)))
+        steps.append(("grads_kept", dict(arch=arch, smoke=True, overrides=over, rows=prompts)))
+    prompts, feed = _inputs("granite-8b", 7)
+    steps.append(("serve", dict(arch="granite-8b", smoke=True, prompts=prompts,
+                                max_len=_max_len(tconfigs.get("granite-8b", smoke=True), even=False),
+                                decode=DECODE, feed=feed)))
+    p, x = _moe_inputs()
+    for cap, impl in ((8.0, "gather"), (8.0, "a2a"), (1.25, "gather"), (1.25, "a2a")):
+        steps.append(("moe", dict(cfg=_port_moe_cfg(cap), p=p, x=x, impl=impl, with_grads=cap == 8.0)))
+    steps.append(("moe", dict(cfg=_port_moe_cfg(1.25), p=p, x=x[:, :1], impl="gather", with_grads=True)))
+    steps.append(("cp_decode", dict(zip(("q", "k", "v", "cur"), _cp_inputs()))))
+    steps.append(("train", dict(arch=CKPT_ARCH, smoke=True, overrides=CKPT_OVER, steps=2, batch=4, seq=16,
+                                ckpt_dir=ckpt_dir, ckpt_every=2)))
+    # the mesh resumes from its own checkpoint (each rank restores its blocks)
+    steps.append(("train", dict(arch=CKPT_ARCH, smoke=True, overrides=CKPT_OVER, steps=3, batch=4, seq=16,
+                                ckpt_dir=ckpt_dir)))
+    return lm_mesh_job.LMMeshJob(mesh=MESH, steps=tuple(steps), device="cpu")
+
+
+STEP = {}  # case name -> index of its step in the job
+_i = 0
+for _name in FAMILIES:
+    STEP[f"serve_{_name}"], STEP[f"grads_{_name}"] = _i, _i + 1
+    _i += 2
+for _name in ("serve_fallback", "moe_gather_8", "moe_a2a_8", "moe_gather_125", "moe_a2a_125", "moe_decode",
+              "cp_decode", "train_ckpt", "train_resumed"):
+    STEP[_name] = _i
+    _i += 1
+
+JAX_EP = textwrap.dedent(
+    """
+    import os, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    import dataclasses
+    import jax, jax.numpy as jnp, numpy as np
+    from repro.models import common as C
+    from repro.models import moe
+    from repro.models.api import ModelConfig
+    from repro.launch.mesh import make_local_mesh
+    from repro.sharding import ctx
+
+    inp = np.load(sys.argv[1])
+    cfg = ModelConfig(name="m", family="moe", n_layers=1, d_model=32, n_heads=2, n_kv_heads=2, head_dim=16,
+                      d_ff=64, vocab=64, n_experts=8, top_k=2, capacity_factor=1.25)
+    p = {k: jnp.asarray(inp[k]) for k in ("router", "e_gate", "e_up", "e_down")}
+    mesh = make_local_mesh(2, 2)
+    out = {}
+    with ctx.use_mesh(mesh):
+        for impl in ("gather", "a2a"):
+            c = dataclasses.replace(cfg, moe_impl=impl)
+            o, a = jax.jit(lambda p, x: moe.moe_apply(p, x, c))(p, jnp.asarray(inp["x"]))
+            out[impl + "_out"], out[impl + "_aux"] = np.asarray(o, np.float32), np.asarray(a)
+        args = [jnp.asarray(inp[k]) for k in ("q", "k", "v", "cur")]
+        out["cp"] = np.asarray(jax.jit(lambda *a: C.decode_attention_cp(*a))(*args))
+    np.savez(sys.argv[2], **out)
+    print("OK")
+    """
+)
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """The spawned world's future, the JAX subprocess and their directory."""
+    d = tmp_path_factory.mktemp("lm_mesh")
+    p, x = _moe_inputs()
+    np.savez(d / "inp.npz", x=x, **p, **dict(zip(("q", "k", "v", "cur"), _cp_inputs())))
+    jax_ep = subprocess.Popen([sys.executable, "-c", JAX_EP, str(d / "inp.npz"), str(d / "jax_ep.npz")],
+                              env=dict(os.environ, PYTHONPATH="src", JAX_PLATFORMS="cpu"), cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    pool = ThreadPoolExecutor(1)
+    fut = pool.submit(tmesh.spawn, lm_mesh_ranks.run, 4, store_dir=str(d / "store"),
+                      args=(_job(str(d / "ckpt")),), timeout_s=240)
+    yield {"future": fut, "jax": jax_ep, "dir": d}
+    pool.shutdown(wait=True)
+    jax_ep.wait()
+
+
+def _reports(world) -> list[dict]:
+    reports = world["future"].result(timeout=600)
+    assert [r["rank"] for r in reports] == [0, 1, 2, 3]
+    return reports
+
+
+def _jax_ep(world) -> dict:
+    out, err = world["jax"].communicate(timeout=600)
+    assert world["jax"].returncode == 0, err[-3000:]
+    with np.load(world["dir"] / "jax_ep.npz") as f:
+        return dict(f)
+
+
+def _rows(reports, step: int, key) -> np.ndarray:
+    """The ranks' row blocks of ``key(step report)`` put back in row order
+    (one rank of each model line)."""
+    parts = {}
+    for r in reports:
+        s = r["steps"][step]
+        parts[tuple(s["rows"]) if "rows" in s else r["coords"][0]] = key(s)
+    return np.concatenate([parts[k] for k in sorted(parts)], 0)
+
+
+def _serve_one(arch, over, prompts, feed, max_len, routes: bool = False):
+    """The one-process logits of each pass, and with ``routes`` each
+    pass's moe routes (``moe.routes_table``)."""
+    cfg = _cfg(arch, over)
+    model = tapi.build_model(cfg)
+    params = model.init(0, "cpu")
+    out, noted = [], []
+
+    def run(fn):
+        tmoe.ROUTES = [] if routes else None
+        try:
+            lg, cache = fn()
+        finally:
+            rec, tmoe.ROUTES = tmoe.ROUTES, None
+        out.append(lg.float().numpy())
+        noted.append(tmoe.routes_table([rec]) if routes else None)
+        return cache
+
+    with torch.no_grad():
+        cache = run(lambda: model.prefill(params, {"tokens": torch.as_tensor(prompts)}, max_len))
+        for i in range(feed.shape[1]):
+            cache = run(lambda: model.decode_step(params, cache, torch.as_tensor(feed[:, i : i + 1])))
+    return (out, noted) if routes else out
+
+
+def _grads_one(arch, over, rows):
+    cfg = _cfg(arch, over)
+    model = tapi.build_model(cfg)
+    params = model.init_masters(0, "cpu")
+    loss, grads = tl._value_and_grad(model, params, {"tokens": torch.as_tensor(rows)})
+    names = list(lm_mesh_job._flat(params))
+    return float(loss), {n: g.float().numpy() for n, g in zip(names, grads)}, lm_mesh_job._flat(model.defs)
+
+
+def _assemble(reports, step: int, name: str, pdef) -> np.ndarray:
+    """A gradient leaf whole: a replicated leaf from rank 0 (every rank
+    holds it; checked equal), an expert leaf from its blocks along the
+    model axis."""
+    mesh = ctx.dry_mesh(("data", "model"), MESH)
+    spec = tPM.sharding_of(pdef, mesh).spec
+    got = [r["steps"][step]["grads"][name] for r in reports]
+    if all(a is None for a in spec):
+        for g in got[1:]:
+            np.testing.assert_array_equal(g, got[0], err_msg=f"{name}: the ranks' reduced gradients differ")
+        return got[0]
+    dim = [i for i, a in enumerate(spec) if a is not None][0]
+    by_model = {tuple(r["coords"])[1]: r["steps"][step]["grads"][name] for r in reports if r["coords"][0] == 0}
+    return np.concatenate([by_model[m] for m in sorted(by_model)], dim)
+
+
+@pytest.mark.parametrize("name", list(FAMILIES))
+def test_serving_under_the_mesh_matches_one_process(world, name):
+    arch, over, tol, *_ = FAMILIES[name]
+    prompts, feed = _inputs(arch, list(FAMILIES).index(name))
+    cfg = _cfg(arch, over)
+    want = _serve_one(arch, over, prompts, feed, _max_len(cfg))
+    reports = _reports(world)
+    step = STEP[f"serve_{name}"]
+    if cfg.family != "ssm":  # the attention cache's positions in blocks over the model axis
+        assert reports[0]["steps"][step]["seq_blocks"] == 2
+    for j, w in enumerate(want):
+        got = _rows(reports, step, lambda s, j=j: s["passes"][j]["logits"])
+        np.testing.assert_allclose(got, w, rtol=0, atol=tol * float(np.abs(w).max()), err_msg=f"pass {j}")
+
+
+@pytest.mark.parametrize("name", ROUTED)
+def test_moe_routes_under_the_mesh_match_one_process(world, name):
+    """The routes the ranks record, put together over the global batch, are
+    one process's: the same experts for every token of every layer and
+    pass (the mesh's router reads the same bits: one layer, nothing summed
+    across ranks before it), and no copy dropped by a2a's receivers."""
+    arch, over, *_ = FAMILIES[name]
+    prompts, feed = _inputs(arch, list(FAMILIES).index(name))
+    want = _serve_one(arch, over, prompts, feed, _max_len(_cfg(arch, over)), routes=True)[1]
+    reports = _reports(world)
+    for j, w in enumerate(want):
+        got = tmoe.routes_table([r["steps"][STEP[f"serve_{name}"]]["passes"][j]["routes"] for r in reports])
+        assert len(got) == len(w) == 1
+        assert got[0]["dropped"] == 0
+        np.testing.assert_array_equal(got[0]["used"], w[0]["used"], err_msg=f"pass {j}")
+        np.testing.assert_array_equal(got[0]["top_e"], w[0]["top_e"], err_msg=f"pass {j}")
+        assert w[0]["used"].sum() == w[0]["used"].shape[0] * w[0]["used"].shape[1] * _cfg(arch, over).top_k
+
+
+def test_decode_falls_back_to_local_attention_when_the_cache_does_not_split(world):
+    prompts, feed = _inputs("granite-8b", 7)
+    cfg = tconfigs.get("granite-8b", smoke=True)
+    want = _serve_one("granite-8b", {}, prompts, feed, _max_len(cfg, even=False))
+    reports = _reports(world)
+    assert reports[0]["steps"][STEP["serve_fallback"]]["seq_blocks"] == 1
+    for j, w in enumerate(want):
+        got = _rows(reports, STEP["serve_fallback"], lambda s, j=j: s["passes"][j]["logits"])
+        np.testing.assert_allclose(got, w, rtol=0, atol=ULP * float(np.abs(w).max()))
+
+
+@pytest.mark.parametrize("name", list(FAMILIES))
+def test_step0_loss_and_gradients_under_the_mesh_match_one_process(world, name):
+    arch, over, _, tol, loss_rtol = FAMILIES[name]
+    prompts, _ = _inputs(arch, list(FAMILIES).index(name))
+    loss, grads, defs = _grads_one(arch, over, prompts)
+    reports = _reports(world)
+    step = STEP[f"grads_{name}"]
+    losses = {r["steps"][step]["loss"] for r in reports}
+    assert len(losses) == 1  # every rank computes the global batch's loss
+    got_loss = losses.pop()
+    assert abs(got_loss - loss) <= loss_rtol * abs(loss)
+    for n, want in grads.items():
+        got = _assemble(reports, step, n, defs[n])
+        assert got.shape == want.shape, n
+        if tol == "loose":
+            cos = float((got * want).sum() / max(np.sqrt((got * got).sum() * (want * want).sum()), 1e-30))
+            assert cos >= 0.95, (n, cos)
+        else:
+            np.testing.assert_allclose(got, want, rtol=0, atol=tol * float(np.abs(want).max()), err_msg=n)
+
+
+def _jax_moe(p, x, cap: float, aux_blocks: int = 1):
+    """JAX's local ``moe_apply`` (jitted without excess precision): out, aux,
+    and the gradients of sum(out^2) + aux with respect to x and each
+    weight. With ``aux_blocks`` > 1, aux is the mean of the local aux of
+    each of that many blocks of the sequence (every row of the batch):
+    what ``a2a``'s pmean over the expert axis of each block's statistics
+    computes."""
+    cfg = dataclasses.replace(MOE_CFG, capacity_factor=cap)
+
+    def f(p, x):
+        out, aux = jmoe.moe_apply(p, x, cfg)
+        if aux_blocks > 1:
+            aux = jnp.mean(jnp.stack([jmoe.moe_apply(p, xb, cfg)[1] for xb in jnp.split(x, aux_blocks, axis=1)]))
+        return jnp.sum(out.astype(jnp.float32) ** 2) + aux, (out, aux)
+
+    args = ({k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x))
+    fn = jax.jit(jax.value_and_grad(f, argnums=(0, 1), has_aux=True)).lower(*args).compile(EXACT)
+    (_, (out, aux)), (gp, gx) = fn(*args)
+    return np.asarray(out, np.float32), float(aux), {"x": np.asarray(gx), **{k: np.asarray(v) for k, v in gp.items()}}
+
+
+def _aux_blocks(impl: str) -> int:
+    return MESH[1] if impl == "a2a" else 1
+
+
+def _moe_grads(reports, step: int) -> dict:
+    out = {}
+    for k in ("router", "e_gate", "e_up", "e_down"):
+        blocks = {r["coords"][1]: r["steps"][step]["grads"][k] for r in reports if r["coords"][0] == 0}
+        out[k] = blocks[0] if k == "router" else np.concatenate([blocks[m] for m in sorted(blocks)], 0)
+    out["x"] = np.concatenate([r["steps"][step]["grads"]["x"] for r in reports if r["coords"][1] == 0], 0)
+    return out
+
+
+@pytest.mark.parametrize("case", ["moe_gather_8", "moe_a2a_8", "moe_decode"])
+def test_moe_bodies_and_gradients_match_jax_local(world, case):
+    p, x = _moe_inputs()
+    xx, cap = (x[:, :1], 1.25) if case == "moe_decode" else (x, 8.0)
+    out, aux, grads = _jax_moe(p, xx, cap, _aux_blocks("a2a" if case == "moe_a2a_8" else "gather"))
+    reports = _reports(world)
+    step = STEP[case]
+    got = np.concatenate([r["steps"][step]["out"] for r in reports if r["coords"][1] == 0], 0)
+    # bf16 collectives: tests/test_moe_ep.py's tolerance
+    np.testing.assert_allclose(got, out, rtol=5e-2, atol=5e-2)
+    for r in reports:
+        np.testing.assert_allclose(r["steps"][step]["aux"], aux, rtol=1e-3)
+    for k, g in _moe_grads(reports, step).items():
+        np.testing.assert_allclose(g, grads[k], rtol=0, atol=5e-2 * float(np.abs(grads[k]).max()), err_msg=k)
+
+
+@pytest.mark.parametrize("impl", ["gather", "a2a"])
+def test_moe_bodies_match_jax_expert_parallel_at_capacity_125(world, impl):
+    want = _jax_ep(world)
+    reports = _reports(world)
+    step = STEP[f"moe_{impl}_125"]
+    got = np.concatenate([r["steps"][step]["out"] for r in reports if r["coords"][1] == 0], 0)
+    np.testing.assert_allclose(got, want[f"{impl}_out"], rtol=5e-2, atol=5e-2)
+    # aux against the local witness, not JAX's expert-parallel aux: JAX's
+    # shard bodies return each data shard's own statistics as a replicated
+    # value, the port sums them over the batch axes (ROADMAP Queue 3)
+    p, x = _moe_inputs()
+    aux = _jax_moe(p, x, 1.25, _aux_blocks(impl))[1]
+    for r in reports:
+        np.testing.assert_allclose(r["steps"][step]["aux"], aux, rtol=1e-3)
+
+
+def test_context_parallel_decode_matches_jax(world):
+    q, k, v, cur = _cp_inputs()
+    local = np.asarray(jC.decode_attention_cp(*(jnp.asarray(a) for a in (q, k, v, cur))))
+    reports = _reports(world)
+    step = STEP["cp_decode"]
+    for r in reports:
+        assert r["steps"][step]["blocks"] == 2
+        np.testing.assert_allclose(r["steps"][step]["out"], local, rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(r["steps"][step]["out"], _jax_ep(world)["cp"], rtol=1e-4, atol=1e-4)
+
+
+def _digest(a) -> str:
+    t = torch.as_tensor(np.ascontiguousarray(a)) if not isinstance(a, torch.Tensor) else a
+    return hashlib.sha256(t.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes()).hexdigest()
+
+
+def test_checkpoint_saved_under_the_mesh_loads_and_resumes_in_one_process(world):
+    reports = _reports(world)
+    ckpt = str(world["dir"] / "ckpt")
+    assert tstore.latest_step(ckpt) == 2
+    cfg = _cfg(CKPT_ARCH, CKPT_OVER)
+    model = tapi.build_model(cfg)
+    params = model.init_masters(0, "cpu")
+    opt = tadamw.AdamWConfig(peak_lr=1e-3, warmup_steps=1, total_steps=2, state_bits=cfg.opt_state_bits)
+    restored = tstore.restore({"params": params, "opt": tadamw.init(params, opt)}, 2, ckpt, "cpu")
+    flat = lm_mesh_job._flat(restored["params"])
+    defs = lm_mesh_job._flat(model.defs)
+    for r in reports:
+        mesh = ctx.dry_mesh(("data", "model"), MESH, tuple(r["coords"]))
+        for n, dig in r["steps"][STEP["train_ckpt"]]["params_digest"].items():
+            block = tPM.sharding_of(defs[n], mesh).block(flat[n]).contiguous()
+            assert _digest(block) == dig, (n, r["coords"])
+    # one process resumes at step 2 and takes step 2 as the mesh, resumed
+    # from the same checkpoint, did (the stream starts over on a resume, as
+    # the JAX launcher's does)
+    history, _, _ = tlaunch.train(cfg, steps=3, batch=4, seq=16, ckpt_dir=ckpt, device="cpu", log=lambda *_: None)
+    resumed = [h["loss"] for h in reports[0]["steps"][STEP["train_resumed"]]["history"]]
+    assert len(history) == len(resumed) == 1
+    assert abs(history[0]["loss"] - resumed[0]) <= 1e-3 * abs(resumed[0])
+
+
+def _emulated(monkeypatch, n: int, fn, xs: list, gs: list):
+    """Each rank r of an n-rank ``model`` axis in this process: the
+    forward ``fn(mesh, x_r)`` and the gradient of ``<y_r, g_r>`` with
+    respect to x_r, the transport replaced by the ranks' tensors (the
+    inputs in the forward, the output gradients in the backward)."""
+    feed: dict = {}
+
+    def parts(mesh, axis, t):
+        return [f.to(t.dtype) for f in feed["now"]]
+
+    def exchange(mesh, axis, t):
+        me = ctx.axis_index(mesh, axis)
+        return torch.cat([torch.chunk(f, n, dim=0)[me] for f in feed["now"]], dim=0)
+
+    monkeypatch.setattr(ctx, "_gather_parts", parts)
+    monkeypatch.setattr(ctx, "_exchange", exchange)
+    ys, grads = [], []
+    for r in range(n):
+        mesh = ctx.Mesh(("model",), (n,), (r,), torch.device("cpu"), "gloo")
+        feed["now"] = xs
+        x = xs[r].clone().requires_grad_()
+        y = fn(mesh, x)
+        feed["now"] = gs
+        (g,) = torch.autograd.grad(y, x, gs[r])
+        ys.append(y.detach())
+        grads.append(g)
+    return ys, grads
+
+
+@pytest.mark.parametrize("name", ["psum", "all_gather_tiled", "psum_scatter", "all_to_all"])
+def test_each_collective_function_is_the_adjoint_of_its_forward(monkeypatch, name):
+    """A one-process emulation of 4 ranks: each collective computes what
+    its JAX namesake does, and its backward is its transpose,
+    sum_r <C(x)_r, g_r> = sum_r <x_r, C^T(g)_r>."""
+    n = 4
+    gen = torch.Generator().manual_seed(3)
+    xs = [torch.randn(8, 6, dtype=torch.float64, generator=gen) for _ in range(n)]
+    fns = {
+        "psum": (lambda m, t: ctx.psum(m, "model", t), lambda r: sum(xs)),
+        "all_gather_tiled": (lambda m, t: ctx.all_gather_tiled(m, "model", t, 1), lambda r: torch.cat(xs, 1)),
+        "psum_scatter": (lambda m, t: ctx.psum_scatter(m, "model", t, 0), lambda r: sum(xs)[2 * r : 2 * r + 2]),
+        "all_to_all": (lambda m, t: ctx.all_to_all(m, "model", t),
+                       lambda r: torch.cat([x[2 * r : 2 * r + 2] for x in xs], 0)),
+    }
+    fn, want = fns[name]
+    shape = want(0).shape
+    gs = [torch.randn(shape, dtype=torch.float64, generator=gen) for _ in range(n)]
+    ys, grads = _emulated(monkeypatch, n, fn, xs, gs)
+    for r in range(n):
+        torch.testing.assert_close(ys[r], want(r))
+    lhs = sum(float((y * g).sum()) for y, g in zip(ys, gs))
+    rhs = sum(float((x * g).sum()) for x, g in zip(xs, grads))
+    assert abs(lhs - rhs) <= 1e-9 * max(abs(lhs), 1.0)
+
+
+def test_collectives_are_the_identity_on_one_rank():
+    mesh = tmesh.make_local_mesh(1, 1, device="cpu")
+    x = torch.randn(4, 6)
+    for y in (ctx.psum(mesh, "model", x), ctx.all_gather_tiled(mesh, "model", x, 1),
+              ctx.psum_scatter(mesh, "model", x, 0), ctx.all_to_all(mesh, "model", x),
+              ctx.pmean(mesh, ("data", "model"), x), ctx.pmax(mesh, "model", x)):
+        assert torch.equal(y, x)
+
+
+def test_dry_collectives_tally_output_bytes():
+    mesh = ctx.dry_mesh(("data", "model"), (4, 2))
+    ctx.DRY_BYTES.clear()
+    x = torch.empty(8, 6, dtype=torch.bfloat16, device="meta")
+    assert ctx.all_gather_tiled(mesh, "model", x, 0).shape == (16, 6)
+    assert ctx.psum_scatter(mesh, ("data", "model"), x, 0).shape == (1, 6)
+    assert ctx.psum(mesh, "data", x).shape == (8, 6)
+    assert ctx.all_to_all(mesh, "model", x).shape == (8, 6)
+    assert ctx.DRY_BYTES == {"all-gather": 16 * 6 * 2, "reduce-scatter": 6 * 2, "all-reduce": 8 * 6 * 2,
+                             "all-to-all": 8 * 6 * 2}
