@@ -431,6 +431,29 @@ LMM_FAULTS = (("fault_expert_share", "gather"), ("fault_expert_share", "a2a"), (
 # largest (no other-order gap exists for them); a block quantized along
 # another axis than the whole leaf's would be off by its own size
 LMM_MOMENT_FRAC = 2 * TRAIN_GRAD_FRAC
+# granite-8b FULL under the mesh, the dense family tensor-parallel. Served
+# at full width and depth (36 layers, d 4,096, 32/8 heads of 128, d_ff
+# 14,336, vocabulary 49,152, tied) on make_local_mesh(1, 4): each rank
+# projects its 8 query and 2 KV heads and its 3,584 FFN columns, kernel F
+# runs on its heads, wo and w_down are row-parallel; 2 prompts of 512, 4
+# greedy decode steps fed with the reference's tokens (max_len 516, a
+# multiple of 4: context-parallel decode over every head), held pass by
+# pass against the same seeded model in this process with logit_gate's
+# tolerance. 4 steps, not 8, for time: a decode step gathers the tied
+# embedding (400 MB) through the host and takes about 2 s, and the whole
+# script took 1,072.9 s of the 1,200 allowed with 8. Trained at full width cut to 8 of its 36 layers on
+# make_local_mesh(2, 2) with float32 masters and 32-bit moments on 4 x 512
+# tokens: held whole, its state would be about 31 GB a rank, four of which
+# one card cannot hold; under the spec it is about 7.8 GB a rank. The
+# step-0 check takes the first 2 rows of step 0's batch (families_train's
+# rule), then one timed step.
+LMM_DENSE_ARCH, LMM_DENSE_SERVE_MESH, LMM_DENSE_TRAIN_MESH = "granite-8b", (1, 4), (2, 2)
+LMM_DENSE_BATCH, LMM_DENSE_PROMPT, LMM_DENSE_STEPS = 2, 512, 4
+LMM_DENSE_TRAIN_LAYERS, LMM_DENSE_TRAIN_BATCH, LMM_DENSE_TRAIN_SEQ = 8, 4, 512
+# a rank's bytes on the card once its weights (or its masters, and its
+# masters and moments after the first step) are drawn, against its blocks'
+# bytes under the JAX spec: the allocator rounds each tensor up to 512 bytes
+LMM_HELD_RTOL = 0.01
 
 
 _STARTED = time.perf_counter()
@@ -2130,11 +2153,13 @@ def flash_row(dev, cfg, wide_cfg, sink_cfg, max_len: int, flush) -> dict:
     slice's shapes, in the model's layouts: q, k, v are transposed views of
     (B, S, H, dh) activations or of the (B, S_max, Hkv, dh) cache. The
     row's own numbers are the datastore pass's shape; ``cases`` holds all
-    eight: five at ``cfg``'s heads, two at ``wide_cfg``'s (head_dim 192,
-    a GQA group of 12: the widest ring and a packed decode tile) and one at
+    nine: five at ``cfg``'s heads, two at ``wide_cfg``'s (head_dim 192,
+    a GQA group of 12: the widest ring and a packed decode tile), one at
     ``sink_cfg``'s sliding-window prefill (hymba: its window and its meta
     tokens as attention sinks, over the 2,048 positions of the families
-    phase's prompt).
+    phase's prompt) and one at a tensor-parallel rank's share of ``cfg``'s
+    heads in the lm_mesh phase's granite prefill (2 prompts, 8/2 heads of
+    128 a rank of 4).
     ``library_ms`` is one ``scaled_dot_product_attention`` call
     (``enable_gqa``), timed here only; ``library_ratio`` is ms over it."""
     import torch
@@ -2144,6 +2169,7 @@ def flash_row(dev, cfg, wide_cfg, sink_cfg, max_len: int, flush) -> dict:
 
     heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
     wide = (wide_cfg.n_heads, wide_cfg.n_kv_heads, wide_cfg.head_dim)
+    tp = LMM_DENSE_SERVE_MESH[1]  # the lm_mesh phase's tensor-parallel ranks
     s_sink = FAMILY_PROMPTS[SINK_ARCH] + sink_cfg.meta_tokens
     ragged = torch.tensor([max_len - 15, max_len - 7, max_len - 3, max_len], dtype=torch.int32, device=dev)
     cases = [
@@ -2156,6 +2182,8 @@ def flash_row(dev, cfg, wide_cfg, sink_cfg, max_len: int, flush) -> dict:
         dict(case="dh192_decode", b=1, sq=1, skv=256, causal=False, q_offset=255, kv_len=256, heads=wide),
         dict(case="sink", b=1, sq=s_sink, skv=s_sink, causal=True, window=sink_cfg.window,
              sink=sink_cfg.meta_tokens, heads=(sink_cfg.n_heads, sink_cfg.n_kv_heads, sink_cfg.head_dim)),
+        dict(case="tensor_parallel_prefill", b=LMM_DENSE_BATCH, sq=LMM_DENSE_PROMPT, skv=LMM_DENSE_PROMPT, causal=True,
+             heads=(max(cfg.n_heads // tp, 1), max(cfg.n_kv_heads // tp, 1), cfg.head_dim)),
     ]
     g = torch.Generator(dev).manual_seed(SEED)
     out = []
@@ -3541,10 +3569,11 @@ def mesh_fault(kind: str):
         setattr(module, name, saved)
 
 
-def lm_mesh_rank(job, faults=(), then=None) -> list:
+def lm_mesh_rank(job, faults=(), then=()) -> list:
     """A rank of the lm_mesh phase: ``launch.lm_mesh_job.run(job)``, then
-    each ``(kind, job)`` of ``faults`` with that fault planted, then, the
-    serving weights freed, ``then`` -> the reports, in that order."""
+    each ``(kind, job)`` of ``faults`` with that fault planted, then each
+    job of ``then``, the serving weights freed and the peak reset before
+    each -> the reports, in that order."""
     import torch
 
     from repro_torch.launch import lm_mesh_job
@@ -3553,13 +3582,86 @@ def lm_mesh_rank(job, faults=(), then=None) -> list:
     for kind, fjob in faults:
         with mesh_fault(kind):
             reports.append(lm_mesh_job.run(fjob))
-    if then is not None:
+    for tjob in then:
         lm_mesh_job._SERVED.clear()
         if torch.cuda.is_available():
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-        reports.append(lm_mesh_job.run(then))
+        reports.append(lm_mesh_job.run(tjob))
     return reports
+
+
+def held_checks(tag: str, held, spec) -> list:
+    """Each rank's bytes on the card (``held``, None off the card) within
+    ``LMM_HELD_RTOL`` of its blocks' bytes under the JAX spec."""
+    return [(abs(h - s_) <= LMM_HELD_RTOL * s_, f"{tag}: rank {r} holds {h} bytes, its spec blocks {s_}")
+            for r, (h, s_) in enumerate(zip(held, spec)) if h is not None]
+
+
+def replicas_differ(model, mesh_shape, coords, digests) -> list:
+    """The leaves of which two ranks holding the same block under the JAX
+    spec (its replicas) hold other bits (``digests``: each rank's
+    ``params_digest``)."""
+    from repro_torch.launch import lm_mesh_job
+    from repro_torch.models import params as PM
+    from repro_torch.sharding import ctx
+
+    bad = []
+    for n, d in lm_mesh_job._flat(model.defs).items():
+        blocks: dict = {}
+        for c, dg in zip(coords, digests):
+            sh = PM.sharding_of(d, ctx.dry_mesh(("data", "model"), mesh_shape, tuple(c)))
+            blocks.setdefault(tuple(sh._cuts(d.shape, sh.spec)), set()).add(dg[n])
+        if any(len(v) > 1 for v in blocks.values()):
+            bad.append(n)
+    return bad
+
+
+def step0_checks(tag: str, grad_reps, loss_t, loss_o) -> tuple[list, dict]:
+    """The ranks' step-0 loss and reduced gradients against this process's
+    by the families_train rule -> (checks, readings)."""
+    checks = []
+    loss_tol = FT_LOSS_RTOL * abs(float(loss_t)) + 2 * abs(float(loss_t - loss_o))
+    mesh_loss = grad_reps[0]["loss"]
+    checks.append((len({g["loss"] for g in grad_reps}) == 1, f"{tag}: the ranks' step-0 losses differ"))
+    checks.append((abs(mesh_loss - float(loss_t)) <= loss_tol,
+                   f"{tag}: step-0 loss {mesh_loss} differs from one process's {float(loss_t)} by more than"
+                   f" {loss_tol}"))
+    worst_frac, worst_excess, worst_cos = 0.0, 0.0, 1.0
+    for rank, g in enumerate(grad_reps):
+        for name, (err, scale, cos, (gap, cos_gap)) in g["check"].items():
+            frac_tol = TRAIN_GRAD_FRAC * scale + 2 * gap
+            cos_floor = TRAIN_GRAD_COS - 2 * (1.0 - cos_gap)
+            worst_frac = max(worst_frac, err / max(scale, 1e-30))
+            worst_excess, worst_cos = max(worst_excess, err / max(frac_tol, 1e-30)), min(worst_cos, cos)
+            checks.append((err <= frac_tol and cos >= cos_floor,
+                           f"{tag}: rank {rank}'s step-0 gradient of {name} differs from"
+                           f" one process's ({err} > {frac_tol} or cosine {cos} < {cos_floor})"))
+    return checks, dict(loss=mesh_loss, one_process_loss=float(loss_t), other_order_loss=float(loss_o),
+                        loss_tolerance=loss_tol, grad_max_frac_err=worst_frac, grad_err_over_tolerance=worst_excess,
+                        grad_min_cosine=worst_cos, grad_seconds_per_rank=[g["seconds"] for g in grad_reps],
+                        gloo_sent_bytes_per_rank=[g["traffic"]["sent_bytes"] for g in grad_reps])
+
+
+def one_process_grads(tcfg, dev, rows_np, path: str):
+    """The step-0 loss and gradients of ``tcfg``'s seeded masters on
+    ``rows_np`` in this process (the training path and ``other_order``),
+    saved at ``path`` for the ranks' ``grads`` step -> (the masters, the
+    training path's loss, the other order's)."""
+    import torch
+
+    from repro_torch.models import api as mapi
+
+    masters = mapi.build_model(tcfg).init_masters(0, dev)
+    rows = {"tokens": torch.as_tensor(rows_np, device=dev)}
+    loss_t, grads_t = family_loss_variant(tcfg, masters, rows, "train")
+    names = list(_flat(masters))
+    loss_o, grads = family_loss_variant(tcfg, masters, rows, "other_order")
+    gaps = {n: (g_, c_) for n, (g_, _, c_) in zip(names, (grad_stats(a, b) for a, b in zip(grads_t, grads)))}
+    del grads
+    torch.save({"grads": {n: g.detach().cpu() for n, g in zip(names, grads_t)}, "gaps": gaps,
+                "loss": float(loss_t)}, path)
+    return masters, loss_t, loss_o
 
 
 def served_with_routes(model, params, prompt, max_len: int, steps: int, feed=None):
@@ -3663,29 +3765,33 @@ def served_checks(tag: str, ref_logits, ref_routes, got_logits, got_routes, tol:
 
 def lm_mesh_phase(dev, smoke: bool = False) -> dict:
     """The LM families under a mesh: 4 gloo ranks on this one card, started
-    by ``launch.mesh.spawn`` (every rank's device ``cuda:0``). (a)
-    phi3.5-moe-42b-a6.6b served by ``make_local_mesh(1, 4)`` with both
-    combines (``lm_mesh_rank``: ``launch.lm_mesh_job.run``), held against
-    the same 8-layer model in this process (drawn, run and freed before the
-    spawn) pass by pass and row by row, moe's routes recorded on both
-    sides (``served_checks``): where a row's read token took the same
-    experts, its logits within ``logit_gate``'s tolerance and its greedy
-    token the reference's wherever the reference's top-2 gap exceeds it;
-    where it did not, every differing decision a near tie of the
-    reference's; decode fed with the reference's tokens; every rank's
-    tokens equal; F launched once a layer in each rank's prefill (the
-    decode attention is context-parallel torch); the same world then runs
-    ``LMM_FAULTS``, each of which the check must catch. (b) olmoe-1b-7b
-    trained on ``make_local_mesh(2, 2)``: the step-0 loss and every rank's
-    reduced gradients against this process's on the same 2 rows (the
-    ``families_train`` rule: 2^-5 of a leaf's largest element plus twice
-    the training path's gap to another float32 order), then 2 steps
-    through ``launch.train.train``: the losses against this process's,
-    the replicated leaves bit for bit across the ranks, the expert blocks
-    across the data axis, and each expert block's moments after one step
-    against the matching block of this process's. ``smoke`` takes the
-    smoke configs at 16- and 32-token rows. Returns F's launches summed
-    over the ranks."""
+    by ``launch.mesh.spawn`` (every rank's device ``cuda:0``), each holding
+    its blocks of every leaf under the JAX spec. (a) phi3.5-moe-42b-a6.6b
+    served by ``make_local_mesh(1, 4)`` with both combines
+    (``lm_mesh_rank``: ``launch.lm_mesh_job.run``), held against the same
+    8-layer model in this process (drawn, run and freed before the spawn)
+    pass by pass and row by row, moe's routes recorded on both sides
+    (``served_checks``): where a row's read token took the same experts,
+    its logits within ``logit_gate``'s tolerance and its greedy token the
+    reference's wherever the reference's top-2 gap exceeds it; where it
+    did not, every differing decision a near tie of the reference's; decode
+    fed with the reference's tokens; every rank's tokens equal; F launched
+    once a layer in each rank's prefill (the decode attention is
+    context-parallel torch); the same world then runs ``LMM_FAULTS``, each
+    of which the check must catch. (c) granite-8b FULL served by
+    ``make_local_mesh(1, 4)``, tensor-parallel, pass by pass within
+    ``logit_gate``'s tolerance of this process's, the greedy token the
+    reference's past it. (b) olmoe-1b-7b and (d) granite-8b cut to 8
+    layers trained on ``make_local_mesh(2, 2)``: the step-0 loss and every
+    rank's reduced gradients against this process's on the same 2 rows
+    (the ``families_train`` rule: 2^-5 of a leaf's largest element plus
+    twice the training path's gap to another float32 order), then steps
+    through ``launch.train.train``: every block bit for bit across its
+    replicas, olmoe's losses against this process's and each expert
+    block's moments after one step against the matching block of this
+    process's. Every case's bytes a rank within ``LMM_HELD_RTOL`` of its
+    spec blocks'. ``smoke`` takes the smoke configs at 16- and 32-token
+    rows. Returns F's launches summed over the ranks."""
     import dataclasses
     import tempfile
 
@@ -3747,6 +3853,30 @@ def lm_mesh_phase(dev, smoke: bool = False) -> dict:
     if on_card:
         torch.cuda.empty_cache()
 
+    # (c) granite-8b whole: the one-process reference and logit_gate's
+    # tolerance (F against the plain attention, floored by attention_ref)
+    dcfg = configs.get(LMM_DENSE_ARCH, smoke=smoke)
+    dplen = 16 if smoke else LMM_DENSE_PROMPT
+    d_max = dplen + LMM_DENSE_STEPS
+    need(d_max % LMM_DENSE_SERVE_MESH[1] == 0, f"lm_mesh: granite's max_len {d_max} does not split over the seq axis")
+    dprompts = TokenStream(dcfg.vocab, seed=8).batch(LMM_DENSE_BATCH, dplen)
+    dprompt = {"tokens": torch.as_tensor(dprompts, device=dev)}
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dmodel = mapi.build_model(dcfg)
+    dparams = dmodel.init(SEED, dev)
+    d_logits, _, d_toks = served_with_routes(dmodel, dparams, dprompt, d_max, LMM_DENSE_STEPS)
+    gate_checks, d_gate = logit_gate(dcfg.name, dcfg, dmodel, dparams, dprompt, d_max,
+                                     [torch.as_tensor(x, device=dev) for x in d_logits[:2]], gate_faults=False)
+    checks += gate_checks
+    d_tol = d_gate["logit_tolerance"]
+    dense_ref = dict(seconds=time.perf_counter() - t0, peak_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card
+                     else None, logits_max_abs=[float(np.abs(x).max()) for x in d_logits], gate=d_gate)
+    del dparams, dmodel
+    if on_card:
+        torch.cuda.empty_cache()
+
     # (b) training: the one-process step-0 gradients, their gap to another
     # float32 order, and the moments after one step of the same run
     tbase = configs.get(LMM_TRAIN_ARCH, smoke=smoke)
@@ -3757,24 +3887,21 @@ def lm_mesh_phase(dev, smoke: bool = False) -> dict:
     tseq = 32 if smoke else LMM_TRAIN_SEQ
     batch0 = next(TokenStream(tcfg.vocab, seed=0).batches(1, LMM_TRAIN_BATCH, tseq))["tokens"]
     rows_np = batch0[:LMM_TRAIN_ROWS]
+    # (d) granite-8b cut to LMM_DENSE_TRAIN_LAYERS, float32 masters, 32-bit moments
+    g_over = {} if smoke else {"n_layers": LMM_DENSE_TRAIN_LAYERS}
+    gcfg = dataclasses.replace(configs.get(LMM_DENSE_ARCH, smoke=smoke), **g_over)
+    gseq = 32 if smoke else LMM_DENSE_TRAIN_SEQ
+    grows_np = next(TokenStream(gcfg.vocab, seed=0).batches(1, LMM_DENSE_TRAIN_BATCH, gseq))["tokens"][:LMM_TRAIN_ROWS]
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     shm = "/dev/shm" if os.path.isdir("/dev/shm") else os.path.join(ROOT, "build")
     with tempfile.TemporaryDirectory(dir=shm) as tmp, \
             tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as store_tmp:
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        tmodel = mapi.build_model(tcfg)
-        masters = tmodel.init_masters(0, dev)
-        rows = {"tokens": torch.as_tensor(rows_np, device=dev)}
-        loss_t, grads_t = family_loss_variant(tcfg, masters, rows, "train")
-        names = list(_flat(masters))
-        loss_o, grads = family_loss_variant(tcfg, masters, rows, "other_order")
-        gaps = {n: (g_, c_) for n, (g_, _, c_) in zip(names, (grad_stats(a, b) for a, b in zip(grads_t, grads)))}
-        del grads
         grads_path = os.path.join(tmp, "grads.pt")
-        torch.save({"grads": {n: g.detach().cpu() for n, g in zip(names, grads_t)}, "gaps": gaps,
-                    "loss": float(loss_t)}, grads_path)
-        del grads_t
-        expert = [n for n in names if n.split("/")[-1] in ("e_gate", "e_up", "e_down")]
+        masters, loss_t, loss_o = one_process_grads(tcfg, dev, rows_np, grads_path)
+        expert = [n for n in _flat(masters) if n.split("/")[-1] in ("e_gate", "e_up", "e_down")]
         moments: dict = {}
 
         def grab(i, p_, st):
@@ -3795,13 +3922,23 @@ def lm_mesh_phase(dev, smoke: bool = False) -> dict:
         torch.save(moments, moments_path)
         train_ref_s = time.perf_counter() - t0
         train_ref_peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
-        del masters, moments, tmodel
+        del masters, moments
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        g_path = os.path.join(tmp, "granite_grads.pt")
+        gmasters, gloss_t, gloss_o = one_process_grads(gcfg, dev, grows_np, g_path)
+        dense_train_ref = dict(seconds=time.perf_counter() - t0,
+                               peak_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card else None)
+        del gmasters
         if on_card:
             torch.cuda.empty_cache()
         np.save(os.path.join(tmp, "prompts.npy"), prompts)
+        np.save(os.path.join(tmp, "dense_prompts.npy"), dprompts)
         parent_reserved_gb = torch.cuda.memory_reserved() / 1e9 if on_card else None
 
-        # one world: serving, the planted faults, then training
+        # one world: serving, the planted faults, granite's serving, then training
         def serve_step(impl, decode):
             return ("serve", dict(arch=LMM_SERVE_ARCH, smoke=smoke,
                                   overrides=dict(s_over, moe_impl=impl, capacity_factor=combines[impl]), seed=SEED,
@@ -3818,6 +3955,14 @@ def lm_mesh_phase(dev, smoke: bool = False) -> dict:
             ("train", dict(arch=LMM_TRAIN_ARCH, smoke=smoke, overrides=t_over, steps=LMM_TRAIN_STEPS,
                            batch=LMM_TRAIN_BATCH, seq=tseq, compare_moments=moments_path)),
         )
+        dense_serve = lm_mesh_job.LMMeshJob(mesh=LMM_DENSE_SERVE_MESH, device=dev.type, steps=(
+            ("serve", dict(arch=LMM_DENSE_ARCH, smoke=smoke, seed=SEED, prompts=os.path.join(tmp, "dense_prompts.npy"),
+                           max_len=d_max, decode=LMM_DENSE_STEPS, feed=d_toks)),))
+        dense_train = lm_mesh_job.LMMeshJob(mesh=LMM_DENSE_TRAIN_MESH, device=dev.type, steps=(
+            ("grads", dict(arch=LMM_DENSE_ARCH, smoke=smoke, overrides=g_over, rows=grows_np, compare=g_path)),
+            ("train", dict(arch=LMM_DENSE_ARCH, smoke=smoke, overrides=g_over, steps=1,
+                           batch=LMM_DENSE_TRAIN_BATCH, seq=gseq)),
+        ))
         import chip_smoke  # the ranks' function, importable by name
 
         t0 = time.perf_counter()
@@ -3825,9 +3970,12 @@ def lm_mesh_phase(dev, smoke: bool = False) -> dict:
             chip_smoke.lm_mesh_rank, 4, store_dir=os.path.join(store_tmp, "world"), timeout_s=900,
             args=(serve_job(*(serve_step(impl, steps) for impl in combines)),
                   tuple((kind, serve_job(serve_step(impl, 1))) for kind, impl in LMM_FAULTS),
-                  lm_mesh_job.LMMeshJob(mesh=LMM_TRAIN_MESH, steps=train_steps, device=dev.type)))
+                  (dense_serve, lm_mesh_job.LMMeshJob(mesh=LMM_TRAIN_MESH, steps=train_steps, device=dev.type),
+                   dense_train)))
         world_s = time.perf_counter() - t0
-        served, train_reports = [r[:-1] for r in world], [r[-1] for r in world]
+        n_f = len(LMM_FAULTS)
+        served = [r[: 1 + n_f] for r in world]
+        dense_reports, train_reports, dtrain_reports = ([r[1 + n_f + i] for r in world] for i in range(3))
         serve_reports = [r[0] for r in served]
 
     # (a) the served logits and routes, route by route, and the planted faults
@@ -3835,10 +3983,30 @@ def lm_mesh_phase(dev, smoke: bool = False) -> dict:
     serve_out = {}
     n_attn = flash_per_pass(cfg0)[0]
 
-    def global_passes(outs, n):
-        need(all(o["rows"] == list(range(LMM_SERVE_BATCH)) for o in outs), "lm_mesh: a rank lacks a row")
+    def global_passes(outs, n, batch=LMM_SERVE_BATCH):
+        need(all(o["rows"] == list(range(batch)) for o in outs), "lm_mesh: a rank lacks a row")
         return ([outs[0]["passes"][j]["logits"] for j in range(n)],
-                [moe_routes([o["passes"][j]["routes"] for o in outs]) for j in range(n)])
+                [moe_routes([o["passes"][j]["routes"] for o in outs]) for j in range(n)] if "routes" in
+                outs[0]["passes"][0] else None)
+
+    def pass_readings(outs, n_passes) -> dict:
+        decode_ms = [max(o["passes"][j]["seconds"] for o in outs) * 1e3 for j in range(1, n_passes)]
+        return dict(prefill_ms=max(o["passes"][0]["seconds"] for o in outs) * 1e3, decode_ms_per_step=decode_ms,
+                    median_decode_ms=float(np.median(decode_ms)),
+                    traffic_per_rank=[_rank_sum(o["passes"], lambda p: p["traffic"]) for o in outs],
+                    held_bytes_per_rank=[o["held_bytes"] for o in outs],
+                    spec_bytes_per_rank=[o["spec_bytes"] for o in outs])
+
+    def launch_checks(tag, outs, per_pass):
+        f_per_rank = [sum(p["launches"].get("flash_attention", 0) for p in o["passes"]) for o in outs]
+        if on_card:
+            checks.append((f_per_rank == [per_pass] * 4,
+                           f"{tag}: F launched {f_per_rank} times per rank, not {per_pass} (one a layer in"
+                           f" prefill; decode attention is context-parallel torch)"))
+            other = [set(p["launches"]) - {"flash_attention"} for o in outs for p in o["passes"]]
+            checks.append((not any(other), f"{tag}: other kernels launched {other}"))
+        checks.extend(held_checks(tag, [o["held_bytes"] for o in outs], [o["spec_bytes"] for o in outs]))
+        return f_per_rank
 
     for si, impl in enumerate(combines):
         r_ref = ref[impl]
@@ -3851,23 +4019,14 @@ def lm_mesh_phase(dev, smoke: bool = False) -> dict:
         argmaxes = [[np.argmax(p["logits"], -1) for p in o["passes"]] for o in outs]
         checks.append((all(all(np.array_equal(a, b) for a, b in zip(am, argmaxes[0])) for am in argmaxes),
                        f"lm_mesh {impl}: the ranks' greedy tokens differ"))
-        f_per_rank = [sum(p["launches"].get("flash_attention", 0) for p in o["passes"]) for o in outs]
-        if on_card:
-            checks.append((f_per_rank == [n_attn] * 4,
-                           f"lm_mesh {impl}: F launched {f_per_rank} times per rank, not {n_attn} (one a layer in"
-                           f" prefill; decode attention is context-parallel torch)"))
-            other = [set(p["launches"]) - {"flash_attention"} for o in outs for p in o["passes"]]
-            checks.append((not any(other), f"lm_mesh {impl}: other kernels launched {other}"))
+        f_per_rank = launch_checks(f"lm_mesh {impl}", outs, n_attn)
         for o in outs:
             for p in o["passes"]:
                 launches = _add(launches, p["launches"])
-        decode_ms = [max(o["passes"][j]["seconds"] for o in outs) * 1e3 for j in range(1, len(r_ref["logits"]))]
         serve_out[impl] = dict(
-            capacity_factor=combines[impl], prefill_ms=max(o["passes"][0]["seconds"] for o in outs) * 1e3,
-            decode_ms_per_step=decode_ms, median_decode_ms=float(np.median(decode_ms)),
+            capacity_factor=combines[impl], **pass_readings(outs, len(r_ref["logits"])),
             logit_tolerance=r_ref["tol"], **reading,
             flash_attention_launches_per_rank=f_per_rank, seq_blocks=outs[0]["seq_blocks"],
-            traffic_per_rank=[_rank_sum(o["passes"], lambda p: p["traffic"]) for o in outs],
             reference=dict(logits_max_abs=r_ref["logits_max_abs"], plain_vs_attention_ref_alike=r_ref["floor"],
                            f_vs_plain=r_ref["f_vs_plain"]))
     faults_out = {}
@@ -3881,40 +4040,62 @@ def lm_mesh_phase(dev, smoke: bool = False) -> dict:
         faults_out[f"{kind}/{impl}"] = dict(caught_by=[msg for ok, msg in held if not ok][:3], **reading)
         checks.append((not missed, f"lm_mesh: the serving check misses {kind} under {impl} ({reading})"))
 
-    # (b) the step-0 gradients, the steps, the replicas and the moments
-    grad_reps = [r["steps"][0] for r in train_reports]
-    train_reps = [r["steps"][1] for r in train_reports]
-    loss_tol = FT_LOSS_RTOL * abs(float(loss_t)) + 2 * abs(float(loss_t - loss_o))
-    mesh_loss = grad_reps[0]["loss"]
-    checks.append((len({g["loss"] for g in grad_reps}) == 1, "lm_mesh train: the ranks' step-0 losses differ"))
-    checks.append((abs(mesh_loss - float(loss_t)) <= loss_tol,
-                   f"lm_mesh train: step-0 loss {mesh_loss} differs from one process's {float(loss_t)} by more than"
-                   f" {loss_tol}"))
-    worst_frac, worst_excess, worst_cos = 0.0, 0.0, 1.0
-    for rank, g in enumerate(grad_reps):
-        for name, (err, scale, cos, (gap, cos_gap)) in g["check"].items():
-            frac_tol = TRAIN_GRAD_FRAC * scale + 2 * gap
-            cos_floor = TRAIN_GRAD_COS - 2 * (1.0 - cos_gap)
-            worst_frac = max(worst_frac, err / max(scale, 1e-30))
-            worst_excess, worst_cos = max(worst_excess, err / max(frac_tol, 1e-30)), min(worst_cos, cos)
-            checks.append((err <= frac_tol and cos >= cos_floor,
-                           f"lm_mesh train: rank {rank}'s step-0 gradient of {name} differs from"
-                           f" one process's ({err} > {frac_tol} or cosine {cos} < {cos_floor})"))
-    losses = [[h["loss"] for h in t["history"]] for t in train_reps]
-    checks.append((all(x == losses[0] for x in losses), f"lm_mesh train: the ranks' losses differ {losses}"))
+    # (c) granite-8b served tensor-parallel, pass by pass
+    outs = [r["steps"][0] for r in dense_reports]
+    got_logits, _ = global_passes(outs, len(d_logits), LMM_DENSE_BATCH)
+    d_errs = []
+    for j, (rl, gl) in enumerate(zip(d_logits, got_logits)):
+        d_errs.append([float(np.abs(gl[r] - rl[r]).max()) for r in range(rl.shape[0])])
+        for r in range(rl.shape[0]):
+            checks.append((d_errs[-1][r] <= d_tol, f"lm_mesh granite: pass {j} row {r}'s logits differ from one"
+                                                   f" process's by {d_errs[-1][r]} > {d_tol}"))
+            top2 = np.sort(rl[r])[-2:]
+            if top2[1] - top2[0] > d_tol:
+                checks.append((int(np.argmax(gl[r])) == int(np.argmax(rl[r])),
+                               f"lm_mesh granite: pass {j} row {r}'s greedy token differs from one process's"))
+    argmaxes = [[np.argmax(p["logits"], -1) for p in o["passes"]] for o in outs]
+    checks.append((all(all(np.array_equal(a, b) for a, b in zip(am, argmaxes[0])) for am in argmaxes),
+                   "lm_mesh granite: the ranks' greedy tokens differ"))
+    f_dense = launch_checks("lm_mesh granite", outs, flash_per_pass(dcfg)[0])
+    for o in outs:
+        for p in o["passes"]:
+            launches = _add(launches, p["launches"])
+    dense_serve_out = dict(arch=dcfg.name, n_layers=dcfg.n_layers, mesh=list(LMM_DENSE_SERVE_MESH),
+                           batch=LMM_DENSE_BATCH, prompt_len=dplen, decode_steps=LMM_DENSE_STEPS, max_len=d_max,
+                           logits_max_abs_err=d_errs, logit_tolerance=d_tol, seq_blocks=outs[0]["seq_blocks"],
+                           flash_attention_launches_per_rank=f_dense, **pass_readings(outs, len(d_logits)),
+                           peak_mem_gb_per_rank=[(r.get("peak_mem_bytes") or 0) / 1e9 for r in dense_reports],
+                           reference=dense_ref)
+
+    def train_checks(tag, reports, model):
+        grad_reps = [r["steps"][0] for r in reports]
+        train_reps = [r["steps"][1] for r in reports]
+        losses = [[h["loss"] for h in t["history"]] for t in train_reps]
+        checks.append((all(x == losses[0] for x in losses), f"{tag}: the ranks' losses differ {losses}"))
+        checks.append((all(np.isfinite(losses[0])), f"{tag}: a loss is not finite {losses[0]}"))
+        differ = replicas_differ(model, tuple(model_mesh[tag]), [r["coords"] for r in reports],
+                                 [t["params_digest"] for t in train_reps])
+        checks.append((not differ, f"{tag}: blocks differ across their replicas: {differ}"))
+        for what in ("masters", "state"):
+            checks.extend(held_checks(f"{tag} {what}", [t["held_bytes"][what] for t in train_reps],
+                                      [t["spec_bytes"][what] for t in train_reps]))
+        step_ms = [list(t["step_ms"]) for t in train_reps]
+        return grad_reps, train_reps, losses, dict(
+            step_ms_per_rank=step_ms, median_step_ms=float(np.median([max(x) for x in zip(*step_ms)])),
+            gloo_sent_bytes_per_rank=[t["traffic"]["sent_bytes"] for t in train_reps],
+            host_copy_bytes_per_rank=[t["traffic"]["host_copy_bytes"] for t in train_reps],
+            held_bytes_per_rank=[t["held_bytes"] for t in train_reps],
+            spec_bytes_per_rank=[t["spec_bytes"] for t in train_reps],
+            peak_mem_gb_per_rank=[(t.get("peak_mem_bytes") or 0) / 1e9 for t in train_reps])
+
+    # (b) olmoe: the step-0 gradients, the steps, the replicas and the moments
+    model_mesh = {"lm_mesh train": LMM_TRAIN_MESH, "lm_mesh granite train": LMM_DENSE_TRAIN_MESH}
+    held, step0 = step0_checks("lm_mesh train", [r["steps"][0] for r in train_reports], loss_t, loss_o)
+    checks += held
+    grad_reps, train_reps, losses, t_read = train_checks("lm_mesh train", train_reports, mapi.build_model(tcfg))
     one_losses = [h["loss"] for h in one_hist]
     checks.append((abs(losses[0][0] - one_losses[0]) <= FT_LOSS_RTOL * abs(one_losses[0]),
                    f"lm_mesh train: step 0's loss {losses[0][0]} against one process's {one_losses[0]}"))
-    coords = [tuple(r["coords"]) for r in train_reports]
-    digests = [t["params_digest"] for t in train_reps]
-    split = [n for n in digests[0] if n.split("/")[-1] in ("e_gate", "e_up", "e_down")]
-    whole_differ = sorted({n for d in digests for n in d if n not in split and d[n] != digests[0][n]})
-    checks.append((not whole_differ, f"lm_mesh train: replicated leaves differ across the ranks: {whole_differ}"))
-    by_model: dict = {}
-    for c, d in zip(coords, digests):
-        by_model.setdefault(c[1], []).append(d)
-    block_differ = sorted({n for ds in by_model.values() for d in ds for n in split if d[n] != ds[0][n]})
-    checks.append((not block_differ, f"lm_mesh train: expert blocks differ across the data axis: {block_differ}"))
     moment_worst = 0.0
     for t in train_reps:
         for name, (err, scale) in t["check"].items():
@@ -3923,7 +4104,12 @@ def lm_mesh_phase(dev, smoke: bool = False) -> dict:
                 checks.append((err <= LMM_MOMENT_FRAC * scale,
                                f"lm_mesh train: {name} of an expert block differs from one process's by {err}"
                                f" > {LMM_MOMENT_FRAC} x {scale}"))
-    step_ms = [[ms for ms in t["step_ms"]] for t in train_reps]
+
+    # (d) granite-8b trained under ZeRO x tensor parallelism
+    held, g_step0 = step0_checks("lm_mesh granite train", [r["steps"][0] for r in dtrain_reports], gloss_t, gloss_o)
+    checks += held
+    _, _, g_losses, g_read = train_checks("lm_mesh granite train", dtrain_reports, mapi.build_model(gcfg))
+
     emit("lm_mesh", ranks=4, backend="gloo", device_per_rank=dev.type, parent_reserved_gb=parent_reserved_gb,
          world_s=world_s,
          serve=dict(arch=cfg0.name, n_layers=cfg0.n_layers, cut=None if smoke else (
@@ -3931,22 +4117,18 @@ def lm_mesh_phase(dev, smoke: bool = False) -> dict:
              mesh=list(LMM_SERVE_MESH), batch=LMM_SERVE_BATCH, prompt_len=plen, decode_steps=steps, max_len=max_len,
              reference_s=ref_s, reference_peak_gb=ref_peak,
              peak_mem_gb_per_rank=[(r.get("peak_mem_bytes") or 0) / 1e9 for r in serve_reports], **serve_out),
+         granite_serve=dense_serve_out,
          train=dict(arch=tcfg.name, n_layers=tcfg.n_layers, cut=None if smoke else (
              f"{LMM_TRAIN_LAYERS} of 16 layers: the gradients cross gloo through the host"),
              mesh=list(LMM_TRAIN_MESH), moe_impl=tcfg.moe_impl, capacity_factor=tcfg.capacity_factor,
              param_dtype=tcfg.param_dtype, state_bits=tcfg.opt_state_bits, batch=[LMM_TRAIN_BATCH, tseq],
-             check_rows=LMM_TRAIN_ROWS, reference_s=train_ref_s,
-             reference_peak_gb=train_ref_peak, step0=dict(
-                 loss=mesh_loss, one_process_loss=float(loss_t), other_order_loss=float(loss_o), loss_tolerance=loss_tol,
-                 grad_max_frac_err=worst_frac, grad_err_over_tolerance=worst_excess, grad_min_cosine=worst_cos,
-                 grad_seconds_per_rank=[g["seconds"] for g in grad_reps],
-                 gloo_sent_bytes_per_rank=[g["traffic"]["sent_bytes"] for g in grad_reps]),
-             losses=losses[0], one_process_losses=one_losses, step_ms_per_rank=step_ms,
-             median_step_ms=float(np.median([max(x) for x in zip(*step_ms)])),
-             moments_max_frac_err=moment_worst,
-             gloo_sent_bytes_per_rank=[t["traffic"]["sent_bytes"] for t in train_reps],
-             host_copy_bytes_per_rank=[t["traffic"]["host_copy_bytes"] for t in train_reps],
-             peak_mem_gb_per_rank=[(t.get("peak_mem_bytes") or 0) / 1e9 for t in train_reps]),
+             check_rows=LMM_TRAIN_ROWS, reference_s=train_ref_s, reference_peak_gb=train_ref_peak, step0=step0,
+             losses=losses[0], one_process_losses=one_losses, moments_max_frac_err=moment_worst, **t_read),
+         granite_train=dict(arch=gcfg.name, n_layers=gcfg.n_layers, cut=None if smoke else (
+             f"{LMM_DENSE_TRAIN_LAYERS} of 36 layers: four ranks' float32 state and gradients share one card"),
+             mesh=list(LMM_DENSE_TRAIN_MESH), param_dtype=gcfg.param_dtype, state_bits=gcfg.opt_state_bits,
+             microbatches=gcfg.microbatches, remat=gcfg.remat, batch=[LMM_DENSE_TRAIN_BATCH, gseq],
+             check_rows=LMM_TRAIN_ROWS, reference=dense_train_ref, step0=g_step0, losses=g_losses[0], **g_read),
          planted_faults=faults_out, launches=launches, seconds=time.perf_counter() - t_phase)
     for ok, msg in checks:
         need(ok, msg)

@@ -746,6 +746,21 @@ def _build_impl(seed, data, cfg, deploy, dev, params, t0, obs) -> Index:
     return Index(deploy, cfg, state, obs)
 
 
+def wrap_grid(index, data, cfg: SLSHConfig, grid_: Grid, plan=None, obs: obs_mod.Obs | None = None) -> Index:
+    """Wrap a prebuilt ``core.distributed.simulate_build`` index (its cell
+    list) over ``data`` into a grid-deployment handle, routed when ``plan``
+    (a ``routing.RoutingPlan`` of that index) is given: the bridge legacy
+    call sites migrate through. ``data`` goes to the index's device as
+    float32."""
+    deploy = Deployment(kind="grid", nu=grid_.nu, p=grid_.p, routed=plan is not None)
+    dev = index[0].inner_keys.device
+    data = data if isinstance(data, torch.Tensor) else np.asarray(data)
+    state = {"index": index, "data": torch.as_tensor(data, dtype=torch.float32, device=dev).contiguous()}
+    if plan is not None:
+        state["plan"] = plan
+    return Index(deploy, cfg, state, obs)
+
+
 def load(
     path: str, *, device_mesh: ctx.Mesh | None = None,
     device: str | torch.device | None = None, obs: obs_mod.Obs | None = None,

@@ -24,13 +24,13 @@ Each record keeps the JAX record's keys where they mean the same thing:
 ``cache_bytes`` (over the global structs, as ``_tree_bytes`` does),
 ``flops`` (``torch.utils.flop_counter.FlopCounterMode`` over one rank's
 trace) and ``collective_bytes`` (one rank). ``memory`` is the port's own:
-per rank, the bytes of the blocks it holds under the holding rule of
-``sharding.ctx`` (batch, expert and seq split; fsdp and tensor whole) —
-its parameters, and for a train cell its gradients and optimizer state,
-for a serving cell its serving weights and cache — and ``spec_bytes``, the
-bytes the full JAX spec would put on one device. A cell whose rank bytes
-exceed the card's 80 GB is ``fail``, with that as its reason: a finding,
-as JAX's failing cells are.
+per rank, the bytes of the blocks it holds under the JAX spec
+(``sharding.ctx``: every axis split) — its parameters, and for a train
+cell its gradients and optimizer state, for a serving cell its serving
+weights and cache — as ``rank_bytes``, and ``spec_bytes``, the bytes the
+spec puts on one device, which they equal. A cell whose rank bytes exceed
+the card's 80 GB is ``fail``, with that as its reason: a finding, as
+JAX's failing cells are.
 
 Usage (on the CPU)::
 
@@ -70,13 +70,11 @@ def _tree_bytes(tree) -> float:
 
 
 def _rank_bytes(tree) -> tuple[float, float]:
-    """(bytes of the blocks a rank holds, bytes one device holds under the
-    full JAX spec) of a tree of structs with shardings."""
-    held = spec = 0.0
-    for s in adamw._leaves(tree):
-        held += _nbytes(s.sharding.block_shape(s.shape), s.dtype)
-        spec += _nbytes(s.sharding.full_block_shape(s.shape), s.dtype)
-    return held, spec
+    """(bytes of the meta blocks the traced program takes, bytes of the
+    blocks the JAX spec puts on one device) of a tree of structs with
+    shardings."""
+    held = sum(float(t.numel() * t.element_size()) for t in adamw._leaves(_blocks(tree)))
+    return held, float(PM.block_bytes(tree))
 
 
 def _blocks(tree, requires_grad: bool = False):
@@ -193,9 +191,8 @@ def run_cell(arch_id: str, cell: str, multi_pod: bool, out_dir: str) -> dict:
         rank = rec["memory"]["rank_bytes"]
         if rank > CARD_BYTES:
             rec["status"] = "fail"
-            rec["error"] = (f"a rank holds {rank / 1e9:.1f} GB under the port's holding rule (batch, expert and"
-                            f" seq split; fsdp and tensor whole), over the card's {CARD_BYTES / 1e9:.0f} GB;"
-                            f" the full spec would put {rec['memory']['spec_bytes'] / 1e9:.1f} GB on a device")
+            rec["error"] = (f"a rank holds {rank / 1e9:.1f} GB under the JAX spec, over the card's"
+                            f" {CARD_BYTES / 1e9:.0f} GB")
         tag = "OK" if rec["status"] == "ok" else "FAIL"
         print(f"[{tag}] {arch_id:24s} {cell:12s} {mesh_name}: flops={rec['flops']:.3e} "
               f"rank={rank / 2**30:.2f}GiB spec={rec['memory']['spec_bytes'] / 2**30:.2f}GiB trace={rec['trace_s']}s")

@@ -32,9 +32,12 @@ the device:
   per-leaf readings come back.
 * ``("train", {arch, smoke, overrides, steps, batch, seq, lr, ckpt_dir,
   ckpt_every, compare_moments})``: ``launch.train.train`` under the mesh;
-  the history, and with ``compare_moments`` (a path of the one-process
-  moments after one step of the same run) each expert block's moments
-  held against the matching block, read after the first step.
+  the history, the bytes held on the card after the masters' draw and
+  after the first step (masters and moments) beside their blocks' bytes
+  under the JAX spec, and with ``compare_moments`` (a path of some
+  one-process moments after one step of the same run) each of those
+  leaves' blocks held against the matching block, read after the first
+  step.
 
 :func:`run` takes the table of steps as an argument, so another rank
 program can add its own steps to :data:`OPS`.
@@ -53,6 +56,7 @@ from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import api
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import params as PM
+from repro_torch.optim import adamw
 from repro_torch.sharding import ctx
 from repro_torch.train import loop as tl
 
@@ -110,7 +114,24 @@ class _Timer:
         return {"seconds": self.seconds, "launches": self.launches, "traffic": self.moved}
 
 
-_SERVED: dict = {}  # the last serving weights drawn on this rank, by what they depend on
+def _allocated(dev: torch.device) -> int | None:
+    """The bytes of live tensors on the card (None on the CPU), cuBLAS's
+    workspaces freed first: they are the library's, not the model's, and
+    an earlier matmul leaves them allocated."""
+    if dev.type != "cuda":
+        return None
+    torch.cuda.synchronize(dev)
+    if hasattr(torch._C, "_cuda_clearCublasWorkspaces"):
+        torch._C._cuda_clearCublasWorkspaces()
+    return torch.cuda.memory_allocated(dev)
+
+
+def _since(base: int | None, dev: torch.device) -> int | None:
+    """The bytes allocated on the card since ``base`` (None on the CPU)."""
+    return None if base is None else _allocated(dev) - base
+
+
+_SERVED: dict = {}  # the last serving weights drawn on this rank and the bytes they hold, by what they depend on
 
 
 def _serving_weights(mesh, model, cfg, seed: int):
@@ -118,10 +139,12 @@ def _serving_weights(mesh, model, cfg, seed: int):
     others wait behind a barrier, so one whole leaf is live at a time:
     phi3.5-moe's stacked ``e_gate`` is 13 GB in float32 at 8 layers), and
     kept for the next serve step of the same weights (the combine and the
-    capacity do not change them)."""
+    capacity do not change them) -> (the weights, the bytes on the card
+    once drawn)."""
     key = (dataclasses.replace(cfg, moe_impl="gather", capacity_factor=1.0), seed, tuple(mesh.shape.items()))
     if key not in _SERVED:
         _SERVED.clear()
+        base = _allocated(mesh.device)
         for r in range(mesh.size):
             if mesh.rank == r:
                 _SERVED[key] = model.init(seed, mesh.device)
@@ -129,6 +152,7 @@ def _serving_weights(mesh, model, cfg, seed: int):
                 if mesh.device.type == "cuda":
                     torch.cuda.empty_cache()
             ctx.barrier(mesh)
+        _SERVED[key] = (_SERVED[key], _since(base, mesh.device))
     return _SERVED[key]
 
 
@@ -140,9 +164,11 @@ def serve(mesh, arch, smoke=False, overrides=None, seed=0, prompts=None, max_len
     prompts = _array(prompts)
     rows = ctx.sharding_for(mesh, ("batch", None), prompts.shape)
     feed = None if feed is None else rows.block(_array(feed))
-    params = _serving_weights(mesh, model, cfg, seed)
+    params, held = _serving_weights(mesh, model, cfg, seed)
     toks = torch.as_tensor(np.array(rows.block(prompts)), device=dev)
-    out = {"rows": [int(x) for x in _row_range(rows, prompts.shape[0])], "passes": []}
+    mod = api._family_module(cfg)
+    out = {"rows": [int(x) for x in _row_range(rows, prompts.shape[0])], "passes": [], "held_bytes": held,
+           "spec_bytes": PM.block_bytes(PM.param_structs(mod.storage_defs(model.defs), mesh))}
 
     def timed(fn):
         moe_mod.ROUTES = [] if routes else None
@@ -226,8 +252,13 @@ def train(mesh, arch, smoke=False, overrides=None, steps=2, batch=4, seq=64, lr=
 
     cfg = _cfg(arch, smoke, overrides)
     model = api.build_model(cfg)
+    base = _allocated(mesh.device)
     with ctx.use_mesh(mesh):
         params = model.init_masters(0, mesh.device)
+        held = {"masters": _since(base, mesh.device)}
+        opt_structs = tl.opt_state_structs(model, mesh, adamw.AdamWConfig(state_bits=cfg.opt_state_bits))
+    spec = {"masters": PM.block_bytes(model.param_structs(mesh))}
+    spec["state"] = spec["masters"] + PM.block_bytes(opt_structs)
     if mesh.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(mesh.device)
     check, marks = {}, []  # (a step's end, the seconds the check after it took)
@@ -235,15 +266,17 @@ def train(mesh, arch, smoke=False, overrides=None, steps=2, batch=4, seq=64, lr=
     def on_step(i, params, state):
         _sync(mesh.device)
         end = time.perf_counter()
-        if i == 0 and compare_moments is not None:
-            check.update(_compare_moments(mesh, model, state, compare_moments))
+        if i == 0:
+            held["state"] = _since(base, mesh.device)  # masters and moments, the gradients freed
+            if compare_moments is not None:
+                check.update(_compare_moments(mesh, model, state, compare_moments))
         marks.append((end, time.perf_counter() - end))
 
     with _Timer(mesh) as t:
         history, params, state = launch_train.train(
             cfg, steps=steps, batch=batch, seq=seq, lr=lr, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, mesh=mesh,
             params=params, log=lambda *_: None, on_step=on_step)
-    out = dict(t.record(), history=history, check=check)
+    out = dict(t.record(), history=history, check=check, held_bytes=held, spec_bytes=spec)
     starts = [t.t0] + [e + c for e, c in marks[:-1]]
     out["step_ms"] = [(e - s0) * 1e3 for (e, _), s0 in zip(marks, starts)]
     out["params_digest"] = {n: _digest(p) for n, p in _flat(params).items()}
@@ -269,8 +302,6 @@ def _flat(tree: dict, prefix: str = "") -> dict:
 def _moment_values(m) -> torch.Tensor:
     """A moment leaf as float32 values: 8-bit ``{"q", "s"}`` dequantized
     along the axis its scales shrink."""
-    from repro_torch.optim import adamw
-
     if not isinstance(m, dict):
         return m.float()
     q, s_ = m["q"], m["s"]
@@ -280,22 +311,23 @@ def _moment_values(m) -> torch.Tensor:
 
 
 def _compare_moments(mesh, model, state, path: str) -> dict:
-    """Each split leaf's moments against the matching block of the
-    one-process moments at ``path`` (``m/<leaf>`` and ``v/<leaf>``, 8-bit
-    ones as ``{"q", "s"}``): per leaf (max |m - m_ref|, max |m_ref|) and the
-    same of sqrt(v), each dequantized."""
+    """The moments of each leaf the one-process file at ``path`` holds
+    (``m/<leaf>`` and ``v/<leaf>``, 8-bit ones as ``{"q", "s"}``) against
+    the matching block of them (``train.loop.opt_state_structs``'s
+    layout): per leaf (max |m - m_ref|, max |m_ref|) and the same of
+    sqrt(v), each dequantized."""
     ref = torch.load(path, mmap=True)
-    defs = _flat(model.defs)
+    structs = tl.opt_state_structs(model, mesh, adamw.AdamWConfig(state_bits=model.cfg.opt_state_bits))
     out = {}
-    for which, tree in (("m", state.m), ("v", state.v)):
+    for which, tree, st in (("m", state.m, structs.m), ("v", state.v, structs.v)):
+        layout = _flat(st)
         for n, leaf in _flat(tree).items():
-            sh = PM.sharding_of(defs[n], mesh)
-            if not sh.axes():
+            if f"{which}/{n}" not in ref:
                 continue
             got = _moment_values(leaf)
-            want_raw = ref[f"{which}/{n}"]
-            want_raw = {k: sh.block(v).to(got.device) for k, v in want_raw.items()} if isinstance(want_raw, dict) \
-                else sh.block(want_raw).to(got.device)
+            want_raw, sh = ref[f"{which}/{n}"], layout[n]
+            want_raw = {k: sh[k].sharding.block(v).to(got.device) for k, v in want_raw.items()} \
+                if isinstance(want_raw, dict) else sh.sharding.block(want_raw).to(got.device)
             want = _moment_values(want_raw)
             if which == "v":
                 got, want = got.sqrt(), want.sqrt()

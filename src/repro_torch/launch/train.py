@@ -51,27 +51,23 @@ def make_batch(cfg, tokens, step: int, dev: torch.device) -> dict:
     return batch
 
 
-def state_shardings(model, mesh, state) -> dict:
-    """The ``NamedSharding`` tree of ``{"params", "opt"}`` on ``mesh``: each
-    moment leaf (``q`` and ``s`` of 8-bit moments too) cut as its parameter,
-    the step whole."""
+def state_shardings(model, mesh, opt_cfg: adamw.AdamWConfig) -> dict:
+    """The ``NamedSharding`` tree of ``{"params", "opt"}`` on ``mesh``: the
+    masters' JAX specs and the moments' layout of
+    ``train.loop.opt_state_structs`` (8-bit block scales whole along a
+    quantization axis their block does not divide), the step whole."""
     psh = PM.tree_map(lambda p: PM.sharding_of(p, mesh), model.defs)
+    structs = tl.opt_state_structs(model, mesh, opt_cfg)
 
-    def like(sh, m):
-        return {k: sh for k in m} if isinstance(m, dict) and set(m) == {"q", "s"} else sh
+    def sh(t):
+        return {k: sh(v) for k, v in t.items()} if isinstance(t, dict) else t.sharding
 
-    def moments(sh_tree, m_tree):
-        if isinstance(sh_tree, dict):
-            return {k: moments(sh_tree[k], m_tree[k]) for k in sh_tree}
-        return like(sh_tree, m_tree)
-
-    whole = ctx.NamedSharding(mesh, ())
-    return {"params": psh, "opt": adamw.AdamWState(moments(psh, state.m), moments(psh, state.v), whole)}
+    return {"params": psh, "opt": adamw.AdamWState(sh(structs.m), sh(structs.v), structs.step.sharding)}
 
 
 def gather_state(mesh, shardings, tree):
     """The whole of every leaf of ``tree`` (this rank's blocks), all-gathered
-    along the dims its sharding splits, on every rank."""
+    along every dim its sharding splits (one or several), on every rank."""
     if isinstance(tree, dict):
         return {k: gather_state(mesh, shardings[k], tree[k]) for k in tree}
     if isinstance(tree, tuple):
@@ -83,7 +79,7 @@ def gather_state(mesh, shardings, tree):
     return t
 
 
-def save_state(mesh, model, params, state, step: int, ckpt_dir: str):
+def save_state(mesh, model, opt_cfg, params, state, step: int, ckpt_dir: str):
     """Save ``{"params", "opt"}`` in the JAX package's format, as one process
     does. Under a mesh every rank gathers the split leaves and rank 0
     writes (blocking); returns the writer thread, or None."""
@@ -91,7 +87,7 @@ def save_state(mesh, model, params, state, step: int, ckpt_dir: str):
     if mesh is None:
         return store.save(tree, step, ckpt_dir, blocking=False)[1]
     with torch.no_grad():
-        whole = gather_state(mesh, state_shardings(model, mesh, state), tree)
+        whole = gather_state(mesh, state_shardings(model, mesh, opt_cfg), tree)
     if mesh.rank == 0:
         store.save(whole, step, ckpt_dir)
     ctx.barrier(mesh)
@@ -103,11 +99,12 @@ def train(cfg, *, steps: int = 50, batch: int = 4, seq: int = 64, lr: float = 1e
     """Train ``cfg`` for ``steps`` steps on the synthetic token stream ->
     ``(history, params, state)``, each step's metrics as floats.
 
-    With ``mesh`` (a ``ctx.Mesh``) the step runs data- and expert-parallel
-    under it: every rank draws the same global batch from the stream and
-    keeps its block of rows, holds its blocks of the masters (drawn whole
-    and cut, so the one-process values) and of the moments, restores its
-    blocks of a checkpoint and saves the whole tree from rank 0.
+    With ``mesh`` (a ``ctx.Mesh``) the step runs data-, expert- and
+    tensor-parallel with ZeRO under it: every rank draws the same global
+    batch from the stream and keeps its block of rows, holds its blocks of
+    the masters (drawn whole and cut, so the one-process values) and of
+    the moments under the JAX spec, restores its blocks of a checkpoint and
+    saves the whole tree from rank 0.
     ``params`` are masters already drawn (this rank's blocks under a
     mesh); None draws them from seed 0. ``on_step(i, params, state)`` is
     called after each step."""
@@ -120,13 +117,13 @@ def train(cfg, *, steps: int = 50, batch: int = 4, seq: int = 64, lr: float = 1e
     with ctx.use_mesh(mesh):
         if params is None:
             params = model.init_masters(0, dev)
-        state = adamw.init(params, opt_cfg)
+        state = tl.init_state(model, params, opt_cfg)
         start = 0
         if ckpt_dir:
             at = store.latest_step(ckpt_dir)
             if at is not None:
                 tree = {"params": params, "opt": state}
-                sh = None if mesh is None else state_shardings(model, mesh, state)
+                sh = None if mesh is None else state_shardings(model, mesh, opt_cfg)
                 restored = store.restore(tree, at, ckpt_dir, dev, shardings=sh)
                 params, state, start = dense.master_tree(restored["params"]), restored["opt"], at
                 log(f"resumed at step {at}")
@@ -145,7 +142,7 @@ def train(cfg, *, steps: int = 50, batch: int = 4, seq: int = 64, lr: float = 1e
                 log(f"step {i:4d} loss={history[-1]['loss']:.4f} "
                     f"gnorm={history[-1]['grad_norm']:.3f} ({clock.monotonic() - t0:.1f}s)")
             if ckpt_dir and (i + 1) % ckpt_every == 0:
-                writers.append(save_state(mesh, model, params, state, i + 1, ckpt_dir))
+                writers.append(save_state(mesh, model, opt_cfg, params, state, i + 1, ckpt_dir))
         for w in writers:
             if w is not None:
                 w.join()

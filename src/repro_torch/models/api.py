@@ -13,9 +13,11 @@ package casts them), ``n_params``, ``init``, ``init_masters``,
 attribute, see ``models.params.struct``). All four families (``dense``,
 ``moe``, ``ssm``, ``hybrid``) serve and train, on one device or under an
 ambient mesh (``sharding.ctx.use_mesh``), where every function takes and
-returns this rank's blocks (the holding rule of ``sharding.ctx``):
-``init`` and ``init_masters`` draw each leaf whole and keep the rank's
-block, so a rank holds the values the one-process model holds there.
+returns this rank's blocks under the JAX spec, ``fsdp`` and ``tensor``
+dims split too (``sharding.ctx``): ``init`` and ``init_masters`` draw each
+leaf whole and keep the rank's block, so a rank holds the values the
+one-process model holds there; ``param_structs``, ``input_specs`` and
+``cache_structs`` carry those blocks' shardings.
 
 The weights come in two forms, each drawn from a ``torch.Generator``
 seeded with ``seed`` on ``device`` (the card unless told otherwise):

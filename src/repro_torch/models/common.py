@@ -4,6 +4,9 @@ Counterpart of ``repro.models.common``: matmuls take bf16 operands, norms,
 rotary embeddings and softmax run in float32, and each function returns
 its input's dtype, as in the JAX package. Under an ambient mesh
 (``sharding.ctx.use_mesh``) every function works on this rank's block:
+:func:`whole` gathers a weight's ``fsdp`` and ``tensor`` blocks before
+use (ZeRO), :func:`row_parallel` sums a tensor-parallel matmul's partial
+products over the ``tensor`` axes, :func:`mlp_apply` takes either;
 :func:`constrain` checks the JAX package's logical names and moves
 nothing; :func:`chunked_softmax_xent` returns the global batch's loss
 (numerator and token count summed over the batch axes);
@@ -183,8 +186,8 @@ def decode_attention_cp(
         m, l, acc = _partial_attn_local(q[:, 0], k_cache, v_cache, off, cl)
         g_m = ctx.pmax(mesh, axis, m)
         corr = torch.exp(m - g_m)
-        g_l = ctx.psum(mesh, axis, l * corr)
-        g_acc = ctx.psum(mesh, axis, acc * corr)
+        both = ctx.psum(mesh, axis, torch.cat([l * corr, acc * corr], dim=-1))  # one collective for both sums
+        g_l, g_acc = both[..., :1], both[..., 1:]
         out = g_acc / g_l.clamp_min(1e-30)
         return out.reshape(b, 1, hq, dh).to(q.dtype)
     if q.device.type == "cuda":
@@ -277,29 +280,74 @@ def _decode_attention_plain(q, k_cache, v_cache, cl):
     return out.reshape(b, 1, hq, dh).to(q.dtype)
 
 
-# ----------------------------------------------------------------- MLPs
-def mlp_apply(params: Mapping[str, torch.Tensor], x: torch.Tensor, kind: str) -> torch.Tensor:
-    """The block's MLP; weights are used in bf16 (cast here if they are not
-    held that way already)."""
-    xc = x.to(COMPUTE_DTYPE)
+# ------------------------------------------------------- weights on a mesh
+def whole(w: torch.Tensor, pdef, names: tuple = ("fsdp", "tensor")) -> torch.Tensor:
+    """``w``, this rank's block of the leaf ``pdef`` declares (a layer's row
+    of a stacked leaf takes the one-layer declaration), in bf16 and
+    gathered whole along its dims whose logical axes are in ``names``
+    (``sharding.ctx.gather_dims``, looked up at each call; its backward is
+    ZeRO's float32 reduce-scatter of the gradient). Without a mesh, ``w``
+    in bf16."""
+    return ctx.gather_dims(w, pdef.axes, pdef.shape, names, COMPUTE_DTYPE)
 
-    def w(name):
-        return params[name].to(COMPUTE_DTYPE)
+
+def col_input(x: torch.Tensor, axes: tuple) -> torch.Tensor:
+    """``x`` as the input of matmuls in bf16 operands (:func:`col_matmul`).
+    With ``axes`` (the weights are a tensor-parallel column block) its bf16
+    values in float32 through ``ctx.mean_grad``: each rank's share of its
+    gradient, from its columns alone, is float32 and meets the others'
+    before it rounds to ``x``'s dtype, as one matmul over every column
+    rounds once."""
+    if not axes:
+        return x.to(COMPUTE_DTYPE)
+    return ctx.mean_grad(ctx.get_mesh(), axes, x.to(COMPUTE_DTYPE).float())
+
+
+def col_matmul(xin: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``xin @ w`` with bf16 operands -> bf16: one bf16 matmul, or float32
+    products of the bf16 values where ``xin`` is :func:`col_input`'s
+    float32 form."""
+    return (xin @ w.to(COMPUTE_DTYPE).to(xin.dtype)).to(COMPUTE_DTYPE)
+
+
+def row_parallel(a: torch.Tensor, w: torch.Tensor, axes: tuple, dtype: torch.dtype) -> torch.Tensor:
+    """``a @ w`` in bf16 operands -> ``dtype``; with ``axes`` (a
+    tensor-parallel row block: ``a``'s last dim and ``w``'s rows are this
+    rank's block) the float32 partial products summed over ``axes`` in
+    rank order (``ctx.psum``) and rounded once, as one matmul rounds its
+    float32 accumulator."""
+    if not axes:
+        return (a.to(COMPUTE_DTYPE) @ w.to(COMPUTE_DTYPE)).to(dtype)
+    part = a.to(COMPUTE_DTYPE).float() @ w.to(COMPUTE_DTYPE).float()
+    return ctx.psum(ctx.get_mesh(), axes, part).to(dtype)
+
+
+# ----------------------------------------------------------------- MLPs
+def mlp_apply(params: Mapping[str, torch.Tensor], x: torch.Tensor, kind: str, row_axes: tuple = ()) -> torch.Tensor:
+    """The block's MLP; weights are used in bf16 (cast here if they are not
+    held that way already). With ``row_axes`` the weights are this rank's
+    tensor-parallel blocks (the FFN columns of ``w_gate``/``w_up``, the
+    matching rows of ``w_down``) and the output is summed over those axes
+    (:func:`row_parallel`)."""
+    xc = col_input(x, row_axes)
+
+    def up(name):
+        return col_matmul(xc, params[name])
 
     if kind == "swiglu":
-        g = xc @ w("w_gate")
-        u = xc @ w("w_up")
+        g = up("w_gate")
+        u = up("w_up")
         h = F.silu(g.float()).to(COMPUTE_DTYPE) * u
     elif kind == "relu2":  # nemotron squared-ReLU
-        h = xc @ w("w_up")
+        h = up("w_up")
         h = torch.square(F.relu(h.float())).to(COMPUTE_DTYPE)
     elif kind == "gelu":  # jax.nn.gelu's default is the tanh form
-        h = xc @ w("w_up")
+        h = up("w_up")
         h = F.gelu(h.float(), approximate="tanh").to(COMPUTE_DTYPE)
     else:
         raise ValueError(kind)
     h = constrain(h, "batch", None, "tensor")
-    return (h @ w("w_down")).to(x.dtype)
+    return row_parallel(h, params["w_down"], row_axes, x.dtype)
 
 
 # --------------------------------------------------------- embeddings / CE

@@ -27,14 +27,31 @@ it was given, where the JAX package's ``.at[].set`` returns new arrays.
 Positions at or past a row's ``len`` are never read, so decoding twice from
 one cache still gives the JAX package's answers. Under a mesh the cache
 holds this rank's rows and, when the ``seq`` axes split ``max_len``, its
-block of positions (``"seq_blocks"`` says how many): prefill computes K
-and V whole and keeps the block, decode writes a position only on the
-rank whose block holds it, and ``common.decode_attention_cp`` merges the
-blocks' partial softmax.
+block of positions (``"seq_blocks"`` says how many), every head: prefill
+computes K and V and keeps the block, decode writes a position only on
+the rank whose block holds it, and ``common.decode_attention_cp`` merges
+the blocks' partial softmax.
+
+Under a mesh every weight is this rank's block of its leaf (the JAX
+spec, ``sharding.ctx``). Where the ``tensor`` axes split ``wq``, ``wk``
+and ``wv``'s columns and ``wo``'s rows into whole heads (``n_heads`` and
+``n_kv_heads`` dividing; :func:`attn_axes`, the dense and moe families),
+attention is tensor-parallel:
+the rank projects its own heads, kernel F runs on them, and ``wo`` is
+row-parallel (``common.row_parallel``, one psum over the ``tensor`` axes a
+block); the same for the MLP's FFN columns (:func:`ffn_axes`). Prefill
+all-gathers K and V over the heads before keeping its block of the
+cache, and decode gathers q, k and v, runs context-parallel attention
+over every head and keeps its own heads for ``wo``. Every other weight
+dim split over ``fsdp`` or ``tensor`` is gathered just before use
+(``common.whole``): the weights where heads do not divide, the
+embedding, the head and the front ends' projections.
 """
 from __future__ import annotations
 
-from typing import Any
+import functools
+import types
+from typing import Any, Mapping
 
 import torch
 from torch import nn
@@ -79,15 +96,32 @@ def layer_defs(cfg) -> dict:
     return defs
 
 
+@functools.lru_cache(maxsize=64)
+def _defs(cfg) -> Mapping[str, PDef]:
+    """:func:`layer_defs`, built once a config and read-only (the layer
+    code reads it for every layer of every pass)."""
+    return types.MappingProxyType(layer_defs(cfg))
+
+
+def embed_def(cfg) -> PDef:
+    """The token embedding's declaration (every family's)."""
+    return PDef((cfg.vocab, cfg.d_model), "embed", logical=("tensor", "fsdp"))
+
+
+def head_def(cfg) -> PDef:
+    """The untied output head's declaration (every family's)."""
+    return PDef((cfg.d_model, cfg.vocab), logical=("fsdp", "tensor"))
+
+
 def model_defs(cfg) -> dict:
-    d, v = cfg.d_model, cfg.vocab
+    d = cfg.d_model
     defs: dict[str, Any] = {
-        "embed": PDef((v, d), "embed", logical=("tensor", "fsdp")),
+        "embed": embed_def(cfg),
         "layers": stack(layer_defs(cfg), cfg.n_layers),
         "final_norm": PDef((d,), "ones", logical=(None,)),
     }
     if not cfg.tie_embeddings:
-        defs["lm_head"] = PDef((d, v), logical=("fsdp", "tensor"))
+        defs["lm_head"] = head_def(cfg)
     if cfg.frontend == "vision":
         defs["patch_proj"] = PDef((cfg.frontend_dim, d), logical=("fsdp", "tensor"))
     elif cfg.frontend == "audio":
@@ -212,21 +246,114 @@ def _layers(params) -> list:
 
 
 # ------------------------------------------------------------ layer fwd
+def _tensor_axes(pdef, dim: int) -> tuple:
+    """The live mesh axes the spec of ``pdef``'s leaf splits dim ``dim``
+    over along its ``tensor`` axis (() without a mesh, or whole)."""
+    mesh = ctx.get_mesh()
+    if mesh is None or pdef.axes[dim] != "tensor":
+        return ()
+    axes = ctx.logical_to_spec(mesh, ctx.get_rules(), pdef.axes, pdef.shape)[dim]
+    return () if axes is None else ctx._live(mesh, axes)
+
+
+def attn_axes(cfg) -> tuple:
+    """The mesh axes of tensor-parallel attention (the dense and moe
+    families): the live axes that split ``wq``, ``wk`` and ``wv``'s columns
+    and ``wo``'s rows alike, into whole heads (``n_heads`` and
+    ``n_kv_heads`` both dividing); () where there is no such split, and
+    the weights are gathered whole. The hybrid family always gathers: its
+    heads (hymba-1.5b's 25) do not split whole over a tensor axis of 2 or
+    4, and its SSM branch, on the same input, runs whole anyway."""
+    if cfg.family not in ("dense", "moe") or ctx.get_mesh() is None:
+        return ()
+    d = _defs(cfg)
+    axes = _tensor_axes(d["wq"], 1)
+    if not axes or not _tensor_axes(d["wk"], 1) == _tensor_axes(d["wv"], 1) == _tensor_axes(d["wo"], 0) == axes:
+        return ()
+    n = ctx.axis_size(ctx.get_mesh(), axes)
+    return axes if cfg.n_heads % n == 0 and cfg.n_kv_heads % n == 0 else ()
+
+
+def ffn_axes(cfg) -> tuple:
+    """The mesh axes of the tensor-parallel MLP (the dense family): the live
+    axes that split ``w_gate`` and ``w_up``'s FFN columns and ``w_down``'s
+    rows alike; () where there are none, and for the hybrid family (see
+    :func:`attn_axes`)."""
+    if cfg.family != "dense" or ctx.get_mesh() is None:
+        return ()
+    d = _defs(cfg)
+    axes = _tensor_axes(d["w_up"], 1)
+    cols = _tensor_axes(d["w_gate"], 1) if "w_gate" in d else axes
+    return axes if axes and cols == _tensor_axes(d["w_down"], 0) == axes else ()
+
+
+def _names(axes: tuple) -> tuple:
+    """The logical axes to gather a weight along: ``fsdp`` alone where a
+    tensor-parallel matmul takes the ``tensor`` block as it is."""
+    return ("fsdp",) if axes else ("fsdp", "tensor")
+
+
 def _qkv(cfg, p, h):
+    """q (B, S, Hq, dh), k and v (B, S, Hkv, dh) of every head, or of this
+    rank's heads under tensor-parallel attention (:func:`attn_axes`)."""
     b, s, _ = h.shape
-    hc = h.to(BF16)
-    q = (hc @ p["wq"].to(BF16)).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = (hc @ p["wk"].to(BF16)).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = (hc @ p["wv"].to(BF16)).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    d, axes = _defs(cfg), attn_axes(cfg)
+    hc = C.col_input(h, axes)
+
+    def proj(name):
+        return C.col_matmul(hc, C.whole(p[name], d[name], _names(axes))).reshape(b, s, -1, cfg.head_dim)
+
+    q, k, v = proj("wq"), proj("wk"), proj("wv")
     if cfg.qk_norm:
         q = C.rms_norm(q, p["q_norm"])
         k = C.rms_norm(k, p["k_norm"])
     return q, k, v
 
 
+def attn_out(cfg, p, attn, dtype):
+    """The output projection of attention's heads ``attn`` (B, S, H, dh),
+    every head or, under tensor-parallel attention, this rank's (``wo``
+    row-parallel) -> (B, S, D) in ``dtype``."""
+    axes = attn_axes(cfg)
+    wo = C.whole(p["wo"], _defs(cfg)["wo"], _names(axes))
+    return C.row_parallel(attn.reshape(attn.shape[0], attn.shape[1], -1), wo, axes, dtype)
+
+
+def all_heads(cfg, *ts) -> list:
+    """Each of ``ts`` (B, S, H_i', dh) with every head: under
+    tensor-parallel attention this rank's heads of all of them
+    all-gathered in one collective, each one's heads in rank order; else
+    ``ts`` as they are."""
+    axes = attn_axes(cfg)
+    if not axes:
+        return list(ts)
+    n = ctx.axis_size(ctx.get_mesh(), axes)
+    widths = [t.shape[2] for t in ts]
+    g = ctx.all_gather_tiled(ctx.get_mesh(), axes, torch.cat(ts, dim=2), 2)
+    g = g.reshape(g.shape[0], g.shape[1], n, sum(widths), g.shape[-1])
+    parts = torch.split(g, widths, dim=3)
+    return [p.reshape(p.shape[0], p.shape[1], n * w, p.shape[-1]) for p, w in zip(parts, widths)]
+
+
+def own_heads(cfg, t):
+    """This rank's heads of ``t`` (B, S, H, dh) under tensor-parallel
+    attention, else ``t``."""
+    axes = attn_axes(cfg)
+    return ctx.block_along(ctx.get_mesh(), axes, t, 2) if axes else t
+
+
+def mlp(cfg, p, x):
+    """``common.mlp_apply`` on this rank's weights: tensor-parallel where
+    :func:`ffn_axes` splits the FFN, else on the gathered weights."""
+    d, axes = _defs(cfg), ffn_axes(cfg)
+    w = {k: C.whole(p[k], d[k], _names(axes)) for k in ("w_gate", "w_up", "w_down") if k in d}
+    return C.mlp_apply(w, x, cfg.mlp, axes)
+
+
 def _block(cfg, p, x, positions, attention=None):
     """Full-sequence block -> (x, k, v); k and v are the rotated keys and
-    the values, the cache's entries. ``attention`` is the loss path's
+    the values, the cache's entries (this rank's heads under
+    tensor-parallel attention). ``attention`` is the loss path's
     differentiable one; None is ``common.chunked_attention`` (kernel F on
     the card), looked up at each call."""
     attention = attention or C.chunked_attention
@@ -235,11 +362,10 @@ def _block(cfg, p, x, positions, attention=None):
     q = C.apply_rope(q, positions, cfg.rope_theta)
     k = C.apply_rope(k, positions, cfg.rope_theta)
     attn = attention(q, k, v, causal=cfg.causal, window=cfg.window, q_chunk=cfg.q_chunk)
-    attn = attn.reshape(x.shape[0], x.shape[1], -1)
-    x = x + (attn.to(BF16) @ p["wo"].to(BF16)).to(x.dtype)
+    x = x + attn_out(cfg, p, attn, x.dtype)
     x = constrain(x, "batch", "seq", None)
     h2 = C.rms_norm(x, p["ln2"])
-    x = x + C.mlp_apply(p, h2, cfg.mlp).to(x.dtype)
+    x = x + mlp(cfg, p, h2).to(x.dtype)
     return constrain(x, "batch", "seq", None), k, v
 
 
@@ -249,23 +375,31 @@ def block_train(cfg, p, x, positions):
     return _block(cfg, p, x, positions, C.chunked_attention_train)[0]
 
 
+def decode_attention(cfg, p, h, k_cache, v_cache, cur_len, blocks: int = 1, block: int = 0):
+    """One token's attention from the normed ``h`` (B, 1, D) over a cache
+    (B, S_max, Hkv, dh), or this rank's block of one cut into ``blocks``
+    along its positions, written in place at each row's ``cur_len`` ->
+    the output projection (B, 1, D) in ``h``'s dtype. Under
+    tensor-parallel attention q, k and v are gathered over the heads (the
+    cache holds every head), and the rank keeps its heads of the output
+    for the row-parallel ``wo``."""
+    q, k, v = _qkv(cfg, p, h)
+    pos = cur_len[:, None]  # (B, 1)
+    q, k, v = all_heads(cfg, C.apply_rope(q, pos, cfg.rope_theta), C.apply_rope(k, pos, cfg.rope_theta), v)
+    C.cache_write(k_cache, k[:, 0], cur_len, blocks, block)
+    C.cache_write(v_cache, v[:, 0], cur_len, blocks, block)
+    attn = own_heads(cfg, C.decode_attention_cp(q, k_cache, v_cache, cur_len + 1, blocks))
+    return attn_out(cfg, p, attn, h.dtype)
+
+
 def block_decode(cfg, p, x, k_cache, v_cache, cur_len, blocks: int = 1, block: int = 0):
     """One-token block. x: (B, 1, D); caches (B, S_max, Hkv, dh), or this
     rank's block of a cache cut into ``blocks`` along its positions,
     written in place at each row's ``cur_len``."""
-    b = x.shape[0]
     h = C.rms_norm(x, p["ln1"])
-    q, k, v = _qkv(cfg, p, h)
-    pos = cur_len[:, None]  # (B, 1)
-    q = C.apply_rope(q, pos, cfg.rope_theta)
-    k = C.apply_rope(k, pos, cfg.rope_theta)
-    C.cache_write(k_cache, k[:, 0], cur_len, blocks, block)
-    C.cache_write(v_cache, v[:, 0], cur_len, blocks, block)
-    attn = C.decode_attention_cp(q, k_cache, v_cache, cur_len + 1, blocks)
-    attn = attn.reshape(b, 1, -1)
-    x = x + (attn.to(BF16) @ p["wo"].to(BF16)).to(x.dtype)
+    x = x + decode_attention(cfg, p, h, k_cache, v_cache, cur_len, blocks, block).to(x.dtype)
     h2 = C.rms_norm(x, p["ln2"])
-    x = x + C.mlp_apply(p, h2, cfg.mlp).to(x.dtype)
+    x = x + mlp(cfg, p, h2).to(x.dtype)
     return x
 
 
@@ -274,8 +408,23 @@ def _device(params) -> torch.device:
     return params["embed"].device
 
 
-def _embed_inputs(cfg, params, batch):
-    """Token (+ modality-prefix) embedding -> (x bf16, loss_mask).
+def embedding(cfg, params) -> torch.Tensor:
+    """The token embedding, whole in its storage dtype (gathered under a
+    mesh; the lookup then casts the rows it reads, as the JAX package
+    does)."""
+    p = embed_def(cfg)
+    return ctx.gather_dims(params["embed"], p.axes, p.shape)
+
+
+def _tokens_embedding(cfg, params):
+    """The whole embedding where the model reads tokens, else None (the
+    audio front end reads frames)."""
+    return None if cfg.frontend == "audio" else embedding(cfg, params)
+
+
+def _embed_inputs(cfg, params, batch, emb=None):
+    """Token (+ modality-prefix) embedding -> (x bf16, loss_mask); ``emb``
+    is the whole embedding where the caller has it (else gathered here).
 
     Audio (hubert): the frames ``(B, S, frontend_dim)`` through
     ``frame_proj``, each frame of ``frame_mask`` replaced by ``mask_embed``;
@@ -285,17 +434,17 @@ def _embed_inputs(cfg, params, batch):
     dev = _device(params)
     if cfg.frontend == "audio":
         frames = torch.as_tensor(batch["frames"], device=dev).to(BF16)
-        x = frames @ params["frame_proj"].to(BF16)
+        x = frames @ C.whole(params["frame_proj"], model_defs(cfg)["frame_proj"])
         m = torch.as_tensor(batch["frame_mask"], device=dev).bool()
         # HuBERT masking: replace masked frames with the learned embedding
         x = torch.where(m[..., None], params["mask_embed"].to(BF16), x)
         return constrain(x, "batch", "seq", None), m  # loss only on masked frames
     tokens = torch.as_tensor(batch["tokens"], device=dev)
-    x = C.embed_tokens(params["embed"], tokens)
+    x = C.embed_tokens(embedding(cfg, params) if emb is None else emb, tokens)
     mask = torch.ones(tokens.shape, dtype=torch.bool, device=dev)
     if cfg.frontend == "vision":
         patches = torch.as_tensor(batch["patch_embeds"], device=dev).to(BF16)
-        pre = patches @ params["patch_proj"].to(BF16)
+        pre = patches @ C.whole(params["patch_proj"], model_defs(cfg)["patch_proj"])
         x = torch.cat([pre, x[:, pre.shape[1] :]], dim=1)
         mask[:, : pre.shape[1]] = False
     return constrain(x, "batch", "seq", None), mask
@@ -346,8 +495,13 @@ def _run_layers(cfg, params, x, positions, remat_policy: str | None = None):
     return C.rms_norm(x, params["final_norm"])
 
 
-def _lm_head(cfg, params):
-    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+def _lm_head(cfg, params, emb=None):
+    """The output head (D, V), whole: the embedding transposed when tied
+    (``emb``, the whole embedding where the caller has it), else
+    ``lm_head`` gathered in bf16."""
+    if cfg.tie_embeddings:
+        return (embedding(cfg, params) if emb is None else emb).T
+    return C.whole(params["lm_head"], head_def(cfg))
 
 
 def loss_fn(cfg, params, batch, remat_policy: str = "dots") -> torch.Tensor:
@@ -355,7 +509,8 @@ def loss_fn(cfg, params, batch, remat_policy: str = "dots") -> torch.Tensor:
     prediction of ``targets`` on the masked frames when the batch has
     them, else the next-token objective (labels are the tokens shifted by
     one; the last position is left out)."""
-    x, mask = _embed_inputs(cfg, params, batch)
+    emb = _tokens_embedding(cfg, params)
+    x, mask = _embed_inputs(cfg, params, batch, emb)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
     x = _run_layers(cfg, params, x, positions, remat_policy)
@@ -365,7 +520,7 @@ def loss_fn(cfg, params, batch, remat_policy: str = "dots") -> torch.Tensor:
         tokens = torch.as_tensor(batch["tokens"], device=x.device)
         labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
         mask = mask & (positions < s - 1)[None, :]
-    return C.chunked_softmax_xent(x, _lm_head(cfg, params), labels, mask, cfg.loss_chunk)
+    return C.chunked_softmax_xent(x, _lm_head(cfg, params, emb), labels, mask, cfg.loss_chunk)
 
 
 # ------------------------------------------------------------- public API
@@ -388,7 +543,8 @@ def cache_logical_axes(cfg) -> dict:
 
 def attention_cache(cfg, b: int, s: int, max_len: int, device, layers, block_fn) -> tuple:
     """The prefill of the attention families: ``block_fn(p, x)`` over every
-    layer ``p`` of ``layers`` -> (x, k, v), its keys and values put in a
+    layer ``p`` of ``layers`` -> (x, k, v), its keys and values (this
+    rank's heads under tensor-parallel attention, gathered here) put in a
     new cache of ``max_len`` positions, or this rank's block of one under a
     mesh (``common.seq_cut``; the cache then carries ``"seq_blocks"``).
     Returns (x, cache) with ``len`` at ``s``."""
@@ -399,6 +555,7 @@ def attention_cache(cfg, b: int, s: int, max_len: int, device, layers, block_fn)
     x = None
     for i, p in enumerate(layers):
         x, k, v = block_fn(p, x)
+        k, v = all_heads(cfg, k, v)
         C.cache_fill(cache["k"][i], k, blocks, block)
         C.cache_fill(cache["v"][i], v, blocks, block)
     cache["len"].fill_(s)
@@ -417,13 +574,14 @@ def cache_cut(cache: dict, key: str = "k") -> tuple[int, int, int]:
 
 def prefill(cfg, model, batch, max_len: int):
     """Encode a prompt -> (last-position logits (B, V) f32, filled cache)."""
-    x0, _ = _embed_inputs(cfg, model, batch)
+    emb = _tokens_embedding(cfg, model)
+    x0, _ = _embed_inputs(cfg, model, batch, emb)
     b, s, _ = x0.shape
     positions = torch.arange(s, device=x0.device)
     x, cache = attention_cache(cfg, b, s, max_len, x0.device, _layers(model),
                                lambda p, x: _block(cfg, p, x0 if x is None else x, positions))
     x = C.rms_norm(x, model["final_norm"])
-    logits = (x[:, -1].to(BF16) @ _lm_head(cfg, model).to(BF16)).to(F32)
+    logits = (x[:, -1].to(BF16) @ _lm_head(cfg, model, emb).to(BF16)).to(F32)
     return logits, cache
 
 
@@ -436,9 +594,10 @@ def decode_step(cfg, model, cache, tokens):
     cur = cache["len"]
     blocks, block, positions = cache_cut(cache)
     C.cache_room(cur, positions)
-    x = C.embed_tokens(model["embed"], tokens)
+    emb = embedding(cfg, model)
+    x = C.embed_tokens(emb, tokens)
     for i, p in enumerate(_layers(model)):
         x = block_decode(cfg, p, x, cache["k"][i], cache["v"][i], cur, blocks, block)
     x = C.rms_norm(x, model["final_norm"])
-    logits = (x[:, 0].to(BF16) @ _lm_head(cfg, model).to(BF16)).to(F32)
+    logits = (x[:, 0].to(BF16) @ _lm_head(cfg, model, emb).to(BF16)).to(F32)
     return logits, dict(cache, len=cur + 1)

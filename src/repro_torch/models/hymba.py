@@ -28,7 +28,11 @@ slot's position ``pos`` (-1 for empty) and the meta tokens' ``sink_k``/
 new state and conv tensors. Under a mesh the global layers' K/V hold this
 rank's block of positions, as dense's cache does (``"seq_blocks"``); the
 sliding-window layers' rings are held whole, as the JAX package's
-``cache_logical_axes`` leaves them unsplit.
+``cache_logical_axes`` leaves them unsplit; the SSM ``state`` and ``conv``
+are held in blocks along ``tensor``, as mamba2's. The weights are this
+rank's blocks, every one gathered whole before use (``common.whole``):
+hymba-1.5b's 25 heads do not split whole over ``tensor``, so attention is
+not tensor-parallel here (``dense.attn_axes``), nor is the MLP.
 
 A fault of the JAX package that the port reproduces (ROADMAP.md, Queue 3):
 ``prefill`` puts positions 0..meta_tokens-1 both in ``sink_k`` and, while
@@ -82,11 +86,11 @@ def layer_defs(cfg) -> dict:
 def model_defs(cfg) -> dict:
     d = cfg.d_model
     return {
-        "embed": PDef((cfg.vocab, d), "embed", logical=("tensor", "fsdp")),
+        "embed": dense.embed_def(cfg),
         "meta": PDef((cfg.meta_tokens, d), "embed", logical=(None, None)),
         "segments": {f"seg{i}": stack(layer_defs(cfg), n) for i, (_, n) in enumerate(segments(cfg))},
         "final_norm": PDef((d,), "ones", logical=(None,)),
-        "lm_head": PDef((d, cfg.vocab), logical=("fsdp", "tensor")),
+        "lm_head": dense.head_def(cfg),
     }
 
 
@@ -103,7 +107,7 @@ def _segments(cfg, model):
 
 
 def _embed_with_meta(cfg, model, tokens):
-    x = C.embed_tokens(model["embed"], tokens)
+    x = C.embed_tokens(dense.embedding(cfg, model), tokens)
     meta = model["meta"].to(x.dtype)[None].expand(x.shape[0], -1, -1)
     return torch.cat([meta, x], dim=1)
 
@@ -122,18 +126,17 @@ def _block(cfg, p, x, positions, window, attention=None):
     differentiable one; None is ``common.chunked_attention`` (kernel F on
     the card), looked up at each call."""
     attention = attention or C.chunked_attention
-    b, s, _ = x.shape
     h = C.rms_norm(x, p["ln1"])
     q, k, v = dense._qkv(cfg, p, h)
     q = C.apply_rope(q, positions, cfg.rope_theta)
     k = C.apply_rope(k, positions, cfg.rope_theta)
     attn = attention(q, k, v, causal=True, window=window, sink=cfg.meta_tokens if window else 0,
                      q_chunk=cfg.q_chunk)
-    attn_out = (attn.reshape(b, s, -1).to(BF16) @ p["wo"].to(BF16)).to(x.dtype)
+    attn_out = dense.attn_out(cfg, p, attn, x.dtype)
     ssm_out, hs, cs = mamba2.ssm_mix(cfg, p, h)
     x = constrain(x + _mix(p, attn_out, ssm_out).to(x.dtype), "batch", "seq", None)
     h2 = C.rms_norm(x, p["ln2"])
-    x = x + C.mlp_apply(p, h2, cfg.mlp).to(x.dtype)
+    x = x + dense.mlp(cfg, p, h2).to(x.dtype)
     return constrain(x, "batch", "seq", None), k, v, hs, cs
 
 
@@ -165,7 +168,7 @@ def loss_fn(cfg, params, batch, remat_policy: str = "dots") -> torch.Tensor:
     s = tokens.shape[1]
     labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
     mask = (torch.arange(s, device=x.device) < s - 1)[None, :].expand(tokens.shape)
-    return C.chunked_softmax_xent(x, params["lm_head"], labels, mask, cfg.loss_chunk)
+    return C.chunked_softmax_xent(x, dense._lm_head(cfg, params), labels, mask, cfg.loss_chunk)
 
 
 # ------------------------------------------------------------- caches
@@ -242,8 +245,8 @@ def _swa_decode_attn(cfg, q, seg_k, seg_v, seg_pos, sink_k, sink_v, cur):
 def _block_decode(cfg, p, x, seg, i: int, kind: str, cur, blocks: int = 1, block: int = 0):
     """Layer ``i`` of segment ``seg`` on one token. x: (B, 1, D). K/V (and
     the ring's positions) are written in place, a global layer's into this
-    rank's block of a cache cut into ``blocks``; returns (x, new state, new
-    conv window)."""
+    rank's block of a cache cut into ``blocks``. Returns (x, new state, new
+    conv window), whole."""
     b = x.shape[0]
     rows = torch.arange(b, device=x.device)
     h = C.rms_norm(x, p["ln1"])
@@ -262,11 +265,11 @@ def _block_decode(cfg, p, x, seg, i: int, kind: str, cur, blocks: int = 1, block
         vc[rows, slot] = v[:, 0].to(vc.dtype)
         seg["pos"][i][rows, slot] = cur
         attn = _swa_decode_attn(cfg, q, kc, vc, seg["pos"][i], seg["sink_k"][i], seg["sink_v"][i], cur)
-    attn_out = (attn.reshape(b, 1, -1).to(BF16) @ p["wo"].to(BF16)).to(x.dtype)
-    ssm_out, hs, cs = mamba2.ssm_step(cfg, p, h, seg["state"][i], seg["conv"][i])
+    attn_out = dense.attn_out(cfg, p, attn, x.dtype)
+    ssm_out, hs, cs = mamba2.ssm_step(cfg, p, h, *mamba2.whole_cache(cfg, seg["state"][i], seg["conv"][i]))
     x = x + _mix(p, attn_out, ssm_out).to(x.dtype)
     h2 = C.rms_norm(x, p["ln2"])
-    x = x + C.mlp_apply(p, h2, cfg.mlp).to(x.dtype)
+    x = x + dense.mlp(cfg, p, h2).to(x.dtype)
     return x, hs, cs
 
 
@@ -275,7 +278,7 @@ def decode_step(cfg, model, cache, tokens):
     the ring and its positions written in place, new SSM state and conv
     tensors, ``len + 1``."""
     tokens = torch.as_tensor(tokens, device=model["embed"].device)
-    x = C.embed_tokens(model["embed"], tokens)
+    x = C.embed_tokens(dense.embedding(cfg, model), tokens)
     cur = cache["len"]
     new_segs = {}
     for kind, name, layers in _segments(cfg, model):
@@ -289,9 +292,9 @@ def decode_step(cfg, model, cache, tokens):
             x, hs, cs = _block_decode(cfg, p, x, seg, i, kind, cur, blocks, block)
             states.append(hs)
             convs.append(cs)
-        new_segs[name] = dict(seg, state=torch.stack(states), conv=torch.stack(convs))
+        new_segs[name] = dict(seg, **mamba2.held_cache(cfg, states, convs))
     x = C.rms_norm(x, model["final_norm"])
-    logits = (x[:, 0].to(BF16) @ model["lm_head"].to(BF16)).to(F32)
+    logits = (x[:, 0].to(BF16) @ dense._lm_head(cfg, model)).to(F32)
     return logits, dict(cache, len=cur + 1, segments=new_segs)
 
 
@@ -338,7 +341,7 @@ def prefill(cfg, model, batch, max_len: int):
             states.append(hs)
             convs.append(cs)
         k_all, v_all = torch.stack(ks), torch.stack(vs)  # (n, B, s_tot, Hkv, dh)
-        seg: dict = {"state": torch.stack(states), "conv": torch.stack(convs)}
+        seg: dict = mamba2.held_cache(cfg, states, convs)
         if kind == "global":
             seg["k"] = k_all.new_zeros((len(layers), b, max_len // blocks) + k_all.shape[3:])
             seg["v"] = torch.zeros_like(seg["k"])
@@ -352,7 +355,7 @@ def prefill(cfg, model, batch, max_len: int):
             seg["sink_v"] = v_all[:, :, :mt].clone()
         new_segs[name] = seg
     x = C.rms_norm(x, model["final_norm"])
-    logits = (x[:, -1].to(BF16) @ model["lm_head"].to(BF16)).to(F32)
+    logits = (x[:, -1].to(BF16) @ dense._lm_head(cfg, model)).to(F32)
     cache = {"len": torch.full((b,), s_tot, dtype=torch.int32, device=x.device), "segments": new_segs}
     if ctx.get_mesh() is not None:
         cache["seq_blocks"] = blocks  # the global layers' K/V

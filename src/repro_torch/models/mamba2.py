@@ -41,8 +41,21 @@ tensors and leaves the cache it was given as it was, so a cache gives the
 same answer on a second call with the same tokens. ``prefill`` stores the
 conv tail in float32, where the JAX package keeps it in bf16 until the
 first decode step promotes it: the same values.
+
+Under a mesh a rank holds its blocks (``sharding.ctx``): ``in_proj``'s
+columns, ``[z, xBC, dt]`` concatenated, do not fall on heads, so
+``in_proj``, ``out_proj``, the embedding and the head are gathered whole
+before use (``common.whole``) and the mixer runs whole on every rank of a
+``model`` line; the cache's ``state`` heads and ``conv`` channels are
+held in blocks along ``tensor``, which prefill keeps and each decode step
+gathers, updates and cuts back (``ctx.gather_dims``, ``ctx.keep_dims``).
+A head-parallel SSD is not ported (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
+
+import functools
+import types
+from typing import Mapping
 
 import torch
 import torch.nn.functional as F
@@ -50,6 +63,7 @@ import torch.nn.functional as F
 from repro_torch.models import common as C
 from repro_torch.models import dense
 from repro_torch.models.params import PDef, stack
+from repro_torch.sharding import ctx
 from repro_torch.sharding.ctx import constrain
 
 BF16 = torch.bfloat16
@@ -81,12 +95,19 @@ def layer_defs(cfg) -> dict:
     }
 
 
+@functools.lru_cache(maxsize=64)
+def _defs(cfg) -> Mapping[str, PDef]:
+    """:func:`layer_defs`, built once a config and read-only (the mixer
+    reads it for every layer of every pass)."""
+    return types.MappingProxyType(layer_defs(cfg))
+
+
 def model_defs(cfg) -> dict:
     return {
-        "embed": PDef((cfg.vocab, cfg.d_model), "embed", logical=("tensor", "fsdp")),
+        "embed": dense.embed_def(cfg),
         "layers": stack(layer_defs(cfg), cfg.n_layers),
         "final_norm": PDef((cfg.d_model,), "ones", logical=(None,)),
-        "lm_head": PDef((cfg.d_model, cfg.vocab), logical=("fsdp", "tensor")),
+        "lm_head": dense.head_def(cfg),
     }
 
 
@@ -194,7 +215,8 @@ def ssm_mix(cfg, p, x):
     n = cfg.ssm_state
     # the wide tensors stay bf16 (z, x, the conv stream); only the small SSD
     # control tensors (dt, B, C) are promoted to f32
-    proj = x.to(BF16) @ p["in_proj"].to(BF16)
+    defs = _defs(cfg)
+    proj = x.to(BF16) @ C.whole(p["in_proj"], defs["in_proj"])
     z, xs, bm, cm, dt = _split(proj, d_inner, n)
     xbc = torch.cat([xs, bm, cm], dim=-1)
     conv = causal_conv(xbc, p["conv_w"].to(BF16), p["conv_b"].to(BF16))
@@ -208,17 +230,19 @@ def ssm_mix(cfg, p, x):
     y = y + p["D_skip"].float()[None, None, :, None] * xh
     y = y.reshape(b, s, d_inner)
     y = C.rms_norm(y * F.silu(z), p["ssm_norm"])
-    out = (y.to(BF16) @ p["out_proj"].to(BF16)).to(x.dtype)
+    out = (y.to(BF16) @ C.whole(p["out_proj"], defs["out_proj"])).to(x.dtype)
     return out, h_t, xbc[:, -(cfg.conv_kernel - 1) :].float()
 
 
 def ssm_step(cfg, p, x, h_state, conv_state):
     """One-token recurrent step. x: (B, 1, D) -> (out (B, 1, D), new state,
-    new conv window), new tensors."""
+    new conv window), new tensors; the state and the window whole (a rank
+    gathers its cache blocks first, :func:`whole_cache`)."""
     b = x.shape[0]
     d_inner, n_heads, _, _ = dims(cfg)
     n = cfg.ssm_state
-    proj = (x[:, 0].to(BF16) @ p["in_proj"].to(BF16)).float()
+    defs = _defs(cfg)
+    proj = (x[:, 0].to(BF16) @ C.whole(p["in_proj"], defs["in_proj"])).float()
     z, xs, bm, cm, dt = _split(proj, d_inner, n)
     xbc = torch.cat([xs, bm, cm], dim=-1)  # (B, conv_dim)
     window = torch.cat([conv_state.float(), xbc[:, None]], dim=1)  # (B, K, C)
@@ -234,7 +258,7 @@ def ssm_step(cfg, p, x, h_state, conv_state):
     y = y + p["D_skip"].float()[None, :, None] * xh
     y = y.reshape(b, d_inner)
     y = C.rms_norm(y * F.silu(z), p["ssm_norm"])
-    out = (y.to(BF16) @ p["out_proj"].to(BF16)).to(x.dtype)[:, None]
+    out = (y.to(BF16) @ C.whole(p["out_proj"], defs["out_proj"])).to(x.dtype)[:, None]
     return out, h_state, window[:, 1:]
 
 
@@ -249,14 +273,14 @@ def loss_fn(cfg, params, batch, remat_policy: str = "dots") -> torch.Tensor:
     the tokens shifted by one; the last position left out), each layer
     under ``remat_policy`` (``dense.remat_block``)."""
     tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
-    x = C.embed_tokens(params["embed"], tokens)
+    x = C.embed_tokens(dense.embedding(cfg, params), tokens)
     s = x.shape[1]
     for p in dense.layer_rows(params["layers"]):
         x = dense.remat_block(remat_policy, _block_train, cfg, p, x)
     x = C.rms_norm(x, params["final_norm"])
     labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
     mask = (torch.arange(s, device=x.device) < s - 1)[None, :].expand(tokens.shape)
-    return C.chunked_softmax_xent(x, params["lm_head"], labels, mask, cfg.loss_chunk)
+    return C.chunked_softmax_xent(x, dense._lm_head(cfg, params), labels, mask, cfg.loss_chunk)
 
 
 def init_cache(cfg, batch_size: int, max_len: int, dtype=BF16, device=None) -> dict:
@@ -277,11 +301,28 @@ def cache_logical_axes(cfg) -> dict:
     }
 
 
+def whole_cache(cfg, state, conv) -> tuple:
+    """One layer's ``state`` (B, H, N, P) and ``conv`` (B, K-1, conv_dim)
+    cache, this rank's blocks along ``tensor``, gathered whole."""
+    _, n_heads, conv_dim, _ = dims(cfg)
+    axes = cache_logical_axes(cfg)
+    return (ctx.gather_dims(state, axes["state"][1:], (0, n_heads, 0, 0), ("tensor",)),
+            ctx.gather_dims(conv, axes["conv"][1:], (0, 0, conv_dim), ("tensor",)))
+
+
+def held_cache(cfg, states: list, convs: list) -> dict:
+    """The layers' whole ``state`` and ``conv`` tensors, stacked, as this
+    rank holds them: its blocks along ``tensor``."""
+    axes = cache_logical_axes(cfg)
+    return {"state": ctx.keep_dims(torch.stack(states), axes["state"]),
+            "conv": ctx.keep_dims(torch.stack(convs), axes["conv"])}
+
+
 def prefill(cfg, model, batch, max_len: int):
     """Encode a prompt -> (last-position logits (B, V) f32, cache);
     ``max_len`` sizes nothing (the state is fixed-size)."""
     tokens = torch.as_tensor(batch["tokens"], device=model["embed"].device)
-    x = C.embed_tokens(model["embed"], tokens)
+    x = C.embed_tokens(dense.embedding(cfg, model), tokens)
     b, s = tokens.shape
     states, convs = [], []
     for p in dense.layer_rows(model["layers"]):
@@ -291,23 +332,22 @@ def prefill(cfg, model, batch, max_len: int):
         states.append(h_t)
         convs.append(conv_t)
     x = C.rms_norm(x, model["final_norm"])
-    logits = (x[:, -1].to(BF16) @ model["lm_head"].to(BF16)).to(F32)
-    cache = {"state": torch.stack(states), "conv": torch.stack(convs),
-             "len": torch.full((b,), s, dtype=torch.int32, device=x.device)}
+    logits = (x[:, -1].to(BF16) @ dense._lm_head(cfg, model)).to(F32)
+    cache = dict(held_cache(cfg, states, convs), len=torch.full((b,), s, dtype=torch.int32, device=x.device))
     return logits, cache
 
 
 def decode_step(cfg, model, cache, tokens):
     """One decode step. tokens: (B, 1) -> (logits (B, V) f32, a new cache)."""
     tokens = torch.as_tensor(tokens, device=model["embed"].device)
-    x = C.embed_tokens(model["embed"], tokens)
+    x = C.embed_tokens(dense.embedding(cfg, model), tokens)
     states, convs = [], []
     for i, p in enumerate(dense.layer_rows(model["layers"])):
         h = C.rms_norm(x, p["ln"])
-        out, hs, cs = ssm_step(cfg, p, h, cache["state"][i], cache["conv"][i])
+        out, hs, cs = ssm_step(cfg, p, h, *whole_cache(cfg, cache["state"][i], cache["conv"][i]))
         x = x + out
         states.append(hs)
         convs.append(cs)
     x = C.rms_norm(x, model["final_norm"])
-    logits = (x[:, 0].to(BF16) @ model["lm_head"].to(BF16)).to(F32)
-    return logits, {"state": torch.stack(states), "conv": torch.stack(convs), "len": cache["len"] + 1}
+    logits = (x[:, 0].to(BF16) @ dense._lm_head(cfg, model)).to(F32)
+    return logits, dict(held_cache(cfg, states, convs), len=cache["len"] + 1)

@@ -370,16 +370,20 @@ def _moe_a2a(p, x, cfg, mesh, axis: str, ep: int):
 def moe_apply(p, x, cfg):
     """x: (B, S, D) -> (out in x's dtype, aux_loss).
 
-    No mesh: the local path. Under a mesh whose expert axes split the
-    experts and the sequence, the expert-parallel body ``cfg.moe_impl``
-    picks (``"gather"`` or ``"a2a"``); otherwise (decode's one token,
-    ``n_experts`` or the sequence not splitting, one expert rank) the local
-    path over the global batch (:func:`_moe_local_mesh`)."""
+    No mesh: the local path. Under a mesh the expert stacks' ``fsdp``
+    blocks are gathered first (the rank keeps its experts), then, where the
+    expert axes split the experts and the sequence, the expert-parallel
+    body ``cfg.moe_impl`` picks (``"gather"`` or ``"a2a"``); otherwise
+    (decode's one token, ``n_experts`` or the sequence not splitting, one
+    expert rank) the local path over the global batch
+    (:func:`_moe_local_mesh`)."""
     b, s, d = x.shape
     mesh = ctx.get_mesh()
     if mesh is None:
         out, aux = _moe_local(p, x.reshape(b * s, d), cfg, 0, cfg.n_experts, layout=(b, s, 0, 0))
         return out.reshape(b, s, d).to(x.dtype), aux
+    defs = layer_defs(cfg)  # the expert stacks' d dims, split over fsdp: gathered (ZeRO)
+    p = dict(p, **{k: C.whole(p[k], defs[k], ("fsdp",)) for k in ("e_gate", "e_up", "e_down")})
     ep_axes = tuple(a for a in ctx.get_rules().expert if a in mesh.shape)
     ep = ctx.mesh_axis_size(*ep_axes) if ep_axes else 1
     if ep == 1 or cfg.n_experts % ep != 0 or s % ep != 0:
@@ -394,18 +398,18 @@ def moe_apply(p, x, cfg):
 # ------------------------------------------------------------- blocks
 def _block(cfg, p, x, positions, attention=None):
     """Full-sequence block -> (x, k, v, aux), the rotated keys and the
-    values being the cache's entries and ``aux`` the layer's load-balancing
-    loss. ``attention`` is the loss path's differentiable one; None is
-    ``common.chunked_attention`` (kernel F on the card), looked up at each
-    call."""
+    values being the cache's entries (this rank's heads under
+    tensor-parallel attention, ``dense.attn_axes``) and ``aux`` the layer's
+    load-balancing loss. ``attention`` is the loss path's differentiable
+    one; None is ``common.chunked_attention`` (kernel F on the card),
+    looked up at each call."""
     attention = attention or C.chunked_attention
-    b, s, _ = x.shape
     h = C.rms_norm(x, p["ln1"])
     q, k, v = dense._qkv(cfg, p, h)
     q = C.apply_rope(q, positions, cfg.rope_theta)
     k = C.apply_rope(k, positions, cfg.rope_theta)
     attn = attention(q, k, v, causal=cfg.causal, window=cfg.window, q_chunk=cfg.q_chunk)
-    x = x + (attn.reshape(b, s, -1).to(BF16) @ p["wo"].to(BF16)).to(x.dtype)
+    x = x + dense.attn_out(cfg, p, attn, x.dtype)
     x = constrain(x, "batch", "seq", None)
     h2 = C.rms_norm(x, p["ln2"])
     mo, aux = moe_apply(p, h2, cfg)
@@ -423,16 +427,8 @@ def _block_decode(cfg, p, x, k_cache, v_cache, cur, blocks: int = 1, block: int 
     """One-token block. x: (B, 1, D); caches (B, S_max, Hkv, dh), or this
     rank's block of a cache cut into ``blocks``, written in place at each
     row's ``cur``."""
-    b = x.shape[0]
     h = C.rms_norm(x, p["ln1"])
-    q, k, v = dense._qkv(cfg, p, h)
-    pos = cur[:, None]
-    q = C.apply_rope(q, pos, cfg.rope_theta)
-    k = C.apply_rope(k, pos, cfg.rope_theta)
-    C.cache_write(k_cache, k[:, 0], cur, blocks, block)
-    C.cache_write(v_cache, v[:, 0], cur, blocks, block)
-    attn = C.decode_attention_cp(q, k_cache, v_cache, cur + 1, blocks).reshape(b, 1, -1)
-    x = x + (attn.to(BF16) @ p["wo"].to(BF16)).to(x.dtype)
+    x = x + dense.decode_attention(cfg, p, h, k_cache, v_cache, cur, blocks, block).to(x.dtype)
     h2 = C.rms_norm(x, p["ln2"])
     return x + moe_apply(p, h2, cfg)[0].to(x.dtype)
 
@@ -447,7 +443,8 @@ def loss_fn(cfg, params, batch, remat_policy: str = "dots") -> torch.Tensor:
     load-balancing term, ``aux_loss_coef`` times the layers' mean aux
     loss; the aux losses are summed in float32 from 0 in layer order, as
     the JAX package's scan carries them."""
-    x, mask = dense._embed_inputs(cfg, params, batch)
+    emb = dense.embedding(cfg, params)
+    x, mask = dense._embed_inputs(cfg, params, batch, emb)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
     aux_sum = torch.zeros((), dtype=F32, device=x.device)
@@ -458,19 +455,20 @@ def loss_fn(cfg, params, batch, remat_policy: str = "dots") -> torch.Tensor:
     tokens = torch.as_tensor(batch["tokens"], device=x.device)
     labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
     mask = mask & (positions < s - 1)[None, :]
-    ce = C.chunked_softmax_xent(x, dense._lm_head(cfg, params), labels, mask, cfg.loss_chunk)
+    ce = C.chunked_softmax_xent(x, dense._lm_head(cfg, params, emb), labels, mask, cfg.loss_chunk)
     return ce + cfg.aux_loss_coef * aux_sum / cfg.n_layers
 
 
 def prefill(cfg, model, batch, max_len: int):
     """Encode a prompt -> (last-position logits (B, V) f32, filled cache)."""
-    x0, _ = dense._embed_inputs(cfg, model, batch)
+    emb = dense.embedding(cfg, model)
+    x0, _ = dense._embed_inputs(cfg, model, batch, emb)
     b, s, _ = x0.shape
     positions = torch.arange(s, device=x0.device)
     x, cache = dense.attention_cache(cfg, b, s, max_len, x0.device, dense.layer_rows(model["layers"]),
                                      lambda p, x: _block(cfg, p, x0 if x is None else x, positions)[:3])
     x = C.rms_norm(x, model["final_norm"])
-    logits = (x[:, -1].to(BF16) @ dense._lm_head(cfg, model).to(BF16)).to(F32)
+    logits = (x[:, -1].to(BF16) @ dense._lm_head(cfg, model, emb).to(BF16)).to(F32)
     return logits, cache
 
 
@@ -481,9 +479,10 @@ def decode_step(cfg, model, cache, tokens):
     cur = cache["len"]
     blocks, block, positions = dense.cache_cut(cache)
     C.cache_room(cur, positions)
-    x = C.embed_tokens(model["embed"], tokens)
+    emb = dense.embedding(cfg, model)
+    x = C.embed_tokens(emb, tokens)
     for i, p in enumerate(dense.layer_rows(model["layers"])):
         x = _block_decode(cfg, p, x, cache["k"][i], cache["v"][i], cur, blocks, block)
     x = C.rms_norm(x, model["final_norm"])
-    logits = (x[:, 0].to(BF16) @ dense._lm_head(cfg, model).to(BF16)).to(F32)
+    logits = (x[:, 0].to(BF16) @ dense._lm_head(cfg, model, emb).to(BF16)).to(F32)
     return logits, dict(cache, len=cur + 1)

@@ -81,8 +81,8 @@ def init_params(defs: dict, gen: torch.Generator, keep=None) -> dict:
     """A tree of tensors on ``gen``'s device, one draw per leaf in
     declaration order, each cast to its storage dtype as it is drawn.
     ``keep(p, t)``, where given, maps each drawn leaf to what the tree holds
-    (a rank's block under a mesh) before the next leaf is drawn, so the
-    peak is one whole leaf."""
+    (a rank's block under the JAX spec on a mesh, :func:`sharding_of`)
+    before the next leaf is drawn, so the peak is one whole leaf."""
     out: dict = {}
     for path, p in _leaves(defs):
         node = out
@@ -105,7 +105,7 @@ def param_specs(defs: dict) -> dict:
 
 def sharding_of(p: PDef, mesh) -> ctx.NamedSharding:
     """The leaf's :class:`~repro_torch.sharding.ctx.NamedSharding` on
-    ``mesh``: the block a rank holds, and the JAX layout as ``full``."""
+    ``mesh``: the JAX package's spec, whose block a rank holds."""
     return ctx.sharding_for(mesh, p.axes, p.shape)
 
 
@@ -122,6 +122,16 @@ def param_structs(defs: dict, mesh=None) -> dict:
     ``NamedSharding`` on ``mesh`` (or the ambient one), for the dry-run."""
     mesh = mesh or ctx.get_mesh()
     return tree_map(lambda p: struct(p.shape, p.dtype, None if mesh is None else sharding_of(p, mesh)), defs)
+
+
+def block_bytes(tree) -> int:
+    """The bytes of this rank's blocks of a tree of structs (dicts and
+    tuples of :func:`struct`) under their shardings."""
+    if isinstance(tree, dict):
+        return sum(block_bytes(t) for t in tree.values())
+    if isinstance(tree, tuple):
+        return sum(block_bytes(t) for t in tree)
+    return math.prod(tree.sharding.block_shape(tree.shape)) * tree.element_size()
 
 
 def count_params(defs: dict) -> int:

@@ -182,10 +182,15 @@ def _moment_leaves(tree) -> list:
 
 @torch.no_grad()
 def update(cfg: AdamWConfig, grads: dict, state: AdamWState, params: dict,
-           grad_norm: torch.Tensor | None = None) -> tuple[dict, AdamWState, dict]:
+           grad_norm: torch.Tensor | None = None, lines: list | None = None) -> tuple[dict, AdamWState, dict]:
     """One AdamW step: clip by the global norm, update every leaf in place.
     ``grad_norm`` is the norm to clip by when the tree holds blocks of a
     sharded model (``train.loop`` under a mesh); None computes it here.
+    ``lines``, per leaf, is None or, for a block whose 8-bit moments
+    straddle quantization blocks along the leaf's quantization axis,
+    ``(axis, widen, narrow)`` (``train.loop.quant_lines``): the moments are
+    dequantized and quantized whole along ``axis`` (``widen``), with block
+    scales held whole along it, and the block kept (``narrow``).
 
     ``grads`` mirrors ``params``; a leaf whose gradient is None (the loss
     never reads it, as hubert's ``embed``) counts as a zero gradient, as
@@ -204,12 +209,13 @@ def update(cfg: AdamWConfig, grads: dict, state: AdamWState, params: dict,
     b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32, device=step.device), step.float())
     b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32, device=step.device), step.float())
 
-    def upd(p, g, m, v):
+    def upd(p, g, m, v, line):
         quantized = isinstance(m, dict)
         if quantized:
-            ax = quant_axis(tuple(p.shape), cfg.q_block)
-            mf = dequantize_moment(m["q"], m["s"], cfg.q_block, ax)
-            vf = dequantize_moment_pos(v["q"], v["s"], cfg.q_block, ax)
+            ax, widen, narrow = line or (quant_axis(tuple(p.shape), cfg.q_block), None, None)
+            whole, part = widen or (lambda t: t), narrow or (lambda t: t)
+            mf = part(dequantize_moment(whole(m["q"]), m["s"], cfg.q_block, ax))
+            vf = part(dequantize_moment_pos(whole(v["q"]), v["s"], cfg.q_block, ax))
         else:
             mf, vf = m, v
         gf = g.float() * scale
@@ -220,8 +226,9 @@ def update(cfg: AdamWConfig, grads: dict, state: AdamWState, params: dict,
         delta = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * p.float()
         p.copy_((p.float() - lr * delta).to(p.dtype))
         if quantized:
-            for dst, (q, s) in ((m, quantize_moment(mf, cfg.q_block, ax)), (v, quantize_moment_pos(vf, cfg.q_block, ax))):
-                dst["q"].copy_(q)
+            for dst, (q, s) in ((m, quantize_moment(whole(mf), cfg.q_block, ax)),
+                                (v, quantize_moment_pos(whole(vf), cfg.q_block, ax))):
+                dst["q"].copy_(part(q))
                 dst["s"].copy_(s)
         else:
             m.copy_(mf)
@@ -230,13 +237,14 @@ def update(cfg: AdamWConfig, grads: dict, state: AdamWState, params: dict,
     def slice_of(x, i):
         return {k: t[i] for k, t in x.items()} if isinstance(x, dict) else x[i]
 
-    for p, g, m, v in zip(p_flat, g_flat, m_flat, v_flat):
+    for j, (p, g, m, v) in enumerate(zip(p_flat, g_flat, m_flat, v_flat)):
+        line = None if lines is None else lines[j]
         if p.dim() >= 3 and p.shape[0] <= 512:
             # layer-stacked matrices: one layer slice at a time, so the
             # float32 dequantize/update temporaries are per layer
             for i in range(p.shape[0]):
-                upd(p[i], g[i], slice_of(m, i), slice_of(v, i))
+                upd(p[i], g[i], slice_of(m, i), slice_of(v, i), line)
         else:
-            upd(p, g, m, v)
+            upd(p, g, m, v, line)
     return params, AdamWState(state.m, state.v, step), {"grad_norm": gnorm, "lr": lr}
 

@@ -145,6 +145,16 @@ def payload_from_numpy(qdata, meta, device: torch.device | str | None = None) ->
     return payload_mod.Payload(torch.as_tensor(q, device=device), torch.as_tensor(m, device=device))
 
 
+def _rank_blocks(tree, structs):
+    """Each leaf of ``tree`` cut to this rank's block under its struct's
+    sharding (``models.params.struct``; the same nesting), or as it is
+    where the struct has none (no mesh)."""
+    if isinstance(tree, Mapping):
+        return {k: _rank_blocks(v, structs[k]) for k, v in tree.items()}
+    sh = getattr(structs, "sharding", None)
+    return tree if sh is None else sh.block(tree)
+
+
 def model_params_from_numpy(cfg, tree: Mapping[str, Any], device: torch.device | str | None = None) -> torch.nn.Module:
     """The serving model for ``cfg`` (a :class:`~repro_torch.models.dense.DenseLM`
     for the dense family, a frozen ``dense.frozen`` tree for the moe, ssm
@@ -153,7 +163,8 @@ def model_params_from_numpy(cfg, tree: Mapping[str, Any], device: torch.device |
     ``meta`` included, for instance
     ``repro.models.api.build_model(cfg).init(key)``), read through
     ``np.asarray`` as float32 and cast to the port's storage dtypes, on
-    ``device`` (the card unless told otherwise)."""
+    ``device`` (the card unless told otherwise). Under an ambient mesh
+    (``sharding.ctx.use_mesh``) each leaf is this rank's block of it."""
     device = device_mod.resolve(device)
 
     def conv(node):
@@ -161,7 +172,7 @@ def model_params_from_numpy(cfg, tree: Mapping[str, Any], device: torch.device |
             return {k: conv(v) for k, v in node.items()}
         return torch.as_tensor(np.array(node, dtype=np.float32), device=device)
 
-    return model_api.serving_weights(cfg, conv(tree))
+    return model_api.serving_weights(cfg, conv(_rank_blocks(tree, model_api.build_model(cfg).param_structs())))
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -193,16 +204,33 @@ def train_state_from_numpy(
     the moments keep their dtypes (float32, or int8 ``q`` of m, uint8 ``q``
     of v and float32 ``s``) and ``step`` is an int32 0-d tensor.
     ``opt_state`` is any object with ``m``, ``v`` and ``step``; None gives
-    None."""
+    None. Under an ambient mesh (``sharding.ctx.use_mesh``) every leaf is
+    this rank's block of it: the masters' and the moments' under the JAX
+    spec, 8-bit block scales as ``train.loop.opt_state_structs`` lays
+    them out."""
+    from repro_torch.train import loop as train_loop
+
     device = device_mod.resolve(device)
     pd = getattr(torch, cfg.param_dtype)
-    masters = dense.master_tree(_map(lambda a: _tensor(a, device).to(pd), params))
+    model = model_api.build_model(cfg)
+    masters = dense.master_tree(_map(lambda a: _tensor(a, device).to(pd),
+                                     _rank_blocks(params, model.param_structs())))
     if opt_state is None:
         return masters, None
     conv = lambda a: _tensor(a, device)  # noqa: E731
+    quantized = any(isinstance(m, Mapping) and set(m) == {"q", "s"} for m in _moment_nodes(opt_state.m))
+    structs = train_loop.opt_state_structs(model, None, adamw.AdamWConfig(state_bits=8 if quantized else 32))
     return masters, adamw.AdamWState(
-        _map(conv, opt_state.m), _map(conv, opt_state.v), _tensor(opt_state.step, device).to(torch.int32)
+        _map(conv, _rank_blocks(opt_state.m, structs.m)), _map(conv, _rank_blocks(opt_state.v, structs.v)),
+        _tensor(opt_state.step, device).to(torch.int32)
     )
+
+
+def _moment_nodes(tree) -> list:
+    """The moment leaves of ``tree``: arrays, or 8-bit ``{"q", "s"}``."""
+    if isinstance(tree, Mapping) and set(tree) != {"q", "s"}:
+        return [x for v in tree.values() for x in _moment_nodes(v)]
+    return [tree]
 
 
 def _host_leaf(t) -> np.ndarray:

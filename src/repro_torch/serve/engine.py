@@ -6,24 +6,24 @@ Counterpart of ``repro.serve.engine``. Requests are micro-batched up to
 ``max_batch``: each is prefilled alone, their caches are stacked, and the
 batch decodes greedily one step at a time, each step one forward pass of
 the model on the card. The kNN-LM hook retrieves from a
-``repro_torch.dslsh`` index over hidden states at every step.
-
-Not ported yet, and refused with ``NotImplementedError``: an ``obs``
-bundle (spans and histograms wait for the obs port), the hook's
-``degrade`` levels (they need routing), and the hook's deprecated
-positional form.
+``repro_torch.dslsh`` index over hidden states at every step; with
+``degrade`` levels on a routed index the engine's latency budget caps the
+cells it probes. An ``obs`` bundle records a ``serve.batch`` span a
+micro-batch and the per-request latency histogram and the request and
+timeout counters, under the JAX package's names.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import warnings
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
+from repro_torch import obs as obs_mod
 from repro_torch.obs import clock
-
-_NOT_PORTED = "is not ported to PyTorch yet (see ROADMAP.md, Queue 1)"
 
 
 @dataclasses.dataclass
@@ -43,7 +43,9 @@ class ServeEngine:
     """Batched greedy decoding over a fixed-capacity slot table.
 
     ``model`` is a ``repro_torch.models.api.build_model`` handle and
-    ``params`` the model it initialised (or carried across)."""
+    ``params`` the model it initialised (or carried across). ``obs``, an
+    ``repro_torch.obs.Obs``, is made the active bundle while ``serve``
+    runs (a hook's ``get_active`` finds it)."""
 
     def __init__(
         self,
@@ -53,12 +55,11 @@ class ServeEngine:
         max_batch: int = 8,
         max_len: int = 512,
         logits_hook: Callable[..., torch.Tensor] | None = None,
-        obs=None,
+        obs: obs_mod.Obs | None = None,
     ):
-        if obs is not None:
-            raise NotImplementedError(f"ServeEngine(obs=...) {_NOT_PORTED}")
         self.model = model
         self.params = params
+        self.obs = obs
         self.max_batch = max_batch
         self.max_len = max_len + model.cfg.meta_tokens
         self.logits_hook = logits_hook  # e.g. SLSH-kNN-LM interpolation
@@ -81,20 +82,41 @@ class ServeEngine:
         and stops once all are finalized. Deadlines count from
         ``submitted_at`` (stamped here when the caller left it 0.0) on the
         monotonic clock, so time queued behind earlier micro-batches counts
-        and a wall-clock jump never expires a deadline."""
+        and a wall-clock jump never expires a deadline. With an obs bundle
+        each micro-batch records a ``serve.batch`` span and every finalized
+        request feeds the latency histogram and the request and timeout
+        counters."""
         t_in = clock.monotonic()
         for r in requests:
             if not r.submitted_at:
                 r.submitted_at = t_in
-        for batch_start in range(0, len(requests), self.max_batch):
-            self._serve_group(requests[batch_start : batch_start + self.max_batch])
+        ob = self.obs
+        with ob.activate() if ob is not None else contextlib.nullcontext():
+            for batch_start in range(0, len(requests), self.max_batch):
+                group = requests[batch_start : batch_start + self.max_batch]
+                with self._span("serve.batch", requests=len(group)):
+                    self._serve_group(group)
         return requests
 
-    @staticmethod
-    def _finalize(r: Request, elapsed: float, timed_out: bool = False):
+    def _span(self, name: str, **args):
+        if self.obs is None:
+            return obs_mod.NULL_SPAN
+        return self.obs.span(name, **args)
+
+    def _finalize(self, r: Request, elapsed: float, timed_out: bool = False):
         r.done = True
         r.timed_out = timed_out
         r.latency_s = elapsed
+        ob = self.obs
+        if ob is not None and ob.metrics is not None:
+            m = ob.metrics
+            m.histogram(
+                "dslsh_serve_request_latency_seconds",
+                "per-request serve latency (submission -> finalize; queued time counts)",
+            ).observe(elapsed)
+            m.counter("dslsh_serve_requests_total", "requests finalized").inc()
+            if timed_out:
+                m.counter("dslsh_serve_timeouts_total", "requests finalized early by their straggler deadline").inc()
 
     def _serve_group(self, group: list[Request]) -> None:
         caches, logits_list = [], []
@@ -166,36 +188,70 @@ def make_knn_lm_hook(
 
     ``index`` is a ``repro_torch.dslsh`` :class:`~repro_torch.api.Index`
     over the hidden-state keys and ``next_tokens`` each entry's label.
-    Retrieval is ``index.query(hq)``, so the backend, the ``c_comp``
-    budget and the deployment ride on the handle. ``hidden_fn(carrier) ->
-    (B, d)`` gives the query hidden states from the hook's second argument
-    (``ServeEngine`` passes its decode cache, which holds no hidden states,
-    so ``hidden_fn`` then derives them from state it closes over)."""
-    from repro_torch import api
+    Retrieval is ``index.query(hq, max_cells=...)``, so the backend, the
+    ``c_comp`` budget and the deployment ride on the handle.
+    ``hidden_fn(carrier) -> (B, d)`` gives the query hidden states from the
+    hook's second argument (``ServeEngine`` passes its decode cache, which
+    holds no hidden states, so ``hidden_fn`` then derives them from state
+    it closes over).
 
-    if legacy_args or not isinstance(index, api.Index):
-        raise NotImplementedError(
-            f"make_knn_lm_hook(raw_index, points, next_tokens, cfg, grid) {_NOT_PORTED}:"
-            " pass a repro_torch.dslsh Index and the next-token labels"
+    ``degrade`` declares deadline-degradation levels ``((min_budget_s,
+    max_cells), ...)`` (a routed index only): the engine hands the hook the
+    batch's tightest remaining latency budget every step, and
+    ``routing.degrade_max_cells`` maps it to a cap on the cells probed per
+    query, counted in ``dslsh_serve_degraded_total{max_cells=...}`` of the
+    active obs bundle (approximate retrieval, never applied without an
+    explicit ``degrade``).
+
+    The deprecated positional form ``make_knn_lm_hook(raw_index, points,
+    next_tokens, cfg, grid, ...)`` (``raw_index`` the cell list of
+    ``core.distributed.simulate_build``) warns with ``DeprecationWarning``
+    and wraps the raw index in a grid handle (``api.wrap_grid``, routed
+    when ``plan`` is given), as the JAX package's does."""
+    from repro_torch import api
+    from repro_torch.core import routing
+
+    if not isinstance(index, api.Index):
+        # legacy call: (index, datastore_points, next_tokens, slsh_cfg, grid)
+        warnings.warn(
+            "make_knn_lm_hook(raw_index, points, next_tokens, cfg, grid) is deprecated: pass a"
+            " repro_torch.dslsh Index (dslsh.build(..., deploy=dslsh.grid(...))) and the next-token labels",
+            DeprecationWarning,
+            stacklevel=2,
         )
-    if plan is not None:
+        datastore_points = next_tokens
+        next_tokens, slsh_cfg, grid_ = legacy_args
+        index = api.wrap_grid(index, datastore_points, slsh_cfg, grid_, plan=plan)
+    else:
+        if legacy_args or plan is not None:
+            raise ValueError(
+                "with a repro_torch.dslsh Index, routing lives on the handle — build it with"
+                " dslsh.grid(..., routed=True) instead of passing plan/positional legacy arguments"
+            )
+        if next_tokens is None:
+            raise ValueError(
+                "make_knn_lm_hook needs the datastore's next-token labels:"
+                " make_knn_lm_hook(index, next_tokens, hidden_fn=..., vocab=...)"
+            )
+    if degrade is not None and index.plan is None:
         raise ValueError(
-            "with a repro_torch.dslsh Index, routing lives on the handle —"
-            " plan is an argument of the legacy form"
+            "degrade levels require a routed deployment — build the index with dslsh.grid(..., routed=True)"
         )
-    if next_tokens is None:
-        raise ValueError(
-            "make_knn_lm_hook needs the datastore's next-token labels:"
-            " make_knn_lm_hook(index, next_tokens, hidden_fn=..., vocab=...)"
-        )
-    if degrade is not None:
-        raise NotImplementedError(f"make_knn_lm_hook(degrade=...) {_NOT_PORTED} (it needs routing)")
     if not isinstance(next_tokens, torch.Tensor):
         next_tokens = torch.from_numpy(np.array(next_tokens))
     labels = next_tokens.to(index.device, torch.int64)
 
     def hook(logits: torch.Tensor, carrier, budget_s: float = float("inf")) -> torch.Tensor:
-        res = index.query(hidden_fn(carrier))
+        hq = hidden_fn(carrier)  # (B, d)
+        max_cells = routing.degrade_max_cells(budget_s, degrade) if degrade else None
+        if max_cells is not None:
+            ob = obs_mod.get_active()
+            if ob is not None and ob.metrics is not None:
+                ob.metrics.counter(
+                    "dslsh_serve_degraded_total",
+                    "retrieval steps the deadline budget degraded to a max_cells cap (§10 latency-first mode)",
+                ).labels(max_cells=str(max_cells)).inc()
+        res = index.query(hq, max_cells=max_cells)
         return knn_interpolate(logits, res.knn_idx, res.knn_dist, labels, vocab, lmbda, temperature)
 
     hook.accepts_budget = True  # opt into the engine's deadline budget

@@ -17,22 +17,25 @@ device, with one process group per axis line the rank sits on.
 The holding rule of the LM families. :class:`ShardingRules` maps the
 logical axis names of every parameter, input and cache leaf to mesh axes
 exactly as the JAX package does (:func:`logical_to_spec`, the same
-defaults and the same dropping of non-dividing axes), and the dry-run
-reports that layout. A rank of the port holds its block
-(:meth:`NamedSharding.block`) of a leaf only along the logical axes its
-program splits:
-
-* ``batch`` (inputs and caches: the rank's rows),
-* ``expert`` (the expert stacks: the rank's experts),
-* ``seq`` (attention caches, read by context-parallel decode attention),
-
-and holds the leaf whole along ``fsdp`` and ``tensor`` (:func:`held_spec`);
-storage sharding along those two (ZeRO gathers, tensor-parallel matmuls)
-is not ported (ROADMAP.md, Queue 1). Outside the moe and decode-attention
-bodies the ranks of one ``model`` line compute the same values.
-:func:`constrain` checks its logical names against ``x.ndim``, as the JAX
-function asserts, and moves nothing: a rank's tensors already have the
-layout the holding rule gives them.
+defaults and the same dropping of non-dividing axes), and a rank of the
+port holds its block (:meth:`NamedSharding.block`) of every leaf under
+that spec, along every axis: ``batch`` (inputs and caches: the rank's
+rows), ``expert`` (the rank's experts), ``seq`` (attention caches, read by
+context-parallel decode attention), ``fsdp`` (parameters and optimizer
+state, ZeRO) and ``tensor`` (heads, FFN columns, the vocabulary, SSM heads
+and channels). A leaf is whole along an axis only where
+:func:`logical_to_spec` drops it. The model code puts a leaf back
+together where it needs more than its block: :func:`gather_dims`
+all-gathers the ``fsdp`` and ``tensor`` dims of a weight just before use
+(ZeRO; its backward reduce-scatters the gradient in float32), except
+where a tensor-parallel matmul consumes the rank's block of heads or FFN
+columns as it is (``models.dense``), and :func:`keep_dims` cuts a result
+computed whole back to the rank's block (SSM caches). Outside the moe,
+decode-attention and tensor-parallel bodies the ranks of one ``model``
+line compute the same values. :func:`constrain` checks its logical names
+against ``x.ndim``, as the JAX function asserts, and moves nothing:
+activations between blocks are replicated over ``model`` (JAX's
+sequence-parallel activation layout is not ported; ROADMAP.md, Queue 1).
 
 Gradients. The collectives of the LM path (:func:`psum`, :func:`pmean`,
 :func:`psum_scatter`, :func:`all_gather_tiled`, :func:`all_to_all`) are
@@ -69,6 +72,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import warnings
 from typing import Any
 
 import numpy as np
@@ -193,14 +197,23 @@ def axis_index(mesh: Mesh, axis: str) -> int:
 
 def _wire(t: torch.Tensor) -> torch.Tensor:
     """``t`` as gloo takes it: contiguous, bool as uint8, on the host (the
-    copy counted)."""
+    copy counted; a card's tensor lands in pinned memory, which the card
+    copies to and from faster)."""
     t = t.contiguous()
     if t.dtype == torch.bool:
         t = t.to(torch.uint8)
     if t.device.type != "cpu":
         TRAFFIC["host_copy_bytes"] += t.nbytes
-        t = t.cpu()
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t)
+        t = host
     return t
+
+
+def _host_like(t: torch.Tensor, shape=None) -> torch.Tensor:
+    """An empty host tensor of ``t``'s dtype (and shape), pinned where
+    ``t`` is: a buffer that gloo fills and the card then reads."""
+    return torch.empty(t.shape if shape is None else shape, dtype=t.dtype, pin_memory=t.is_pinned())
 
 
 def _unwire(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -292,13 +305,10 @@ class NamedSharding:
     counterpart of ``NamedSharding(mesh, PartitionSpec(...))``. ``spec``
     holds, per leading dim, an axis name, a tuple of names (split over
     their product, row-major) or None (whole); dims past it are whole.
-    ``spec`` is what a rank holds (:meth:`block`); ``full``, where given, is
-    the layout the JAX package's rules give the leaf (its PartitionSpec),
-    which the port holds only along the held logical axes."""
+    A rank holds its :meth:`block` under ``spec``."""
 
     mesh: Mesh
     spec: tuple = ()
-    full: tuple | None = None
 
     def _cuts(self, shape, spec):
         """Per dim of ``shape``: (number of blocks, this rank's block)."""
@@ -336,11 +346,6 @@ class NamedSharding:
         cuts = self._cuts(shape, self.spec)
         return tuple(s // cuts[d][0] if d < len(cuts) else s for d, s in enumerate(shape))
 
-    def full_block_shape(self, shape) -> tuple:
-        """The shape of one device's block under ``full`` (the JAX layout)."""
-        cuts = self._cuts(shape, self.spec if self.full is None else self.full)
-        return tuple(s // cuts[d][0] if d < len(cuts) else s for d, s in enumerate(shape))
-
 
 def dry_mesh(axis_names: tuple[str, ...], shape: tuple[int, ...], coords: tuple[int, ...] | None = None) -> Mesh:
     """A mesh of ``shape`` seen from the rank at ``coords`` (the first by
@@ -369,9 +374,6 @@ class ShardingRules:
             return (None,)
         return getattr(self, logical)
 
-
-# the logical axes a rank of the port holds in blocks (the holding rule)
-HELD_AXES = ("batch", "expert", "seq")
 
 _STATE: dict[str, Any] = {"mesh": None, "rules": ShardingRules()}
 
@@ -430,18 +432,47 @@ def logical_to_spec(mesh, rules: ShardingRules, logical: tuple, shape: tuple) ->
     return tuple(spec)
 
 
-def held_spec(spec: tuple, logical: tuple) -> tuple:
-    """The part of ``spec`` a rank of the port holds in blocks: the dims
-    whose logical axis is ``batch``, ``expert`` or ``seq``; whole along
-    ``fsdp`` and ``tensor``."""
-    return tuple(s if name in HELD_AXES else None for s, name in zip(spec, logical))
-
-
 def sharding_for(mesh: Mesh, logical: tuple, shape: tuple) -> NamedSharding:
-    """The leaf's :class:`NamedSharding` on ``mesh``: the rank's block
-    (:func:`held_spec`) and the JAX layout as ``full``."""
-    full = logical_to_spec(mesh, get_rules(), tuple(logical), tuple(shape))
-    return NamedSharding(mesh, held_spec(full, tuple(logical)), full)
+    """The leaf's :class:`NamedSharding` on ``mesh``: the JAX package's
+    spec, of which a rank holds its block."""
+    return NamedSharding(mesh, logical_to_spec(mesh, get_rules(), tuple(logical), tuple(shape)))
+
+
+def _named_cuts(mesh: Mesh, logical: tuple, shape: tuple, names: tuple) -> tuple:
+    """``((live mesh axes, dim), ...)`` of the dims whose logical axis is in
+    ``names``, as the spec of a ``shape`` leaf splits them. The other dims
+    are resolved as whole, so their sizes in ``shape`` are not read; the
+    rules' ``batch`` axes, the only ones a named dim could share, never
+    meet ``fsdp`` in one leaf."""
+    masked = tuple(n if n in names else None for n in logical)
+    spec = logical_to_spec(mesh, get_rules(), masked, tuple(shape))
+    return tuple((_live(mesh, axes), dim) for dim, axes in enumerate(spec) if axes is not None and _live(mesh, axes))
+
+
+def gather_dims(x: torch.Tensor, logical: tuple, shape: tuple, names: tuple = ("fsdp", "tensor"),
+                dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``x``, this rank's block of a leaf of global ``shape`` with
+    ``logical`` axes, cast to ``dtype`` (where given) and all-gathered whole
+    along every dim whose logical axis is in ``names`` (ZeRO's gather of a
+    weight before use). Its backward reduce-scatters the gradient in
+    float32 and returns it in ``x``'s dtype. Without a mesh, ``x`` cast."""
+    mesh = get_mesh()
+    cuts = () if mesh is None else _named_cuts(mesh, logical, shape, names)
+    if not cuts:
+        return x if dtype is None else x.to(dtype)
+    return _AllGatherTiled.apply(mesh, cuts, x, dtype)
+
+
+def keep_dims(x: torch.Tensor, logical: tuple, names: tuple = ("tensor",)) -> torch.Tensor:
+    """This rank's block of ``x`` (a whole leaf, at its global shape) along
+    every dim whose logical axis is in ``names``: the inverse of
+    :func:`gather_dims` for results computed whole (a slice)."""
+    mesh = get_mesh()
+    if mesh is None:
+        return x
+    for axes, dim in _named_cuts(mesh, logical, tuple(x.shape), names):
+        x = _my_block(mesh, axes, x, dim)
+    return x
 
 
 def constrain(x: torch.Tensor, *logical: str | None) -> torch.Tensor:
@@ -500,19 +531,41 @@ def _cooked(r: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return r.view(like.dtype).reshape(like.shape) if r.dtype != like.dtype and like.dtype != torch.bool else r
 
 
-def _gather_parts(mesh: Mesh, axis: str, t: torch.Tensor) -> list[torch.Tensor]:
-    """``t`` from every rank on this rank's ``axis`` line, in axis order."""
+def _all_gather_flat(out: torch.Tensor, src: torch.Tensor, group) -> None:
+    """The flat host tensors of an axis line's ranks into ``out`` (their
+    concatenation in rank order): one buffer, no list of parts to join."""
+    with warnings.catch_warnings():  # renamed in later torch releases; the same collective
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.all_gather_into_tensor(out, src, group=group)
+
+
+def _gather_stack(mesh: Mesh, axis: str, t: torch.Tensor) -> torch.Tensor:
+    """``t`` from every rank on this rank's ``axis`` line, stacked in axis
+    order along a new leading dim, on ``t``'s device."""
     host = _wire(t)
-    src = _raw(host)
-    out = [torch.empty_like(src) for _ in range(mesh.shape[axis])]
-    dist.all_gather(out, src, group=mesh.groups[axis])
+    src = _raw(host).reshape(-1)
+    out = _host_like(src, (mesh.shape[axis] * src.numel(),))
+    _all_gather_flat(out, src, mesh.groups[axis])
     TRAFFIC["sent_bytes"] += src.nbytes
-    return [_unwire(_cooked(o, host), t) for o in out]
+    return _unwire(out.view(host.dtype).reshape((mesh.shape[axis],) + tuple(host.shape)), t)
+
+
+# a sum over an axis of at least this many bytes goes as a reduce-scatter
+# and an all-gather of the summed blocks (each rank moves the tensor about
+# once, not n - 1 times); a smaller one as one all-gather of the whole
+SCATTER_SUM_BYTES = 1 << 20
 
 
 def _sum_over(mesh: Mesh, axes: tuple, t: torch.Tensor) -> torch.Tensor:
+    """The sum of ``t`` over ``axes``, each summed in rank order, in ``t``'s
+    dtype, the same bits on every rank whichever form moves it."""
     for a in axes:
-        parts = _gather_parts(mesh, a, t)
+        n = mesh.shape[a]
+        if t.numel() % n == 0 and t.numel() * t.element_size() >= SCATTER_SUM_BYTES:
+            block = _scatter_sum(mesh, (a,), t.reshape(-1), 0)
+            t = _gather_stack(mesh, a, block).reshape(t.shape)
+            continue
+        parts = _gather_stack(mesh, a, t)
         acc = parts[0]
         for p in parts[1:]:  # rank order, in t's dtype
             acc = acc + p
@@ -522,7 +575,8 @@ def _sum_over(mesh: Mesh, axes: tuple, t: torch.Tensor) -> torch.Tensor:
 
 def _gather_tiled(mesh: Mesh, axes: tuple, t: torch.Tensor, dim: int) -> torch.Tensor:
     for a in reversed(axes):  # the last axis varies fastest in the block index
-        t = torch.cat(_gather_parts(mesh, a, t), dim=dim)
+        parts = _gather_stack(mesh, a, t)
+        t = parts.reshape((-1,) + tuple(t.shape[1:])) if dim == 0 else torch.cat(parts.unbind(0), dim=dim)
     return t
 
 
@@ -549,18 +603,87 @@ class _Psum(torch.autograd.Function):
 
 
 class _AllGatherTiled(torch.autograd.Function):
+    """Tiled all-gathers along ``cuts``, ``((axes, dim), ...)`` in order,
+    of ``x`` cast to ``dtype`` (None keeps it). The backward reduce-scatters
+    the cuts in reverse, in float32 on the wire for a narrower gradient,
+    and returns the sum in ``x``'s dtype."""
+
     @staticmethod
-    def forward(ctx_, mesh, axes, x, dim):
-        ctx_.mesh, ctx_.axes, ctx_.dim = mesh, axes, dim
-        if mesh.dry:
-            out = torch.cat([x] * math.prod(mesh.shape[a] for a in axes), dim=dim)
-            _tally("all-gather", out)
-            return out
-        return _gather_tiled(mesh, axes, x, dim)
+    def forward(ctx_, mesh, cuts, x, dtype):
+        ctx_.mesh, ctx_.cuts, ctx_.in_dtype = mesh, cuts, x.dtype
+        if dtype is not None:
+            x = x.to(dtype)
+        for axes, dim in cuts:
+            if mesh.dry:
+                x = torch.cat([x] * math.prod(mesh.shape[a] for a in axes), dim=dim)
+                _tally("all-gather", x)
+            else:
+                x = _gather_tiled(mesh, axes, x, dim)
+        return x
 
     @staticmethod
     def backward(ctx_, g):
-        return None, None, _PsumScatter.apply(ctx_.mesh, ctx_.axes, g, ctx_.dim), None
+        wide = g if g.dtype in (torch.float32, torch.float64) else g.float()
+        for axes, dim in reversed(ctx_.cuts):
+            wide = _PsumScatter.apply(ctx_.mesh, axes, wide, dim)
+        return None, None, wide.to(ctx_.in_dtype), None
+
+
+class _MeanGrad(torch.autograd.Function):
+    """Identity forward; the backward averages the gradient over ``axes``
+    (float32 on the wire, summed in rank order) and returns it in its
+    dtype."""
+
+    @staticmethod
+    def forward(ctx_, mesh, axes, x):
+        ctx_.mesh, ctx_.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx_, g):
+        wide = g if g.dtype in (torch.float32, torch.float64) else g.float()
+        n = math.prod(ctx_.mesh.shape[a] for a in ctx_.axes)
+        if ctx_.mesh.dry:
+            _tally("all-reduce", wide)
+            return None, None, g
+        return None, None, (_sum_over(ctx_.mesh, ctx_.axes, wide) / n).to(g.dtype)
+
+
+def _swap(mesh: Mesh, axis: str, chunks: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Chunk j of ``chunks`` (host tensors as gloo moves them) to rank j of
+    the ``axis`` line -> the chunks received, in sender order (this rank's
+    own kept)."""
+    me = axis_index(mesh, axis)
+    line = mesh.line(axis)
+    recv = [_host_like(chunks[me]) for _ in chunks]
+    reqs = []
+    for j, c in enumerate(chunks):
+        if j == me:
+            recv[j] = c
+            continue
+        reqs.append(dist.isend(c, line[j]))
+        reqs.append(dist.irecv(recv[j], line[j]))
+        TRAFFIC["sent_bytes"] += c.nbytes
+    for r in reqs:
+        r.wait()
+    return recv
+
+
+def _scatter_sum(mesh: Mesh, axes: tuple, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The reduce-scatter: per axis (the first varies slowest), block j of
+    ``x`` along ``dim`` sent to rank j of the line, and the blocks received
+    summed in rank order, so this rank's block of the sum over ``axes``
+    has the bits of the whole sum's (:func:`_sum_over`)."""
+    for a in axes:
+        host = _wire(x)
+        parts = [c if c.is_contiguous() else _host_like(host, c.shape).copy_(c)
+                 for c in torch.chunk(host, mesh.shape[a], dim=dim)]
+        got = [_cooked(r, parts[0]) for r in _swap(mesh, a, [_raw(p) for p in parts])]
+        acc = torch.add(got[0], got[1], out=_host_like(host, got[0].shape))
+        for p in got[2:]:  # rank order, in x's dtype
+            acc += p
+        x = _unwire(acc, x)
+    return x
 
 
 class _PsumScatter(torch.autograd.Function):
@@ -574,33 +697,18 @@ class _PsumScatter(torch.autograd.Function):
             out = x.narrow(dim, 0, x.shape[dim] // n).clone()
             _tally("reduce-scatter", out)
             return out
-        return _my_block(mesh, axes, _sum_over(mesh, axes, x), dim).contiguous()
+        return _scatter_sum(mesh, axes, x, dim)
 
     @staticmethod
     def backward(ctx_, g):
-        return None, None, _AllGatherTiled.apply(ctx_.mesh, ctx_.axes, g, ctx_.dim), None
+        return None, None, _AllGatherTiled.apply(ctx_.mesh, ((ctx_.axes, ctx_.dim),), g, None), None
 
 
 def _exchange(mesh: Mesh, axis: str, x: torch.Tensor) -> torch.Tensor:
     """Chunk j of ``x``'s leading dim to rank j of the ``axis`` line; the
     chunks received, in sender order, concatenated along dim 0."""
-    n = mesh.shape[axis]
-    me = axis_index(mesh, axis)
-    line = mesh.line(axis)
-    chunks = list(torch.chunk(x, n, dim=0))
-    hosts = [_wire(c) for c in chunks]
-    sends = [_raw(h) for h in hosts]
-    recv = [torch.empty_like(sends[j]) for j in range(n)]
-    reqs = []
-    for j in range(n):
-        if j == me:
-            recv[j] = sends[j]
-            continue
-        reqs.append(dist.isend(sends[j], line[j]))
-        reqs.append(dist.irecv(recv[j], line[j]))
-        TRAFFIC["sent_bytes"] += sends[j].nbytes
-    for r in reqs:
-        r.wait()
+    hosts = [_wire(c) for c in torch.chunk(x, mesh.shape[axis], dim=0)]
+    recv = _swap(mesh, axis, [_raw(h) for h in hosts])
     return _unwire(torch.cat([_cooked(r, h) for r, h in zip(recv, hosts)], dim=0), x)
 
 
@@ -644,7 +752,7 @@ def pmax(mesh: Mesh, axes, x: torch.Tensor) -> torch.Tensor:
         _tally("all-reduce", x)
         return x.clone()
     for a in axes:
-        x = torch.stack(_gather_parts(mesh, a, x)).amax(0)
+        x = _gather_stack(mesh, a, x).amax(0)
     return x
 
 
@@ -652,7 +760,7 @@ def all_gather_tiled(mesh: Mesh, axes, x: torch.Tensor, dim: int) -> torch.Tenso
     """``lax.all_gather(..., tiled=True)``: the blocks of ``axes``' ranks
     concatenated along ``dim`` in block order (row-major over ``axes``)."""
     axes = _live(mesh, axes)
-    return _AllGatherTiled.apply(mesh, axes, x, dim) if axes else x
+    return _AllGatherTiled.apply(mesh, ((axes, dim),), x, None) if axes else x
 
 
 def psum_scatter(mesh: Mesh, axes, x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -660,6 +768,17 @@ def psum_scatter(mesh: Mesh, axes, x: torch.Tensor, dim: int) -> torch.Tensor:
     of which this rank keeps its block along ``dim``."""
     axes = _live(mesh, axes)
     return _PsumScatter.apply(mesh, axes, x, dim) if axes else x
+
+
+def mean_grad(mesh: Mesh, axes, x: torch.Tensor) -> torch.Tensor:
+    """``x``, replicated over ``axes`` (a name or a tuple), as it is; its
+    gradient, each rank's share of the replicas' total, is averaged over
+    ``axes`` (float32 on the wire). The replicas' sum, all that a
+    replicated value's gradient means here (``train.loop``), is kept, and
+    the shares meet before a narrower dtype rounds them: the input of a
+    tensor-parallel block's column-parallel matmuls."""
+    axes = _live(mesh, axes)
+    return _MeanGrad.apply(mesh, axes, x) if axes else x
 
 
 def all_to_all(mesh: Mesh, axis: str, x: torch.Tensor) -> torch.Tensor:

@@ -3,18 +3,25 @@ optional int8 gradient compression (the counterpart of
 ``repro.train.loop``), on one device or data- and expert-parallel under
 an ambient mesh (``sharding.ctx.use_mesh``, looked up at each call).
 
-Under a mesh each rank holds its blocks of the masters (the expert stacks
-split over the expert axis, the rest whole) and its block of the batch
-rows, and the step is GSPMD's data parallelism: every rank computes the
-global batch's loss (``common.chunked_softmax_xent`` sums the numerator
-and the token count over the batch axes), takes the gradient of ``loss /
-mesh.size`` through the collectives' transposes, and sums each leaf's
-gradient over the mesh axes the leaf is replicated on (the batch axes for
-an expert block, every axis for the rest; float32 on the wire). The
-clipping norm is the whole tree's: a block's squares are summed over the
-axes that split it, a replicated leaf counts once. 8-bit moments are
-quantized along the axis ``adamw.quant_axis`` picks for the leaf's global
-shape, so a block's moments are the matching block of the whole leaf's.
+Under a mesh each rank holds its blocks of the masters, of their
+gradients and of the moments under the JAX spec (``sharding.ctx``: the
+expert stacks over the expert axes, every ``fsdp`` and ``tensor`` dim
+over theirs) and its block of the batch rows, and the step is GSPMD's
+data parallelism with ZeRO: every rank computes the global batch's loss
+(``common.chunked_softmax_xent`` sums the numerator and the token count
+over the batch axes), takes the gradient of ``loss / mesh.size`` through
+the collectives' transposes (a weight's gather before use reduce-scatters
+its gradient over the axes it was gathered over, in float32), and sums
+each leaf's gradient over the mesh axes the leaf is neither split nor
+gathered over (float32 on the wire; :func:`mesh_grads`). The clipping
+norm is the whole tree's: a block's squares are summed over the axes that
+split it, a replicated leaf counts once. 8-bit moments follow the layout
+:func:`opt_state_structs` gives (:func:`init_state`): quantized along the
+axis ``adamw.quant_axis`` picks for the leaf's global shape, the block
+scales split as the leaf except along that axis when the rank's block
+there holds no whole number of quantization blocks; such a leaf's moments
+are gathered along that axis for the update (:func:`quant_lines`), so a
+block's moments are always the matching block of the whole leaf's.
 With microbatches, microbatch i is the union of the ranks' i-th slices of
 their blocks.
 
@@ -77,7 +84,9 @@ def _def_leaves(defs: dict) -> list:
 
 def mesh_grads(mesh, model, grads: list[torch.Tensor]) -> torch.Tensor:
     """Sum each gradient over the mesh axes its leaf is replicated on, in
-    place -> the whole tree's gradient norm (:func:`mesh_grads_norm`)."""
+    place -> the whole tree's gradient norm (:func:`mesh_grads_norm`). The
+    axes that split a leaf are left out: its gather before use already
+    reduce-scattered its gradient over them (ZeRO)."""
     for g, p in zip(grads, _def_leaves(model.defs)):
         split = PM.sharding_of(p, mesh).axes()
         ctx.all_reduce_(mesh, tuple(a for a in mesh.axis_names if a not in split), g)
@@ -101,20 +110,49 @@ def mesh_grads_norm(mesh, model, grads: list[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sq_whole)
 
 
-def check_quant_blocks(model, params: dict, opt_cfg: adamw.AdamWConfig) -> None:
-    """Refuse 8-bit moments of a block that are not the matching block of
-    the whole leaf's: the quantization axis of every layer slice must be
-    the global shape's, whole in the block or split into whole q_blocks."""
+def _line(mesh, axes: tuple, axis: int) -> tuple:
+    return (axis, lambda t: ctx.all_gather_tiled(mesh, axes, t, axis),
+            lambda t: ctx.block_along(mesh, axes, t, axis))
+
+
+def quant_lines(mesh, model, params: dict, opt_cfg: adamw.AdamWConfig) -> list | None:
+    """Per master leaf (``adamw.update``'s ``lines``): None where the rank's
+    block holds whole q_blocks along the global quantization axis of the
+    leaf (or of its layer slice), else ``(axis, widen, narrow)``: the
+    all-gather of a moment along that axis over the mesh axes splitting it
+    and the rank's block of the result. Those blocks' scales are whole
+    along the axis (:func:`opt_state_structs`), as the JAX layout has
+    them. None for 32-bit moments."""
     if opt_cfg.state_bits != 8:
-        return
+        return None
+    out = []
     for p, d in zip(_leaves(params), _def_leaves(model.defs)):
-        g_shape = d.shape[1:] if p.dim() >= 3 and p.shape[0] <= 512 else d.shape
-        b_shape = tuple(p.shape[1:]) if p.dim() >= 3 and p.shape[0] <= 512 else tuple(p.shape)
-        ga, ba = adamw.quant_axis(tuple(g_shape), opt_cfg.q_block), adamw.quant_axis(b_shape, opt_cfg.q_block)
-        if ga != ba:
-            raise NotImplementedError(
-                f"8-bit moments of a {b_shape} block of a {tuple(g_shape)} leaf: the block quantizes along"
-                f" axis {ba}, the leaf along {ga}")
+        sliced = int(p.dim() >= 3 and p.shape[0] <= 512)  # adamw.update's layer slices
+        ax = adamw.quant_axis(tuple(d.shape[sliced:]), opt_cfg.q_block)
+        if ax is None or p.shape[ax + sliced] % opt_cfg.q_block == 0:
+            out.append(None)
+            continue
+        spec = PM.sharding_of(d, mesh).spec
+        axes = spec[ax + sliced] if ax + sliced < len(spec) else None
+        out.append(_line(mesh, (axes,) if isinstance(axes, str) else tuple(axes), ax))
+    return out
+
+
+def init_state(model, params: dict, opt_cfg: adamw.AdamWConfig) -> adamw.AdamWState:
+    """``adamw.init``; under a mesh, zeros of this rank's blocks of the
+    layout :func:`opt_state_structs` gives, on the masters' device."""
+    mesh = ctx.get_mesh()
+    if mesh is None:
+        return adamw.init(params, opt_cfg)
+    dev = _leaves(params)[0].device
+    structs = opt_state_structs(model, mesh, opt_cfg)
+
+    def zeros(t):
+        if isinstance(t, dict):
+            return {k: zeros(v) for k, v in t.items()}
+        return torch.zeros(t.sharding.block_shape(t.shape), dtype=t.dtype, device=dev)
+
+    return adamw.AdamWState(zeros(structs.m), zeros(structs.v), torch.zeros((), dtype=torch.int32, device=dev))
 
 
 def _norm_kw(gnorm) -> dict:
@@ -143,10 +181,15 @@ def make_train_step(model, opt_cfg: adamw.AdamWConfig, compress: bool = False):
         if mesh is None:
             loss, grads = grads_of(params, batch, 1.0)
             return loss, _unflatten(params, iter(grads)), None
-        check_quant_blocks(model, params, opt_cfg)
         loss, grads = grads_of(params, batch, 1.0 / mesh.size)
         gnorm = mesh_grads(mesh, model, grads)
         return loss, _unflatten(params, iter(grads)), gnorm
+
+    def update(params, grads, opt_state, gnorm):
+        mesh = ctx.get_mesh()
+        lines = None if mesh is None else quant_lines(mesh, model, params, opt_cfg)
+        kw = _norm_kw(gnorm) if lines is None else dict(_norm_kw(gnorm), lines=lines)
+        return adamw.update(opt_cfg, grads, opt_state, params, **kw)
 
     if compress:
 
@@ -155,14 +198,14 @@ def make_train_step(model, opt_cfg: adamw.AdamWConfig, compress: bool = False):
             grads, ef = gc.compress_grads(grads, ef)
             if gnorm is not None:  # the compressed gradients' norm, over the whole tree
                 gnorm = mesh_grads_norm(ctx.get_mesh(), model, _leaves(grads))
-            params, opt_state, metrics = adamw.update(opt_cfg, grads, opt_state, params, **_norm_kw(gnorm))
+            params, opt_state, metrics = update(params, grads, opt_state, gnorm)
             return params, opt_state, ef, dict(metrics, loss=loss)
 
         return step
 
     def step(params, opt_state, batch):
         loss, grads, gnorm = grads_and_norm(params, batch)
-        params, opt_state, metrics = adamw.update(opt_cfg, grads, opt_state, params, **_norm_kw(gnorm))
+        params, opt_state, metrics = update(params, grads, opt_state, gnorm)
         return params, opt_state, dict(metrics, loss=loss)
 
     return step
@@ -195,7 +238,7 @@ def opt_state_structs(model, mesh=None, opt_cfg: adamw.AdamWConfig | None = None
                         spec[ax] = None
                 return tuple(spec)
 
-            ssh = ctx.NamedSharding(sh.mesh, cut(sh.spec), cut(sh.full))
+            ssh = ctx.NamedSharding(sh.mesh, cut(sh.spec))
         return {"q": PM.struct(s.shape, torch.int8 if signed else torch.uint8, sh),
                 "s": PM.struct(sshape, torch.float32, ssh)}
 
@@ -203,4 +246,4 @@ def opt_state_structs(model, mesh=None, opt_cfg: adamw.AdamWConfig | None = None
         return adamw._tree_map(lambda s: moment_like(s, signed), pstructs)
 
     return adamw.AdamWState(tree(True), tree(False),
-                            PM.struct((), torch.int32, None if mesh is None else ctx.NamedSharding(mesh, (), ())))
+                            PM.struct((), torch.int32, None if mesh is None else ctx.NamedSharding(mesh, ())))

@@ -1,5 +1,5 @@
 """The rank program of tests/test_torch_lm_mesh.py: the package's LM mesh
-job (``repro_torch.launch.lm_mesh_job``) and three steps of the tests' own.
+job (``repro_torch.launch.lm_mesh_job``) and the tests' own steps.
 
 * ``("grads_kept", {arch, smoke, overrides, seed, rows})``: the job's
   step-0 loss and reduced gradients, the gradients returned (this rank's
@@ -10,6 +10,24 @@ job (``repro_torch.launch.lm_mesh_job``) and three steps of the tests' own.
   squares of the output plus ``aux_weight`` times aux.
 * ``("cp_decode", {q, k, v, cur})``: ``decode_attention_cp`` on the rank's
   sequence block of a cache.
+* ``("shapes", {arch, smoke, overrides, prompts, max_len})``: the shapes of
+  every leaf this rank holds: the serving weights, the masters, the 32-
+  and 8-bit moments (``train.loop.init_state``) and the cache after a
+  prefill of its rows of ``prompts``.
+* ``("tp_block", {cfg, p, x})``: one dense block (``dense.block_train``) on
+  the rank's blocks of the one-layer weights ``p`` and its rows of ``x``,
+  computed in float32 (bf16 replaced by float32 while it runs); its output
+  and the reduced gradients of the global sum of squares of the output.
+* ``("moments8", {arch, smoke, overrides, rows})``: one train step with
+  8-bit moments from the seed-0 masters on the global ``rows``; the loss
+  and every moment leaf (this rank's blocks).
+* ``("psum_forms", {x})``: ``ctx.psum`` over both axes of ``x`` times
+  (rank + 1), in float32 and bf16, as one all-gather and as a
+  reduce-scatter and an all-gather (``ctx.SCATTER_SUM_BYTES``).
+* ``("serve_carried", {arch, smoke, params, prompts, max_len})``: the
+  serving weights carried across from a numpy tree (``params``, a ``.npz``
+  path of ``name/with/slashes`` keys) by ``params.model_params_from_numpy``
+  under the mesh, and the prefill logits of the rank's rows.
 """
 from __future__ import annotations
 
@@ -18,11 +36,16 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import params as tparams
 from repro_torch.launch import lm_mesh_job as job
+from repro_torch.models import api
 from repro_torch.models import common as C
+from repro_torch.models import dense
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import params as PM
+from repro_torch.optim import adamw
 from repro_torch.sharding import ctx
+from repro_torch.train import loop as tl
 
 
 def grads_kept(mesh, arch, smoke=False, overrides=None, seed=0, rows=None) -> dict:
@@ -69,7 +92,114 @@ def cp_decode(mesh, q, k, v, cur) -> dict:
     return {"out": job._np(out), "blocks": blocks}
 
 
-OPS = dict(job.OPS, grads_kept=grads_kept, moe=moe, cp_decode=cp_decode)
+def leaf_shapes(tree, prefix: str = "") -> dict:
+    """``name -> shape`` of every tensor of nested dicts (an 8-bit moment's
+    ``q`` and ``s`` apart), keys sorted; other values left out."""
+    out = {}
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out.update(leaf_shapes(v, f"{prefix}{k}/"))
+        elif isinstance(v, torch.Tensor):
+            out[f"{prefix}{k}"] = tuple(v.shape)
+    return out
+
+
+def _rows_of(mesh, rows):
+    rows = np.asarray(rows)
+    block = ctx.sharding_for(mesh, ("batch", None), rows.shape).block(rows)
+    return torch.as_tensor(np.array(block), device=mesh.device)
+
+
+def shapes(mesh, arch, smoke=True, overrides=None, prompts=None, max_len=None) -> dict:
+    cfg = job._cfg(arch, smoke, overrides)
+    model = api.build_model(cfg)
+    dev = mesh.device
+    lm = model.init(0, dev)
+    out = {"params": {n.replace(".", "/"): tuple(t.shape) for n, t in lm.named_parameters()}}
+    masters = model.init_masters(0, dev)
+    out["masters"] = leaf_shapes(masters)
+    for bits in (32, 8):
+        st = tl.init_state(model, masters, adamw.AdamWConfig(state_bits=bits))
+        out[f"moments{bits}"] = leaf_shapes({"m": st.m, "v": st.v})
+    with torch.no_grad():
+        _, cache = model.prefill(lm, {"tokens": _rows_of(mesh, prompts)}, max_len)
+    out["cache"] = leaf_shapes(cache)
+    return out
+
+
+def tp_block(mesh, cfg, p, x) -> dict:
+    saved = C.COMPUTE_DTYPE
+    C.COMPUTE_DTYPE = torch.float32
+    try:
+        defs = dense.layer_defs(cfg)
+        pp = {k: torch.as_tensor(np.array(PM.sharding_of(defs[k], mesh).block(np.asarray(v))),
+                                 device=mesh.device).requires_grad_() for k, v in p.items()}
+        x = np.asarray(x)
+        xb = torch.as_tensor(np.array(ctx.sharding_for(mesh, ("batch", None, None), x.shape).block(x)),
+                             device=mesh.device).requires_grad_()
+        with torch.enable_grad():
+            y = dense.block_train(cfg, pp, xb, torch.arange(x.shape[1], device=mesh.device))
+            tot = ctx.psum(mesh, ctx.batch_axes(mesh), (y.float() ** 2).sum())
+            gs = torch.autograd.grad(tot / mesh.size, [xb] + [pp[k] for k in sorted(pp)])
+        for k, g in zip(sorted(pp), gs[1:]):
+            split = PM.sharding_of(defs[k], mesh).axes()
+            ctx.all_reduce_(mesh, tuple(a for a in mesh.axis_names if a not in split), g)
+        ctx.all_reduce_(mesh, tuple(a for a in mesh.axis_names if a not in ctx.batch_axes(mesh)), gs[0])
+        return {"out": job._np(y), "attn_axes": dense.attn_axes(cfg), "ffn_axes": dense.ffn_axes(cfg),
+                "grads": {"x": job._np(gs[0]), **{k: job._np(g) for k, g in zip(sorted(pp), gs[1:])}}}
+    finally:
+        C.COMPUTE_DTYPE = saved
+
+
+def moments8(mesh, arch, smoke=True, overrides=None, rows=None) -> dict:
+    cfg = job._cfg(arch, smoke, overrides)
+    model = api.build_model(cfg)
+    opt = adamw.AdamWConfig(state_bits=8, warmup_steps=1, total_steps=2)
+    params = model.init_masters(0, mesh.device)
+    state = tl.init_state(model, params, opt)
+    params, state, m = tl.make_train_step(model, opt)(params, state, {"tokens": _rows_of(mesh, rows)})
+
+    def host(tree):
+        return {k: host(v) if isinstance(v, dict) else job._np(v) for k, v in tree.items()}
+
+    return {"loss": float(m["loss"]), "m": host(state.m), "v": host(state.v)}
+
+
+def psum_forms(mesh, x) -> dict:
+    saved, out = ctx.SCATTER_SUM_BYTES, {}
+    try:
+        for dt in (torch.float32, torch.bfloat16):
+            t = (torch.as_tensor(np.asarray(x), device=mesh.device) * (mesh.rank + 1)).to(dt)
+            for form, limit in (("gather", 1 << 62), ("scatter", 0)):
+                ctx.SCATTER_SUM_BYTES = limit
+                out[f"{form}_{str(dt)[6:]}"] = job._np(ctx.psum(mesh, ("data", "model"), t))
+    finally:
+        ctx.SCATTER_SUM_BYTES = saved
+    return out
+
+
+def serve_carried(mesh, arch, smoke=True, params=None, prompts=None, max_len=None) -> dict:
+    cfg = job._cfg(arch, smoke)
+    tree: dict = {}
+    with np.load(params) as f:
+        for name in f.files:
+            node = tree
+            *path, leaf = name.split("/")
+            for k in path:
+                node = node.setdefault(k, {})
+            node[leaf] = f[name]
+    lm = tparams.model_params_from_numpy(cfg, tree, mesh.device)
+    prompts = np.asarray(prompts)
+    rows = ctx.sharding_for(mesh, ("batch", None), prompts.shape)
+    with torch.no_grad():
+        logits, _ = api.build_model(cfg).prefill(lm, {"tokens": _rows_of(mesh, prompts)}, max_len)
+    return {"rows": [int(i) for i in job._row_range(rows, prompts.shape[0])], "logits": job._np(logits),
+            "held": {n.replace(".", "/"): tuple(t.shape) for n, t in lm.named_parameters()}}
+
+
+OPS = dict(job.OPS, grads_kept=grads_kept, moe=moe, cp_decode=cp_decode, shapes=shapes, tp_block=tp_block,
+           moments8=moments8, psum_forms=psum_forms, serve_carried=serve_carried)
 
 
 def run(j: job.LMMeshJob) -> dict:

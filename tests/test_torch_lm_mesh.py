@@ -30,8 +30,23 @@ this process computes the references) runs every case:
 * context-parallel decode attention against JAX's local form at 1e-4 and
   against JAX's own context-parallel form;
 * ``launch.train.train`` under the mesh with a checkpoint: rank 0 gathers
-  the expert blocks and writes the JAX format; restored here it equals the
-  mesh's tree, and a one-process run resumes from it at the mesh's loss.
+  every split leaf and writes the JAX format; restored here it equals the
+  mesh's tree, and a one-process run resumes from it at the mesh's loss;
+* the holding rule: every serving weight, master, 32- and 8-bit moment and
+  cache leaf a rank holds has the shape of its block under the JAX spec;
+* one tensor-parallel dense block (granite-smoke's heads and FFN split
+  over the model axis) and its gradients against one process, both in
+  float32 (bf16 replaced by float32), at float32 tolerance;
+* one train step with 8-bit moments whose blocks straddle quantization
+  blocks (granite-smoke's embedding and FFN), the moments dequantized
+  against one process's within twice the gradients' tolerance;
+* granite-smoke's prefill logits, the JAX package's weights carried to the
+  ranks by ``params.model_params_from_numpy``, against the JAX package's
+  own on its 2 x 2 mesh of 4 host devices (the JAX subprocess), at the
+  one-process test's tolerance (``tests/test_torch_models.py``).
+
+Every row of the spawned world's gradients is put back together along
+every dim a leaf's spec splits (``fsdp`` and ``tensor`` too).
 """
 from __future__ import annotations
 
@@ -42,6 +57,7 @@ import subprocess
 import sys
 import textwrap
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -50,6 +66,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro import configs as jconfigs
+from repro.models import api as japi
 from repro.models import common as jC
 from repro.models import moe as jmoe
 from repro.models.api import ModelConfig as JConfig
@@ -57,8 +75,11 @@ from repro_torch import configs as tconfigs
 from repro_torch.checkpoint import store as tstore
 from repro_torch.launch import lm_mesh_job
 from repro_torch.launch import mesh as tmesh
+from repro_torch.launch import dryrun as tdryrun
 from repro_torch.launch import train as tlaunch
 from repro_torch.models import api as tapi
+from repro_torch.models import common as tC
+from repro_torch.models import dense as tdense
 from repro_torch.models import moe as tmoe
 from repro_torch.models import params as tPM
 from repro_torch.optim import adamw as tadamw
@@ -135,7 +156,27 @@ def _port_moe_cfg(cap: float, impl: str = "gather"):
     return tapi.ModelConfig(**{**dataclasses.asdict(MOE_CFG), "capacity_factor": cap, "moe_impl": impl})
 
 
-def _job(ckpt_dir: str) -> lm_mesh_job.LMMeshJob:
+SPEC_FAMILIES = {"dense": "granite-8b", "moe": "olmoe-1b-7b", "ssm": "mamba2-780m", "hybrid": "hymba-1.5b"}
+TP_CFG = tconfigs.get("granite-8b", smoke=True)
+CARRIED_LEN = 32
+JAX_LOGIT_ATOL = 0.03  # tests/test_torch_models.py's LOGIT_ATOL, the one-process port against JAX
+
+
+def _tp_inputs():
+    rng = np.random.default_rng(8)
+    p = {k: (rng.standard_normal(d.shape) / np.sqrt(d.shape[0])).astype(np.float32)
+         for k, d in tdense.layer_defs(TP_CFG).items()}
+    for k in ("ln1", "ln2"):
+        p[k] = (1.0 + 0.1 * rng.standard_normal(p[k].shape)).astype(np.float32)
+    return p, rng.standard_normal((4, 16, TP_CFG.d_model)).astype(np.float32)
+
+
+def _psum_input():
+    return np.random.default_rng(12).standard_normal((4, 1024)).astype(np.float32)
+
+
+def _job(d) -> lm_mesh_job.LMMeshJob:
+    ckpt_dir = str(d / "ckpt")
     steps = []
     for name, (arch, over, *_) in FAMILIES.items():
         prompts, feed = _inputs(arch, list(FAMILIES).index(name))
@@ -157,6 +198,15 @@ def _job(ckpt_dir: str) -> lm_mesh_job.LMMeshJob:
     # the mesh resumes from its own checkpoint (each rank restores its blocks)
     steps.append(("train", dict(arch=CKPT_ARCH, smoke=True, overrides=CKPT_OVER, steps=3, batch=4, seq=16,
                                 ckpt_dir=ckpt_dir)))
+    for fam, arch in SPEC_FAMILIES.items():
+        cfg = tconfigs.get(arch, smoke=True)
+        steps.append(("shapes", dict(arch=arch, prompts=_inputs(arch, 9)[0], max_len=_max_len(cfg))))
+    p, x = _tp_inputs()
+    steps.append(("tp_block", dict(cfg=TP_CFG, p=p, x=x)))
+    steps.append(("moments8", dict(arch="granite-8b", rows=_inputs("granite-8b", 10)[0])))
+    steps.append(("psum_forms", dict(x=_psum_input())))
+    steps.append(("serve_carried", dict(arch="granite-8b", params=str(d / "granite.npz"),
+                                        prompts=_inputs("granite-8b", 11)[0], max_len=CARRIED_LEN)))
     return lm_mesh_job.LMMeshJob(mesh=MESH, steps=tuple(steps), device="cpu")
 
 
@@ -166,7 +216,8 @@ for _name in FAMILIES:
     STEP[f"serve_{_name}"], STEP[f"grads_{_name}"] = _i, _i + 1
     _i += 2
 for _name in ("serve_fallback", "moe_gather_8", "moe_a2a_8", "moe_gather_125", "moe_a2a_125", "moe_decode",
-              "cp_decode", "train_ckpt", "train_resumed"):
+              "cp_decode", "train_ckpt", "train_resumed", *(f"shapes_{f}" for f in SPEC_FAMILIES), "tp_block",
+              "moments8", "psum_forms", "serve_carried"):
     STEP[_name] = _i
     _i += 1
 
@@ -195,6 +246,20 @@ JAX_EP = textwrap.dedent(
             out[impl + "_out"], out[impl + "_aux"] = np.asarray(o, np.float32), np.asarray(a)
         args = [jnp.asarray(inp[k]) for k in ("q", "k", "v", "cur")]
         out["cp"] = np.asarray(jax.jit(lambda *a: C.decode_attention_cp(*a))(*args))
+        # granite-smoke's prefill on the 2 x 2 mesh, from the weights the ranks carry across
+        from repro import configs
+        from repro.models import dense
+        params = {}
+        with np.load(sys.argv[3]) as f:
+            for name in f.files:
+                node = params
+                *path, leaf = name.split("/")
+                for k in path:
+                    node = node.setdefault(k, {})
+                node[leaf] = jnp.asarray(f[name])
+        gcfg = configs.get("granite-8b", smoke=True)
+        prefill = jax.jit(lambda p, t: dense.prefill(gcfg, p, {"tokens": t}, int(sys.argv[5]))[0])
+        out["granite_prefill"] = np.asarray(prefill(params, jnp.asarray(np.load(sys.argv[4]))), np.float32)
     np.savez(sys.argv[2], **out)
     print("OK")
     """
@@ -207,12 +272,16 @@ def world(tmp_path_factory):
     d = tmp_path_factory.mktemp("lm_mesh")
     p, x = _moe_inputs()
     np.savez(d / "inp.npz", x=x, **p, **dict(zip(("q", "k", "v", "cur"), _cp_inputs())))
-    jax_ep = subprocess.Popen([sys.executable, "-c", JAX_EP, str(d / "inp.npz"), str(d / "jax_ep.npz")],
+    jparams = japi.build_model(jconfigs.get("granite-8b", smoke=True)).init(jax.random.PRNGKey(0))
+    np.savez(d / "granite.npz", **lm_mesh_job._flat(jax.tree.map(np.asarray, jparams)))
+    np.save(d / "granite_prompts.npy", _inputs("granite-8b", 11)[0])
+    jax_ep = subprocess.Popen([sys.executable, "-c", JAX_EP, str(d / "inp.npz"), str(d / "jax_ep.npz"),
+                               str(d / "granite.npz"), str(d / "granite_prompts.npy"), str(CARRIED_LEN)],
                               env=dict(os.environ, PYTHONPATH="src", JAX_PLATFORMS="cpu"), cwd=ROOT,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     pool = ThreadPoolExecutor(1)
     fut = pool.submit(tmesh.spawn, lm_mesh_ranks.run, 4, store_dir=str(d / "store"),
-                      args=(_job(str(d / "ckpt")),), timeout_s=240)
+                      args=(_job(d),), timeout_s=240)
     yield {"future": fut, "jax": jax_ep, "dir": d}
     pool.shutdown(wait=True)
     jax_ep.wait()
@@ -275,20 +344,28 @@ def _grads_one(arch, over, rows):
     return float(loss), {n: g.float().numpy() for n, g in zip(names, grads)}, lm_mesh_job._flat(model.defs)
 
 
-def _assemble(reports, step: int, name: str, pdef) -> np.ndarray:
-    """A gradient leaf whole: a replicated leaf from rank 0 (every rank
-    holds it; checked equal), an expert leaf from its blocks along the
-    model axis."""
-    mesh = ctx.dry_mesh(("data", "model"), MESH)
-    spec = tPM.sharding_of(pdef, mesh).spec
-    got = [r["steps"][step]["grads"][name] for r in reports]
-    if all(a is None for a in spec):
-        for g in got[1:]:
-            np.testing.assert_array_equal(g, got[0], err_msg=f"{name}: the ranks' reduced gradients differ")
-        return got[0]
-    dim = [i for i, a in enumerate(spec) if a is not None][0]
-    by_model = {tuple(r["coords"])[1]: r["steps"][step]["grads"][name] for r in reports if r["coords"][0] == 0}
-    return np.concatenate([by_model[m] for m in sorted(by_model)], dim)
+def _assemble(reports, step: int, name: str, pdef, key=None, sharding=None) -> np.ndarray:
+    """A gradient leaf whole, each rank's block (``key(step report)``, by
+    default its ``grads[name]``) put at its place along every dim its spec
+    splits (``sharding(mesh)``, by default ``pdef``'s; ``pdef`` needs only
+    ``.shape`` then); the ranks that hold the same block (its replicas)
+    must hold the same values."""
+    out, seen = None, {}
+    for r in reports:
+        mesh = ctx.dry_mesh(("data", "model"), MESH, tuple(r["coords"]))
+        sh = tPM.sharding_of(pdef, mesh) if sharding is None else sharding(mesh)
+        at = tuple(slice(i * (n0 // n), (i + 1) * (n0 // n))
+                   for (n, i), n0 in zip(sh._cuts(pdef.shape, sh.spec), pdef.shape))
+        got = (key or (lambda s: s["grads"][name]))(r["steps"][step])
+        assert got.shape == sh.block_shape(pdef.shape), (name, got.shape)
+        where = tuple((a.start, a.stop) for a in at)
+        if where in seen:
+            np.testing.assert_array_equal(got, seen[where], err_msg=f"{name}: the replicas' blocks differ")
+            continue
+        seen[where] = got
+        out = np.zeros(pdef.shape, got.dtype) if out is None else out
+        out[at] = got
+    return out
 
 
 @pytest.mark.parametrize("name", list(FAMILIES))
@@ -383,10 +460,8 @@ def _aux_blocks(impl: str) -> int:
 
 
 def _moe_grads(reports, step: int) -> dict:
-    out = {}
-    for k in ("router", "e_gate", "e_up", "e_down"):
-        blocks = {r["coords"][1]: r["steps"][step]["grads"][k] for r in reports if r["coords"][0] == 0}
-        out[k] = blocks[0] if k == "router" else np.concatenate([blocks[m] for m in sorted(blocks)], 0)
+    defs = tmoe.layer_defs(_port_moe_cfg(8.0))
+    out = {k: _assemble(reports, step, k, defs[k]) for k in ("router", "e_gate", "e_up", "e_down")}
     out["x"] = np.concatenate([r["steps"][step]["grads"]["x"] for r in reports if r["coords"][1] == 0], 0)
     return out
 
@@ -472,14 +547,19 @@ def _emulated(monkeypatch, n: int, fn, xs: list, gs: list):
     feed: dict = {}
 
     def parts(mesh, axis, t):
-        return [f.to(t.dtype) for f in feed["now"]]
+        return torch.stack([f.to(t.dtype) for f in feed["now"]])
 
     def exchange(mesh, axis, t):
         me = ctx.axis_index(mesh, axis)
         return torch.cat([torch.chunk(f, n, dim=0)[me] for f in feed["now"]], dim=0)
 
-    monkeypatch.setattr(ctx, "_gather_parts", parts)
+    def scatter_sum(mesh, axes, t, dim):
+        me = ctx.axis_index(mesh, axes[0])
+        return torch.chunk(sum(f.to(t.dtype) for f in feed["now"]), n, dim=dim)[me]
+
+    monkeypatch.setattr(ctx, "_gather_stack", parts)
     monkeypatch.setattr(ctx, "_exchange", exchange)
+    monkeypatch.setattr(ctx, "_scatter_sum", scatter_sum)
     ys, grads = [], []
     for r in range(n):
         mesh = ctx.Mesh(("model",), (n,), (r,), torch.device("cpu"), "gloo")
@@ -493,15 +573,29 @@ def _emulated(monkeypatch, n: int, fn, xs: list, gs: list):
     return ys, grads
 
 
-@pytest.mark.parametrize("name", ["psum", "all_gather_tiled", "psum_scatter", "all_to_all"])
+def _in_mesh(mesh, fn):
+    with ctx.use_mesh(mesh):
+        return fn()
+
+
+@pytest.mark.parametrize("name", ["psum", "all_gather_tiled", "psum_scatter", "all_to_all", "gather_dims",
+                                  "mean_grad"])
 def test_each_collective_function_is_the_adjoint_of_its_forward(monkeypatch, name):
     """A one-process emulation of 4 ranks: each collective computes what
     its JAX namesake does, and its backward is its transpose,
-    sum_r <C(x)_r, g_r> = sum_r <x_r, C^T(g)_r>."""
+    sum_r <C(x)_r, g_r> = sum_r <x_r, C^T(g)_r>. ``gather_dims`` is the
+    tiled all-gather of a weight's ``tensor`` dim; ``mean_grad`` (identity
+    forward, the gradient averaged) is the transpose of the identity on a
+    replicated input, where every rank's x is the same."""
     n = 4
     gen = torch.Generator().manual_seed(3)
     xs = [torch.randn(8, 6, dtype=torch.float64, generator=gen) for _ in range(n)]
+    if name == "mean_grad":
+        xs = [xs[0].clone() for _ in range(n)]
     fns = {
+        "gather_dims": (lambda m, t: _in_mesh(m, lambda: ctx.gather_dims(t, ("tensor", None), (32, 6))),
+                        lambda r: torch.cat(xs, 0)),
+        "mean_grad": (lambda m, t: ctx.mean_grad(m, "model", t), lambda r: xs[r]),
         "psum": (lambda m, t: ctx.psum(m, "model", t), lambda r: sum(xs)),
         "all_gather_tiled": (lambda m, t: ctx.all_gather_tiled(m, "model", t, 1), lambda r: torch.cat(xs, 1)),
         "psum_scatter": (lambda m, t: ctx.psum_scatter(m, "model", t, 0), lambda r: sum(xs)[2 * r : 2 * r + 2]),
@@ -538,3 +632,165 @@ def test_dry_collectives_tally_output_bytes():
     assert ctx.all_to_all(mesh, "model", x).shape == (8, 6)
     assert ctx.DRY_BYTES == {"all-gather": 16 * 6 * 2, "reduce-scatter": 6 * 2, "all-reduce": 8 * 6 * 2,
                              "all-to-all": 8 * 6 * 2}
+
+
+def _struct_shapes(tree, prefix: str = "") -> dict:
+    """``name -> block shape`` of every struct of nested dicts (an 8-bit
+    moment's ``q`` and ``s`` apart), as ``lm_mesh_ranks.leaf_shapes`` names
+    a rank's leaves; an optimizer state's ``step`` left out (the rank
+    reports ``m`` and ``v``)."""
+    out = {}
+    for k in sorted(tree):
+        if k == "step":
+            continue
+        v = tree[k]
+        out.update(_struct_shapes(v, f"{prefix}{k}/") if isinstance(v, dict)
+                   else {f"{prefix}{k}": tuple(v.sharding.block_shape(v.shape))})
+    return out
+
+
+@pytest.mark.parametrize("family", list(SPEC_FAMILIES))
+def test_every_rank_holds_its_spec_block(world, family):
+    """Every serving weight, master, moment (32- and 8-bit, block scales as
+    ``opt_state_structs`` lays them out) and cache leaf a rank holds has
+    the shape of its block under the JAX spec, ``fsdp`` and ``tensor``
+    split too."""
+    arch = SPEC_FAMILIES[family]
+    cfg = tconfigs.get(arch, smoke=True)
+    model = tapi.build_model(cfg)
+    mod = tapi._family_module(cfg)
+    reports = _reports(world)
+    split = 0
+    for r in reports:
+        got = r["steps"][STEP[f"shapes_{family}"]]
+        mesh = ctx.dry_mesh(("data", "model"), MESH, tuple(r["coords"]))
+        want = {
+            "masters": _struct_shapes(model.param_structs(mesh)),
+            **{f"moments{bits}": _struct_shapes(tl.opt_state_structs(model, mesh, tadamw.AdamWConfig(state_bits=bits))
+                                                ._asdict(), "") for bits in (32, 8)},
+            "cache": _struct_shapes(tdryrun._cache_structs(model, 4, _max_len(cfg), mesh)),
+        }
+        for kind, shapes in want.items():
+            assert got[kind] == shapes, (family, kind, r["coords"])
+        serving = _struct_shapes(tPM.param_structs(mod.storage_defs(model.defs), mesh))
+        held = got["params"]
+        for n, shape in serving.items():
+            if n in held:
+                assert held[n] == shape, (family, n)
+            else:  # the dense serving model's per-layer views of a stacked leaf
+                head, leaf = n.rsplit("/", 1)
+                rows = [held[f"{head}/{i}/{leaf}"] for i in range(shape[0])]
+                assert rows == [shape[1:]] * shape[0], (family, n)
+        split += sum(s.sharding.block_shape(s.shape) != tuple(s.shape)
+                     for s in lm_mesh_job._flat(model.param_structs(mesh)).values())
+    assert split > 0  # the fsdp and tensor dims are split, not held whole
+
+
+def test_tensor_parallel_dense_block_and_gradients_match_one_process(world, monkeypatch):
+    """granite-smoke's block with its 4/2 heads and 128 FFN columns split
+    over the model axis (attention and the MLP tensor-parallel, the weights'
+    d rows over the data axis), in float32 on both sides, against one
+    process at float32 tolerance: the output, and the gradients of the
+    global sum of squares with respect to x and every weight."""
+    p, x = _tp_inputs()
+    monkeypatch.setattr(tC, "COMPUTE_DTYPE", torch.float32)
+    pp = {k: torch.as_tensor(v).requires_grad_() for k, v in p.items()}
+    xx = torch.as_tensor(x).requires_grad_()
+    y = tdense.block_train(TP_CFG, pp, xx, torch.arange(x.shape[1]))
+    gs = torch.autograd.grad((y ** 2).sum(), [xx] + [pp[k] for k in sorted(pp)])
+    want = {"x": gs[0].numpy(), **{k: g.numpy() for k, g in zip(sorted(pp), gs[1:])}}
+    reports = _reports(world)
+    step = STEP["tp_block"]
+    assert reports[0]["steps"][step]["attn_axes"] == ("model",) == reports[0]["steps"][step]["ffn_axes"]
+    got = np.concatenate([r["steps"][step]["out"] for r in reports if r["coords"][1] == 0], 0)
+    np.testing.assert_allclose(got, y.detach().numpy(), rtol=1e-5, atol=1e-5)
+    gx = np.concatenate([r["steps"][step]["grads"]["x"] for r in reports if r["coords"][1] == 0], 0)
+    np.testing.assert_allclose(gx, want["x"], rtol=1e-5, atol=1e-5 * float(np.abs(want["x"]).max()))
+    defs = tdense.layer_defs(TP_CFG)
+    for k in sorted(p):
+        g = _assemble(reports, step, k, defs[k])
+        np.testing.assert_allclose(g, want[k], rtol=1e-5, atol=1e-5 * float(np.abs(want[k]).max()), err_msg=k)
+
+
+def test_8bit_moments_straddling_quantization_blocks_match_one_process(world):
+    """granite-smoke on 2 x 2 with 8-bit moments: the embedding's vocab and
+    the FFN's 128 columns split into blocks of 64, half a quantization
+    block, so the rank quantizes them gathered along that axis and holds
+    the block scales whole there (JAX's layout). After one step every
+    moment, dequantized, is one process's within twice the gradients'
+    tolerance (m and sqrt(v) are the clipped gradient, scaled)."""
+    cfg = tconfigs.get("granite-8b", smoke=True)
+    model = tapi.build_model(cfg)
+    opt = tadamw.AdamWConfig(state_bits=8, warmup_steps=1, total_steps=2)
+    params = model.init_masters(0, "cpu")
+    state = tadamw.init(params, opt)
+    rows = _inputs("granite-8b", 10)[0]
+    _, state, metrics = tl.make_train_step(model, opt)(params, state, {"tokens": torch.as_tensor(rows)})
+    reports = _reports(world)
+    step = STEP["moments8"]
+    assert abs(reports[0]["steps"][step]["loss"] - float(metrics["loss"])) <= 1e-5 * abs(float(metrics["loss"]))
+    straddled = 0
+    for which in ("m", "v"):
+        for n, ref in lm_mesh_job._flat(getattr(state, which)).items():
+            def pick(s, which=which, n=n, part=None):
+                node = s[which]
+                for k in n.split("/"):
+                    node = node[k]
+                return node if part is None else node[part]
+
+            def layout(mesh, which=which, n=n, part=None):
+                node = getattr(tl.opt_state_structs(model, mesh, opt), which)
+                for k in n.split("/"):
+                    node = node[k]
+                return (node if part is None else node[part]).sharding
+
+            if isinstance(ref, dict):
+                parts = {k: _assemble(reports, step, f"{which}/{n}/{k}", ref[k], partial(pick, part=k),
+                                      partial(layout, part=k)) for k in ("q", "s")}
+                mesh = ctx.dry_mesh(("data", "model"), MESH)
+                straddled += layout(mesh, part="s").spec != layout(mesh, part="q").spec
+                got, want = lm_mesh_job._moment_values({k: torch.as_tensor(v) for k, v in parts.items()}), \
+                    lm_mesh_job._moment_values(ref)
+            else:
+                got, want = torch.as_tensor(_assemble(reports, step, f"{which}/{n}", ref, pick, layout)), ref
+            if which == "v":
+                got, want = got.sqrt(), want.sqrt()
+            tol = 2 * 2.0**-6 * float(want.abs().max())
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=tol, err_msg=f"{which}/{n}")
+    assert straddled >= 4  # m and v of the embedding and of w_gate, w_up or w_down
+
+
+def test_carried_weights_prefill_on_the_mesh_matches_jax_on_its_mesh(world):
+    """The JAX package's granite-smoke weights, carried to each rank as its
+    spec blocks, give the prefill logits JAX computes on its own 2 x 2 mesh
+    of 4 host devices, within the one-process test's tolerance, and the
+    greedy token wherever JAX's top-2 margin exceeds twice it."""
+    want = _jax_ep(world)["granite_prefill"]
+    reports = _reports(world)
+    step = STEP["serve_carried"]
+    got = _rows(reports, step, lambda s: s["logits"])
+    np.testing.assert_allclose(got, want, rtol=0, atol=JAX_LOGIT_ATOL)
+    top2 = np.sort(want, axis=-1)[:, -2:]
+    sure = top2[:, 1] - top2[:, 0] > 2 * JAX_LOGIT_ATOL
+    np.testing.assert_array_equal(got.argmax(-1)[sure], want.argmax(-1)[sure])
+    cfg = tconfigs.get("granite-8b", smoke=True)
+    embed = reports[0]["steps"][step]["held"]["embed"]
+    assert embed == (cfg.vocab // MESH[1], cfg.d_model // MESH[0])  # ("tensor", "fsdp") split
+
+
+def test_psum_forms_give_the_same_bits(world):
+    """``ctx.psum`` over data then model as one all-gather of the whole and
+    as a reduce-scatter of blocks and an all-gather of the sums (the form
+    of large tensors): the same bits on every rank, those of the sum in
+    rank order, in float32 and in bf16."""
+    x = torch.as_tensor(_psum_input())
+    reports = _reports(world)
+    for dt in (torch.float32, torch.bfloat16):
+        v = {(d, m): (x * (d * MESH[1] + m + 1)).to(dt) for d in range(MESH[0]) for m in range(MESH[1])}
+        over_data = {m: v[(0, m)] + v[(1, m)] for m in range(MESH[1])}
+        want = (over_data[0] + over_data[1]).float().numpy()
+        for r in reports:
+            got = r["steps"][STEP["psum_forms"]]
+            name = str(dt)[6:]
+            np.testing.assert_array_equal(got[f"gather_{name}"], want)
+            np.testing.assert_array_equal(got[f"scatter_{name}"], want)

@@ -1,8 +1,10 @@
 """The port's serving layer against the JAX package's on the same inputs:
 ``knn_interpolate``, the kNN-LM hook over a ``grid(nu=2, p=4)`` DSLSH
 datastore of hidden states (the shape of ``examples/serve_knn_lm.py``
-steps 2-3), ``ServeEngine``'s batched greedy tokens and its deadlines, and
-the serving launcher.
+steps 2-3) in its handle form, its deprecated positional form and with
+``degrade`` levels on a routed index (the cap and its counter),
+``ServeEngine``'s batched greedy tokens, its deadlines and its ``obs``
+span and metrics, and the serving launcher.
 
 The datastore keys are the JAX model's hidden states as numpy arrays, and
 the hash family is the JAX package's, carried across, so both indexes hold
@@ -132,16 +134,80 @@ def test_knn_lm_hook_matches_jax(datastore, backend):
 
 
 def test_knn_lm_hook_refuses_what_is_not_ported(datastore):
+    """What the JAX package's hook refuses, with its messages: ``degrade``
+    on an unrouted index, ``plan`` beside a handle, no labels."""
     ds = datastore
     cfg = tdslsh.make_config(tdslsh.FamilyConfig(**ds["fam"]), tdslsh.BudgetConfig(**BUDGET))
     index = tdslsh.build(0, ds["pts"], cfg, tdslsh.grid(nu=2, p=4), device="cpu", params=ds["family"])
     kw = dict(hidden_fn=lambda c: c, vocab=ds["cfg"].vocab)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="degrade levels require a routed deployment"):
         tengine.make_knn_lm_hook(index, ds["labs"], degrade=((0.01, 2),), **kw)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tengine.make_knn_lm_hook(index.pipeline_index, ds["pts"], ds["labs"], cfg, index.grid, **kw)
+    with pytest.raises(ValueError, match="routing lives on the handle"):
+        tengine.make_knn_lm_hook(index, ds["labs"], plan=object(), **kw)
     with pytest.raises(ValueError, match="next-token labels"):
         tengine.make_knn_lm_hook(index, **kw)
+
+
+def test_make_knn_lm_hook_legacy_signature_warns_and_matches(datastore):
+    """The positional form ``(raw_index, points, next_tokens, cfg, grid)``
+    warns with ``DeprecationWarning`` and answers as the handle form, as
+    the JAX package's; with ``plan`` the wrapped handle is routed."""
+    ds = datastore
+    vocab = ds["cfg"].vocab
+    cfg = tdslsh.make_config(tdslsh.FamilyConfig(**ds["fam"]), tdslsh.BudgetConfig(**BUDGET))
+    routed = tdslsh.build(0, ds["pts"], cfg, tdslsh.grid(nu=2, p=4, routed=True), device="cpu", params=ds["family"])
+    kw = dict(hidden_fn=lambda c: c, vocab=vocab, lmbda=0.5)
+    new_hook = tengine.make_knn_lm_hook(routed, ds["labs"], **kw)
+    logits = torch.tensor(np.random.default_rng(2).standard_normal((5, vocab)).astype(np.float32))
+    hq = torch.tensor(ds["queries"])
+    for plan in (None, routed.plan):
+        with pytest.warns(DeprecationWarning, match="deprecated: pass a repro_torch.dslsh Index"):
+            legacy = tengine.make_knn_lm_hook(routed.pipeline_index, ds["pts"], ds["labs"], cfg, routed.grid,
+                                              plan=plan, **kw)
+        assert torch.equal(legacy(logits, hq), new_hook(logits, hq))
+    wrapped = tdslsh.wrap_grid(routed.pipeline_index, ds["pts"], cfg, routed.grid, plan=routed.plan)
+    assert wrapped.deploy.routed and wrapped.plan is routed.plan
+    assert torch.equal(wrapped.query(hq, max_cells=1).knn_idx, routed.query(hq, max_cells=1).knn_idx)
+    assert tdslsh.wrap_grid(routed.pipeline_index, ds["pts"], cfg, routed.grid).plan is None
+
+
+def test_knn_lm_hook_degrade_caps_cells_and_counts_as_jax(datastore):
+    """``degrade`` on a routed index: a budget at or above the first level
+    queries every routed cell, a shorter one caps the cells probed, each
+    capped step counted in ``dslsh_serve_degraded_total{max_cells}`` of
+    the active obs bundle; the log-probabilities and the counter are the
+    JAX package's on the same routed datastore."""
+    from repro import obs as jobs
+    from repro_torch import obs as tobs
+
+    ds = datastore
+    vocab = ds["cfg"].vocab
+    levels = ((10.0, None), (0.0, 1))
+    cfg = tdslsh.make_config(tdslsh.FamilyConfig(**ds["fam"]), tdslsh.BudgetConfig(**BUDGET))
+    index = tdslsh.build(0, ds["pts"], cfg, tdslsh.grid(nu=2, p=4, routed=True), device="cpu", params=ds["family"])
+    jcfg = jdslsh.make_config(jdslsh.FamilyConfig(**ds["fam"]), jdslsh.BudgetConfig(**BUDGET))
+    jindex = jdslsh.build(jax.random.PRNGKey(9), jnp.asarray(ds["pts"]), jcfg, jdslsh.grid(nu=2, p=4, routed=True))
+    kw = dict(hidden_fn=lambda c: c, vocab=vocab, lmbda=0.5, degrade=levels)
+    thook = tengine.make_knn_lm_hook(index, ds["labs"], **kw)
+    jhook = jengine.make_knn_lm_hook(jindex, jnp.asarray(ds["labs"]), **kw)
+    logits = np.random.default_rng(3).standard_normal((5, vocab)).astype(np.float32)
+    hq = torch.tensor(ds["queries"])
+    tob, job_ = tobs.Obs(), jobs.Obs()
+    outs = {}
+    for budget in (100.0, 0.5):
+        with tob.activate():
+            outs[budget] = thook(torch.tensor(logits), hq, budget)
+        with job_.activate():
+            want = jhook(jnp.asarray(logits), jnp.asarray(ds["queries"]), budget)
+        np.testing.assert_allclose(_np(outs[budget]), np.asarray(want), **TOL)
+    for budget, cells in ((100.0, None), (0.5, 1)):
+        res = index.query(hq, max_cells=cells)
+        direct = tengine.knn_interpolate(torch.tensor(logits), res.knn_idx, res.knn_dist,
+                                         torch.tensor(ds["labs"]), vocab, 0.5)
+        assert torch.equal(outs[budget], direct)
+    name = "dslsh_serve_degraded_total"
+    got, want = tob.metrics.snapshot()[name], job_.metrics.snapshot()[name]
+    assert got == want and got["values"] == {'max_cells="1"': 1.0}
 
 
 # ------------------------------------------------------------ the engine
@@ -239,8 +305,62 @@ def test_serve_engine_budget_hook_and_obs(port_model):
     reqs = [tengine.Request(rid=0, tokens=np.arange(5), max_new=2, deadline_s=30.0)]
     tengine.ServeEngine(model, lm, max_batch=1, max_len=16, logits_hook=hook).serve(reqs)
     assert [s[1] for s in seen] == [(5,), (6,)] and all(0 < s[0] <= 30.0 for s in seen)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tengine.ServeEngine(model, lm, obs=object())
+    # without a bundle nothing records; with one, the JAX engine's span and metrics
+    from repro_torch import obs as tobs
+
+    assert tengine.ServeEngine(model, lm)._span("serve.batch") is tobs.NULL_SPAN
+    ob, active = tobs.Obs(), []
+
+    def spy(logits, carrier):
+        active.append(tobs.get_active())
+        return logits
+
+    rng = np.random.default_rng(5)
+    reqs = [tengine.Request(rid=0, tokens=rng.integers(0, 128, 6), max_new=2),
+            tengine.Request(rid=1, tokens=rng.integers(0, 128, 6), max_new=8, deadline_s=0.0)]
+    done = tengine.ServeEngine(model, lm, max_batch=1, max_len=16, logits_hook=spy, obs=ob).serve(reqs)
+    assert not done[0].timed_out and done[1].timed_out
+    assert active and all(a is ob for a in active) and tobs.get_active() is None
+    assert [(e["name"], e["args"]) for e in ob.tracer.events] == [("serve.batch", {"requests": 1})] * 2
+    snap = ob.metrics.snapshot()
+    assert set(snap) == {"dslsh_serve_request_latency_seconds", "dslsh_serve_requests_total",
+                         "dslsh_serve_timeouts_total"}
+    assert snap["dslsh_serve_request_latency_seconds"]["values"][""]["count"] == 2
+    assert snap["dslsh_serve_requests_total"]["values"] == {"": 2.0}
+    assert snap["dslsh_serve_timeouts_total"]["values"] == {"": 1.0}
+
+
+def test_serve_engine_obs_matches_jax():
+    """The same requests through both engines with an obs bundle: the same
+    span names and attributes and the same metric families, help strings,
+    buckets and counts."""
+    from repro import obs as jobs
+    from repro_torch import obs as tobs
+
+    jmodel, jparams, tmodel, lm = _jax_and_port_models()
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, 128, n).astype(np.int32) for n in (6, 9, 7)]
+
+    def reqs(mod):
+        return [mod.Request(rid=i, tokens=p, max_new=2, deadline_s=0.0 if i == 1 else float("inf"))
+                for i, p in enumerate(prompts)]
+
+    job_, tob = jobs.Obs(), tobs.Obs()
+    jdone = jengine.ServeEngine(jmodel, jparams, max_batch=2, max_len=16, obs=job_).serve(reqs(jengine))
+    tdone = tengine.ServeEngine(tmodel, lm, max_batch=2, max_len=16, obs=tob).serve(reqs(tengine))
+    assert [(r.result, r.timed_out) for r in tdone] == [(r.result, r.timed_out) for r in jdone]
+    strip = [(e["name"], e["args"]) for e in job_.tracer.events]
+    assert [(e["name"], e["args"]) for e in tob.tracer.events] == strip
+    jsnap, tsnap = job_.metrics.snapshot(), tob.metrics.snapshot()
+    assert set(tsnap) == set(jsnap)
+    for name, fam in jsnap.items():
+        assert tsnap[name]["type"] == fam["type"] and tsnap[name]["help"] == fam["help"], name
+        for key, v in fam["values"].items():
+            got = tsnap[name]["values"][key]
+            if isinstance(v, dict):  # latencies differ; the buckets and the count do not
+                assert list(got["buckets"]) == list(v["buckets"]) and got["count"] == v["count"], name
+            else:
+                assert got == v, name
 
 
 # ------------------------------------------------------------ the launcher
