@@ -203,14 +203,24 @@ the script exits non-zero:
                   alike within logit_gate's tolerance, a flip owed to a
                   near tie, greedy tokens where the top-2 gap exceeds the
                   tolerance, every rank alike, F once a layer in each
-                  rank's prefill), and three planted faults the check must
-                  catch. In the same world olmoe-1b-7b at full width cut
+                  rank's prefill), and five planted faults the check must
+                  catch. Every rank holds its rows and block of positions
+                  of the stream between blocks and its block of the
+                  vocabulary (the lookup, the logits and the loss).
+                  granite-8b whole, tensor-parallel on 1 x 4, 8 decode
+                  steps, each handing gloo under 10 MB a rank. In the same
+                  world olmoe-1b-7b at full width cut
                   to 4 of 16 layers (bf16 masters, 8-bit moments, capacity
                   8.0, ``gather``) trained on ``make_local_mesh(2, 2)``
                   through ``launch.train.train``: the step-0 loss and every
                   rank's reduced gradients against this process's (the
                   ``families_train`` rule), 2 steps, the replicas bit for
-                  bit, the expert blocks' moments against this process's.
+                  bit, the expert blocks' moments against this process's;
+                  granite-8b cut to 8 layers trained on 2 x 2. The
+                  ``lm_mesh_cases`` line gives each case's gloo bytes a
+                  rank a prefill, a decode step and a train step, the
+                  stream's bytes a rank, peak memory and the slowest
+                  rank's times.
 
 The ``kernels`` line comes last but two, then the ``nvidia-smi`` line, and
 the last line is ``{"ok": true, "device": {...}}``. A kernel's ``launches``
@@ -421,9 +431,16 @@ LMM_TRAIN_BATCH, LMM_TRAIN_SEQ, LMM_TRAIN_STEPS, LMM_TRAIN_ROWS = 4, 512, 2, 2
 LMM_ROUTE_TIE = 2.0**-4
 # planted faults the serving check must catch, each run for the prefill and
 # one decode step with the combine named: the experts of the model axis's
-# rank 1 adding nothing, and context-parallel decode shifting each block's
-# softmax by the block's own max instead of the global one
-LMM_FAULTS = (("fault_expert_share", "gather"), ("fault_expert_share", "a2a"), ("fault_cp_max", "gather"))
+# rank 1 adding nothing; context-parallel decode shifting each block's
+# softmax by the block's own max instead of the global one; the model
+# axis's rank 1 reading its block of the vocabulary one row off in the
+# lookup; every reduce-scatter keeping the next rank's block of the sum
+LMM_FAULTS = (("fault_expert_share", "gather"), ("fault_expert_share", "a2a"), ("fault_cp_max", "gather"),
+              ("fault_vocab_block", "gather"), ("fault_seq_scatter", "gather"))
+# a granite-8b decode step's bytes a rank hands to gloo: the layers'
+# tensor-parallel sums, decode attention's gathers and the logits, with
+# nothing of the vocabulary gathered (about 0.105 GB a step before)
+LMM_DECODE_SENT_BYTES = 10e6
 # the expert blocks' moments after one step against the matching blocks of
 # the one-process moments, both dequantized: m and sqrt(v) are the step-0
 # gradient scaled ((1 - b1) g and sqrt(1 - b2) |g|, times the clip scale),
@@ -435,20 +452,19 @@ LMM_MOMENT_FRAC = 2 * TRAIN_GRAD_FRAC
 # at full width and depth (36 layers, d 4,096, 32/8 heads of 128, d_ff
 # 14,336, vocabulary 49,152, tied) on make_local_mesh(1, 4): each rank
 # projects its 8 query and 2 KV heads and its 3,584 FFN columns, kernel F
-# runs on its heads, wo and w_down are row-parallel; 2 prompts of 512, 4
-# greedy decode steps fed with the reference's tokens (max_len 516, a
-# multiple of 4: context-parallel decode over every head), held pass by
-# pass against the same seeded model in this process with logit_gate's
-# tolerance. 4 steps, not 8, for time: a decode step gathers the tied
-# embedding (400 MB) through the host and takes about 2 s, and the whole
-# script took 1,072.9 s of the 1,200 allowed with 8. Trained at full width cut to 8 of its 36 layers on
+# runs on its heads, wo and w_down are row-parallel, the stream between
+# blocks in blocks of 128 positions, the embedding and the head in blocks
+# of 12,288 words; 2 prompts of 512, 8 greedy decode steps fed with the
+# reference's tokens (max_len 520, a multiple of 4: context-parallel decode
+# over every head), held pass by pass against the same seeded model in
+# this process with logit_gate's tolerance. Trained at full width cut to 8 of its 36 layers on
 # make_local_mesh(2, 2) with float32 masters and 32-bit moments on 4 x 512
 # tokens: held whole, its state would be about 31 GB a rank, four of which
 # one card cannot hold; under the spec it is about 7.8 GB a rank. The
 # step-0 check takes the first 2 rows of step 0's batch (families_train's
 # rule), then one timed step.
 LMM_DENSE_ARCH, LMM_DENSE_SERVE_MESH, LMM_DENSE_TRAIN_MESH = "granite-8b", (1, 4), (2, 2)
-LMM_DENSE_BATCH, LMM_DENSE_PROMPT, LMM_DENSE_STEPS = 2, 512, 4
+LMM_DENSE_BATCH, LMM_DENSE_PROMPT, LMM_DENSE_STEPS = 2, 512, 8
 LMM_DENSE_TRAIN_LAYERS, LMM_DENSE_TRAIN_BATCH, LMM_DENSE_TRAIN_SEQ = 8, 4, 512
 # a rank's bytes on the card once its weights (or its masters, and its
 # masters and moments after the first step) are drawn, against its blocks'
@@ -2742,9 +2758,9 @@ def knn_lm_phase(dev, smoke: bool, ds_seqs: int, flush) -> tuple[dict, dict, dic
 def plain_loss(cfg, params, batch):
     """The plain path of the masked-prediction loss: every block without
     remat and with its attention in one block of all queries, the whole
-    (B, S, V) logits, ``F.cross_entropy`` over the masked frames."""
+    (B, S, V) logits, ``F.cross_entropy`` over the masked frames
+    (``common.softmax_xent_plain``)."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.models import common as C
     from repro_torch.models import dense
@@ -2759,8 +2775,7 @@ def plain_loss(cfg, params, batch):
     for p in dense._layers(params):
         x = dense._block(cfg, p, x, pos, whole)[0]
     x = C.rms_norm(x, params["final_norm"])
-    logits = (x.to(torch.bfloat16) @ dense._lm_head(cfg, params).to(torch.bfloat16)).float()
-    return F.cross_entropy(logits[mask], batch["targets"][mask].long())
+    return C.softmax_xent_plain(x, dense.head_block(cfg, params), batch["targets"], mask)
 
 
 def _flat(tree: dict, prefix: str = "") -> dict:
@@ -3543,6 +3558,8 @@ def families_train_phase(dev, smoke: bool = False) -> dict:
 def mesh_fault(kind: str):
     """Plant one of ``LMM_FAULTS`` in this process's model code while the
     block runs."""
+    import torch
+
     from repro_torch.models import moe as tmoe
     from repro_torch.sharding import ctx
 
@@ -3560,6 +3577,29 @@ def mesh_fault(kind: str):
 
         def planted(mesh, axes, x):
             return x.detach()
+    elif kind == "fault_vocab_block":
+        from repro_torch.models import common as C
+
+        module, name = C, "embed_tokens"
+        saved = C.embed_tokens
+
+        def planted(embed, tokens, vocab_axes=(), seq=()):
+            mesh = ctx.get_mesh()
+            if vocab_axes and ctx.axis_index(mesh, "model") == 1:
+                embed = torch.roll(embed, -1, 0)
+            return saved(embed, tokens, vocab_axes, seq)
+    elif kind == "fault_seq_scatter":
+        module, name = ctx, "psum_scatter"
+        saved = ctx.psum_scatter
+
+        def planted(mesh, axes, x, dim):
+            axes = ctx._live(mesh, axes)
+            if not axes:
+                return x
+            whole = ctx.psum(mesh, axes, x)
+            n = ctx.axis_size(mesh, axes)
+            b = x.shape[dim] // n
+            return whole.narrow(dim, (ctx.block_index(mesh, axes) + 1) % n * b, b)
     else:
         raise ValueError(f"unknown planted fault {kind!r}")
     setattr(module, name, planted)
@@ -3991,8 +4031,12 @@ def lm_mesh_phase(dev, smoke: bool = False) -> dict:
 
     def pass_readings(outs, n_passes) -> dict:
         decode_ms = [max(o["passes"][j]["seconds"] for o in outs) * 1e3 for j in range(1, n_passes)]
+        sent = [max(o["passes"][j]["traffic"]["sent_bytes"] for o in outs) for j in range(n_passes)]
+        stream = [max(o["passes"][j]["stream_bytes"] for o in outs) for j in range(n_passes)]
         return dict(prefill_ms=max(o["passes"][0]["seconds"] for o in outs) * 1e3, decode_ms_per_step=decode_ms,
                     median_decode_ms=float(np.median(decode_ms)),
+                    gloo_sent_bytes_prefill=sent[0], gloo_sent_bytes_per_decode_step=sent[1:],
+                    stream_bytes_prefill=stream[0], stream_bytes_decode=max(stream[1:]),
                     traffic_per_rank=[_rank_sum(o["passes"], lambda p: p["traffic"]) for o in outs],
                     held_bytes_per_rank=[o["held_bytes"] for o in outs],
                     spec_bytes_per_rank=[o["spec_bytes"] for o in outs])
@@ -4056,6 +4100,10 @@ def lm_mesh_phase(dev, smoke: bool = False) -> dict:
     argmaxes = [[np.argmax(p["logits"], -1) for p in o["passes"]] for o in outs]
     checks.append((all(all(np.array_equal(a, b) for a, b in zip(am, argmaxes[0])) for am in argmaxes),
                    "lm_mesh granite: the ranks' greedy tokens differ"))
+    d_sent = max(max(o["passes"][j]["traffic"]["sent_bytes"] for o in outs) for j in range(1, len(d_logits)))
+    checks.append((d_sent < LMM_DECODE_SENT_BYTES,
+                   f"lm_mesh granite: a decode step hands {d_sent} bytes a rank to gloo, not below"
+                   f" {LMM_DECODE_SENT_BYTES:.0f}"))
     f_dense = launch_checks("lm_mesh granite", outs, flash_per_pass(dcfg)[0])
     for o in outs:
         for p in o["passes"]:
@@ -4083,6 +4131,8 @@ def lm_mesh_phase(dev, smoke: bool = False) -> dict:
         return grad_reps, train_reps, losses, dict(
             step_ms_per_rank=step_ms, median_step_ms=float(np.median([max(x) for x in zip(*step_ms)])),
             gloo_sent_bytes_per_rank=[t["traffic"]["sent_bytes"] for t in train_reps],
+            gloo_sent_bytes_per_step=max(t["traffic"]["sent_bytes"] for t in train_reps) / len(step_ms[0]),
+            stream_bytes=max(t["stream_bytes"] for t in train_reps),
             host_copy_bytes_per_rank=[t["traffic"]["host_copy_bytes"] for t in train_reps],
             held_bytes_per_rank=[t["held_bytes"] for t in train_reps],
             spec_bytes_per_rank=[t["spec_bytes"] for t in train_reps],
@@ -4130,6 +4180,23 @@ def lm_mesh_phase(dev, smoke: bool = False) -> dict:
              microbatches=gcfg.microbatches, remat=gcfg.remat, batch=[LMM_DENSE_TRAIN_BATCH, gseq],
              check_rows=LMM_TRAIN_ROWS, reference=dense_train_ref, step0=g_step0, losses=g_losses[0], **g_read),
          planted_faults=faults_out, launches=launches, seconds=time.perf_counter() - t_phase)
+
+    def serve_case(r, peak):
+        return dict(gloo_sent_bytes_prefill=r["gloo_sent_bytes_prefill"],
+                    gloo_sent_bytes_decode_step=float(np.median(r["gloo_sent_bytes_per_decode_step"])),
+                    stream_bytes_prefill=r["stream_bytes_prefill"], stream_bytes_decode=r["stream_bytes_decode"],
+                    peak_mem_gb=max(peak), prefill_ms=r["prefill_ms"], median_decode_ms=r["median_decode_ms"])
+
+    def train_case(r):
+        return dict(gloo_sent_bytes_step=r["gloo_sent_bytes_per_step"], stream_bytes=r["stream_bytes"],
+                    peak_mem_gb=max(r["peak_mem_gb_per_rank"]), median_step_ms=r["median_step_ms"])
+
+    serve_peak = [(r.get("peak_mem_bytes") or 0) / 1e9 for r in serve_reports]
+    emit("lm_mesh_cases", cases={**{f"phi3.5 {impl} serve 1x4": serve_case(serve_out[impl], serve_peak)
+                                    for impl in combines},
+                                 "granite-8b serve 1x4": serve_case(dense_serve_out,
+                                                                    dense_serve_out["peak_mem_gb_per_rank"]),
+                                 "olmoe train 2x2": train_case(t_read), "granite-8b train 2x2": train_case(g_read)})
     for ok, msg in checks:
         need(ok, msg)
     return launches

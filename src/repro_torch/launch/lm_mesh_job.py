@@ -22,14 +22,17 @@ the device:
   ``decode`` greedy steps, or steps fed with the tokens of ``feed`` (B,
   decode) when given. Reports the
   logits of each pass (this rank's rows), the tokens, each pass's seconds,
-  kernel launches, ``ctx.TRAFFIC`` and peak device memory; with
-  ``routes``, each pass's moe routes as ``moe.ROUTES`` records them.
+  kernel launches, ``ctx.TRAFFIC`` and the bytes of the residual stream a
+  rank holds between blocks (``stream_bytes``, ``common.STREAM``), and
+  peak device memory; with ``routes``, each pass's moe routes as
+  ``moe.ROUTES`` records them.
 * ``("grads", {arch, smoke, overrides, seed, rows, compare})``: the
   training masters (drawn on every rank at once), the loss and the reduced
   gradients (``train.loop``) of the global ``rows``, each held here, block
   by block, against the one-process ``grads`` saved at ``compare`` (a
   ``torch.save``d dict with ``grads``, ``gaps`` and ``loss``); only
-  per-leaf readings come back.
+  per-leaf readings come back, with the pass's ``ctx.TRAFFIC`` and
+  ``stream_bytes``.
 * ``("train", {arch, smoke, overrides, steps, batch, seq, lr, ckpt_dir,
   ckpt_every, compare_moments})``: ``launch.train.train`` under the mesh;
   the history, the bytes held on the card after the masters' draw and
@@ -37,7 +40,7 @@ the device:
   under the JAX spec, and with ``compare_moments`` (a path of some
   one-process moments after one step of the same run) each of those
   leaves' blocks held against the matching block, read after the first
-  step.
+  step; the run's ``ctx.TRAFFIC`` and ``stream_bytes``.
 
 :func:`run` takes the table of steps as an argument, so another rank
 program can add its own steps to :data:`OPS`.
@@ -54,6 +57,7 @@ from repro_torch import configs
 from repro_torch.kernels import _build
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import api
+from repro_torch.models import common as C
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import params as PM
 from repro_torch.optim import adamw
@@ -90,7 +94,9 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 class _Timer:
     """A pass started on a barrier, timed to its end on the device, with its
-    kernel launches and transport bytes."""
+    kernel launches, transport bytes and the largest stream a block took
+    (``common.STREAM``: the bytes of the residual stream a rank holds
+    between blocks)."""
 
     def __init__(self, mesh):
         self.mesh = mesh
@@ -100,6 +106,7 @@ class _Timer:
         _sync(self.mesh.device)
         _build.reset_launches()
         self.traffic = dict(ctx.TRAFFIC)
+        C.STREAM = []
         self.t0 = time.perf_counter()
         return self
 
@@ -108,10 +115,13 @@ class _Timer:
         self.seconds = time.perf_counter() - self.t0
         self.launches = dict(_build.LAUNCHES)
         self.moved = {k: ctx.TRAFFIC[k] - self.traffic[k] for k in ctx.TRAFFIC}
+        noted, C.STREAM = C.STREAM, None
+        self.stream_bytes = max((b for _, b in noted), default=0)
         return False
 
     def record(self) -> dict:
-        return {"seconds": self.seconds, "launches": self.launches, "traffic": self.moved}
+        return {"seconds": self.seconds, "launches": self.launches, "traffic": self.moved,
+                "stream_bytes": self.stream_bytes}
 
 
 def _allocated(dev: torch.device) -> int | None:

@@ -4,12 +4,19 @@ Counterpart of ``repro.models.common``: matmuls take bf16 operands, norms,
 rotary embeddings and softmax run in float32, and each function returns
 its input's dtype, as in the JAX package. Under an ambient mesh
 (``sharding.ctx.use_mesh``) every function works on this rank's block:
+the residual stream is held in blocks of positions over the ``seq`` axes
+wherever they divide the sequence (``ctx.seq_split``; :func:`gather_seq`
+and :func:`keep_seq` move between the block and the whole sequence);
 :func:`whole` gathers a weight's ``fsdp`` and ``tensor`` blocks before
-use (ZeRO), :func:`row_parallel` sums a tensor-parallel matmul's partial
-products over the ``tensor`` axes, :func:`mlp_apply` takes either;
-:func:`constrain` checks the JAX package's logical names and moves
-nothing; :func:`chunked_softmax_xent` returns the global batch's loss
-(numerator and token count summed over the batch axes);
+use (ZeRO); :func:`col_input` gathers a column-parallel matmul's input
+along the sequence and :func:`row_parallel` sums a tensor-parallel
+matmul's partial products over the ``tensor`` axes, reduce-scattered back
+to the stream's blocks (JAX's sequence-parallel layout);
+:func:`mlp_apply` takes either; :func:`embed_tokens` and
+:func:`head_logits` work on the rank's block of the vocabulary;
+:func:`chunked_softmax_xent` returns the global batch's loss from the
+rank's vocabulary columns (the row's log-sum-exp and gold logit summed
+over the ``tensor`` axes; numerator and token count over the batch axes);
 :func:`decode_attention_cp` merges the partial softmax of the cache's
 sequence blocks over the ``seq`` axes (context parallelism), with the JAX
 package's fallback to local attention when the cache's length does not
@@ -40,6 +47,17 @@ from repro_torch.sharding import ctx
 from repro_torch.sharding.ctx import constrain
 
 COMPUTE_DTYPE = torch.bfloat16
+
+# A tracing hook: while a list, every block of every family appends the
+# shape and bytes of the stream entering it (:func:`note_stream`), as this
+# rank holds it; None, the default, records nothing.
+STREAM: list | None = None
+
+
+def note_stream(x: torch.Tensor) -> None:
+    """Record ``x``, the stream entering a block, in :data:`STREAM`."""
+    if STREAM is not None:
+        STREAM.append((tuple(x.shape), x.numel() * x.element_size()))
 
 
 # ------------------------------------------------------------------- norms
@@ -291,16 +309,59 @@ def whole(w: torch.Tensor, pdef, names: tuple = ("fsdp", "tensor")) -> torch.Ten
     return ctx.gather_dims(w, pdef.axes, pdef.shape, names, COMPUTE_DTYPE)
 
 
-def col_input(x: torch.Tensor, axes: tuple) -> torch.Tensor:
-    """``x`` as the input of matmuls in bf16 operands (:func:`col_matmul`).
-    With ``axes`` (the weights are a tensor-parallel column block) its bf16
-    values in float32 through ``ctx.mean_grad``: each rank's share of its
-    gradient, from its columns alone, is float32 and meets the others'
-    before it rounds to ``x``'s dtype, as one matmul over every column
-    rounds once."""
+# ------------------------------------------------------ the stream's layout
+def gather_seq(x: torch.Tensor, seq: tuple) -> torch.Tensor:
+    """``x`` (B, S / n, ...), this rank's block of positions over the
+    ``seq`` axes, all-gathered whole along dim 1 (its backward
+    reduce-scatters the gradient in float32); ``x`` where ``seq`` is ()."""
+    return ctx.all_gather_tiled(ctx.get_mesh(), seq, x, 1) if seq else x
+
+
+def keep_seq(x: torch.Tensor, seq: tuple) -> torch.Tensor:
+    """This rank's block of positions of ``x`` (B, S, ...), computed alike
+    on the ranks of the ``seq`` axes (``ctx.keep_block``); ``x`` where
+    ``seq`` is ()."""
+    return ctx.keep_block(ctx.get_mesh(), seq, x, 1) if seq else x
+
+
+def _sum_to_seq(part: torch.Tensor, axes: tuple, seq: tuple) -> torch.Tensor:
+    """The sum of ``part`` over ``axes`` in rank order, as the stream holds
+    it: this rank's block of positions where ``seq`` splits the sequence
+    (a reduce-scatter where the two are the same axes), else whole."""
+    mesh = ctx.get_mesh()
+    if seq and tuple(seq) == tuple(axes):
+        return ctx.psum_scatter(mesh, axes, part, 1)
+    return keep_seq(ctx.psum(mesh, axes, part), seq)
+
+
+def last_position(x: torch.Tensor, seq: tuple) -> torch.Tensor:
+    """The last position's row (B, D) of ``x`` (B, S, D), which lies on the
+    last rank of the ``seq`` axes where they split the sequence: each
+    rank's last row all-gathered, the last of them kept (B x D a rank, not
+    the stream)."""
+    if not seq:
+        return x[:, -1]
+    return ctx.all_gather_tiled(ctx.get_mesh(), seq, x[:, -1:], 1)[:, -1]
+
+
+def col_input(x: torch.Tensor, axes: tuple, seq: tuple = ()) -> torch.Tensor:
+    """``x`` as the input of matmuls in bf16 operands (:func:`col_matmul`),
+    whole along the sequence (gathered where ``seq`` splits it: the
+    gather's backward sums the ranks' gradients over ``seq``, in float32).
+    With ``axes`` (the weights are a tensor-parallel column block) its
+    bf16 values in float32: each rank's share of its gradient, from its
+    columns alone, is float32 and meets the others' before it rounds to
+    ``x``'s dtype, as one matmul over every column rounds once
+    (``ctx.mean_grad`` over the tensor axes ``seq`` leaves out). Without
+    them the ranks run the whole computation on the whole gradient
+    (:func:`keep_seq`), their gradients of ``x`` are equal and their sum
+    exact, and ``x`` is gathered in bf16."""
+    xb = x.to(COMPUTE_DTYPE)
     if not axes:
-        return x.to(COMPUTE_DTYPE)
-    return ctx.mean_grad(ctx.get_mesh(), axes, x.to(COMPUTE_DTYPE).float())
+        return gather_seq(xb, seq)
+    wide = gather_seq(xb.float() if xb.requires_grad else xb, seq).float()
+    rest = tuple(a for a in axes if a not in seq)
+    return ctx.mean_grad(ctx.get_mesh(), rest, wide) if rest else wide
 
 
 def col_matmul(xin: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -310,26 +371,33 @@ def col_matmul(xin: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (xin @ w.to(COMPUTE_DTYPE).to(xin.dtype)).to(COMPUTE_DTYPE)
 
 
-def row_parallel(a: torch.Tensor, w: torch.Tensor, axes: tuple, dtype: torch.dtype) -> torch.Tensor:
-    """``a @ w`` in bf16 operands -> ``dtype``; with ``axes`` (a
-    tensor-parallel row block: ``a``'s last dim and ``w``'s rows are this
-    rank's block) the float32 partial products summed over ``axes`` in
-    rank order (``ctx.psum``) and rounded once, as one matmul rounds its
-    float32 accumulator."""
+def row_parallel(a: torch.Tensor, w: torch.Tensor, axes: tuple, dtype: torch.dtype, seq: tuple = ()) -> torch.Tensor:
+    """``a @ w`` in bf16 operands -> ``dtype``, for the positions of
+    ``a`` (B, S, F) the stream holds: this rank's block where ``seq``
+    splits the sequence. With ``axes`` (a tensor-parallel row block:
+    ``a``'s last dim and ``w``'s rows are this rank's block) the float32
+    partial products summed over ``axes`` in rank order, reduce-scattered
+    to the rank's positions where ``seq`` is the same axes (``ctx.psum``
+    and ``ctx.psum_scatter`` give the same bits), and rounded once, as one
+    matmul rounds its float32 accumulator."""
     if not axes:
-        return (a.to(COMPUTE_DTYPE) @ w.to(COMPUTE_DTYPE)).to(dtype)
+        return (keep_seq(a, seq).to(COMPUTE_DTYPE) @ w.to(COMPUTE_DTYPE)).to(dtype)
     part = a.to(COMPUTE_DTYPE).float() @ w.to(COMPUTE_DTYPE).float()
-    return ctx.psum(ctx.get_mesh(), axes, part).to(dtype)
+    return _sum_to_seq(part, axes, seq).to(dtype)
 
 
 # ----------------------------------------------------------------- MLPs
-def mlp_apply(params: Mapping[str, torch.Tensor], x: torch.Tensor, kind: str, row_axes: tuple = ()) -> torch.Tensor:
+def mlp_apply(params: Mapping[str, torch.Tensor], x: torch.Tensor, kind: str, row_axes: tuple = (),
+              seq: tuple = ()) -> torch.Tensor:
     """The block's MLP; weights are used in bf16 (cast here if they are not
     held that way already). With ``row_axes`` the weights are this rank's
     tensor-parallel blocks (the FFN columns of ``w_gate``/``w_up``, the
     matching rows of ``w_down``) and the output is summed over those axes
-    (:func:`row_parallel`)."""
-    xc = col_input(x, row_axes)
+    (:func:`row_parallel`); ``x`` is then the rank's block of positions
+    over ``seq`` (where it splits), gathered for the column blocks and
+    reduce-scattered back. Without ``row_axes`` the MLP runs on the
+    positions ``x`` has."""
+    xc = col_input(x, row_axes, seq)
 
     def up(name):
         return col_matmul(xc, params[name])
@@ -347,39 +415,96 @@ def mlp_apply(params: Mapping[str, torch.Tensor], x: torch.Tensor, kind: str, ro
     else:
         raise ValueError(kind)
     h = constrain(h, "batch", None, "tensor")
-    return row_parallel(h, params["w_down"], row_axes, x.dtype)
+    return row_parallel(h, params["w_down"], row_axes, x.dtype, seq)
 
 
 # --------------------------------------------------------- embeddings / CE
-def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return constrain(embed[tokens.long()].to(COMPUTE_DTYPE), "batch", "seq", None)
+def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor, vocab_axes: tuple = (), seq: tuple = ()) -> torch.Tensor:
+    """The rows of ``tokens`` (B, S) in bf16, the positions the stream
+    holds (this rank's block where ``seq`` splits the sequence).
+
+    ``embed`` is the table whole along the model dim: the whole vocabulary,
+    or with ``vocab_axes`` this rank's block of it. Then each rank takes
+    the rows of the tokens in its block and zeros for the others, in
+    float32, and the ranks' rows are summed over ``vocab_axes`` in rank
+    order (reduce-scattered to the rank's positions where ``seq`` is the
+    same axes) and rounded to bf16: every token has one nonzero term, so
+    the bits are the whole table's lookup. The block's gradient is a
+    scatter-add of this rank's tokens' rows."""
+    if not vocab_axes:
+        return embed[keep_seq(tokens, seq).long()].to(COMPUTE_DTYPE)
+    mesh = ctx.get_mesh()
+    v_loc = embed.shape[0]
+    local = tokens.long() - ctx.block_index(mesh, vocab_axes) * v_loc
+    mine = (local >= 0) & (local < v_loc)
+    rows = torch.where(mine[..., None], embed[local.clamp(0, v_loc - 1)].float(), 0.0)
+    return _sum_to_seq(rows, vocab_axes, seq).to(COMPUTE_DTYPE)
+
+
+def head_logits(x: torch.Tensor, head: torch.Tensor, vocab_axes: tuple = ()) -> torch.Tensor:
+    """Serving logits (B, V) float32 of rows ``x`` (B, D): the bf16 product
+    with ``head`` (D, V), or with ``vocab_axes`` with this rank's block of
+    its columns, all-gathered along the vocabulary (bf16 on the wire, the
+    product's own dtype)."""
+    part = x.to(COMPUTE_DTYPE) @ head.to(COMPUTE_DTYPE)
+    if vocab_axes:
+        part = ctx.all_gather_tiled(ctx.get_mesh(), vocab_axes, part, 1)
+    return part.float()
 
 
 def chunked_softmax_xent(
     x: torch.Tensor,  # (B, S, D) final hidden
-    lm_head: torch.Tensor,  # (D, V)
+    lm_head: torch.Tensor,  # (D, V), or this rank's block of the vocabulary (D, V / n)
     labels: torch.Tensor,  # (B, S) int
     mask: torch.Tensor,  # (B, S) bool
     seq_chunk: int = 1024,
+    vocab_axes: tuple = (),
+    seq: tuple = (),
+    skip: int = 0,
 ) -> torch.Tensor:
     """Mean cross entropy over the masked positions, without stacking
     (B, S, V) logits: each sequence chunk's bf16 logits are made, reduced
     and, when there are several chunks, recomputed in the backward pass
     under a checkpoint (``repro.models.common.chunked_softmax_xent``).
-    Under a mesh the rows are this rank's block, and the numerator and the
-    count are summed over the batch axes: every rank returns the global
-    batch's mean (a mean of the ranks' means would be wrong wherever the
-    masks differ)."""
+
+    ``x`` is the stream as the rank holds it, its block of positions where
+    ``seq`` splits them: it is gathered whole (JAX constrains the logits to
+    ``("batch", None, "tensor")``), in :func:`col_input`'s float32 form
+    where the ranks' shares of its gradient meet, and its first ``skip``
+    positions, which have no label (hymba's meta tokens), are dropped;
+    ``labels`` and ``mask`` cover the rest. With ``vocab_axes``
+    ``lm_head`` is this rank's block of
+    the vocabulary and a chunk's logits stay (B, chunk, V / n): the row's
+    max over the ranks is a shift that passes no gradient (``ctx.pmax``),
+    and the sum of ``exp(logit - max)`` and the gold logit (its owner's,
+    zeros elsewhere) are summed over ``vocab_axes`` in rank order; the
+    log-sum-exp differs from a whole row's by float32 rounding. Under a
+    mesh the numerator and the count are then summed over the batch axes:
+    every rank returns the global batch's mean (a mean of the ranks' means
+    would be wrong wherever the masks differ). :func:`softmax_xent_plain`
+    is the same loss computed whole."""
+    x = col_input(x, vocab_axes, seq)[:, skip:]
     b, s, _ = x.shape
     seq_chunk = min(seq_chunk, s)
     if s % seq_chunk:
         raise ValueError(f"sequence length {s} is not a multiple of the loss chunk {seq_chunk}")
     head = lm_head.to(COMPUTE_DTYPE)  # cast once; the gradient still reaches the master
+    mesh = ctx.get_mesh()
+    v_loc = head.shape[1]
+    v0 = ctx.block_index(mesh, vocab_axes) * v_loc if vocab_axes else 0
 
     def one(xi, li, mi):
-        logits = constrain((xi.to(COMPUTE_DTYPE) @ head).float(), "batch", None, "tensor")
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, li.long()[..., None])[..., 0]
+        logits = constrain(col_matmul(xi, head).float(), "batch", None, "tensor")
+        local = li.long() - v0
+        if not vocab_axes:
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, local[..., None])[..., 0]
+        else:
+            m = ctx.pmax(mesh, vocab_axes, logits.amax(-1))
+            mine = (local >= 0) & (local < v_loc)
+            own = torch.where(mine, torch.gather(logits, -1, local.clamp(0, v_loc - 1)[..., None])[..., 0], 0.0)
+            sums = ctx.psum(mesh, vocab_axes, torch.stack([torch.exp(logits - m[..., None]).sum(-1), own]))
+            lse, gold = m + torch.log(sums[0]), sums[1]
         nll = torch.where(mi, lse - gold, 0.0)
         return torch.stack([nll.sum(), mi.float().sum()])
 
@@ -389,8 +514,15 @@ def chunked_softmax_xent(
         tot, cnt = one(*parts[0])
     else:
         tot, cnt = torch.stack([checkpoint(one, *part, use_reentrant=False) for part in parts]).sum(0)
-    mesh = ctx.get_mesh()
     if mesh is not None:
         axes = ctx.batch_axes(mesh)
         tot, cnt = ctx.psum(mesh, axes, tot), ctx.psum(mesh, axes, cnt.detach())
     return tot / cnt.clamp_min(1.0)
+
+
+def softmax_xent_plain(x: torch.Tensor, lm_head: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """:func:`chunked_softmax_xent` computed whole on one process: the
+    (B, S, V) bf16 logits at once, ``F.cross_entropy`` over the masked
+    positions (the reference the blockwise loss is held to)."""
+    logits = (x.to(COMPUTE_DTYPE) @ lm_head.to(COMPUTE_DTYPE)).float()
+    return F.cross_entropy(logits[mask], labels[mask].long())

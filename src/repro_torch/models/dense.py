@@ -33,19 +33,29 @@ the rank whose block holds it, and ``common.decode_attention_cp`` merges
 the blocks' partial softmax.
 
 Under a mesh every weight is this rank's block of its leaf (the JAX
-spec, ``sharding.ctx``). Where the ``tensor`` axes split ``wq``, ``wk``
-and ``wv``'s columns and ``wo``'s rows into whole heads (``n_heads`` and
-``n_kv_heads`` dividing; :func:`attn_axes`, the dense and moe families),
-attention is tensor-parallel:
-the rank projects its own heads, kernel F runs on them, and ``wo`` is
-row-parallel (``common.row_parallel``, one psum over the ``tensor`` axes a
-block); the same for the MLP's FFN columns (:func:`ffn_axes`). Prefill
-all-gathers K and V over the heads before keeping its block of the
-cache, and decode gathers q, k and v, runs context-parallel attention
-over every head and keeps its own heads for ``wo``. Every other weight
-dim split over ``fsdp`` or ``tensor`` is gathered just before use
-(``common.whole``): the weights where heads do not divide, the
-embedding, the head and the front ends' projections.
+spec, ``sharding.ctx``), and the residual stream between blocks is the
+rank's rows and, wherever the ``seq`` axes divide the sequence, its block
+of positions (``ctx.seq_split``; JAX's sequence-parallel layout). Where
+the ``tensor`` axes split ``wq``, ``wk`` and ``wv``'s columns and
+``wo``'s rows into whole heads (``n_heads`` and ``n_kv_heads`` dividing;
+:func:`attn_axes`, the dense and moe families), attention is
+tensor-parallel: the normed input is all-gathered along the sequence, the
+rank projects its own heads, kernel F runs on them over every position,
+and ``wo`` is row-parallel, its float32 partial sums reduce-scattered back
+to the rank's positions (``common.row_parallel``); the same for the MLP's
+FFN columns (:func:`ffn_axes`). Attention whose heads do not divide
+gathers the normed input and its weights and keeps its positions of the
+output. Prefill all-gathers K and V over the heads before keeping its
+block of the cache, and decode (one token, whole on every rank) gathers
+q, k and v, runs context-parallel attention over every head and keeps its
+own heads for ``wo``. The embedding and the head are used in the rank's
+block of the vocabulary wherever the ``tensor`` axes divide it
+(:func:`vocab_axes`; only their ``fsdp`` dim is gathered): the lookup's
+rows and the logits are put together over the vocabulary
+(``common.embed_tokens``, ``common.head_logits``,
+``common.chunked_softmax_xent``). Every other weight dim split over
+``fsdp`` or ``tensor`` is gathered just before use (``common.whole``):
+the weights where heads do not divide and the front ends' projections.
 """
 from __future__ import annotations
 
@@ -293,12 +303,14 @@ def _names(axes: tuple) -> tuple:
     return ("fsdp",) if axes else ("fsdp", "tensor")
 
 
-def _qkv(cfg, p, h):
+def _qkv(cfg, p, h, seq: tuple = ()):
     """q (B, S, Hq, dh), k and v (B, S, Hkv, dh) of every head, or of this
-    rank's heads under tensor-parallel attention (:func:`attn_axes`)."""
-    b, s, _ = h.shape
+    rank's heads under tensor-parallel attention (:func:`attn_axes`), at
+    every position: ``h`` is the rank's block of them where ``seq`` splits
+    the sequence, gathered here."""
     d, axes = _defs(cfg), attn_axes(cfg)
-    hc = C.col_input(h, axes)
+    hc = C.col_input(h, axes, seq)
+    b, s, _ = hc.shape
 
     def proj(name):
         return C.col_matmul(hc, C.whole(p[name], d[name], _names(axes))).reshape(b, s, -1, cfg.head_dim)
@@ -310,13 +322,14 @@ def _qkv(cfg, p, h):
     return q, k, v
 
 
-def attn_out(cfg, p, attn, dtype):
+def attn_out(cfg, p, attn, dtype, seq: tuple = ()):
     """The output projection of attention's heads ``attn`` (B, S, H, dh),
     every head or, under tensor-parallel attention, this rank's (``wo``
-    row-parallel) -> (B, S, D) in ``dtype``."""
+    row-parallel) -> (B, S, D) in ``dtype``, or the rank's block of
+    positions (B, S / n, D) where ``seq`` splits the sequence."""
     axes = attn_axes(cfg)
     wo = C.whole(p["wo"], _defs(cfg)["wo"], _names(axes))
-    return C.row_parallel(attn.reshape(attn.shape[0], attn.shape[1], -1), wo, axes, dtype)
+    return C.row_parallel(attn.reshape(attn.shape[0], attn.shape[1], -1), wo, axes, dtype, seq)
 
 
 def all_heads(cfg, *ts) -> list:
@@ -342,31 +355,38 @@ def own_heads(cfg, t):
     return ctx.block_along(ctx.get_mesh(), axes, t, 2) if axes else t
 
 
-def mlp(cfg, p, x):
-    """``common.mlp_apply`` on this rank's weights: tensor-parallel where
-    :func:`ffn_axes` splits the FFN, else on the gathered weights."""
+def mlp(cfg, p, x, seq: tuple = ()):
+    """``common.mlp_apply`` on this rank's weights and positions of ``x``
+    (its block where ``seq`` splits the sequence): tensor-parallel where
+    :func:`ffn_axes` splits the FFN (``x`` gathered along the sequence, the
+    output reduce-scattered back), else on the gathered weights and the
+    rank's positions."""
     d, axes = _defs(cfg), ffn_axes(cfg)
     w = {k: C.whole(p[k], d[k], _names(axes)) for k in ("w_gate", "w_up", "w_down") if k in d}
-    return C.mlp_apply(w, x, cfg.mlp, axes)
+    return C.mlp_apply(w, x, cfg.mlp, axes, seq if axes else ())
 
 
 def _block(cfg, p, x, positions, attention=None):
     """Full-sequence block -> (x, k, v); k and v are the rotated keys and
-    the values, the cache's entries (this rank's heads under
-    tensor-parallel attention). ``attention`` is the loss path's
-    differentiable one; None is ``common.chunked_attention`` (kernel F on
-    the card), looked up at each call."""
+    the values of every position, the cache's entries (this rank's heads
+    under tensor-parallel attention). ``x`` in and out is the stream as a
+    rank holds it: its block of the ``len(positions)`` positions where
+    ``seq`` splits them, on which the norms and residual adds run.
+    ``attention`` is the loss path's differentiable one; None is
+    ``common.chunked_attention`` (kernel F on the card), looked up at each
+    call."""
     attention = attention or C.chunked_attention
+    seq = ctx.seq_split(positions.shape[0])
+    C.note_stream(x)
     h = C.rms_norm(x, p["ln1"])
-    q, k, v = _qkv(cfg, p, h)
+    q, k, v = _qkv(cfg, p, h, seq)
     q = C.apply_rope(q, positions, cfg.rope_theta)
     k = C.apply_rope(k, positions, cfg.rope_theta)
     attn = attention(q, k, v, causal=cfg.causal, window=cfg.window, q_chunk=cfg.q_chunk)
-    x = x + attn_out(cfg, p, attn, x.dtype)
-    x = constrain(x, "batch", "seq", None)
+    x = x + attn_out(cfg, p, attn, x.dtype, seq)
     h2 = C.rms_norm(x, p["ln2"])
-    x = x + mlp(cfg, p, h2).to(x.dtype)
-    return constrain(x, "batch", "seq", None), k, v
+    x = x + mlp(cfg, p, h2, seq).to(x.dtype)
+    return x, k, v
 
 
 def block_train(cfg, p, x, positions):
@@ -396,6 +416,7 @@ def block_decode(cfg, p, x, k_cache, v_cache, cur_len, blocks: int = 1, block: i
     """One-token block. x: (B, 1, D); caches (B, S_max, Hkv, dh), or this
     rank's block of a cache cut into ``blocks`` along its positions,
     written in place at each row's ``cur_len``."""
+    C.note_stream(x)
     h = C.rms_norm(x, p["ln1"])
     x = x + decode_attention(cfg, p, h, k_cache, v_cache, cur_len, blocks, block).to(x.dtype)
     h2 = C.rms_norm(x, p["ln2"])
@@ -408,23 +429,46 @@ def _device(params) -> torch.device:
     return params["embed"].device
 
 
-def embedding(cfg, params) -> torch.Tensor:
-    """The token embedding, whole in its storage dtype (gathered under a
-    mesh; the lookup then casts the rows it reads, as the JAX package
-    does)."""
+def vocab_axes(cfg) -> tuple:
+    """The live mesh axes that split the vocabulary of the embedding and
+    the head (their JAX spec's ``tensor`` axes; () without a mesh or where
+    they do not divide ``vocab``, and then both are used whole)."""
+    return _tensor_axes(embed_def(cfg), 0)
+
+
+def embed_block(cfg, params) -> torch.Tensor:
+    """The rank's block of the token embedding along the vocabulary (the
+    whole table where :func:`vocab_axes` is ()), whole along the model dim
+    (its ``fsdp`` blocks gathered), in its storage dtype: the lookup casts
+    the rows it reads, as the JAX package does."""
     p = embed_def(cfg)
-    return ctx.gather_dims(params["embed"], p.axes, p.shape)
+    return ctx.gather_dims(params["embed"], p.axes, p.shape, ("fsdp",))
 
 
-def _tokens_embedding(cfg, params):
-    """The whole embedding where the model reads tokens, else None (the
-    audio front end reads frames)."""
-    return None if cfg.frontend == "audio" else embedding(cfg, params)
+def head_block(cfg, params, emb=None):
+    """The output head (D, V) in the rank's block of the vocabulary (D, V /
+    n) where :func:`vocab_axes` splits it: the embedding's block
+    transposed when tied (``emb``, :func:`embed_block`'s, where the caller
+    has it), else ``lm_head``'s ``fsdp`` blocks gathered in bf16."""
+    if cfg.tie_embeddings:
+        return (embed_block(cfg, params) if emb is None else emb).T
+    return C.whole(params["lm_head"], head_def(cfg), ("fsdp",))
+
+
+def embed_tokens(cfg, params, tokens, emb=None, seq: tuple = ()):
+    """``common.embed_tokens`` on the rank's block of the vocabulary
+    (``emb``, :func:`embed_block`'s, where the caller has it): the rows of
+    ``tokens`` (B, S), this rank's positions of them where ``seq`` splits
+    the sequence."""
+    tokens = torch.as_tensor(tokens, device=_device(params))
+    return C.embed_tokens(embed_block(cfg, params) if emb is None else emb, tokens, vocab_axes(cfg), seq)
 
 
 def _embed_inputs(cfg, params, batch, emb=None):
-    """Token (+ modality-prefix) embedding -> (x bf16, loss_mask); ``emb``
-    is the whole embedding where the caller has it (else gathered here).
+    """Token (+ modality-prefix) embedding -> (x bf16, loss_mask): ``x`` the
+    stream's first value as a rank holds it (its block of positions where
+    the ``seq`` axes split the sequence), the mask whole; ``emb`` is
+    :func:`embed_block`'s where the caller has it.
 
     Audio (hubert): the frames ``(B, S, frontend_dim)`` through
     ``frame_proj``, each frame of ``frame_mask`` replaced by ``mask_embed``;
@@ -440,13 +484,14 @@ def _embed_inputs(cfg, params, batch, emb=None):
         x = torch.where(m[..., None], params["mask_embed"].to(BF16), x)
         return constrain(x, "batch", "seq", None), m  # loss only on masked frames
     tokens = torch.as_tensor(batch["tokens"], device=dev)
-    x = C.embed_tokens(embedding(cfg, params) if emb is None else emb, tokens)
     mask = torch.ones(tokens.shape, dtype=torch.bool, device=dev)
-    if cfg.frontend == "vision":
-        patches = torch.as_tensor(batch["patch_embeds"], device=dev).to(BF16)
-        pre = patches @ C.whole(params["patch_proj"], model_defs(cfg)["patch_proj"])
-        x = torch.cat([pre, x[:, pre.shape[1] :]], dim=1)
-        mask[:, : pre.shape[1]] = False
+    if cfg.frontend != "vision":
+        return embed_tokens(cfg, params, tokens, emb, ctx.seq_split(tokens.shape[1])), mask
+    x = embed_tokens(cfg, params, tokens, emb)
+    patches = torch.as_tensor(batch["patch_embeds"], device=dev).to(BF16)
+    pre = patches @ C.whole(params["patch_proj"], model_defs(cfg)["patch_proj"])
+    x = torch.cat([pre, x[:, pre.shape[1] :]], dim=1)
+    mask[:, : pre.shape[1]] = False
     return constrain(x, "batch", "seq", None), mask
 
 
@@ -495,13 +540,12 @@ def _run_layers(cfg, params, x, positions, remat_policy: str | None = None):
     return C.rms_norm(x, params["final_norm"])
 
 
-def _lm_head(cfg, params, emb=None):
-    """The output head (D, V), whole: the embedding transposed when tied
-    (``emb``, the whole embedding where the caller has it), else
-    ``lm_head`` gathered in bf16."""
-    if cfg.tie_embeddings:
-        return (embedding(cfg, params) if emb is None else emb).T
-    return C.whole(params["lm_head"], head_def(cfg))
+def lm_loss(cfg, params, x, labels, mask, emb=None, seq: tuple = (), skip: int = 0) -> torch.Tensor:
+    """``common.chunked_softmax_xent`` of the final hidden states ``x``
+    (the rank's block of positions over ``seq``; the first ``skip`` have no
+    label) on the rank's block of the head (:func:`head_block`)."""
+    return C.chunked_softmax_xent(x, head_block(cfg, params, emb), labels, mask, cfg.loss_chunk, vocab_axes(cfg),
+                                  seq, skip)
 
 
 def loss_fn(cfg, params, batch, remat_policy: str = "dots") -> torch.Tensor:
@@ -509,9 +553,9 @@ def loss_fn(cfg, params, batch, remat_policy: str = "dots") -> torch.Tensor:
     prediction of ``targets`` on the masked frames when the batch has
     them, else the next-token objective (labels are the tokens shifted by
     one; the last position is left out)."""
-    emb = _tokens_embedding(cfg, params)
+    emb = None if cfg.frontend == "audio" else embed_block(cfg, params)
     x, mask = _embed_inputs(cfg, params, batch, emb)
-    s = x.shape[1]
+    s = mask.shape[1]
     positions = torch.arange(s, device=x.device)
     x = _run_layers(cfg, params, x, positions, remat_policy)
     if "targets" in batch:  # masked-prediction objective (hubert)
@@ -520,7 +564,7 @@ def loss_fn(cfg, params, batch, remat_policy: str = "dots") -> torch.Tensor:
         tokens = torch.as_tensor(batch["tokens"], device=x.device)
         labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
         mask = mask & (positions < s - 1)[None, :]
-    return C.chunked_softmax_xent(x, _lm_head(cfg, params, emb), labels, mask, cfg.loss_chunk)
+    return lm_loss(cfg, params, x, labels, mask, emb, ctx.seq_split(s))
 
 
 # ------------------------------------------------------------- public API
@@ -574,14 +618,14 @@ def cache_cut(cache: dict, key: str = "k") -> tuple[int, int, int]:
 
 def prefill(cfg, model, batch, max_len: int):
     """Encode a prompt -> (last-position logits (B, V) f32, filled cache)."""
-    emb = _tokens_embedding(cfg, model)
-    x0, _ = _embed_inputs(cfg, model, batch, emb)
-    b, s, _ = x0.shape
+    emb = embed_block(cfg, model)
+    x0, mask = _embed_inputs(cfg, model, batch, emb)
+    b, s = mask.shape
     positions = torch.arange(s, device=x0.device)
     x, cache = attention_cache(cfg, b, s, max_len, x0.device, _layers(model),
                                lambda p, x: _block(cfg, p, x0 if x is None else x, positions))
     x = C.rms_norm(x, model["final_norm"])
-    logits = (x[:, -1].to(BF16) @ _lm_head(cfg, model, emb).to(BF16)).to(F32)
+    logits = C.head_logits(C.last_position(x, ctx.seq_split(s)), head_block(cfg, model, emb), vocab_axes(cfg))
     return logits, cache
 
 
@@ -590,14 +634,12 @@ def decode_step(cfg, model, cache, tokens):
     returned cache holds the same k and v tensors, written in place, and
     ``len + 1``. Raises when a row's cache is full (the JAX package drops
     that write)."""
-    tokens = torch.as_tensor(tokens, device=_device(model))
     cur = cache["len"]
     blocks, block, positions = cache_cut(cache)
     C.cache_room(cur, positions)
-    emb = embedding(cfg, model)
-    x = C.embed_tokens(emb, tokens)
+    emb = embed_block(cfg, model)
+    x = embed_tokens(cfg, model, tokens, emb)
     for i, p in enumerate(_layers(model)):
         x = block_decode(cfg, p, x, cache["k"][i], cache["v"][i], cur, blocks, block)
     x = C.rms_norm(x, model["final_norm"])
-    logits = (x[:, 0].to(BF16) @ _lm_head(cfg, model, emb).to(BF16)).to(F32)
-    return logits, dict(cache, len=cur + 1)
+    return C.head_logits(x[:, 0], head_block(cfg, model, emb), vocab_axes(cfg)), dict(cache, len=cur + 1)

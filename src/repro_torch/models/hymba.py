@@ -32,7 +32,14 @@ sliding-window layers' rings are held whole, as the JAX package's
 are held in blocks along ``tensor``, as mamba2's. The weights are this
 rank's blocks, every one gathered whole before use (``common.whole``):
 hymba-1.5b's 25 heads do not split whole over ``tensor``, so attention is
-not tensor-parallel here (``dense.attn_axes``), nor is the MLP.
+not tensor-parallel here (``dense.attn_axes``), nor is the MLP. Between
+layers the stream (meta tokens first) is the rank's block of positions
+wherever the ``seq`` axes divide them: a layer gathers its normed input
+along the sequence for attention and the SSM branch, keeps its positions
+of both outputs and runs the mix, the residual adds and the MLP on them.
+The embedding and the head are used in the rank's block of the
+vocabulary where the ``tensor`` axes divide it (hymba-1.5b's 32,001 does
+not: the whole path, as JAX drops the axis); the meta rows are whole.
 
 A fault of the JAX package that the port reproduces (ROADMAP.md, Queue 3):
 ``prefill`` puts positions 0..meta_tokens-1 both in ``sink_k`` and, while
@@ -106,10 +113,12 @@ def _segments(cfg, model):
             for i, (kind, _) in enumerate(segments(cfg))]
 
 
-def _embed_with_meta(cfg, model, tokens):
-    x = C.embed_tokens(dense.embedding(cfg, model), tokens)
+def _embed_with_meta(cfg, model, tokens, emb=None):
+    """The meta rows, then the tokens' rows, as the stream holds them (the
+    rank's block of the ``meta_tokens + S`` positions where they split)."""
+    x = dense.embed_tokens(cfg, model, tokens, emb)
     meta = model["meta"].to(x.dtype)[None].expand(x.shape[0], -1, -1)
-    return torch.cat([meta, x], dim=1)
+    return constrain(torch.cat([meta, x], dim=1), "batch", "seq", None)
 
 
 def _mix(p, attn_out, ssm_out):
@@ -120,24 +129,28 @@ def _mix(p, attn_out, ssm_out):
 # ------------------------------------------------------------- blocks
 def _block(cfg, p, x, positions, window, attention=None):
     """Full-sequence layer -> (x, k, v, SSM state, conv tail): k and v are
-    the rotated keys and the values, the cache's entries. Sliding-window
-    layers (``window`` set) keep the meta tokens visible as sinks; global
-    ones (None) attend causally. ``attention`` is the loss path's
-    differentiable one; None is ``common.chunked_attention`` (kernel F on
-    the card), looked up at each call."""
+    the rotated keys and the values of every position, the cache's
+    entries; ``x`` in and out is the rank's block of positions where the
+    ``seq`` axes split them. Sliding-window layers (``window`` set) keep
+    the meta tokens visible as sinks; global ones (None) attend causally.
+    ``attention`` is the loss path's differentiable one; None is
+    ``common.chunked_attention`` (kernel F on the card), looked up at each
+    call."""
     attention = attention or C.chunked_attention
-    h = C.rms_norm(x, p["ln1"])
+    seq = ctx.seq_split(positions.shape[0])
+    C.note_stream(x)
+    h = C.gather_seq(C.rms_norm(x, p["ln1"]), seq)
     q, k, v = dense._qkv(cfg, p, h)
     q = C.apply_rope(q, positions, cfg.rope_theta)
     k = C.apply_rope(k, positions, cfg.rope_theta)
     attn = attention(q, k, v, causal=True, window=window, sink=cfg.meta_tokens if window else 0,
                      q_chunk=cfg.q_chunk)
-    attn_out = dense.attn_out(cfg, p, attn, x.dtype)
+    attn_out = dense.attn_out(cfg, p, attn, x.dtype, seq)
     ssm_out, hs, cs = mamba2.ssm_mix(cfg, p, h)
-    x = constrain(x + _mix(p, attn_out, ssm_out).to(x.dtype), "batch", "seq", None)
+    x = x + _mix(p, attn_out, C.keep_seq(ssm_out, seq)).to(x.dtype)
     h2 = C.rms_norm(x, p["ln2"])
     x = x + dense.mlp(cfg, p, h2).to(x.dtype)
-    return constrain(x, "batch", "seq", None), k, v, hs, cs
+    return x, k, v, hs, cs
 
 
 def _block_train(cfg, p, x, positions, window):
@@ -161,14 +174,15 @@ def loss_fn(cfg, params, batch, remat_policy: str = "dots") -> torch.Tensor:
     positions are dropped before the head; labels are the tokens shifted
     by one, the last position left out."""
     tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
-    x = _embed_with_meta(cfg, params, tokens)
-    positions = torch.arange(x.shape[1], device=x.device)
+    emb = dense.embed_block(cfg, params)
+    x = _embed_with_meta(cfg, params, tokens, emb)
+    positions = torch.arange(tokens.shape[1] + cfg.meta_tokens, device=x.device)
     x = _run_segments(cfg, params, x, positions, remat_policy)
-    x = C.rms_norm(x, params["final_norm"])[:, cfg.meta_tokens :]
+    x = C.rms_norm(x, params["final_norm"])
     s = tokens.shape[1]
     labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
     mask = (torch.arange(s, device=x.device) < s - 1)[None, :].expand(tokens.shape)
-    return C.chunked_softmax_xent(x, dense._lm_head(cfg, params), labels, mask, cfg.loss_chunk)
+    return dense.lm_loss(cfg, params, x, labels, mask, emb, ctx.seq_split(positions.shape[0]), cfg.meta_tokens)
 
 
 # ------------------------------------------------------------- caches
@@ -247,6 +261,7 @@ def _block_decode(cfg, p, x, seg, i: int, kind: str, cur, blocks: int = 1, block
     the ring's positions) are written in place, a global layer's into this
     rank's block of a cache cut into ``blocks``. Returns (x, new state, new
     conv window), whole."""
+    C.note_stream(x)
     b = x.shape[0]
     rows = torch.arange(b, device=x.device)
     h = C.rms_norm(x, p["ln1"])
@@ -277,8 +292,8 @@ def decode_step(cfg, model, cache, tokens):
     """One decode step. tokens: (B, 1) -> (logits (B, V) f32, cache): K/V,
     the ring and its positions written in place, new SSM state and conv
     tensors, ``len + 1``."""
-    tokens = torch.as_tensor(tokens, device=model["embed"].device)
-    x = C.embed_tokens(dense.embedding(cfg, model), tokens)
+    emb = dense.embed_block(cfg, model)
+    x = dense.embed_tokens(cfg, model, tokens, emb)
     cur = cache["len"]
     new_segs = {}
     for kind, name, layers in _segments(cfg, model):
@@ -294,7 +309,7 @@ def decode_step(cfg, model, cache, tokens):
             convs.append(cs)
         new_segs[name] = dict(seg, **mamba2.held_cache(cfg, states, convs))
     x = C.rms_norm(x, model["final_norm"])
-    logits = (x[:, 0].to(BF16) @ dense._lm_head(cfg, model)).to(F32)
+    logits = C.head_logits(x[:, 0], dense.head_block(cfg, model, emb), dense.vocab_axes(cfg))
     return logits, dict(cache, len=cur + 1, segments=new_segs)
 
 
@@ -323,8 +338,9 @@ def prefill(cfg, model, batch, max_len: int):
     the meta tokens (the global layers' K/V hold ``max_len`` positions)."""
     tokens = torch.as_tensor(batch["tokens"], device=model["embed"].device)
     b = tokens.shape[0]
-    x = _embed_with_meta(cfg, model, tokens)
-    s_tot = x.shape[1]
+    emb = dense.embed_block(cfg, model)
+    x = _embed_with_meta(cfg, model, tokens, emb)
+    s_tot = tokens.shape[1] + cfg.meta_tokens
     if s_tot > max_len:
         raise ValueError(f"prompt of {s_tot} positions (meta tokens included) does not fit a cache of {max_len}")
     positions = torch.arange(s_tot, device=x.device)
@@ -354,8 +370,8 @@ def prefill(cfg, model, batch, max_len: int):
             seg["sink_k"] = k_all[:, :, :mt].clone()
             seg["sink_v"] = v_all[:, :, :mt].clone()
         new_segs[name] = seg
-    x = C.rms_norm(x, model["final_norm"])
-    logits = (x[:, -1].to(BF16) @ dense._lm_head(cfg, model)).to(F32)
+    x = C.last_position(C.rms_norm(x, model["final_norm"]), ctx.seq_split(s_tot))
+    logits = C.head_logits(x, dense.head_block(cfg, model, emb), dense.vocab_axes(cfg))
     cache = {"len": torch.full((b,), s_tot, dtype=torch.int32, device=x.device), "segments": new_segs}
     if ctx.get_mesh() is not None:
         cache["seq_blocks"] = blocks  # the global layers' K/V

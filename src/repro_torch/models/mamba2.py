@@ -44,12 +44,17 @@ first decode step promotes it: the same values.
 
 Under a mesh a rank holds its blocks (``sharding.ctx``): ``in_proj``'s
 columns, ``[z, xBC, dt]`` concatenated, do not fall on heads, so
-``in_proj``, ``out_proj``, the embedding and the head are gathered whole
-before use (``common.whole``) and the mixer runs whole on every rank of a
-``model`` line; the cache's ``state`` heads and ``conv`` channels are
-held in blocks along ``tensor``, which prefill keeps and each decode step
-gathers, updates and cuts back (``ctx.gather_dims``, ``ctx.keep_dims``).
-A head-parallel SSD is not ported (ROADMAP.md, Queue 1).
+``in_proj`` and ``out_proj`` are gathered whole before use
+(``common.whole``) and the mixer runs whole on every rank of a ``model``
+line, on the normed stream gathered along the sequence, of whose output a
+rank keeps its positions: between blocks the stream is the rank's block
+of positions wherever the ``seq`` axes divide the sequence, as in every
+family. The embedding and the head are used in the rank's block of the
+vocabulary where the ``tensor`` axes divide it (``dense.vocab_axes``).
+The cache's ``state`` heads and ``conv`` channels are held in blocks
+along ``tensor``, which prefill keeps and each decode step gathers,
+updates and cuts back (``ctx.gather_dims``, ``ctx.keep_dims``). A
+head-parallel SSD is not ported (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -64,7 +69,6 @@ from repro_torch.models import common as C
 from repro_torch.models import dense
 from repro_torch.models.params import PDef, stack
 from repro_torch.sharding import ctx
-from repro_torch.sharding.ctx import constrain
 
 BF16 = torch.bfloat16
 F32 = torch.float32
@@ -263,9 +267,19 @@ def ssm_step(cfg, p, x, h_state, conv_state):
 
 
 # ------------------------------------------------------------- model API
-def _block_train(cfg, p, x):
-    """One layer of the loss path: x + the mixer on the normed x."""
-    return constrain(x + ssm_mix(cfg, p, C.rms_norm(x, p["ln"]))[0], "batch", "seq", None)
+def _block(cfg, p, x, seq: tuple = ()):
+    """One layer: x + the mixer on the normed x -> (x, final state, conv
+    tail). ``x`` in and out is the rank's block of positions where ``seq``
+    splits the sequence: the normed input is gathered whole for the scan
+    and the rank keeps its positions of the output."""
+    C.note_stream(x)
+    out, h_t, conv_t = ssm_mix(cfg, p, C.gather_seq(C.rms_norm(x, p["ln"]), seq))
+    return x + C.keep_seq(out, seq), h_t, conv_t
+
+
+def _block_train(cfg, p, x, seq: tuple = ()):
+    """One layer of the loss path -> x."""
+    return _block(cfg, p, x, seq)[0]
 
 
 def loss_fn(cfg, params, batch, remat_policy: str = "dots") -> torch.Tensor:
@@ -273,14 +287,15 @@ def loss_fn(cfg, params, batch, remat_policy: str = "dots") -> torch.Tensor:
     the tokens shifted by one; the last position left out), each layer
     under ``remat_policy`` (``dense.remat_block``)."""
     tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
-    x = C.embed_tokens(dense.embedding(cfg, params), tokens)
-    s = x.shape[1]
+    s = tokens.shape[1]
+    seq = ctx.seq_split(s)
+    x = dense.embed_tokens(cfg, params, tokens, seq=seq)
     for p in dense.layer_rows(params["layers"]):
-        x = dense.remat_block(remat_policy, _block_train, cfg, p, x)
+        x = dense.remat_block(remat_policy, _block_train, cfg, p, x, seq)
     x = C.rms_norm(x, params["final_norm"])
     labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
     mask = (torch.arange(s, device=x.device) < s - 1)[None, :].expand(tokens.shape)
-    return C.chunked_softmax_xent(x, dense._lm_head(cfg, params), labels, mask, cfg.loss_chunk)
+    return dense.lm_loss(cfg, params, x, labels, mask, seq=seq)
 
 
 def init_cache(cfg, batch_size: int, max_len: int, dtype=BF16, device=None) -> dict:
@@ -322,32 +337,33 @@ def prefill(cfg, model, batch, max_len: int):
     """Encode a prompt -> (last-position logits (B, V) f32, cache);
     ``max_len`` sizes nothing (the state is fixed-size)."""
     tokens = torch.as_tensor(batch["tokens"], device=model["embed"].device)
-    x = C.embed_tokens(dense.embedding(cfg, model), tokens)
     b, s = tokens.shape
+    seq = ctx.seq_split(s)
+    emb = dense.embed_block(cfg, model)
+    x = dense.embed_tokens(cfg, model, tokens, emb, seq)
     states, convs = [], []
     for p in dense.layer_rows(model["layers"]):
-        h = C.rms_norm(x, p["ln"])
-        out, h_t, conv_t = ssm_mix(cfg, p, h)
-        x = constrain(x + out, "batch", "seq", None)
+        x, h_t, conv_t = _block(cfg, p, x, seq)
         states.append(h_t)
         convs.append(conv_t)
-    x = C.rms_norm(x, model["final_norm"])
-    logits = (x[:, -1].to(BF16) @ dense._lm_head(cfg, model)).to(F32)
+    x = C.last_position(C.rms_norm(x, model["final_norm"]), seq)
+    logits = C.head_logits(x, dense.head_block(cfg, model, emb), dense.vocab_axes(cfg))
     cache = dict(held_cache(cfg, states, convs), len=torch.full((b,), s, dtype=torch.int32, device=x.device))
     return logits, cache
 
 
 def decode_step(cfg, model, cache, tokens):
     """One decode step. tokens: (B, 1) -> (logits (B, V) f32, a new cache)."""
-    tokens = torch.as_tensor(tokens, device=model["embed"].device)
-    x = C.embed_tokens(dense.embedding(cfg, model), tokens)
+    emb = dense.embed_block(cfg, model)
+    x = dense.embed_tokens(cfg, model, tokens, emb)
     states, convs = [], []
     for i, p in enumerate(dense.layer_rows(model["layers"])):
+        C.note_stream(x)
         h = C.rms_norm(x, p["ln"])
         out, hs, cs = ssm_step(cfg, p, h, *whole_cache(cfg, cache["state"][i], cache["conv"][i]))
         x = x + out
         states.append(hs)
         convs.append(cs)
     x = C.rms_norm(x, model["final_norm"])
-    logits = (x[:, 0].to(BF16) @ dense._lm_head(cfg, model)).to(F32)
+    logits = C.head_logits(x[:, 0], dense.head_block(cfg, model, emb), dense.vocab_axes(cfg))
     return logits, dict(held_cache(cfg, states, convs), len=cache["len"] + 1)

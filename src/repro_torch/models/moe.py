@@ -7,22 +7,22 @@ expert. Two execution paths, as in the JAX package:
 * local (no mesh): every expert on the one card, the semantic reference;
 * expert-parallel (an ambient mesh whose expert axes split both the
   experts and the sequence): each rank holds its block of the expert
-  stacks and runs the body ``cfg.moe_impl`` names, ``gather`` (its
-  experts over every token, the bf16 partial outputs summed over the
-  expert axis) or ``a2a`` (per destination rank
-  the top-capacity token copies exchanged by all-to-all and the results
-  sent home). Where the JAX package falls back to the local path under a
-  mesh (decode's one token, ``n_experts`` or the sequence not splitting,
-  one expert rank), GSPMD still reads the sharded stacks; a rank of the
-  port holds only its block, so it gathers the batch's tokens over the
-  batch axes, computes its experts' share over all of them and sums the
-  shares over the expert axes (:func:`_moe_local_mesh`). The port's
-  program outside these bodies is replicated over the expert axis, so
-  each body's output is whole on every rank (``gather``'s sum, ``a2a``'s
-  blocks all-gathered back to the whole sequence).
-  ``aux`` follows the JAX package over the expert axis (psum / ep in
-  ``gather``, pmean in ``a2a``) and sums its statistics over the batch
-  axes, the global batch's as GSPMD's local path computes them.
+  stacks and runs the body ``cfg.moe_impl`` names on its block of the
+  sequence, the stream's layout between blocks (``ctx.seq_split``):
+  ``gather`` (the JAX body: the sequence block all-gathered, the rank's
+  experts over every token, the bf16 partial outputs psum-scattered back
+  to blocks over the expert axis) or ``a2a`` (per destination rank the
+  top-capacity token copies of the rank's own block exchanged by
+  all-to-all and the results sent home). Where the JAX package falls back
+  to the local path under a mesh (decode's one token, ``n_experts`` or the
+  sequence not splitting, one expert rank), GSPMD still reads the sharded
+  stacks; a rank of the port holds only its block, so it gathers its
+  positions whole and the batch's tokens over the batch axes, computes its
+  experts' share over all of them and sums the shares over the expert
+  axes (:func:`_moe_local_mesh`), then keeps its positions. ``aux``
+  follows the JAX package over the expert axis (psum / ep in ``gather``,
+  pmean in ``a2a``) and sums its statistics over the batch axes, the
+  global batch's as GSPMD's local path computes them.
 
 :func:`loss_fn` adds the layers' load-balancing loss to the cross
 entropy, as the JAX package's does; its attention is the differentiable
@@ -60,7 +60,6 @@ from repro_torch.models import common as C
 from repro_torch.models import dense
 from repro_torch.models.params import PDef, stack
 from repro_torch.sharding import ctx
-from repro_torch.sharding.ctx import constrain
 
 BF16 = torch.bfloat16
 F32 = torch.float32
@@ -254,20 +253,19 @@ def _moe_local_mesh(p, x, cfg, mesh, ep_axes: tuple):
 
 def _moe_gather(p, x, cfg, mesh, axis: str, ep: int):
     """The ``gather`` body (``repro.models.moe.moe_apply``'s shard body):
-    the rank's experts over every token of its batch block, the partial
-    outputs summed over the expert axis in bf16, and ``aux`` psummed over
-    the axis / ep (each rank computed the full statistics). The JAX body
-    all-gathers its sequence block and psum-scatters the sum back to
-    blocks; the port's program outside this body is replicated over the
-    axis, so its input is already whole and one psum (the same sum, in
-    rank order) gives every rank the whole output."""
+    ``x`` (B, S / ep, D), the rank's block of the sequence, all-gathered in
+    bf16 along it; the rank's experts over every token of its batch block;
+    the partial outputs summed over the expert axis in bf16 and scattered
+    back to the rank's block (one psum-scatter, in rank order); ``aux``
+    psummed over the axis / ep (each rank computed the full statistics)."""
     d = x.shape[-1]
     e_loc = cfg.n_experts // ep
     me = ctx.axis_index(mesh, axis)
-    out, aux = _moe_local(p, x.to(BF16).reshape(-1, d), cfg, me * e_loc, e_loc, ctx.batch_axes(mesh),
-                          (*x.shape[:2], _batch_start(mesh, x.shape[0]), 0))
+    xg = ctx.all_gather_tiled(mesh, axis, x.to(BF16), 1)
+    out, aux = _moe_local(p, xg.reshape(-1, d), cfg, me * e_loc, e_loc, ctx.batch_axes(mesh),
+                          (*xg.shape[:2], _batch_start(mesh, x.shape[0]), 0))
     # bf16 at the collective boundary, as the JAX package sums the partials
-    out = ctx.psum(mesh, axis, out.reshape(x.shape).to(BF16))
+    out = ctx.psum_scatter(mesh, axis, out.reshape(xg.shape).to(BF16), 1)
     aux = ctx.psum(mesh, axis, aux) / ep
     return out.to(x.dtype), aux
 
@@ -302,16 +300,15 @@ def _rows(flat, picks):
 
 def _moe_a2a(p, x, cfg, mesh, axis: str, ep: int):
     """The ``a2a`` body (``repro.models.moe._moe_a2a_body``): each rank
-    routes its own sequence block's tokens, keeps per destination rank the
-    top-CAP token copies by router weight, sends them with their expert
-    ids and weights (three all-to-alls), runs its experts over what it
-    received (top-C_in per expert), and sends the results home (one
-    all-to-all), where each token sums its copies. ``aux`` is pmean over
-    the axis of each rank's own statistics. Output all-gathered back to
-    the whole sequence (the port's program outside this body is replicated
-    over the axis)."""
+    routes the tokens of ``x`` (B, S / ep, D), its own block of the
+    sequence, keeps per destination rank the top-CAP token copies by
+    router weight, sends them with their expert ids and weights (three
+    all-to-alls), runs its experts over what it received (top-C_in per
+    expert), and sends the results home (one all-to-all), where each token
+    sums its copies: the output is the rank's block. ``aux`` is pmean over
+    the axis of each rank's own statistics."""
     e_loc = cfg.n_experts // ep
-    xx = ctx.block_along(mesh, axis, x.to(BF16), dim=1)
+    xx = x.to(BF16)
     b_loc, s_loc, d = xx.shape
     t_loc, k = b_loc * s_loc, cfg.top_k
     dev = x.device
@@ -363,57 +360,64 @@ def _moe_a2a(p, x, cfg, mesh, axis: str, ep: int):
                      int(offered - g_valid.sum()))
     aux = _aux(top_e, probs, cfg, ctx.batch_axes(mesh))
     aux = ctx.pmean(mesh, axis, aux)
-    out = out.reshape(b_loc, s_loc, d).to(BF16)
-    return ctx.all_gather_tiled(mesh, axis, out, dim=1).to(x.dtype), aux
+    return out.reshape(b_loc, s_loc, d).to(BF16).to(x.dtype), aux
 
 
-def moe_apply(p, x, cfg):
-    """x: (B, S, D) -> (out in x's dtype, aux_loss).
+def moe_apply(p, x, cfg, seq: tuple = ()):
+    """x: (B, S, D), or this rank's block of positions (B, S / n, D) over
+    the ``seq`` axes -> (out in x's dtype, the same positions; aux_loss).
 
     No mesh: the local path. Under a mesh the expert stacks' ``fsdp``
     blocks are gathered first (the rank keeps its experts), then, where the
-    expert axes split the experts and the sequence, the expert-parallel
-    body ``cfg.moe_impl`` picks (``"gather"`` or ``"a2a"``); otherwise
-    (decode's one token, ``n_experts`` or the sequence not splitting, one
-    expert rank) the local path over the global batch
+    expert axes split the experts and the whole sequence, the
+    expert-parallel body ``cfg.moe_impl`` picks (``"gather"`` or
+    ``"a2a"``) on the rank's block of the sequence over the expert axis
+    (``seq``, as the rules' defaults make it); otherwise (decode's one
+    token, ``n_experts`` or the sequence not splitting, one expert rank)
+    the local path over the global batch, on every position
     (:func:`_moe_local_mesh`)."""
     b, s, d = x.shape
     mesh = ctx.get_mesh()
     if mesh is None:
         out, aux = _moe_local(p, x.reshape(b * s, d), cfg, 0, cfg.n_experts, layout=(b, s, 0, 0))
         return out.reshape(b, s, d).to(x.dtype), aux
+    s *= ctx.axis_size(mesh, seq)
     defs = layer_defs(cfg)  # the expert stacks' d dims, split over fsdp: gathered (ZeRO)
     p = dict(p, **{k: C.whole(p[k], defs[k], ("fsdp",)) for k in ("e_gate", "e_up", "e_down")})
     ep_axes = tuple(a for a in ctx.get_rules().expert if a in mesh.shape)
     ep = ctx.mesh_axis_size(*ep_axes) if ep_axes else 1
     if ep == 1 or cfg.n_experts % ep != 0 or s % ep != 0:
-        return _moe_local_mesh(p, x, cfg, mesh, ep_axes)
+        out, aux = _moe_local_mesh(p, C.gather_seq(x, seq), cfg, mesh, ep_axes)
+        return C.keep_seq(out, seq), aux
     if p["e_gate"].shape[0] != cfg.n_experts // ep:
         raise ValueError(f"expert stacks of {p['e_gate'].shape[0]} experts; this rank's block is {cfg.n_experts // ep}")
-    if cfg.moe_impl == "a2a":
-        return _moe_a2a(p, x, cfg, mesh, ep_axes[0], ep)
-    return _moe_gather(p, x, cfg, mesh, ep_axes[0], ep)
+    if tuple(seq) != ep_axes[:1]:
+        raise ValueError(f"the expert-parallel bodies take the sequence's blocks over {ep_axes[0]!r}, not over {seq}")
+    body = _moe_a2a if cfg.moe_impl == "a2a" else _moe_gather
+    return body(p, x, cfg, mesh, ep_axes[0], ep)
 
 
 # ------------------------------------------------------------- blocks
 def _block(cfg, p, x, positions, attention=None):
     """Full-sequence block -> (x, k, v, aux), the rotated keys and the
-    values being the cache's entries (this rank's heads under
-    tensor-parallel attention, ``dense.attn_axes``) and ``aux`` the layer's
-    load-balancing loss. ``attention`` is the loss path's differentiable
+    values of every position being the cache's entries (this rank's heads
+    under tensor-parallel attention, ``dense.attn_axes``) and ``aux`` the
+    layer's load-balancing loss; ``x`` in and out is the rank's block of
+    positions where the ``seq`` axes split them. ``attention`` is the loss path's differentiable
     one; None is ``common.chunked_attention`` (kernel F on the card),
     looked up at each call."""
     attention = attention or C.chunked_attention
+    seq = ctx.seq_split(positions.shape[0])
+    C.note_stream(x)
     h = C.rms_norm(x, p["ln1"])
-    q, k, v = dense._qkv(cfg, p, h)
+    q, k, v = dense._qkv(cfg, p, h, seq)
     q = C.apply_rope(q, positions, cfg.rope_theta)
     k = C.apply_rope(k, positions, cfg.rope_theta)
     attn = attention(q, k, v, causal=cfg.causal, window=cfg.window, q_chunk=cfg.q_chunk)
-    x = x + dense.attn_out(cfg, p, attn, x.dtype)
-    x = constrain(x, "batch", "seq", None)
+    x = x + dense.attn_out(cfg, p, attn, x.dtype, seq)
     h2 = C.rms_norm(x, p["ln2"])
-    mo, aux = moe_apply(p, h2, cfg)
-    return constrain(x + mo.to(x.dtype), "batch", "seq", None), k, v, aux
+    mo, aux = moe_apply(p, h2, cfg, seq)
+    return x + mo.to(x.dtype), k, v, aux
 
 
 def block_train(cfg, p, x, positions):
@@ -427,6 +431,7 @@ def _block_decode(cfg, p, x, k_cache, v_cache, cur, blocks: int = 1, block: int 
     """One-token block. x: (B, 1, D); caches (B, S_max, Hkv, dh), or this
     rank's block of a cache cut into ``blocks``, written in place at each
     row's ``cur``."""
+    C.note_stream(x)
     h = C.rms_norm(x, p["ln1"])
     x = x + dense.decode_attention(cfg, p, h, k_cache, v_cache, cur, blocks, block).to(x.dtype)
     h2 = C.rms_norm(x, p["ln2"])
@@ -443,9 +448,9 @@ def loss_fn(cfg, params, batch, remat_policy: str = "dots") -> torch.Tensor:
     load-balancing term, ``aux_loss_coef`` times the layers' mean aux
     loss; the aux losses are summed in float32 from 0 in layer order, as
     the JAX package's scan carries them."""
-    emb = dense.embedding(cfg, params)
+    emb = dense.embed_block(cfg, params)
     x, mask = dense._embed_inputs(cfg, params, batch, emb)
-    s = x.shape[1]
+    s = mask.shape[1]
     positions = torch.arange(s, device=x.device)
     aux_sum = torch.zeros((), dtype=F32, device=x.device)
     for p in dense.layer_rows(params["layers"]):
@@ -455,34 +460,32 @@ def loss_fn(cfg, params, batch, remat_policy: str = "dots") -> torch.Tensor:
     tokens = torch.as_tensor(batch["tokens"], device=x.device)
     labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
     mask = mask & (positions < s - 1)[None, :]
-    ce = C.chunked_softmax_xent(x, dense._lm_head(cfg, params, emb), labels, mask, cfg.loss_chunk)
+    ce = dense.lm_loss(cfg, params, x, labels, mask, emb, ctx.seq_split(s))
     return ce + cfg.aux_loss_coef * aux_sum / cfg.n_layers
 
 
 def prefill(cfg, model, batch, max_len: int):
     """Encode a prompt -> (last-position logits (B, V) f32, filled cache)."""
-    emb = dense.embedding(cfg, model)
-    x0, _ = dense._embed_inputs(cfg, model, batch, emb)
-    b, s, _ = x0.shape
+    emb = dense.embed_block(cfg, model)
+    x0, mask = dense._embed_inputs(cfg, model, batch, emb)
+    b, s = mask.shape
     positions = torch.arange(s, device=x0.device)
     x, cache = dense.attention_cache(cfg, b, s, max_len, x0.device, dense.layer_rows(model["layers"]),
                                      lambda p, x: _block(cfg, p, x0 if x is None else x, positions)[:3])
     x = C.rms_norm(x, model["final_norm"])
-    logits = (x[:, -1].to(BF16) @ dense._lm_head(cfg, model, emb).to(BF16)).to(F32)
-    return logits, cache
+    x = C.last_position(x, ctx.seq_split(s))
+    return C.head_logits(x, dense.head_block(cfg, model, emb), dense.vocab_axes(cfg)), cache
 
 
 def decode_step(cfg, model, cache, tokens):
     """One decode step. tokens: (B, 1) -> (logits (B, V) f32, cache); the
     cache's k and v are written in place, as dense's are."""
-    tokens = torch.as_tensor(tokens, device=model["embed"].device)
     cur = cache["len"]
     blocks, block, positions = dense.cache_cut(cache)
     C.cache_room(cur, positions)
-    emb = dense.embedding(cfg, model)
-    x = C.embed_tokens(emb, tokens)
+    emb = dense.embed_block(cfg, model)
+    x = dense.embed_tokens(cfg, model, tokens, emb)
     for i, p in enumerate(dense.layer_rows(model["layers"])):
         x = _block_decode(cfg, p, x, cache["k"][i], cache["v"][i], cur, blocks, block)
     x = C.rms_norm(x, model["final_norm"])
-    logits = (x[:, 0].to(BF16) @ dense._lm_head(cfg, model, emb).to(BF16)).to(F32)
-    return logits, dict(cache, len=cur + 1)
+    return C.head_logits(x[:, 0], dense.head_block(cfg, model, emb), dense.vocab_axes(cfg)), dict(cache, len=cur + 1)

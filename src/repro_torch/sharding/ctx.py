@@ -28,14 +28,21 @@ and channels). A leaf is whole along an axis only where
 together where it needs more than its block: :func:`gather_dims`
 all-gathers the ``fsdp`` and ``tensor`` dims of a weight just before use
 (ZeRO; its backward reduce-scatters the gradient in float32), except
-where a tensor-parallel matmul consumes the rank's block of heads or FFN
-columns as it is (``models.dense``), and :func:`keep_dims` cuts a result
-computed whole back to the rank's block (SSM caches). Outside the moe,
-decode-attention and tensor-parallel bodies the ranks of one ``model``
-line compute the same values. :func:`constrain` checks its logical names
-against ``x.ndim``, as the JAX function asserts, and moves nothing:
-activations between blocks are replicated over ``model`` (JAX's
-sequence-parallel activation layout is not ported; ROADMAP.md, Queue 1).
+where a tensor-parallel matmul consumes the rank's block of heads, FFN
+columns or vocabulary as it is (``models.dense``, ``models.common``), and
+:func:`keep_dims` cuts a result computed whole back to the rank's block
+(SSM caches).
+
+The activation layout. Between blocks a rank holds its rows (``batch``)
+and its block of positions (``seq``, JAX's sequence-parallel layout) of
+the residual stream, wherever the ``seq`` axes divide the sequence
+(:func:`seq_split`; decode's one token stays whole). :func:`constrain`
+puts a tensor the ranks computed alike and whole along its ``seq`` dims
+into that layout (:func:`keep_block`), as the JAX function constrains
+GSPMD; the model code gathers the positions where an operation needs them
+all (attention, the SSM scan, a tensor-parallel matmul, the
+vocabulary-parallel loss) and returns to the layout by a reduce-scatter
+(:func:`psum_scatter`) or :func:`keep_block`.
 
 Gradients. The collectives of the LM path (:func:`psum`, :func:`pmean`,
 :func:`psum_scatter`, :func:`all_gather_tiled`, :func:`all_to_all`) are
@@ -464,25 +471,42 @@ def gather_dims(x: torch.Tensor, logical: tuple, shape: tuple, names: tuple = ("
 
 
 def keep_dims(x: torch.Tensor, logical: tuple, names: tuple = ("tensor",)) -> torch.Tensor:
-    """This rank's block of ``x`` (a whole leaf, at its global shape) along
-    every dim whose logical axis is in ``names``: the inverse of
-    :func:`gather_dims` for results computed whole (a slice)."""
+    """This rank's block of ``x`` (a whole leaf, at its global shape, which
+    the ranks compute alike) along every dim whose logical axis is in
+    ``names``: the inverse of :func:`gather_dims` for results computed
+    whole (:func:`keep_block`)."""
     mesh = get_mesh()
     if mesh is None:
         return x
     for axes, dim in _named_cuts(mesh, logical, tuple(x.shape), names):
-        x = _my_block(mesh, axes, x, dim)
+        x = keep_block(mesh, axes, x, dim)
     return x
 
 
 def constrain(x: torch.Tensor, *logical: str | None) -> torch.Tensor:
-    """The JAX package's sharding constraint by logical axis names: checks
-    the names against ``x.ndim`` under a mesh and returns ``x`` as it is (a
-    rank's tensor already has its layout; nothing moves)."""
+    """The JAX package's sharding constraint by logical axis names, on a
+    rank's tensor whole along its ``seq`` dims (its ``batch`` dims are its
+    rows already): this rank's block along every ``seq`` dim the spec
+    splits (:func:`keep_dims`; a dim that does not divide stays whole, as
+    in JAX). Other names are checked against ``x.ndim`` and move nothing:
+    a ``tensor`` dim is whole or already the rank's block of columns, as
+    the weights it came from were gathered or not."""
     if get_mesh() is None:
         return x
     assert len(logical) == x.ndim, (logical, tuple(x.shape))
-    return x
+    return keep_dims(x, logical, ("seq",))
+
+
+def seq_split(length: int) -> tuple:
+    """The live mesh axes that split a sequence of ``length`` positions
+    between blocks (the ``seq`` entry of the spec of ``("batch", "seq",
+    None)``; the rules' ``batch`` and ``seq`` axes are disjoint); () without
+    a mesh or where they do not divide ``length``."""
+    mesh = get_mesh()
+    if mesh is None:
+        return ()
+    cuts = _named_cuts(mesh, (None, "seq"), (1, length), ("seq",))
+    return cuts[0][0] if cuts else ()
 
 
 def spec_for(shape: tuple, *logical: str | None) -> tuple:
@@ -728,6 +752,26 @@ class _AllToAll(torch.autograd.Function):
         return None, None, _AllToAll.apply(ctx_.mesh, ctx_.axis, g)
 
 
+class _KeepBlock(torch.autograd.Function):
+    """This rank's block along ``dim`` over ``axes`` of a value the ranks
+    of ``axes`` hold alike. The backward gives each rank the same share of
+    the replicas' total, the blocks' gradients all-gathered and averaged
+    over the ranks (as :class:`_MeanGrad` shares one): every rank then runs
+    the backward of the whole computation on the whole gradient, rounding
+    as one process does, and a later transpose (a gather's
+    reduce-scatter) adds up equal shares."""
+
+    @staticmethod
+    def forward(ctx_, mesh, axes, x, dim):
+        ctx_.mesh, ctx_.axes, ctx_.dim = mesh, axes, dim
+        return _my_block(mesh, axes, x, dim)
+
+    @staticmethod
+    def backward(ctx_, g):
+        n = math.prod(ctx_.mesh.shape[a] for a in ctx_.axes)
+        return None, None, _AllGatherTiled.apply(ctx_.mesh, ((ctx_.axes, ctx_.dim),), g, None) / n, None
+
+
 def psum(mesh: Mesh, axes, x: torch.Tensor) -> torch.Tensor:
     """``lax.psum``: the sum of ``x`` over the ranks of ``axes`` (a name or
     a tuple), summed in rank order, the same bits on every rank."""
@@ -786,6 +830,23 @@ def all_to_all(mesh: Mesh, axis: str, x: torch.Tensor) -> torch.Tensor:
     as many chunks as ``axis`` has ranks, chunk j sent to rank j; the
     received chunks concatenated in sender order."""
     return _AllToAll.apply(mesh, axis, x) if _live(mesh, axis) else x
+
+
+def keep_block(mesh: Mesh, axes, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` over ``axes`` (a name or a
+    tuple), ``x`` being a value those ranks compute alike (a slice whose
+    backward averages the ranks' gradients, :class:`_KeepBlock`)."""
+    axes = _live(mesh, axes)
+    return _KeepBlock.apply(mesh, axes, x, dim) if axes else x
+
+
+def block_index(mesh: Mesh, axes) -> int:
+    """This rank's block of a dim split over ``axes`` (row-major, the first
+    axis slowest; 0 where none is live)."""
+    i = 0
+    for a in _live(mesh, axes):
+        i = i * mesh.shape[a] + axis_index(mesh, a)
+    return i
 
 
 def block_along(mesh: Mesh, axes, x: torch.Tensor, dim: int) -> torch.Tensor:

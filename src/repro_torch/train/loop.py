@@ -9,7 +9,10 @@ expert stacks over the expert axes, every ``fsdp`` and ``tensor`` dim
 over theirs) and its block of the batch rows, and the step is GSPMD's
 data parallelism with ZeRO: every rank computes the global batch's loss
 (``common.chunked_softmax_xent`` sums the numerator and the token count
-over the batch axes), takes the gradient of ``loss / mesh.size`` through
+over the batch axes; the ranks of a ``model`` line, each holding its
+block of positions of the stream and of the vocabulary, get the same
+loss through its sums over ``tensor``, so the loss is replicated over
+every axis but the batch's and the rule below holds as it is), takes the gradient of ``loss / mesh.size`` through
 the collectives' transposes (a weight's gather before use reduce-scatters
 its gradient over the axes it was gathered over, in float32), and sums
 each leaf's gradient over the mesh axes the leaf is neither split nor

@@ -5,9 +5,11 @@ job (``repro_torch.launch.lm_mesh_job``) and the tests' own steps.
   step-0 loss and reduced gradients, the gradients returned (this rank's
   blocks, as numpy).
 * ``("moe", {cfg, p, x, impl, with_grads, aux_weight})``: ``moe_apply`` on
-  the rank's rows of ``x`` with weights ``p`` (whole, cut here); its output
-  and aux, and with ``with_grads`` the gradients of the global sum of
-  squares of the output plus ``aux_weight`` times aux.
+  the rank's rows of ``x`` (its block of positions where the sequence
+  splits, as the stream holds it) with weights ``p`` (whole, cut here); its
+  output (gathered whole along the sequence) and aux, and with
+  ``with_grads`` the gradients of the global sum of squares of the output
+  plus ``aux_weight`` times aux.
 * ``("cp_decode", {q, k, v, cur})``: ``decode_attention_cp`` on the rank's
   sequence block of a cache.
 * ``("shapes", {arch, smoke, overrides, prompts, max_len})``: the shapes of
@@ -15,7 +17,8 @@ job (``repro_torch.launch.lm_mesh_job``) and the tests' own steps.
   and 8-bit moments (``train.loop.init_state``) and the cache after a
   prefill of its rows of ``prompts``.
 * ``("tp_block", {cfg, p, x})``: one dense block (``dense.block_train``) on
-  the rank's blocks of the one-layer weights ``p`` and its rows of ``x``,
+  the rank's blocks of the one-layer weights ``p`` and its rows and
+  positions of ``x`` (the output gathered whole along the sequence),
   computed in float32 (bf16 replaced by float32 while it runs); its output
   and the reduced gradients of the global sum of squares of the output.
 * ``("moments8", {arch, smoke, overrides, rows})``: one train step with
@@ -28,6 +31,21 @@ job (``repro_torch.launch.lm_mesh_job``) and the tests' own steps.
   serving weights carried across from a numpy tree (``params``, a ``.npz``
   path of ``name/with/slashes`` keys) by ``params.model_params_from_numpy``
   under the mesh, and the prefill logits of the rank's rows.
+* ``("loss_carried", {arch, smoke, overrides, params, rows})``: the training masters
+  carried across from a numpy tree by ``params.train_state_from_numpy``
+  under the mesh, and the global ``rows``' loss.
+* ``("vocab_gathers", {arch, smoke, overrides, prompts, max_len})``: every
+  ``ctx.gather_dims`` call on a leaf of the embedding's or the head's shape
+  during a prefill, a decode step and the step-0 loss and gradients, with
+  the logical names of the dims it gathers (``ctx.gather_dims`` is looked
+  up at each call, so a recording stand-in sees every one).
+* ``("stream_shapes", {arch, smoke, prompts, max_len})``: the shapes of the
+  stream entering every block (``common.STREAM``) in a prefill of the
+  rank's rows, one decode step and the step-0 loss and gradients.
+* ``("xent", {x, head, labels, mask, chunk})``: ``common.chunked_softmax_xent``
+  on the rank's rows and block of positions of ``x`` and its block of the
+  vocabulary of ``head``; the loss and the reduced gradients of ``x`` (the
+  rank's rows) and of its block of ``head``.
 """
 from __future__ import annotations
 
@@ -65,7 +83,9 @@ def moe(mesh, cfg, p, x, impl="gather", with_grads=False, aux_weight=1.0) -> dic
     xb = torch.as_tensor(np.array(ctx.sharding_for(mesh, ("batch", None, None), x.shape).block(x)), device=dev)
     xb.requires_grad_(with_grads)
     with torch.set_grad_enabled(with_grads):
-        out, aux = moe_mod.moe_apply(pp, xb, cfg)
+        seq = ctx.seq_split(x.shape[1])
+        out, aux = moe_mod.moe_apply(pp, ctx.constrain(xb, "batch", "seq", None), cfg, seq)
+        out = C.gather_seq(out, seq)
         res = {"out": job._np(out), "aux": float(aux)}
         if with_grads:
             # the loss every rank computes alike: the global batch's sum, plus aux
@@ -139,7 +159,9 @@ def tp_block(mesh, cfg, p, x) -> dict:
         xb = torch.as_tensor(np.array(ctx.sharding_for(mesh, ("batch", None, None), x.shape).block(x)),
                              device=mesh.device).requires_grad_()
         with torch.enable_grad():
-            y = dense.block_train(cfg, pp, xb, torch.arange(x.shape[1], device=mesh.device))
+            y = dense.block_train(cfg, pp, ctx.constrain(xb, "batch", "seq", None),
+                                  torch.arange(x.shape[1], device=mesh.device))
+            y = C.gather_seq(y, ctx.seq_split(x.shape[1]))
             tot = ctx.psum(mesh, ctx.batch_axes(mesh), (y.float() ** 2).sum())
             gs = torch.autograd.grad(tot / mesh.size, [xb] + [pp[k] for k in sorted(pp)])
         for k, g in zip(sorted(pp), gs[1:]):
@@ -179,17 +201,21 @@ def psum_forms(mesh, x) -> dict:
     return out
 
 
-def serve_carried(mesh, arch, smoke=True, params=None, prompts=None, max_len=None) -> dict:
-    cfg = job._cfg(arch, smoke)
+def _npz_tree(path: str) -> dict:
     tree: dict = {}
-    with np.load(params) as f:
+    with np.load(path) as f:
         for name in f.files:
             node = tree
-            *path, leaf = name.split("/")
-            for k in path:
+            *keys, leaf = name.split("/")
+            for k in keys:
                 node = node.setdefault(k, {})
             node[leaf] = f[name]
-    lm = tparams.model_params_from_numpy(cfg, tree, mesh.device)
+    return tree
+
+
+def serve_carried(mesh, arch, smoke=True, params=None, prompts=None, max_len=None) -> dict:
+    cfg = job._cfg(arch, smoke)
+    lm = tparams.model_params_from_numpy(cfg, _npz_tree(params), mesh.device)
     prompts = np.asarray(prompts)
     rows = ctx.sharding_for(mesh, ("batch", None), prompts.shape)
     with torch.no_grad():
@@ -198,8 +224,84 @@ def serve_carried(mesh, arch, smoke=True, params=None, prompts=None, max_len=Non
             "held": {n.replace(".", "/"): tuple(t.shape) for n, t in lm.named_parameters()}}
 
 
+def loss_carried(mesh, arch, smoke=True, overrides=None, params=None, rows=None) -> dict:
+    cfg = job._cfg(arch, smoke, overrides)
+    masters, _ = tparams.train_state_from_numpy(cfg, _npz_tree(params), device=mesh.device)
+    with torch.no_grad():
+        loss = api.build_model(cfg).loss_fn(masters, {"tokens": _rows_of(mesh, rows)})
+    return {"loss": float(loss)}
+
+
+def _serve_and_grads(mesh, model, prompts, max_len) -> dict:
+    """A prefill of the rank's rows of ``prompts``, one greedy decode step,
+    then the step-0 loss and gradients of the masters on the same rows ->
+    the shapes of the stream entering the blocks of each (``common.STREAM``)."""
+    rows = _rows_of(mesh, prompts)
+    noted, out = {}, {}
+
+    def phase(name, fn):
+        C.STREAM = []
+        try:
+            fn()
+        finally:
+            noted[name], C.STREAM = sorted({shape for shape, _ in C.STREAM}), None
+
+    lm = model.init(0, mesh.device)
+    with torch.no_grad():
+        phase("prefill", lambda: out.update(zip(("logits", "cache"), model.prefill(lm, {"tokens": rows}, max_len))))
+        nxt = torch.argmax(out["logits"], -1).to(torch.int32)[:, None]
+        phase("decode", lambda: model.decode_step(lm, out["cache"], nxt))
+    masters = model.init_masters(0, mesh.device)
+    phase("loss", lambda: tl._value_and_grad(model, masters, {"tokens": rows}))
+    return noted
+
+
+def vocab_gathers(mesh, arch, smoke=True, overrides=None, prompts=None, max_len=None) -> dict:
+    cfg = job._cfg(arch, smoke, overrides)
+    shapes = {(cfg.vocab, cfg.d_model): "embed", (cfg.d_model, cfg.vocab): "lm_head"}
+    calls, saved = [], ctx.gather_dims
+
+    def recording(x, logical, shape, names=("fsdp", "tensor"), dtype=None):
+        if tuple(shape) in shapes:
+            dims = [logical[d] for _, d in ctx._named_cuts(mesh, tuple(logical), tuple(shape), names)]
+            calls.append((shapes[tuple(shape)], dims))
+        return saved(x, logical, shape, names, dtype)
+
+    ctx.gather_dims = recording
+    try:
+        _serve_and_grads(mesh, api.build_model(cfg), prompts, max_len)
+    finally:
+        ctx.gather_dims = saved
+    return {"calls": calls, "vocab_axes": dense.vocab_axes(cfg)}
+
+
+def stream_shapes(mesh, arch, smoke=True, prompts=None, max_len=None) -> dict:
+    return _serve_and_grads(mesh, api.build_model(job._cfg(arch, smoke)), prompts, max_len)
+
+
+def xent(mesh, x, head, labels, mask, chunk=16) -> dict:
+    x, head, labels, mask = (np.asarray(a) for a in (x, head, labels, mask))
+    rows = ctx.sharding_for(mesh, ("batch", None), labels.shape)
+    cols = ctx.sharding_for(mesh, (None, "tensor"), head.shape)
+    dev = mesh.device
+    xb = torch.as_tensor(np.array(rows.block(x)), device=dev).requires_grad_()
+    hb = torch.as_tensor(np.array(cols.block(head)), device=dev).requires_grad_()
+    seq = ctx.seq_split(x.shape[1])
+    with torch.enable_grad():
+        loss = C.chunked_softmax_xent(ctx.constrain(xb, "batch", "seq", None), hb,
+                                      torch.as_tensor(np.array(rows.block(labels)), device=dev),
+                                      torch.as_tensor(np.array(rows.block(mask)), device=dev), chunk,
+                                      ctx._live(mesh, cols.spec[1]), seq)
+        gx, gh = torch.autograd.grad(loss / mesh.size, [xb, hb])
+    ctx.all_reduce_(mesh, tuple(a for a in mesh.axis_names if a not in ctx.batch_axes(mesh)), gx)
+    ctx.all_reduce_(mesh, tuple(a for a in mesh.axis_names if a not in cols.axes()), gh)
+    return {"rows": [int(i) for i in job._row_range(rows, labels.shape[0])], "loss": float(loss),
+            "grads": {"x": job._np(gx), "head": job._np(gh)}}
+
+
 OPS = dict(job.OPS, grads_kept=grads_kept, moe=moe, cp_decode=cp_decode, shapes=shapes, tp_block=tp_block,
-           moments8=moments8, psum_forms=psum_forms, serve_carried=serve_carried)
+           moments8=moments8, psum_forms=psum_forms, serve_carried=serve_carried, loss_carried=loss_carried,
+           vocab_gathers=vocab_gathers, stream_shapes=stream_shapes, xent=xent)
 
 
 def run(j: job.LMMeshJob) -> dict:

@@ -43,7 +43,15 @@ this process computes the references) runs every case:
 * granite-smoke's prefill logits, the JAX package's weights carried to the
   ranks by ``params.model_params_from_numpy``, against the JAX package's
   own on its 2 x 2 mesh of 4 host devices (the JAX subprocess), at the
-  one-process test's tolerance (``tests/test_torch_models.py``).
+  one-process test's tolerance (``tests/test_torch_models.py``);
+  granite-smoke's and phi3.5-moe-smoke's loss, the masters carried by
+  ``params.train_state_from_numpy``, against JAX's on that mesh at the
+  one-process loss tolerance (``tests/test_torch_train.py``);
+* the activation layout: no rank gathers the embedding or the head along
+  the vocabulary when it divides (serving and training), a vocabulary
+  that does not divide (127) takes the whole path and matches one
+  process, the stream entering every block is the rank's rows and block
+  of positions, and the blockwise loss matches ``common.softmax_xent_plain``.
 
 Every row of the spawned world's gradients is put back together along
 every dim a leaf's spec splits (``fsdp`` and ``tensor`` too).
@@ -56,6 +64,7 @@ import os
 import subprocess
 import sys
 import textwrap
+import types
 from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 
@@ -175,6 +184,29 @@ def _psum_input():
     return np.random.default_rng(12).standard_normal((4, 1024)).astype(np.float32)
 
 
+LOSS_ARCHS = {"granite": "granite-8b", "phi": "phi3.5-moe-42b-a6.6b"}  # the loss against JAX on its mesh
+# the cross entropy alone: JAX's expert-parallel bodies take each data
+# shard's own routing statistics for aux, the port the global batch's
+# (ROADMAP Queue 3)
+NO_AUX = {"aux_loss_coef": 0.0}
+LOSS_RTOL = 1e-3  # tests/test_torch_train.py's, the one-process port against JAX
+ODD_VOCAB = {"vocab": 127}  # granite-smoke with a vocabulary that does not split over 2
+
+
+def _odd_inputs():
+    rng = np.random.default_rng(15)
+    return (rng.integers(0, ODD_VOCAB["vocab"], (4, PROMPT)).astype(np.int32),
+            rng.integers(0, ODD_VOCAB["vocab"], (4, DECODE)).astype(np.int32))
+
+
+def _xent_inputs():
+    rng = np.random.default_rng(16)
+    b, s, d, v = 4, 32, 32, 96
+    return (rng.standard_normal((b, s, d)).astype(np.float32),
+            (rng.standard_normal((d, v)) * d**-0.5).astype(np.float32),
+            rng.integers(0, v, (b, s)).astype(np.int32), rng.random((b, s)) < 0.7)
+
+
 def _job(d) -> lm_mesh_job.LMMeshJob:
     ckpt_dir = str(d / "ckpt")
     steps = []
@@ -207,6 +239,20 @@ def _job(d) -> lm_mesh_job.LMMeshJob:
     steps.append(("psum_forms", dict(x=_psum_input())))
     steps.append(("serve_carried", dict(arch="granite-8b", params=str(d / "granite.npz"),
                                         prompts=_inputs("granite-8b", 11)[0], max_len=CARRIED_LEN)))
+    for name, arch in LOSS_ARCHS.items():
+        steps.append(("loss_carried", dict(arch=arch, overrides=NO_AUX, params=str(d / f"{name}.npz"),
+                                           rows=_inputs(arch, 12)[0])))
+    for arch in LOSS_ARCHS.values():  # granite-smoke's d_ff as its vocabulary's would give w_gate the head's shape
+        steps.append(("vocab_gathers", dict(arch=arch, overrides={"d_ff": 96}, prompts=_inputs(arch, 13)[0],
+                                            max_len=_max_len(tconfigs.get(arch, smoke=True)))))
+    prompts, feed = _odd_inputs()
+    steps.append(("serve", dict(arch="granite-8b", smoke=True, overrides=ODD_VOCAB, prompts=prompts,
+                                max_len=_max_len(TP_CFG), decode=DECODE, feed=feed)))
+    steps.append(("grads_kept", dict(arch="granite-8b", smoke=True, overrides=ODD_VOCAB, rows=prompts)))
+    for arch in SPEC_FAMILIES.values():
+        steps.append(("stream_shapes", dict(arch=arch, prompts=_inputs(arch, 14)[0],
+                                            max_len=_max_len(tconfigs.get(arch, smoke=True)))))
+    steps.append(("xent", dict(zip(("x", "head", "labels", "mask"), _xent_inputs()), chunk=16)))
     return lm_mesh_job.LMMeshJob(mesh=MESH, steps=tuple(steps), device="cpu")
 
 
@@ -217,7 +263,9 @@ for _name in FAMILIES:
     _i += 2
 for _name in ("serve_fallback", "moe_gather_8", "moe_a2a_8", "moe_gather_125", "moe_a2a_125", "moe_decode",
               "cp_decode", "train_ckpt", "train_resumed", *(f"shapes_{f}" for f in SPEC_FAMILIES), "tp_block",
-              "moments8", "psum_forms", "serve_carried"):
+              "moments8", "psum_forms", "serve_carried", *(f"loss_{n}" for n in LOSS_ARCHS),
+              *(f"gathers_{n}" for n in LOSS_ARCHS), "serve_odd_vocab", "grads_odd_vocab",
+              *(f"stream_{f}" for f in SPEC_FAMILIES), "xent"):
     STEP[_name] = _i
     _i += 1
 
@@ -260,6 +308,22 @@ JAX_EP = textwrap.dedent(
         gcfg = configs.get("granite-8b", smoke=True)
         prefill = jax.jit(lambda p, t: dense.prefill(gcfg, p, {"tokens": t}, int(sys.argv[5]))[0])
         out["granite_prefill"] = np.asarray(prefill(params, jnp.asarray(np.load(sys.argv[4]))), np.float32)
+        # the loss of granite-smoke and phi3.5-moe-smoke on the mesh, from the weights the ranks carry across
+        from repro.models import api
+        for name, arch in (("granite", "granite-8b"), ("phi", "phi3.5-moe-42b-a6.6b")):
+            tree = {}
+            with np.load(os.path.join(os.path.dirname(sys.argv[3]), name + ".npz")) as f:
+                for key in f.files:
+                    node = tree
+                    *path, leaf = key.split("/")
+                    for k in path:
+                        node = node.setdefault(k, {})
+                    node[leaf] = jnp.asarray(f[key])
+            model = api.build_model(dataclasses.replace(configs.get(arch, smoke=True), aux_loss_coef=0.0))
+            rows = jnp.asarray(np.load(os.path.join(os.path.dirname(sys.argv[3]), name + "_loss_rows.npy")))
+            loss = jax.jit(lambda p, t: model.loss_fn(p, {"tokens": t})).lower(tree, rows).compile(
+                {"xla_allow_excess_precision": False})  # XLA:CPU's excess precision flips near-tied moe routes
+            out[name + "_loss"] = np.asarray(loss(tree, rows))
     np.savez(sys.argv[2], **out)
     print("OK")
     """
@@ -272,8 +336,10 @@ def world(tmp_path_factory):
     d = tmp_path_factory.mktemp("lm_mesh")
     p, x = _moe_inputs()
     np.savez(d / "inp.npz", x=x, **p, **dict(zip(("q", "k", "v", "cur"), _cp_inputs())))
-    jparams = japi.build_model(jconfigs.get("granite-8b", smoke=True)).init(jax.random.PRNGKey(0))
-    np.savez(d / "granite.npz", **lm_mesh_job._flat(jax.tree.map(np.asarray, jparams)))
+    for name, arch in LOSS_ARCHS.items():
+        jparams = japi.build_model(jconfigs.get(arch, smoke=True)).init(jax.random.PRNGKey(0))
+        np.savez(d / f"{name}.npz", **lm_mesh_job._flat(jax.tree.map(np.asarray, jparams)))
+        np.save(d / f"{name}_loss_rows.npy", _inputs(arch, 12)[0])
     np.save(d / "granite_prompts.npy", _inputs("granite-8b", 11)[0])
     jax_ep = subprocess.Popen([sys.executable, "-c", JAX_EP, str(d / "inp.npz"), str(d / "jax_ep.npz"),
                                str(d / "granite.npz"), str(d / "granite_prompts.npy"), str(CARRIED_LEN)],
@@ -579,23 +645,26 @@ def _in_mesh(mesh, fn):
 
 
 @pytest.mark.parametrize("name", ["psum", "all_gather_tiled", "psum_scatter", "all_to_all", "gather_dims",
-                                  "mean_grad"])
+                                  "mean_grad", "keep_block"])
 def test_each_collective_function_is_the_adjoint_of_its_forward(monkeypatch, name):
     """A one-process emulation of 4 ranks: each collective computes what
     its JAX namesake does, and its backward is its transpose,
     sum_r <C(x)_r, g_r> = sum_r <x_r, C^T(g)_r>. ``gather_dims`` is the
     tiled all-gather of a weight's ``tensor`` dim; ``mean_grad`` (identity
     forward, the gradient averaged) is the transpose of the identity on a
-    replicated input, where every rank's x is the same."""
+    replicated input, where every rank's x is the same; so is
+    ``keep_block`` (the rank's block of a value the ranks hold alike, the
+    blocks' gradients all-gathered and averaged)."""
     n = 4
     gen = torch.Generator().manual_seed(3)
     xs = [torch.randn(8, 6, dtype=torch.float64, generator=gen) for _ in range(n)]
-    if name == "mean_grad":
+    if name in ("mean_grad", "keep_block"):
         xs = [xs[0].clone() for _ in range(n)]
     fns = {
         "gather_dims": (lambda m, t: _in_mesh(m, lambda: ctx.gather_dims(t, ("tensor", None), (32, 6))),
                         lambda r: torch.cat(xs, 0)),
         "mean_grad": (lambda m, t: ctx.mean_grad(m, "model", t), lambda r: xs[r]),
+        "keep_block": (lambda m, t: ctx.keep_block(m, "model", t, 0), lambda r: xs[r][2 * r : 2 * r + 2]),
         "psum": (lambda m, t: ctx.psum(m, "model", t), lambda r: sum(xs)),
         "all_gather_tiled": (lambda m, t: ctx.all_gather_tiled(m, "model", t, 1), lambda r: torch.cat(xs, 1)),
         "psum_scatter": (lambda m, t: ctx.psum_scatter(m, "model", t, 0), lambda r: sum(xs)[2 * r : 2 * r + 2]),
@@ -794,3 +863,91 @@ def test_psum_forms_give_the_same_bits(world):
             name = str(dt)[6:]
             np.testing.assert_array_equal(got[f"gather_{name}"], want)
             np.testing.assert_array_equal(got[f"scatter_{name}"], want)
+
+
+@pytest.mark.parametrize("name", list(LOSS_ARCHS))
+def test_carried_masters_loss_on_the_mesh_matches_jax_on_its_mesh(world, name):
+    """The JAX package's granite-smoke and phi3.5-moe-smoke weights,
+    carried to each rank as its blocks of the training masters, give on
+    the 2 x 2 mesh (the embedding, the head and the loss in vocabulary
+    blocks, the stream in blocks of positions) the loss JAX computes on
+    its own 2 x 2 mesh, within the one-process test's tolerance; every
+    rank returns the global batch's. moe's load-balancing term is left out
+    (``NO_AUX``)."""
+    want = float(_jax_ep(world)[f"{name}_loss"])
+    losses = {r["steps"][STEP[f"loss_{name}"]]["loss"] for r in _reports(world)}
+    assert len(losses) == 1
+    np.testing.assert_allclose(losses.pop(), want, rtol=LOSS_RTOL)
+
+
+@pytest.mark.parametrize("name", list(LOSS_ARCHS))
+def test_no_rank_gathers_the_vocabulary_when_it_divides(world, name):
+    """granite-smoke (tied) and phi3.5-moe-smoke (untied), vocabulary 128
+    over a model axis of 2: in a prefill, a decode step and the step-0
+    loss and gradients every ``gather_dims`` call on the embedding or the
+    head gathers its ``fsdp`` dim alone, never ``tensor``."""
+    reports = _reports(world)
+    for r in reports:
+        got = r["steps"][STEP[f"gathers_{name}"]]
+        assert got["vocab_axes"] == ("model",)
+        leaves = {leaf for leaf, _ in got["calls"]}
+        assert leaves == ({"embed"} if tconfigs.get(LOSS_ARCHS[name], smoke=True).tie_embeddings
+                          else {"embed", "lm_head"}), leaves
+        for leaf, dims in got["calls"]:
+            assert dims == ["fsdp"], (leaf, dims, r["coords"])
+
+
+def test_a_vocabulary_that_does_not_divide_takes_the_whole_path(world):
+    """granite-smoke with a vocabulary of 127 on the 2 x 2 mesh: the spec
+    leaves the vocabulary whole (as JAX drops the axis), and serving and
+    the step-0 loss and gradients match one process at the dense family's
+    tolerances."""
+    prompts, feed = _odd_inputs()
+    want = _serve_one("granite-8b", ODD_VOCAB, prompts, feed, _max_len(TP_CFG))
+    reports = _reports(world)
+    for j, w in enumerate(want):
+        got = _rows(reports, STEP["serve_odd_vocab"], lambda s, j=j: s["passes"][j]["logits"])
+        np.testing.assert_allclose(got, w, rtol=0, atol=ULP * float(np.abs(w).max()), err_msg=f"pass {j}")
+    loss, grads, defs = _grads_one("granite-8b", ODD_VOCAB, prompts)
+    step = STEP["grads_odd_vocab"]
+    assert abs(reports[0]["steps"][step]["loss"] - loss) <= 1e-5 * abs(loss)
+    for n, w in grads.items():
+        got = _assemble(reports, step, n, defs[n])
+        np.testing.assert_allclose(got, w, rtol=0, atol=2.0**-6 * float(np.abs(w).max()), err_msg=n)
+
+
+@pytest.mark.parametrize("family", list(SPEC_FAMILIES))
+def test_the_stream_entering_each_block_is_the_ranks_block(world, family):
+    """Between blocks a rank holds its rows and its block of positions of
+    the stream: (B / 2, S / 2, D) entering every block of the prefill and
+    of the loss path (hymba's S counting its meta tokens), (B / 2, 1, D)
+    entering every block of a decode step."""
+    cfg = tconfigs.get(SPEC_FAMILIES[family], smoke=True)
+    b, s = 4 // MESH[0], (PROMPT + cfg.meta_tokens) // MESH[1]
+    for r in _reports(world):
+        got = r["steps"][STEP[f"stream_{family}"]]
+        assert got == {"prefill": [(b, s, cfg.d_model)], "decode": [(b, 1, cfg.d_model)],
+                       "loss": [(b, s, cfg.d_model)]}, (family, r["coords"], got)
+
+
+def test_vocab_parallel_loss_matches_the_plain_loss(world):
+    """``common.chunked_softmax_xent`` on each rank's rows and block of
+    positions and its block of a 96-word head (the max over the ranks, the
+    log-sum-exp's sum and the gold logit summed over the model axis) against
+    ``common.softmax_xent_plain`` in one process: the loss within float32
+    rounding (rtol 1e-6) and the gradients of x and the head within 2^-8
+    of their largest element (x's gradient rounds to bf16)."""
+    x, head, labels, mask = _xent_inputs()
+    xx, hh = torch.as_tensor(x).requires_grad_(), torch.as_tensor(head).requires_grad_()
+    want = tC.softmax_xent_plain(xx, hh, torch.as_tensor(labels), torch.as_tensor(mask))
+    gx, gh = torch.autograd.grad(want, [xx, hh])
+    reports = _reports(world)
+    step = STEP["xent"]
+    for r in reports:
+        np.testing.assert_allclose(r["steps"][step]["loss"], float(want.detach()), rtol=1e-6)
+    got_x = _rows(reports, step, lambda s: s["grads"]["x"])
+    np.testing.assert_allclose(got_x, gx.numpy(), rtol=0, atol=2.0**-8 * float(gx.abs().max()))
+    got_h = _assemble(reports, step, "head", types.SimpleNamespace(shape=head.shape),
+                      key=lambda s: s["grads"]["head"],
+                      sharding=lambda m: ctx.sharding_for(m, (None, "tensor"), head.shape))
+    np.testing.assert_allclose(got_h, gh.numpy(), rtol=0, atol=2.0**-8 * float(gh.abs().max()))
