@@ -146,13 +146,18 @@ the script exits non-zero:
                   index's and the ``"torch"`` backend's answers.
 13. ``families``  the moe, ssm and hybrid families served whole: olmoe-1b-7b
                   (64 experts, top-8), mamba2-780m and hymba-1.5b at their
-                  FULL widths and depths with seeded weights, B = 2 prompts
-                  of 512, 1,000 and 1,920 tokens, 8 greedy decode steps.
+                  FULL widths and depths (hymba at 16 of 32 layers, the
+                  script's time) with seeded weights, B = 2 prompts
+                  of 512, 1,000 and 1,920 tokens, 8 greedy decode steps;
+                  then qwen3-32b whole (32.8 B parameters, 65.5 GB in
+                  bf16, drawn on the card leaf by leaf), 2 x 512.
                   Checks: kernel F launched per prefill and decode step as
                   each family's attention calls it (16 a pass for olmoe, 32
                   a prefill and 3 a decode step for hymba, none for
-                  mamba2) and no other kernel; the logit gate on olmoe and
-                  hymba with its planted faults (``fault_sink`` on hymba);
+                  mamba2, 64 a pass for qwen3) and no other kernel; the
+                  logit gate on olmoe, hymba and qwen3 with its planted
+                  faults (``fault_sink`` on hymba, the qk-norm skipped on k
+                  and F reading the neighbouring KV group on qwen3);
                   decode after ``prefill(s)`` against ``prefill(s + 1)`` on
                   mamba2 and hymba; ``ssd_chunked`` against ``ssd_reference``
                   at mamba2's dims; then ``launch.serve`` for each family.
@@ -162,7 +167,7 @@ the script exits non-zero:
                   frames, 30 % masked): step 0's loss and every leaf's
                   gradient against a plain path (no remat, one attention
                   block, whole logits, ``F.cross_entropy``) on 2 rows;
-                  6 timed steps of float32 AdamW with remat "dots" (loss,
+                  3 timed steps of float32 AdamW with remat "dots" (loss,
                   grad_norm, lr, ms each; median ms, frames per second,
                   peak memory; every leaf moves after the first update);
                   ``train_profile``: the step split into loss-and-gradients
@@ -174,15 +179,16 @@ the script exits non-zero:
                   granite's smoke config under deterministic algorithms,
                   bit for bit against an uninterrupted run.
 15. ``families_train`` the moe, ssm and hybrid families trained at FULL
-                  size: olmoe-1b-7b (bf16 masters and 8-bit moments, the
+                  width: olmoe-1b-7b (bf16 masters and 8-bit moments, the
                   stated cut: float32 state would be about 110 GB),
-                  mamba2-780m and hymba-1.5b (float32 AdamW, remat "full",
+                  mamba2-780m at 24 of 48 layers and hymba-1.5b at 8 of 32
+                  (the script's time; float32 AdamW, remat "full",
                   hymba's two microbatches), 4 x 512, 4 x 1,024 and 2 x 512
                   tokens. Checks: step 0's loss and every gradient finite
                   and within tolerance of a plain path (one attention
                   block, whole logits; ``ssd_reference`` for mamba2 and
                   hymba on a 256-token prefix), olmoe's gradients equal on
-                  two calls; 3 timed steps, mamba2's and hymba's 1, the
+                  two calls; 2 timed steps, mamba2's and hymba's 1, the
                   last profiled (``families_train_profile``; every leaf
                   moves but bf16 norm weights under half an ulp, the loss
                   finite; median ms, tokens per second, peak memory); the
@@ -207,16 +213,27 @@ the script exits non-zero:
                   catch. Every rank holds its rows and block of positions
                   of the stream between blocks and its block of the
                   vocabulary (the lookup, the logits and the loss).
-                  granite-8b whole, tensor-parallel on 1 x 4, 8 decode
+                  granite-8b whole, tensor-parallel on 1 x 4, 4 decode
                   steps, each handing gloo under 10 MB a rank. In the same
                   world olmoe-1b-7b at full width cut
                   to 4 of 16 layers (bf16 masters, 8-bit moments, capacity
                   8.0, ``gather``) trained on ``make_local_mesh(2, 2)``
                   through ``launch.train.train``: the step-0 loss and every
                   rank's reduced gradients against this process's (the
-                  ``families_train`` rule), 2 steps, the replicas bit for
+                  ``families_train`` rule), one step, the replicas bit for
                   bit, the expert blocks' moments against this process's;
-                  granite-8b cut to 8 layers trained on 2 x 2. The
+                  granite-8b cut to 2 layers trained on 2 x 2.
+                  mamba2-780m and hymba-1.5b whole on 1 x 4 (2 prompts of
+                  1,000 and 1,024 tokens, 8 decode steps), pass by pass
+                  within logit_gate's tolerance of this process's, with
+                  two planted faults each (a rank's SSM state or conv tail
+                  block reset at each decode step, hymba's first block of
+                  positions, the meta tokens', shifted by one); trained on
+                  2 x 2 (mamba2 whole, hymba cut to 8 layers) with float32
+                  masters: the step-0 rule, the replicas, held bytes, and
+                  ``keep_block``'s backward as a plain slice read. A
+                  planted fault counts as caught only on a row-pass that
+                  is not excused as a near-tied route flip. The
                   ``lm_mesh_cases`` line gives each case's gloo bytes a
                   rank a prefill, a decode step and a train step, the
                   stream's bytes a rank, peak memory and the slowest
@@ -313,7 +330,7 @@ LOGIT_ATOL = 2.0**-5
 # d_model 1280, 16 heads of 80, d_ff 5120, gelu, vocabulary 504, non-causal,
 # 512-wide frames), on the JAX launcher's audio batches at 8 x 1,024 frames
 TRAIN_ARCH = "hubert-xlarge"
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_PROFILED = 8, 1024, 6, 2
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_PROFILED = 8, 1024, 3, 2  # 3 timed steps: the script's time
 # The step-0 check holds the training path (remat "dots", chunked attention
 # and loss, each chunk under a checkpoint) to a plain path (no remat, one
 # attention block, whole logits, F.cross_entropy) on the batch's first 2
@@ -335,8 +352,21 @@ UPDATE_P_RTOL, UPDATE_M_RTOL = 1e-6, 2.0**-21
 # the moe, ssm and hybrid families' serving path: each FULL config whole,
 # B = 2 prompts of these lengths (mamba2's not a multiple of its 128 chunk;
 # hymba's 1,920 + 128 meta tokens = 2,048 positions, past its window 1,024 +
-# 128 meta tokens), then 8 greedy decode steps
-FAMILY_PROMPTS = {"olmoe-1b-7b": 512, "mamba2-780m": 1000, "hymba-1.5b": 1920}
+# 128 meta tokens), then 8 greedy decode steps; and qwen3-32b, the largest
+# dense config one card holds whole (64 layers, d 5,120, 64/8 heads of 128
+# with qk-norm, d_ff 25,600, a 151,936-word vocabulary and an untied head:
+# 32.8 B parameters, 65.5 GB in bf16), its weights drawn on the card leaf by
+# leaf (models.params.DRAW_WHOLE_MAX)
+FAMILY_PROMPTS = {"olmoe-1b-7b": 512, "mamba2-780m": 1000, "hymba-1.5b": 1920, "qwen3-32b": 512}
+# hymba-1.5b cut in depth for the script's time, its global layers a first,
+# a middle and a last: lm_mesh serves it whole, one process and 1 x 4.
+# Served here at 16 of its 32 layers (at 8 the logit gate read
+# fault_causal_edge at 0.178 against its 0.180 on an H100 80GB HBM3 at
+# 700 W); trained at 8 (families_train, lm_mesh), since at 16 the step-0
+# rule fails on segments/seg2/conv_b from the SSD's summation order
+# (scripts/hymba_step0_depth.py)
+HYMBA_CUT = dict(n_layers=8, global_layers=(0, 3, 7))
+FAMILY_CUT = {"hymba-1.5b": dict(n_layers=16, global_layers=(0, 7, 15))}
 FAMILY_BATCH, FAMILY_STEPS = 2, 8
 SINK_ARCH = "hymba-1.5b"  # its sliding-window prefill is kernel F's sink case
 # Decode after prefill(s) against prefill(s + 1): the two paths round
@@ -351,15 +381,21 @@ CONT_FRAC = 2.0**-3
 # tokens run behind its 128 meta tokens
 FT_BATCH = {"olmoe-1b-7b": (4, 512), "mamba2-780m": (4, 1024), "hymba-1.5b": (2, 512)}
 FT_CUT = {"olmoe-1b-7b": dict(param_dtype="bfloat16", opt_state_bits=8)}
+# mamba2 at 12 of its 48 layers and hymba at HYMBA_CUT, FULL configs only:
+# the script's time (lm_mesh trains mamba2 whole on 2 x 2)
+FT_DEPTH = {"mamba2-780m": dict(n_layers=12), "hymba-1.5b": HYMBA_CUT}
 FT_CUT_WHY = {"olmoe-1b-7b": (
     "param_dtype bfloat16 and opt_state_bits 8, the JAX config's fields for this case: 6.92 B parameters in"
-    " float32 masters, gradients and two moments come to about 110 GB, past the card's 80 GB; all 16 layers kept")}
+    " float32 masters, gradients and two moments come to about 110 GB, past the card's 80 GB; all 16 layers kept"),
+              "mamba2-780m": ("12 of 48 layers: the script's time (whole it took about 40 s; lm_mesh trains it whole on"
+                              " 2 x 2)"),
+              "hymba-1.5b": "8 of 32 layers, global layers 0, 3 and 7: the script's time (whole it took about 100 s)"}
 # timed steps a family, the last under the profiler (the card's kernels
 # only: CUPTI's records add about a microsecond a launch, 0.13 s to hymba's
 # 132,588): mamba2's and hymba's host-bound steps (4-6 s and 16-27 s on an
 # H100 80GB HBM3 at 700 W) take one, which keeps the whole script inside
 # its 1,200 s limit on a slow host
-FT_STEPS = {"olmoe-1b-7b": 3, "mamba2-780m": 1, "hymba-1.5b": 1}
+FT_STEPS = {"olmoe-1b-7b": 2, "mamba2-780m": 1, "hymba-1.5b": 1}
 # the step-0 check's (rows, tokens): the first rows of step 0's batch; mamba2
 # and hymba on a prefix, since ssd_reference runs a per-token loop (two and
 # three of their 128-token chunks, hymba's meta tokens included)
@@ -397,19 +433,22 @@ SSD_RTOL = 1e-4
 LMM_SERVE_ARCH, LMM_SERVE_LAYERS, LMM_SERVE_MESH = "phi3.5-moe-42b-a6.6b", 8, (1, 4)
 LMM_SERVE_BATCH, LMM_SERVE_PROMPT, LMM_SERVE_STEPS = 2, 512, 8
 # Training: olmoe-1b-7b at full width, cut to 4 of its 16 layers (the
-# gradients cross gloo through the host, about 2.2 GB of bf16 a rank a step
-# at 4 layers), bf16 masters and 8-bit moments as families_train has them,
-# capacity factor n_experts / top_k (a data shard's capacity comes from its
-# own tokens), on make_local_mesh(2, 2): data parallel 2 x expert parallel
-# 2; 2 steps of 4 x 512 tokens through launch.train.train. The step-0
-# check takes the first 2 rows of step 0's batch (one per data rank). The
+# gradients cross gloo through the host, about 2.2 GB of bf16 a rank a
+# step; at 2 layers the step-0 rule read 1.15 of its tolerance on embed's
+# gradient on an H100 80GB HBM3 at 700 W, where 4 layers read 0.68: the
+# rule does not go route by route, and moe's routes are discontinuous) and
+# one step for the phase's time, bf16 masters and 8-bit moments as
+# families_train has them, capacity factor n_experts / top_k (a data
+# shard's capacity comes from its own tokens), on make_local_mesh(2, 2):
+# data parallel 2 x expert parallel 2; 4 x 512 tokens through
+# launch.train.train. The step-0 check takes the first 2 rows of step 0's batch (one per data rank). The
 # gather combine: olmoe's config names a2a, whose capacity is applied twice
 # (per destination rank, then per expert, c_in = ep * cap * cf / e_loc), so
 # at capacity factor 8 each of a rank's 32 experts gets 8,192 slots for
 # about 128 copies, and the padded activations ran a rank out of memory
 # (an H100 80GB HBM3 at 700 W); serving runs both combines.
 LMM_TRAIN_ARCH, LMM_TRAIN_LAYERS, LMM_TRAIN_MESH = "olmoe-1b-7b", 4, (2, 2)
-LMM_TRAIN_BATCH, LMM_TRAIN_SEQ, LMM_TRAIN_STEPS, LMM_TRAIN_ROWS = 4, 512, 2, 2
+LMM_TRAIN_BATCH, LMM_TRAIN_SEQ, LMM_TRAIN_STEPS, LMM_TRAIN_ROWS = 4, 512, 1, 2
 # The served logits are held route by route. Every rank and the one-process
 # reference record moe's routes (moe.ROUTES); in each pass, a row whose read
 # token (the last position) took the same experts at every layer as in the
@@ -430,13 +469,18 @@ LMM_TRAIN_BATCH, LMM_TRAIN_SEQ, LMM_TRAIN_STEPS, LMM_TRAIN_ROWS = 4, 512, 2, 2
 # attention_ref read 0.055).
 LMM_ROUTE_TIE = 2.0**-4
 # planted faults the serving check must catch, each run for the prefill and
-# one decode step with the combine named: the experts of the model axis's
-# rank 1 adding nothing; context-parallel decode shifting each block's
-# softmax by the block's own max instead of the global one; the model
-# axis's rank 1 reading its block of the vocabulary one row off in the
-# lookup; every reduce-scatter keeping the next rank's block of the sum
-LMM_FAULTS = (("fault_expert_share", "gather"), ("fault_expert_share", "a2a"), ("fault_cp_max", "gather"),
-              ("fault_vocab_block", "gather"), ("fault_seq_scatter", "gather"))
+# the decode steps named with the combine named: the experts of the model
+# axis's rank 1 adding nothing; context-parallel decode shifting each
+# block's softmax by the block's own max instead of the global one; the
+# model axis's rank 1 reading its block of the vocabulary one row off in
+# the lookup; every reduce-scatter keeping the next rank's block of the
+# sum. A fault counts as caught only on a row-pass that is not excused
+# (fault_caught): fault_cp_max acts in decode alone, and in one decode step
+# both rows' read tokens took other experts at a near tie (excused) on the
+# card (an H100 80GB HBM3 at 700 W), with too few row-passes alike, so it
+# runs every decode step of the served run, over which its error grows.
+LMM_FAULTS = (("fault_expert_share", "gather", 1), ("fault_expert_share", "a2a", 1), ("fault_cp_max", "gather", 8),
+              ("fault_vocab_block", "gather", 1), ("fault_seq_scatter", "gather", 1))
 # a granite-8b decode step's bytes a rank hands to gloo: the layers'
 # tensor-parallel sums, decode attention's gathers and the logits, with
 # nothing of the vocabulary gathered (about 0.105 GB a step before)
@@ -454,22 +498,65 @@ LMM_MOMENT_FRAC = 2 * TRAIN_GRAD_FRAC
 # projects its 8 query and 2 KV heads and its 3,584 FFN columns, kernel F
 # runs on its heads, wo and w_down are row-parallel, the stream between
 # blocks in blocks of 128 positions, the embedding and the head in blocks
-# of 12,288 words; 2 prompts of 512, 8 greedy decode steps fed with the
-# reference's tokens (max_len 520, a multiple of 4: context-parallel decode
-# over every head), held pass by pass against the same seeded model in
-# this process with logit_gate's tolerance. Trained at full width cut to 8 of its 36 layers on
-# make_local_mesh(2, 2) with float32 masters and 32-bit moments on 4 x 512
-# tokens: held whole, its state would be about 31 GB a rank, four of which
-# one card cannot hold; under the spec it is about 7.8 GB a rank. The
-# step-0 check takes the first 2 rows of step 0's batch (families_train's
-# rule), then one timed step.
+# of 12,288 words; 2 prompts of 512, 4 greedy decode steps (the script's
+# time) fed with the reference's tokens (max_len 516, a multiple of 4:
+# context-parallel decode over every head), held pass by pass against the same seeded model in
+# this process with logit_gate's tolerance. Trained at full width cut to
+# 2 of its 36 layers, for the phase's time, on make_local_mesh(2, 2) with
+# float32 masters and 32-bit moments on 4 x 512 tokens (held whole, its
+# state at 8 layers would be about 31 GB a rank, four of which one card
+# cannot hold; under the spec about 7.8 GB a rank). The step-0 check
+# takes the first 2 rows of step 0's batch (families_train's rule), then
+# one timed step.
 LMM_DENSE_ARCH, LMM_DENSE_SERVE_MESH, LMM_DENSE_TRAIN_MESH = "granite-8b", (1, 4), (2, 2)
-LMM_DENSE_BATCH, LMM_DENSE_PROMPT, LMM_DENSE_STEPS = 2, 512, 8
-LMM_DENSE_TRAIN_LAYERS, LMM_DENSE_TRAIN_BATCH, LMM_DENSE_TRAIN_SEQ = 8, 4, 512
+LMM_DENSE_BATCH, LMM_DENSE_PROMPT, LMM_DENSE_STEPS = 2, 512, 4
+LMM_DENSE_TRAIN_LAYERS, LMM_DENSE_TRAIN_BATCH, LMM_DENSE_TRAIN_SEQ = 2, 4, 512
 # a rank's bytes on the card once its weights (or its masters, and its
 # masters and moments after the first step) are drawn, against its blocks'
 # bytes under the JAX spec: the allocator rounds each tensor up to 512 bytes
 LMM_HELD_RTOL = 0.01
+# mamba2-780m (48 layers, d 1,536, 48 SSM heads of 64) and hymba-1.5b (32
+# layers, global layers 0, 15 and 31, 128 meta tokens, window 1,024) at
+# full width and depth on make_local_mesh(1, 4): each rank gathers the
+# weights and runs the SSM branch (and hymba's 25 heads, which 4 does not
+# divide) whole on the gathered stream, keeps its block of positions
+# between layers and holds its blocks of the SSM state and conv tail; B = 2
+# prompts of 1,000 and 1,024 tokens (hymba's 1,152 positions with the meta
+# tokens run past its window, so F's sink case bites), 8 decode steps fed
+# with the reference's tokens (max_len rounded up to a multiple of 4, so
+# the global layers' decode attention is context-parallel), held pass by
+# pass against the seeded model in this process (ssm_serve_reference).
+# The planted faults, each with the decode steps it runs after the prefill:
+# the model axis's rank 1 zeroing its block of the SSM state or of the conv
+# tail as each decode step gathers them (mamba2's logits move by 3-5 in
+# the first step; hymba's attention carries its first step, within the
+# tolerance, and the second moves by 1.1, on an H100 80GB HBM3 at 700 W),
+# and the rank
+# holding the first block of hymba's positions (the meta tokens) shifting
+# it by one position, which the prefill shows.
+LMM_SSM_SERVE_MESH, LMM_SSM_BATCH, LMM_SSM_STEPS = (1, 4), 2, 8
+LMM_SSM_PROMPT = {"mamba2-780m": 1000, "hymba-1.5b": 1024}
+LMM_SSM_FAULTS = {"mamba2-780m": (("fault_ssm_state", 1), ("fault_conv_tail", 1)),
+                  "hymba-1.5b": (("fault_ssm_state", 2), ("fault_meta_shift", 0))}
+# trained on make_local_mesh(2, 2) with float32 masters and 32-bit moments
+# (the configs' own), one step of 4 x 512 tokens after the step-0 check on
+# its first 2 rows (hymba's behind its 128 meta tokens; on their first 256
+# tokens hymba's read 0.995 of the tolerance, against 0.27 on 512, on an
+# H100 80GB HBM3 at 700 W); mamba2 whole,
+# hymba cut in depth (LMM_SSM_TRAIN_CUT_WHY). The planted training fault,
+# on hymba: ctx.keep_block's backward keeping this rank's share of the
+# gradient (a plain slice) instead of gathering and averaging the ranks'
+# shares, read by the step-0 rule (on mamba2 it read 0.046 of the
+# tolerance against its clean run's 0.078 on an H100 80GB HBM3 at 700 W,
+# so it runs on one of the two).
+LMM_SSM_TRAIN_MESH, LMM_SSM_TRAIN_BATCH, LMM_SSM_TRAIN_SEQ = (2, 2), 4, 512
+LMM_SSM_TRAIN = {"mamba2-780m": {}, "hymba-1.5b": dict(HYMBA_CUT, microbatches=1)}
+LMM_SSM_TRAIN_CUT_WHY = {"hymba-1.5b": (
+    "8 of 32 layers, global layers 0, 3 and 7 (a first, a middle and a last), and one microbatch of the config's"
+    " two (each gathers every weight again: 22.0 s a step against 14.6 s for the step-0 gradients on an H100"
+    " 80GB HBM3 at 700 W): a 32-layer step under the mesh does not fit the script's time budget; families_train"
+    " runs hymba at the same depth")}
+LMM_TRAIN_FAULT, LMM_TRAIN_FAULT_ARCH = "fault_keep_slice", "hymba-1.5b"
 
 
 _STARTED = time.perf_counter()
@@ -2401,6 +2488,10 @@ GATED_FAULTS = ATTENTION_FAULTS[:2]
 # out of its sliding-window layers' prefill): the families phase's gate on
 # hymba must catch it too
 SINK_FAULT = "fault_sink"
+# qwen3-32b's gate must catch two more: the qk-norm skipped on k (the
+# dense model's _qkv normalizing q alone) and F reading each query head's
+# neighbouring KV group (the KV heads rolled by one at its 64:8 ratio)
+QK_FAULTS = ("fault_qk_norm_k", "fault_kv_group")
 
 
 @contextlib.contextmanager
@@ -2423,6 +2514,8 @@ def model_attention(kind: str):
             q = q * q.shape[-1] ** -0.5
         if kind == SINK_FAULT:
             sink = 0
+        if kind == "fault_kv_group":
+            k, v = k.roll(1, 2), v.roll(1, 2)
         return attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal,
                       window=window, q_offset=q_offset, kv_len=kv_len, sink=sink).transpose(1, 2)
 
@@ -2440,6 +2533,33 @@ def model_attention(kind: str):
         yield
     finally:
         common.chunked_attention, common.decode_attention_cp = saved
+
+
+@contextlib.contextmanager
+def planted_fault(kind: str):
+    """A planted fault of the logit gate while the block runs:
+    ``"fault_qk_norm_k"`` in the dense model's projections, any other in
+    its attention (``model_attention``)."""
+    if kind != "fault_qk_norm_k":
+        with model_attention(kind):
+            yield
+        return
+    import dataclasses
+
+    from repro_torch.models import common
+    from repro_torch.models import dense
+
+    saved = dense._qkv
+
+    def planted(cfg, p, h, seq=()):
+        q, k, v = saved(dataclasses.replace(cfg, qk_norm=False), p, h, seq)
+        return common.rms_norm(q, p["q_norm"]), k, v
+
+    dense._qkv = planted
+    try:
+        yield
+    finally:
+        dense._qkv = saved
 
 
 def continuation_accuracy(stream, prompts, gens) -> float:
@@ -2828,7 +2948,7 @@ def update_check(p, g, bits: int) -> dict:
 
 def train_phase(dev, smoke: bool = False) -> dict:
     """LM training at hubert-xlarge's full size through ``launch.train``'s
-    step and batches: the step-0 check against the plain path, 6 timed
+    step and batches: the step-0 check against the plain path, 3 timed
     steps of float32 AdamW with remat "dots", 2 profiled steps, then kernel
     F's refusal of gradient-carrying inputs, the card-vs-CPU update of one
     stacked leaf, and the restart check at granite's smoke config under
@@ -3084,13 +3204,15 @@ def flash_per_pass(cfg) -> tuple[int, int]:
 
 
 def logit_gate(arch: str, cfg, model, params, prompt, max_len: int, first,
-               gate_faults: bool = True) -> tuple[list, dict]:
+               gate_faults: bool = True, read_faults: bool = True) -> tuple[list, dict]:
     """The model with F against the same model with the plain attention on
     the first prefill and decode step: ``first`` holds the path's logits
     of both; the tolerance is twice the gap to the model with F's plain
     version plus ``LOGIT_ATOL``, and with ``gate_faults`` it must catch the
-    planted faults (``fault_sink`` where the model has meta tokens), which
-    are otherwise only read. Returns the checks and the readings."""
+    planted faults (``fault_sink`` where the model has meta tokens,
+    ``QK_FAULTS`` where it normalizes q and k), which
+    are otherwise only read (and with ``read_faults`` False not run).
+    Returns the checks and the readings."""
     import torch
 
     tok0 = torch.argmax(first[0], dim=-1).to(torch.int32)[:, None]
@@ -3110,10 +3232,10 @@ def logit_gate(arch: str, cfg, model, params, prompt, max_len: int, first,
     logit_err, logit_floor = logit_errs(first[:2]), logit_errs(alt)
     logit_tol = 2 * max(logit_floor) + LOGIT_ATOL
     checks = [(max(logit_err) <= logit_tol, f"{arch}: logits differ from the plain model's by {logit_err} > {logit_tol}")]
-    faults = GATED_FAULTS + ((SINK_FAULT,) if cfg.meta_tokens else ())
+    faults = GATED_FAULTS + ((SINK_FAULT,) if cfg.meta_tokens else ()) + (QK_FAULTS if cfg.qk_norm else ())
     fault_err = {}
-    for kind in faults:
-        with model_attention(kind):
+    for kind in faults if gate_faults or read_faults else ():
+        with planted_fault(kind):
             fault_err[kind] = logit_errs(first_logits())
     checks += [(max(fault_err[kind]) > logit_tol,
                 f"{arch}: the logit gate {logit_tol} misses {kind} (errors {fault_err[kind]})")
@@ -3124,21 +3246,25 @@ def logit_gate(arch: str, cfg, model, params, prompt, max_len: int, first,
 
 
 def families_phase(dev, smoke: bool = False) -> dict:
-    """The moe, ssm and hybrid families served whole: olmoe-1b-7b,
-    mamba2-780m and hymba-1.5b at their FULL widths and depths (their smoke
-    configs with ``smoke``), weights from a seeded generator, B = 2 prompts
+    """The moe, ssm and hybrid families and qwen3-32b served whole:
+    olmoe-1b-7b, mamba2-780m, hymba-1.5b and qwen3-32b at their FULL widths
+    and depths (their smoke configs with ``smoke``), weights from a seeded
+    generator on the card, B = 2 prompts
     of FAMILY_PROMPTS tokens (mamba2's not a multiple of its 128 chunk;
     hymba's 1,920 behind 128 meta tokens, past window + meta tokens, so the
     window, the sink and the ring's wrap all bite), then FAMILY_STEPS greedy
-    decode steps. Per family: prefill ms, ms per decode step, peak memory,
-    F's launches against ``flash_per_pass`` (checked on the card); on olmoe
-    and hymba the logit gate (first prefill and decode logits with F
+    decode steps. Per family: the draw's peak, prefill ms, ms per decode
+    step, the serving peak,
+    F's launches against ``flash_per_pass`` (checked on the card); on olmoe,
+    hymba and qwen3 the logit gate (first prefill and decode logits with F
     against the plain attention, planted faults caught, ``fault_sink`` on
-    hymba); on mamba2 and hymba decode after ``prefill(s)`` against
-    ``prefill(s + 1)``; on mamba2 ``ssd_chunked`` against ``ssd_reference``
+    hymba, ``QK_FAULTS`` on qwen3); on mamba2 and hymba decode after
+    ``prefill(s)`` against ``prefill(s + 1)``; on mamba2 ``ssd_chunked`` against ``ssd_reference``
     at FULL's dims; ``families_profile``: the path once more, profiled (the
     card's kernels only); then ``launch.serve`` for the family. Returns the
     launches of all of it but the profiled pass."""
+    import dataclasses
+
     import torch
 
     from repro_torch import configs
@@ -3149,15 +3275,19 @@ def families_phase(dev, smoke: bool = False) -> dict:
 
     total: dict = {}
     for arch, plen in FAMILY_PROMPTS.items():
-        cfg = configs.get(arch, smoke=smoke)
+        cfg = dataclasses.replace(configs.get(arch, smoke=smoke), **({} if smoke else FAMILY_CUT.get(arch, {})))
         if smoke:  # the same cases at the smoke configs' chunk (16) and window (16)
-            plen = {"olmoe-1b-7b": 40, "mamba2-780m": 37, "hymba-1.5b": 24}[arch]
+            plen = {"olmoe-1b-7b": 40, "mamba2-780m": 37, "hymba-1.5b": 24, "qwen3-32b": 40}[arch]
         model = mapi.build_model(cfg)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
         sync(dev)
         t0 = time.perf_counter()
         params = model.init(SEED, dev)
         sync(dev)
         init_s = time.perf_counter() - t0
+        init_peak_gb = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None
         toks = torch.as_tensor(TokenStream(cfg.vocab, seed=5).batch(FAMILY_BATCH, plen + 1), device=dev)
         prompt = {"tokens": toks[:, :plen]}
         max_len = plen + cfg.meta_tokens + FAMILY_STEPS + 1
@@ -3197,7 +3327,9 @@ def families_phase(dev, smoke: bool = False) -> dict:
                        f"{arch}: cache len {cache['len'].tolist()}"))
         del cache
         fields = dict(arch=cfg.name, family=cfg.family, n_layers=cfg.n_layers, d_model=cfg.d_model,
-                      n_params=model.n_params, init_s=init_s, batch=FAMILY_BATCH, prompt_len=plen,
+                      cut=None if smoke or arch not in FAMILY_CUT else "16 of 32 layers: the script's time",
+                      n_params=model.n_params, init_s=init_s, init_peak_mem_gb=init_peak_gb, batch=FAMILY_BATCH,
+                      prompt_len=plen,
                       positions=plen + cfg.meta_tokens, decode_steps=FAMILY_STEPS, prefill_ms=prefill_ms,
                       decode_step_ms=float(np.median(decode_ms)), decode_step_ms_each=decode_ms, peak_mem_gb=peak_gb,
                       flash_attention_launches=launches.get("flash_attention", 0),
@@ -3327,10 +3459,11 @@ def grad_stats(a, b) -> tuple[float, float, float]:
 
 
 def families_train_phase(dev, smoke: bool = False) -> dict:
-    """The moe, ssm and hybrid families trained at FULL size, then served
+    """The moe, ssm and hybrid families trained at FULL width, then served
     from their trained masters: olmoe-1b-7b (with bf16 masters and 8-bit
-    moments, the stated cut), mamba2-780m and hymba-1.5b (float32 AdamW,
-    their configs' remat "full", hymba's two microbatches), masters from a
+    moments, the stated cut), mamba2-780m and hymba-1.5b (cut in depth,
+    ``FT_DEPTH``; float32 AdamW, their configs' remat "full", hymba's two
+    microbatches), masters from a
     seeded generator. Per family: the step-0 check on the first rows (the
     training path's loss and every gradient, which must be finite, against
     the plain path of ``family_loss_variant``, the tolerance widened by the
@@ -3361,7 +3494,7 @@ def families_train_phase(dev, smoke: bool = False) -> dict:
 
     total: dict = {}
     for arch, (batch_n, seq) in FT_BATCH.items():
-        cut = FT_CUT.get(arch, {})
+        cut = dict(FT_CUT.get(arch, {}), **({} if smoke else FT_DEPTH.get(arch, {})))
         cfg = dataclasses.replace(configs.get(arch, smoke=smoke), **cut)
         rows_n, prefix = FT_CHECK[arch]
         serve_len = FT_SERVE_PROMPT[arch]
@@ -3600,6 +3733,35 @@ def mesh_fault(kind: str):
             n = ctx.axis_size(mesh, axes)
             b = x.shape[dim] // n
             return whole.narrow(dim, (ctx.block_index(mesh, axes) + 1) % n * b, b)
+    elif kind in ("fault_ssm_state", "fault_conv_tail"):
+        from repro_torch.models import mamba2
+
+        module, name = mamba2, "whole_cache"
+        saved = mamba2.whole_cache
+
+        def planted(cfg, state, conv):
+            mesh = ctx.get_mesh()
+            if mesh is not None and ctx.axis_index(mesh, "model") == 1:
+                state, conv = (torch.zeros_like(state), conv) if kind == "fault_ssm_state" else \
+                    (state, torch.zeros_like(conv))
+            return saved(cfg, state, conv)
+    elif kind == "fault_meta_shift":
+        from repro_torch.models import hymba
+
+        module, name = hymba, "_embed_with_meta"
+        saved = hymba._embed_with_meta
+
+        def planted(cfg, model, tokens, emb=None):
+            x = saved(cfg, model, tokens, emb)
+            mesh = ctx.get_mesh()
+            seq = ctx.seq_split(tokens.shape[1] + cfg.meta_tokens)
+            return torch.roll(x, 1, 1) if mesh is not None and seq and ctx.block_index(mesh, seq) == 0 else x
+    elif kind == "fault_keep_slice":
+        module, name = ctx, "keep_block"
+        saved = ctx.keep_block
+
+        def planted(mesh, axes, x, dim):
+            return ctx.block_along(mesh, axes, x, dim)
     else:
         raise ValueError(f"unknown planted fault {kind!r}")
     setattr(module, name, planted)
@@ -3609,26 +3771,28 @@ def mesh_fault(kind: str):
         setattr(module, name, saved)
 
 
-def lm_mesh_rank(job, faults=(), then=()) -> list:
-    """A rank of the lm_mesh phase: ``launch.lm_mesh_job.run(job)``, then
-    each ``(kind, job)`` of ``faults`` with that fault planted, then each
-    job of ``then``, the serving weights freed and the peak reset before
-    each -> the reports, in that order."""
+def lm_mesh_rank(cases) -> list:
+    """A rank of the lm_mesh phase: for each ``(job, faults)`` of ``cases``,
+    the serving weights freed and the peak reset, then
+    ``launch.lm_mesh_job.run(job)`` and each ``(kind, job)`` of ``faults``
+    with that fault planted (the job's serving weights kept for them) ->
+    per case the reports, the job's first."""
     import torch
 
     from repro_torch.launch import lm_mesh_job
 
-    reports = [lm_mesh_job.run(job)]
-    for kind, fjob in faults:
-        with mesh_fault(kind):
-            reports.append(lm_mesh_job.run(fjob))
-    for tjob in then:
+    out = []
+    for job, faults in cases:
         lm_mesh_job._SERVED.clear()
         if torch.cuda.is_available():
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-        reports.append(lm_mesh_job.run(tjob))
-    return reports
+        reports = [lm_mesh_job.run(job)]
+        for kind, fjob in faults:
+            with mesh_fault(kind):
+                reports.append(lm_mesh_job.run(fjob))
+        out.append(reports)
+    return out
 
 
 def held_checks(tag: str, held, spec) -> list:
@@ -3774,33 +3938,314 @@ def served_checks(tag: str, ref_logits, ref_routes, got_logits, got_routes, tol:
     """One served run's passes (``got``, the global batch's logits and
     routes of each pass) against the reference's, route by route (see
     ``LMM_ROUTE_TIE``; ``route_flips`` lists a row's differing decisions by
-    layer) -> (checks, readings)."""
-    checks, errs, flips, clean = [], [], [], []
-    for j, (rl, rr, gl, gr) in enumerate(zip(ref_logits, ref_routes, got_logits, got_routes)):
+    layer; ``None`` routes, a family without experts, route alike) ->
+    (checks, readings). ``catches`` in the readings lists the failed checks
+    a planted fault may count as caught by: a row-pass's own check where it
+    routes alike (its logits or its greedy token) or where its routes first
+    differ past a near tie. A row-pass whose flip is a near tie is excused,
+    and the checks of the run as a whole (routes alike on too few
+    row-passes, a2a's drops) fail where a near tie puts them, so neither
+    counts (``fault_caught``)."""
+    checks, errs, flips, clean, catches = [], [], [], [], []
+
+    def check(ok: bool, msg: str, catch: bool) -> None:
+        checks.append((ok, msg))
+        if catch and not ok:
+            catches.append(msg)
+
+    for j, (rl, rr, gl, gr) in enumerate(zip(ref_logits, ref_routes or [None] * len(ref_logits), got_logits,
+                                             got_routes or [None] * len(got_logits))):
         errs.append([float(np.abs(gl[r] - rl[r]).max()) for r in range(rl.shape[0])])
         for r in range(rl.shape[0]):
-            fl = route_flips(rr, gr, r, cfg)
+            fl = route_flips(rr, gr, r, cfg) if rr is not None else []
             clean.append(not fl)
             if fl:
                 first = [m for layer, _, m in fl if layer == fl[0][0]]
                 flips.append(dict(pass_=j, row=r, logit_err=errs[-1][r], decisions=fl))
-                checks.append((max(first) <= LMM_ROUTE_TIE,
-                               f"{tag}: pass {j} row {r}'s routes first differ from one process's at layer"
-                               f" {fl[0][0]} past a near tie {fl}"))
+                check(max(first) <= LMM_ROUTE_TIE,
+                      f"{tag}: pass {j} row {r}'s routes first differ from one process's at layer {fl[0][0]} past a"
+                      f" near tie {fl}", True)
                 continue
-            checks.append((errs[-1][r] <= tol, f"{tag}: pass {j} row {r}'s logits differ from one process's by"
-                                               f" {errs[-1][r]} > {tol}, its routes alike"))
+            check(errs[-1][r] <= tol, f"{tag}: pass {j} row {r}'s logits differ from one process's by"
+                                      f" {errs[-1][r]} > {tol}, its routes alike", True)
             top2 = np.sort(rl[r])[-2:]
             if top2[1] - top2[0] > tol:
-                checks.append((int(np.argmax(gl[r])) == int(np.argmax(rl[r])),
-                               f"{tag}: pass {j} row {r}'s greedy token differs from one process's past the tolerance"))
-        dropped = sum(x["dropped"] for x in gr)
-        checks.append((dropped == 0, f"{tag}: pass {j}: a2a's receivers dropped {dropped} copies"))
-    checks.append((2 * sum(clean) >= len(clean),
-                   f"{tag}: only {sum(clean)} of {len(clean)} row-passes route as one process does"))
+                check(int(np.argmax(gl[r])) == int(np.argmax(rl[r])),
+                      f"{tag}: pass {j} row {r}'s greedy token differs from one process's past the tolerance", True)
+        if gr is not None:
+            dropped = sum(x["dropped"] for x in gr)
+            check(dropped == 0, f"{tag}: pass {j}: a2a's receivers dropped {dropped} copies", False)
+    check(2 * sum(clean) >= len(clean), f"{tag}: only {sum(clean)} of {len(clean)} row-passes route as one process"
+                                        f" does", False)
     first = [m for f in flips for layer, _, m in f["decisions"] if layer == f["decisions"][0][0]]
     return checks, dict(logits_max_abs_err=errs, routes_alike=sum(clean), row_passes=len(clean), flips=flips,
-                        first_flip_margin_max=max(first, default=None))
+                        first_flip_margin_max=max(first, default=None), catches=catches)
+
+
+def fault_caught(reading: dict) -> bool:
+    """A planted fault's served run (``served_checks``' readings) is caught
+    when a check of a row-pass that is not excused failed."""
+    return bool(reading["catches"])
+
+
+def global_passes(outs, n: int, batch: int):
+    """The global batch's logits of the first ``n`` passes of one served
+    run (``outs``: each rank's report; every rank holds every row on a
+    ``(1, 4)`` mesh) and, where the ranks recorded them, each pass's moe
+    routes put together over the ranks (else None)."""
+    from repro_torch.models.moe import routes_table
+
+    need(all(o["rows"] == list(range(batch)) for o in outs), "lm_mesh: a rank lacks a row")
+    return ([outs[0]["passes"][j]["logits"] for j in range(n)],
+            [routes_table([o["passes"][j]["routes"] for o in outs]) for j in range(n)] if "routes" in
+            outs[0]["passes"][0] else None)
+
+
+def pass_readings(outs, n_passes: int) -> dict:
+    """A served run's times (the slowest rank's), gloo and stream bytes,
+    held and spec bytes, per rank or per pass."""
+    decode_ms = [max(o["passes"][j]["seconds"] for o in outs) * 1e3 for j in range(1, n_passes)]
+    sent = [max(o["passes"][j]["traffic"]["sent_bytes"] for o in outs) for j in range(n_passes)]
+    stream = [max(o["passes"][j]["stream_bytes"] for o in outs) for j in range(n_passes)]
+    return dict(prefill_ms=max(o["passes"][0]["seconds"] for o in outs) * 1e3, decode_ms_per_step=decode_ms,
+                median_decode_ms=float(np.median(decode_ms)),
+                gloo_sent_bytes_prefill=sent[0], gloo_sent_bytes_per_decode_step=sent[1:],
+                stream_bytes_prefill=stream[0], stream_bytes_decode=max(stream[1:]),
+                traffic_per_rank=[_rank_sum(o["passes"], lambda p: p["traffic"]) for o in outs],
+                held_bytes_per_rank=[o["held_bytes"] for o in outs],
+                spec_bytes_per_rank=[o["spec_bytes"] for o in outs])
+
+
+def launch_checks(tag: str, outs, per_pass: int, on_card: bool) -> tuple[list, list]:
+    """A served run's launches (on the card: F ``per_pass`` times a rank
+    over the run, one a layer in prefill, since decode attention is
+    context-parallel torch, and no other kernel) and held bytes ->
+    (checks, F's launches a rank)."""
+    checks = []
+    f_per_rank = [sum(p["launches"].get("flash_attention", 0) for p in o["passes"]) for o in outs]
+    if on_card:
+        checks.append((f_per_rank == [per_pass] * len(outs),
+                       f"{tag}: F launched {f_per_rank} times per rank, not {per_pass} (one a layer in"
+                       f" prefill; decode attention is context-parallel torch)"))
+        other = [set(p["launches"]) - {"flash_attention"} for o in outs for p in o["passes"]]
+        checks.append((not any(other), f"{tag}: other kernels launched {other}"))
+    checks.extend(held_checks(tag, [o["held_bytes"] for o in outs], [o["spec_bytes"] for o in outs]))
+    return checks, f_per_rank
+
+
+def train_checks(tag: str, reports, model, mesh_shape) -> tuple[list, list, dict]:
+    """A trained case's reports (each rank's ``grads`` then ``train``
+    step): equal and finite losses on every rank, every block bit for bit
+    across its replicas, held bytes of the masters and of the state within
+    ``LMM_HELD_RTOL`` of the spec's -> (checks, the ranks' losses,
+    readings)."""
+    checks = []
+    train_reps = [r["steps"][1] for r in reports]
+    losses = [[h["loss"] for h in t["history"]] for t in train_reps]
+    checks.append((all(x == losses[0] for x in losses), f"{tag}: the ranks' losses differ {losses}"))
+    checks.append((all(np.isfinite(losses[0])), f"{tag}: a loss is not finite {losses[0]}"))
+    differ = replicas_differ(model, tuple(mesh_shape), [r["coords"] for r in reports],
+                             [t["params_digest"] for t in train_reps])
+    checks.append((not differ, f"{tag}: blocks differ across their replicas: {differ}"))
+    for what in ("masters", "state"):
+        checks.extend(held_checks(f"{tag} {what}", [t["held_bytes"][what] for t in train_reps],
+                                  [t["spec_bytes"][what] for t in train_reps]))
+    step_ms = [list(t["step_ms"]) for t in train_reps]
+    return checks, losses, dict(
+        step_ms_per_rank=step_ms, median_step_ms=float(np.median([max(x) for x in zip(*step_ms)])),
+        gloo_sent_bytes_per_rank=[t["traffic"]["sent_bytes"] for t in train_reps],
+        gloo_sent_bytes_per_step=max(t["traffic"]["sent_bytes"] for t in train_reps) / len(step_ms[0]),
+        stream_bytes=max(t["stream_bytes"] for t in train_reps),
+        host_copy_bytes_per_rank=[t["traffic"]["host_copy_bytes"] for t in train_reps],
+        held_bytes_per_rank=[t["held_bytes"] for t in train_reps],
+        spec_bytes_per_rank=[t["spec_bytes"] for t in train_reps],
+        peak_mem_gb_per_rank=[(t.get("peak_mem_bytes") or 0) / 1e9 for t in train_reps])
+
+
+def ssm_serve_reference(dev, arch: str, smoke: bool, tmp: str) -> dict:
+    """mamba2-780m's or hymba-1.5b's one-process reference for the mesh's
+    serving check (their smoke configs with ``smoke``, 16-token prompts):
+    B = LMM_SSM_BATCH prompts of ``LMM_SSM_PROMPT`` tokens (saved under
+    ``tmp`` for the ranks), prefill and LMM_SSM_STEPS greedy decode steps
+    of the seeded model, and the tolerance: ``logit_gate``'s, twice the
+    larger floor plus ``LOGIT_ATOL``, the floors being F's (the plain
+    attention against ``attention_ref``, where the model attends) and the
+    SSD's (the model with its chunk halved, another float32 order of the
+    same sums) on the first prefill and decode step. The model is freed."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data.lm_data import TokenStream
+    from repro_torch.models import api as mapi
+
+    cfg = configs.get(arch, smoke=smoke)
+    plen = 16 if smoke else LMM_SSM_PROMPT[arch]
+    s_tot = plen + cfg.meta_tokens
+    max_len = -(-(s_tot + LMM_SSM_STEPS) // LMM_SSM_SERVE_MESH[1]) * LMM_SSM_SERVE_MESH[1]
+    prompts = TokenStream(cfg.vocab, seed=9).batch(LMM_SSM_BATCH, plen)
+    path = os.path.join(tmp, f"{arch}_prompts.npy")
+    np.save(path, prompts)
+    prompt = {"tokens": torch.as_tensor(prompts, device=dev)}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = mapi.build_model(cfg)
+    params = model.init(SEED, dev)
+    logits, _, toks = served_with_routes(model, params, prompt, max_len, LMM_SSM_STEPS)
+    checks, floors, gate = [], {}, {}
+    if flash_per_pass(cfg)[0]:
+        checks, gate = logit_gate(cfg.name, cfg, model, params, prompt, max_len,
+                                  [torch.as_tensor(x, device=dev) for x in logits[:2]], gate_faults=False,
+                                  read_faults=False)
+        floors["attention"] = max(gate["logits_plain_vs_attention_ref"])
+    other = mapi.build_model(dataclasses.replace(cfg, ssm_chunk=cfg.ssm_chunk // 2))
+    o_logits = served_with_routes(other, params, prompt, max_len, 1, toks)[0]
+    floors["ssd_order"] = max(float(np.abs(a - b).max()) for a, b in zip(o_logits, logits[:2]))
+    out = dict(arch=arch, cfg=cfg, prompt_len=plen, positions=s_tot, max_len=max_len, prompts=path, logits=logits,
+               tokens=toks, tol=2 * max(floors.values()) + LOGIT_ATOL, floors=floors, checks=checks,
+               gate={k: v for k, v in gate.items() if k != "logits_planted_fault_err"},
+               logits_max_abs=[float(np.abs(x).max()) for x in logits], seconds=time.perf_counter() - t0,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None)
+    del params, model, other
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def ssm_serve_case(ref: dict, device: str, smoke: bool) -> tuple:
+    """The ``(job, faults)`` of ``lm_mesh_rank`` for one reference of
+    ``ssm_serve_reference``: the seeded model served on
+    ``make_local_mesh(1, 4)``, decode fed with the reference's tokens, then
+    each of ``LMM_SSM_FAULTS`` over its decode steps."""
+    from repro_torch.launch import lm_mesh_job
+
+    def job(decode):
+        return lm_mesh_job.LMMeshJob(mesh=LMM_SSM_SERVE_MESH, device=device, steps=(
+            ("serve", dict(arch=ref["arch"], smoke=smoke, seed=SEED, prompts=ref["prompts"], max_len=ref["max_len"],
+                           decode=decode, feed=ref["tokens"][:, :decode])),))
+
+    return job(LMM_SSM_STEPS), tuple((kind, job(decode)) for kind, decode in LMM_SSM_FAULTS[ref["arch"]])
+
+
+def ssm_serve_results(ref: dict, reports, on_card: bool) -> tuple[list, dict]:
+    """The ranks' reports of ``ssm_serve_case`` (each rank's: the served
+    run, then the faults') against ``ref`` -> (checks, readings): every
+    pass within the tolerance and the greedy token the reference's past it
+    (``served_checks``), every rank's tokens equal, F's launches a rank,
+    held bytes, and each planted fault caught (``fault_caught``)."""
+    cfg, n = ref["cfg"], len(ref["logits"])
+    tag = f"lm_mesh {cfg.name}"
+    outs = [r[0]["steps"][0] for r in reports]
+    got, _ = global_passes(outs, n, LMM_SSM_BATCH)
+    checks, reading = served_checks(tag, ref["logits"], None, got, None, ref["tol"], cfg)
+    reading.pop("catches")
+    argmaxes = [[np.argmax(p["logits"], -1) for p in o["passes"]] for o in outs]
+    checks.append((all(all(np.array_equal(a, b) for a, b in zip(am, argmaxes[0])) for am in argmaxes),
+                   f"{tag}: the ranks' greedy tokens differ"))
+    held, f_per_rank = launch_checks(tag, outs, flash_per_pass(cfg)[0], on_card)
+    checks += held
+    faults = {}
+    for fi, (kind, decode) in enumerate(LMM_SSM_FAULTS[ref["arch"]]):
+        fouts = [r[1 + fi]["steps"][0] for r in reports]
+        fgot, _ = global_passes(fouts, decode + 1, LMM_SSM_BATCH)
+        _, fread = served_checks(f"{kind} {cfg.name}", ref["logits"][: decode + 1], None, fgot, None, ref["tol"], cfg)
+        faults[kind] = dict(caught=fault_caught(fread), caught_by=fread["catches"][:3],
+                            logits_max_abs_err=fread["logits_max_abs_err"])
+        checks.append((fault_caught(fread), f"lm_mesh: the serving check misses {kind} on {cfg.name} ({fread})"))
+    launches: dict = {}
+    for o in outs:
+        for p in o["passes"]:
+            launches = _add(launches, p["launches"])
+    return checks + ref["checks"], dict(
+        arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model, mesh=list(LMM_SSM_SERVE_MESH), batch=LMM_SSM_BATCH,
+        prompt_len=ref["prompt_len"], positions=ref["positions"], decode_steps=LMM_SSM_STEPS,
+        max_len=ref["max_len"], logit_tolerance=ref["tol"], floors=ref["floors"], **reading,
+        flash_attention_launches_per_rank=f_per_rank, seq_blocks=outs[0]["seq_blocks"],
+        **pass_readings(outs, n), peak_mem_gb_per_rank=[(r[0].get("peak_mem_bytes") or 0) / 1e9 for r in reports],
+        planted_faults=faults, launches=launches,
+        reference=dict(seconds=ref["seconds"], peak_gb=ref["peak_gb"], logits_max_abs=ref["logits_max_abs"],
+                       gate=ref["gate"]))
+
+
+def ssm_train_reference(dev, arch: str, smoke: bool, tmp: str) -> dict:
+    """mamba2-780m's or hymba-1.5b's one-process step-0 reference for the
+    mesh's training check: the masters (float32, ``LMM_SSM_TRAIN``'s cut),
+    the first LMM_TRAIN_ROWS rows of step 0's batch, the training path's
+    loss and gradients and their gap to another float32 order
+    (``one_process_grads``, saved under ``tmp``)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data.lm_data import TokenStream
+
+    over = {} if smoke else dict(LMM_SSM_TRAIN[arch])
+    cfg = dataclasses.replace(configs.get(arch, smoke=smoke), **over)
+    seq = 32 if smoke else LMM_SSM_TRAIN_SEQ
+    rows_np = next(TokenStream(cfg.vocab, seed=0).batches(1, LMM_SSM_TRAIN_BATCH, seq))["tokens"][:LMM_TRAIN_ROWS]
+    path = os.path.join(tmp, f"{arch}_grads.pt")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    masters, loss_t, loss_o = one_process_grads(cfg, dev, rows_np, path)
+    del masters
+    out = dict(arch=arch, cfg=cfg, overrides=over, seq=seq, rows=rows_np, grads=path, loss_t=loss_t, loss_o=loss_o,
+               seconds=time.perf_counter() - t0,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def ssm_train_case(ref: dict, device: str, smoke: bool) -> tuple:
+    """The ``(job, faults)`` of ``lm_mesh_rank`` for one reference of
+    ``ssm_train_reference``: the step-0 gradients and one step through
+    ``launch.train.train`` on ``make_local_mesh(2, 2)``, then the step-0
+    gradients again with ``LMM_TRAIN_FAULT`` planted (on
+    ``LMM_TRAIN_FAULT_ARCH``)."""
+    from repro_torch.launch import lm_mesh_job
+
+    grads = ("grads", dict(arch=ref["arch"], smoke=smoke, overrides=ref["overrides"], rows=ref["rows"],
+                           compare=ref["grads"]))
+    train = ("train", dict(arch=ref["arch"], smoke=smoke, overrides=ref["overrides"], steps=1,
+                           batch=LMM_SSM_TRAIN_BATCH, seq=ref["seq"]))
+
+    def job(*steps):
+        return lm_mesh_job.LMMeshJob(mesh=LMM_SSM_TRAIN_MESH, device=device, steps=steps)
+
+    return job(grads, train), ((LMM_TRAIN_FAULT, job(grads)),) if ref["arch"] == LMM_TRAIN_FAULT_ARCH else ()
+
+
+def ssm_train_results(ref: dict, reports) -> tuple[list, dict]:
+    """The ranks' reports of ``ssm_train_case`` against ``ref`` -> (checks,
+    readings): the step-0 rule, the replicas and held bytes; the planted
+    fault is read (caught where a step-0 check fails), not gated."""
+    from repro_torch.models import api as mapi
+
+    cfg = ref["cfg"]
+    tag = f"lm_mesh {cfg.name} train"
+    checks, step0 = step0_checks(tag, [r[0]["steps"][0] for r in reports], ref["loss_t"], ref["loss_o"])
+    held, losses, read = train_checks(tag, [r[0] for r in reports], mapi.build_model(cfg), LMM_SSM_TRAIN_MESH)
+    fault = {}
+    if len(reports[0]) > 1:
+        fchecks, fstep0 = step0_checks(f"{LMM_TRAIN_FAULT} {cfg.name}", [r[1]["steps"][0] for r in reports],
+                                       ref["loss_t"], ref["loss_o"])
+        fault[LMM_TRAIN_FAULT] = dict(
+            caught=not all(ok for ok, _ in fchecks), caught_by=[m for ok, m in fchecks if not ok][:3],
+            grad_max_frac_err=fstep0["grad_max_frac_err"], grad_err_over_tolerance=fstep0["grad_err_over_tolerance"],
+            grad_min_cosine=fstep0["grad_min_cosine"], loss=fstep0["loss"])
+    return checks + held, dict(
+        arch=cfg.name, n_layers=cfg.n_layers, global_layers=list(cfg.global_layers) or None,
+        cut=None if not ref["overrides"] else LMM_SSM_TRAIN_CUT_WHY.get(ref["arch"]), mesh=list(LMM_SSM_TRAIN_MESH),
+        param_dtype=cfg.param_dtype, state_bits=cfg.opt_state_bits, microbatches=cfg.microbatches, remat=cfg.remat,
+        batch=[LMM_SSM_TRAIN_BATCH, ref["seq"]], check_rows=list(ref["rows"].shape), step0=step0, losses=losses[0],
+        planted_fault=fault, **read,
+        reference=dict(seconds=ref["seconds"], peak_gb=ref["peak_gb"]))
 
 
 def lm_mesh_phase(dev, smoke: bool = False) -> dict:
@@ -3843,7 +4288,6 @@ def lm_mesh_phase(dev, smoke: bool = False) -> dict:
     from repro_torch.launch import mesh as launch_mesh
     from repro_torch.launch import train as launch_train
     from repro_torch.models import api as mapi
-    from repro_torch.models.moe import routes_table as moe_routes
 
     t_phase = time.perf_counter()
     on_card = dev.type == "cuda"
@@ -3908,7 +4352,8 @@ def lm_mesh_phase(dev, smoke: bool = False) -> dict:
     dparams = dmodel.init(SEED, dev)
     d_logits, _, d_toks = served_with_routes(dmodel, dparams, dprompt, d_max, LMM_DENSE_STEPS)
     gate_checks, d_gate = logit_gate(dcfg.name, dcfg, dmodel, dparams, dprompt, d_max,
-                                     [torch.as_tensor(x, device=dev) for x in d_logits[:2]], gate_faults=False)
+                                     [torch.as_tensor(x, device=dev) for x in d_logits[:2]], gate_faults=False,
+                                     read_faults=False)
     checks += gate_checks
     d_tol = d_gate["logit_tolerance"]
     dense_ref = dict(seconds=time.perf_counter() - t0, peak_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card
@@ -3976,6 +4421,10 @@ def lm_mesh_phase(dev, smoke: bool = False) -> dict:
             torch.cuda.empty_cache()
         np.save(os.path.join(tmp, "prompts.npy"), prompts)
         np.save(os.path.join(tmp, "dense_prompts.npy"), dprompts)
+        # (e) mamba2-780m and hymba-1.5b served whole on 1 x 4 and (f)
+        # trained on 2 x 2: their one-process references
+        ssm_serve = {arch: ssm_serve_reference(dev, arch, smoke, tmp) for arch in LMM_SSM_PROMPT}
+        ssm_train = {arch: ssm_train_reference(dev, arch, smoke, tmp) for arch in LMM_SSM_TRAIN}
         parent_reserved_gb = torch.cuda.memory_reserved() / 1e9 if on_card else None
 
         # one world: serving, the planted faults, granite's serving, then training
@@ -4005,17 +4454,23 @@ def lm_mesh_phase(dev, smoke: bool = False) -> dict:
         ))
         import chip_smoke  # the ranks' function, importable by name
 
+        cases = ((serve_job(*(serve_step(impl, steps) for impl in combines)),
+                  tuple((kind, serve_job(serve_step(impl, decode))) for kind, impl, decode in LMM_FAULTS)),
+                 (dense_serve, ()),
+                 *(ssm_serve_case(ref, dev.type, smoke) for ref in ssm_serve.values()),
+                 (lm_mesh_job.LMMeshJob(mesh=LMM_TRAIN_MESH, steps=train_steps, device=dev.type), ()),
+                 (dense_train, ()),
+                 *(ssm_train_case(ref, dev.type, smoke) for ref in ssm_train.values()))
         t0 = time.perf_counter()
-        world = launch_mesh.spawn(
-            chip_smoke.lm_mesh_rank, 4, store_dir=os.path.join(store_tmp, "world"), timeout_s=900,
-            args=(serve_job(*(serve_step(impl, steps) for impl in combines)),
-                  tuple((kind, serve_job(serve_step(impl, 1))) for kind, impl in LMM_FAULTS),
-                  (dense_serve, lm_mesh_job.LMMeshJob(mesh=LMM_TRAIN_MESH, steps=train_steps, device=dev.type),
-                   dense_train)))
+        world = launch_mesh.spawn(chip_smoke.lm_mesh_rank, 4, store_dir=os.path.join(store_tmp, "world"),
+                                  timeout_s=900, args=(cases,))
         world_s = time.perf_counter() - t0
-        n_f = len(LMM_FAULTS)
-        served = [r[: 1 + n_f] for r in world]
-        dense_reports, train_reports, dtrain_reports = ([r[1 + n_f + i] for r in world] for i in range(3))
+        served = [r[0] for r in world]
+        dense_reports = [r[1][0] for r in world]
+        n_ssm = len(ssm_serve)
+        ssm_serve_reports = [[r[2 + i] for r in world] for i in range(n_ssm)]
+        train_reports, dtrain_reports = ([r[2 + n_ssm + i][0] for r in world] for i in range(2))
+        ssm_train_reports = [[r[4 + n_ssm + i] for r in world] for i in range(len(ssm_train))]
         serve_reports = [r[0] for r in served]
 
     # (a) the served logits and routes, route by route, and the planted faults
@@ -4023,47 +4478,19 @@ def lm_mesh_phase(dev, smoke: bool = False) -> dict:
     serve_out = {}
     n_attn = flash_per_pass(cfg0)[0]
 
-    def global_passes(outs, n, batch=LMM_SERVE_BATCH):
-        need(all(o["rows"] == list(range(batch)) for o in outs), "lm_mesh: a rank lacks a row")
-        return ([outs[0]["passes"][j]["logits"] for j in range(n)],
-                [moe_routes([o["passes"][j]["routes"] for o in outs]) for j in range(n)] if "routes" in
-                outs[0]["passes"][0] else None)
-
-    def pass_readings(outs, n_passes) -> dict:
-        decode_ms = [max(o["passes"][j]["seconds"] for o in outs) * 1e3 for j in range(1, n_passes)]
-        sent = [max(o["passes"][j]["traffic"]["sent_bytes"] for o in outs) for j in range(n_passes)]
-        stream = [max(o["passes"][j]["stream_bytes"] for o in outs) for j in range(n_passes)]
-        return dict(prefill_ms=max(o["passes"][0]["seconds"] for o in outs) * 1e3, decode_ms_per_step=decode_ms,
-                    median_decode_ms=float(np.median(decode_ms)),
-                    gloo_sent_bytes_prefill=sent[0], gloo_sent_bytes_per_decode_step=sent[1:],
-                    stream_bytes_prefill=stream[0], stream_bytes_decode=max(stream[1:]),
-                    traffic_per_rank=[_rank_sum(o["passes"], lambda p: p["traffic"]) for o in outs],
-                    held_bytes_per_rank=[o["held_bytes"] for o in outs],
-                    spec_bytes_per_rank=[o["spec_bytes"] for o in outs])
-
-    def launch_checks(tag, outs, per_pass):
-        f_per_rank = [sum(p["launches"].get("flash_attention", 0) for p in o["passes"]) for o in outs]
-        if on_card:
-            checks.append((f_per_rank == [per_pass] * 4,
-                           f"{tag}: F launched {f_per_rank} times per rank, not {per_pass} (one a layer in"
-                           f" prefill; decode attention is context-parallel torch)"))
-            other = [set(p["launches"]) - {"flash_attention"} for o in outs for p in o["passes"]]
-            checks.append((not any(other), f"{tag}: other kernels launched {other}"))
-        checks.extend(held_checks(tag, [o["held_bytes"] for o in outs], [o["spec_bytes"] for o in outs]))
-        return f_per_rank
-
     for si, impl in enumerate(combines):
         r_ref = ref[impl]
         cfg = dataclasses.replace(cfg0, moe_impl=impl, capacity_factor=combines[impl])
         outs = [r["steps"][si] for r in serve_reports]
-        got_logits, got_routes = global_passes(outs, len(r_ref["logits"]))
+        got_logits, got_routes = global_passes(outs, len(r_ref["logits"]), LMM_SERVE_BATCH)
         held, reading = served_checks(f"lm_mesh {impl}", r_ref["logits"], r_ref["routes"], got_logits, got_routes,
                                       r_ref["tol"], cfg)
         checks += held
         argmaxes = [[np.argmax(p["logits"], -1) for p in o["passes"]] for o in outs]
         checks.append((all(all(np.array_equal(a, b) for a, b in zip(am, argmaxes[0])) for am in argmaxes),
                        f"lm_mesh {impl}: the ranks' greedy tokens differ"))
-        f_per_rank = launch_checks(f"lm_mesh {impl}", outs, n_attn)
+        held, f_per_rank = launch_checks(f"lm_mesh {impl}", outs, n_attn, on_card)
+        checks += held
         for o in outs:
             for p in o["passes"]:
                 launches = _add(launches, p["launches"])
@@ -4074,15 +4501,14 @@ def lm_mesh_phase(dev, smoke: bool = False) -> dict:
             reference=dict(logits_max_abs=r_ref["logits_max_abs"], plain_vs_attention_ref_alike=r_ref["floor"],
                            f_vs_plain=r_ref["f_vs_plain"]))
     faults_out = {}
-    for fi, (kind, impl) in enumerate(LMM_FAULTS):
+    for fi, (kind, impl, decode) in enumerate(LMM_FAULTS):
         cfg = dataclasses.replace(cfg0, moe_impl=impl, capacity_factor=combines[impl])
         outs = [r[fi + 1]["steps"][0] for r in served]
-        got_logits, got_routes = global_passes(outs, 2)
-        held, reading = served_checks(f"{kind} {impl}", ref[impl]["logits"][:2], ref[impl]["routes"][:2],
-                                      got_logits, got_routes, ref[impl]["tol"], cfg)
-        missed = all(ok for ok, _ in held)
-        faults_out[f"{kind}/{impl}"] = dict(caught_by=[msg for ok, msg in held if not ok][:3], **reading)
-        checks.append((not missed, f"lm_mesh: the serving check misses {kind} under {impl} ({reading})"))
+        got_logits, got_routes = global_passes(outs, decode + 1, LMM_SERVE_BATCH)
+        _, reading = served_checks(f"{kind} {impl}", ref[impl]["logits"][: decode + 1],
+                                   ref[impl]["routes"][: decode + 1], got_logits, got_routes, ref[impl]["tol"], cfg)
+        faults_out[f"{kind}/{impl}"] = dict(caught=fault_caught(reading), caught_by=reading["catches"][:3], **reading)
+        checks.append((fault_caught(reading), f"lm_mesh: the serving check misses {kind} under {impl} ({reading})"))
 
     # (c) granite-8b served tensor-parallel, pass by pass
     outs = [r["steps"][0] for r in dense_reports]
@@ -4104,7 +4530,8 @@ def lm_mesh_phase(dev, smoke: bool = False) -> dict:
     checks.append((d_sent < LMM_DECODE_SENT_BYTES,
                    f"lm_mesh granite: a decode step hands {d_sent} bytes a rank to gloo, not below"
                    f" {LMM_DECODE_SENT_BYTES:.0f}"))
-    f_dense = launch_checks("lm_mesh granite", outs, flash_per_pass(dcfg)[0])
+    held, f_dense = launch_checks("lm_mesh granite", outs, flash_per_pass(dcfg)[0], on_card)
+    checks += held
     for o in outs:
         for p in o["passes"]:
             launches = _add(launches, p["launches"])
@@ -4115,34 +4542,12 @@ def lm_mesh_phase(dev, smoke: bool = False) -> dict:
                            peak_mem_gb_per_rank=[(r.get("peak_mem_bytes") or 0) / 1e9 for r in dense_reports],
                            reference=dense_ref)
 
-    def train_checks(tag, reports, model):
-        grad_reps = [r["steps"][0] for r in reports]
-        train_reps = [r["steps"][1] for r in reports]
-        losses = [[h["loss"] for h in t["history"]] for t in train_reps]
-        checks.append((all(x == losses[0] for x in losses), f"{tag}: the ranks' losses differ {losses}"))
-        checks.append((all(np.isfinite(losses[0])), f"{tag}: a loss is not finite {losses[0]}"))
-        differ = replicas_differ(model, tuple(model_mesh[tag]), [r["coords"] for r in reports],
-                                 [t["params_digest"] for t in train_reps])
-        checks.append((not differ, f"{tag}: blocks differ across their replicas: {differ}"))
-        for what in ("masters", "state"):
-            checks.extend(held_checks(f"{tag} {what}", [t["held_bytes"][what] for t in train_reps],
-                                      [t["spec_bytes"][what] for t in train_reps]))
-        step_ms = [list(t["step_ms"]) for t in train_reps]
-        return grad_reps, train_reps, losses, dict(
-            step_ms_per_rank=step_ms, median_step_ms=float(np.median([max(x) for x in zip(*step_ms)])),
-            gloo_sent_bytes_per_rank=[t["traffic"]["sent_bytes"] for t in train_reps],
-            gloo_sent_bytes_per_step=max(t["traffic"]["sent_bytes"] for t in train_reps) / len(step_ms[0]),
-            stream_bytes=max(t["stream_bytes"] for t in train_reps),
-            host_copy_bytes_per_rank=[t["traffic"]["host_copy_bytes"] for t in train_reps],
-            held_bytes_per_rank=[t["held_bytes"] for t in train_reps],
-            spec_bytes_per_rank=[t["spec_bytes"] for t in train_reps],
-            peak_mem_gb_per_rank=[(t.get("peak_mem_bytes") or 0) / 1e9 for t in train_reps])
-
     # (b) olmoe: the step-0 gradients, the steps, the replicas and the moments
-    model_mesh = {"lm_mesh train": LMM_TRAIN_MESH, "lm_mesh granite train": LMM_DENSE_TRAIN_MESH}
     held, step0 = step0_checks("lm_mesh train", [r["steps"][0] for r in train_reports], loss_t, loss_o)
     checks += held
-    grad_reps, train_reps, losses, t_read = train_checks("lm_mesh train", train_reports, mapi.build_model(tcfg))
+    held, losses, t_read = train_checks("lm_mesh train", train_reports, mapi.build_model(tcfg), LMM_TRAIN_MESH)
+    checks += held
+    train_reps = [r["steps"][1] for r in train_reports]
     one_losses = [h["loss"] for h in one_hist]
     checks.append((abs(losses[0][0] - one_losses[0]) <= FT_LOSS_RTOL * abs(one_losses[0]),
                    f"lm_mesh train: step 0's loss {losses[0][0]} against one process's {one_losses[0]}"))
@@ -4158,7 +4563,20 @@ def lm_mesh_phase(dev, smoke: bool = False) -> dict:
     # (d) granite-8b trained under ZeRO x tensor parallelism
     held, g_step0 = step0_checks("lm_mesh granite train", [r["steps"][0] for r in dtrain_reports], gloss_t, gloss_o)
     checks += held
-    _, _, g_losses, g_read = train_checks("lm_mesh granite train", dtrain_reports, mapi.build_model(gcfg))
+    held, g_losses, g_read = train_checks("lm_mesh granite train", dtrain_reports, mapi.build_model(gcfg),
+                                          LMM_DENSE_TRAIN_MESH)
+    checks += held
+
+    # (e) mamba2 and hymba served on 1 x 4 with their planted faults, (f)
+    # trained on 2 x 2 with the training fault read
+    ssm_serve_out, ssm_train_out = {}, {}
+    for ref, reports in zip(ssm_serve.values(), ssm_serve_reports):
+        held, ssm_serve_out[ref["arch"]] = ssm_serve_results(ref, reports, on_card)
+        checks += held
+        launches = _add(launches, ssm_serve_out[ref["arch"]]["launches"])
+    for ref, reports in zip(ssm_train.values(), ssm_train_reports):
+        held, ssm_train_out[ref["arch"]] = ssm_train_results(ref, reports)
+        checks += held
 
     emit("lm_mesh", ranks=4, backend="gloo", device_per_rank=dev.type, parent_reserved_gb=parent_reserved_gb,
          world_s=world_s,
@@ -4169,16 +4587,18 @@ def lm_mesh_phase(dev, smoke: bool = False) -> dict:
              peak_mem_gb_per_rank=[(r.get("peak_mem_bytes") or 0) / 1e9 for r in serve_reports], **serve_out),
          granite_serve=dense_serve_out,
          train=dict(arch=tcfg.name, n_layers=tcfg.n_layers, cut=None if smoke else (
-             f"{LMM_TRAIN_LAYERS} of 16 layers: the gradients cross gloo through the host"),
+             f"{LMM_TRAIN_LAYERS} of 16 layers and {LMM_TRAIN_STEPS} step: the gradients cross gloo through the host"),
              mesh=list(LMM_TRAIN_MESH), moe_impl=tcfg.moe_impl, capacity_factor=tcfg.capacity_factor,
              param_dtype=tcfg.param_dtype, state_bits=tcfg.opt_state_bits, batch=[LMM_TRAIN_BATCH, tseq],
              check_rows=LMM_TRAIN_ROWS, reference_s=train_ref_s, reference_peak_gb=train_ref_peak, step0=step0,
              losses=losses[0], one_process_losses=one_losses, moments_max_frac_err=moment_worst, **t_read),
          granite_train=dict(arch=gcfg.name, n_layers=gcfg.n_layers, cut=None if smoke else (
-             f"{LMM_DENSE_TRAIN_LAYERS} of 36 layers: four ranks' float32 state and gradients share one card"),
+             f"{LMM_DENSE_TRAIN_LAYERS} of 36 layers: four ranks' float32 state and gradients share one card, and the"
+             f" phase's time"),
              mesh=list(LMM_DENSE_TRAIN_MESH), param_dtype=gcfg.param_dtype, state_bits=gcfg.opt_state_bits,
              microbatches=gcfg.microbatches, remat=gcfg.remat, batch=[LMM_DENSE_TRAIN_BATCH, gseq],
              check_rows=LMM_TRAIN_ROWS, reference=dense_train_ref, step0=g_step0, losses=g_losses[0], **g_read),
+         ssm_serve=ssm_serve_out, ssm_train=ssm_train_out,
          planted_faults=faults_out, launches=launches, seconds=time.perf_counter() - t_phase)
 
     def serve_case(r, peak):
@@ -4196,7 +4616,10 @@ def lm_mesh_phase(dev, smoke: bool = False) -> dict:
                                     for impl in combines},
                                  "granite-8b serve 1x4": serve_case(dense_serve_out,
                                                                     dense_serve_out["peak_mem_gb_per_rank"]),
-                                 "olmoe train 2x2": train_case(t_read), "granite-8b train 2x2": train_case(g_read)})
+                                 **{f"{a} serve 1x4": serve_case(r, r["peak_mem_gb_per_rank"])
+                                    for a, r in ssm_serve_out.items()},
+                                 "olmoe train 2x2": train_case(t_read), "granite-8b train 2x2": train_case(g_read),
+                                 **{f"{a} train 2x2": train_case(r) for a, r in ssm_train_out.items()}})
     for ok, msg in checks:
         need(ok, msg)
     return launches

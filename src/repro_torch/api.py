@@ -761,6 +761,17 @@ def wrap_grid(index, data, cfg: SLSHConfig, grid_: Grid, plan=None, obs: obs_mod
     return Index(deploy, cfg, state, obs)
 
 
+def wrap_single(index: pipeline.SLSHIndex, data, cfg: SLSHConfig, obs: obs_mod.Obs | None = None) -> Index:
+    """Wrap a prebuilt ``pipeline.build_from_params`` (or
+    ``slsh.build_index``) index over ``data`` into a single-shard handle:
+    the bridge for legacy call sites. ``data`` goes to the index's device
+    as float32."""
+    data = data if isinstance(data, torch.Tensor) else np.asarray(data)
+    dev = index.inner_keys.device
+    return Index(single(), cfg, {"index": index, "data": torch.as_tensor(data, dtype=torch.float32,
+                                                                          device=dev).contiguous()}, obs)
+
+
 def load(
     path: str, *, device_mesh: ctx.Mesh | None = None,
     device: str | torch.device | None = None, obs: obs_mod.Obs | None = None,

@@ -279,6 +279,57 @@ def grid_query(
     return result, stats
 
 
+def simulate_query(
+    index: list[pipeline.SLSHIndex],
+    data: torch.Tensor,
+    queries: torch.Tensor,
+    cfg: pipeline.SLSHConfig,
+    grid: Grid,
+    drop_mask: torch.Tensor | None = None,
+):
+    """Deprecated positional-tuple form of the broadcast :func:`grid_query`:
+    returns (knn_dist, knn_idx, comparisons, compaction_overflow), the
+    ``grid_query`` fields bit for bit."""
+    warnings.warn(
+        "simulate_query is deprecated: build a repro_torch.dslsh Index"
+        " (dslsh.build(..., deploy=dslsh.grid(nu, p))) and call .query(),"
+        " or use distributed.grid_query for the typed result",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    res = grid_query(index, data, queries, cfg, grid, drop_mask=drop_mask)
+    return res.knn_dist, res.knn_idx, res.comparisons, res.compaction_overflow
+
+
+def simulate_query_routed(
+    index: list[pipeline.SLSHIndex],
+    data: torch.Tensor,
+    queries: torch.Tensor,
+    cfg: pipeline.SLSHConfig,
+    grid: Grid,
+    plan: routing.RoutingPlan,
+    drop_mask: torch.Tensor | None = None,
+    max_cells: int | None = None,
+    return_stats: bool = False,
+):
+    """Deprecated positional-tuple form of the routed :func:`grid_query`:
+    returns (knn_dist, knn_idx, comparisons, compaction_overflow[, stats])."""
+    warnings.warn(
+        "simulate_query_routed is deprecated: build a routed repro_torch.dslsh"
+        " Index (dslsh.grid(..., routed=True)) and call .query(), or use"
+        " distributed.grid_query(plan=...) for the typed result",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    out = grid_query(
+        index, data, queries, cfg, grid, plan=plan, drop_mask=drop_mask,
+        max_cells=max_cells, return_stats=return_stats,
+    )
+    res, stats = out if return_stats else (out, None)
+    flat = (res.knn_dist, res.knn_idx, res.comparisons, res.compaction_overflow)
+    return flat + (stats,) if return_stats else flat
+
+
 # ------------------------------------------------------------------- mesh
 
 # The Reducer's cost on this rank since the last reset: merged batches,

@@ -177,3 +177,8 @@ def probe_keys_from_words(
     margins = (x[:, params.dims.long()] - params.thrs[None]).abs()  # (n, L, m)
     return probe_keys_from_margins(params, words, margins, n_probes)
 
+
+def probe_keys_bitsample(params: BitSampleParams, x: torch.Tensor, n_probes: int) -> torch.Tensor:
+    """Multiprobe keys for one query x (d,) -> (L, 1 + n_probes) keys."""
+    words = pack_bits(signature_bits(params, x[None, :]))  # (1, L, W)
+    return probe_keys_from_words(params, x[None, :], words, n_probes)[0]

@@ -460,7 +460,7 @@ def _torch_signature_words(params: hashing.HashParams, x: torch.Tensor) -> torch
     return hashing.pack_bits(hashing.signature_bits(params, x))
 
 
-def _cuda_ops() -> BackendOps:
+def _cuda_ops(cfg: "SLSHConfig | None" = None) -> BackendOps:
     from repro_torch.kernels.hash_pack import ops as hp_ops
     from repro_torch.kernels.l1_topk import ops as l1_ops
     from repro_torch.kernels.query_fused import ops as qf_ops
@@ -474,21 +474,29 @@ def _cuda_ops() -> BackendOps:
     )
 
 
-_BACKENDS: dict[str, BackendOps | Callable[[], BackendOps]] = {
+_BACKENDS: dict[str, BackendOps | Callable[["SLSHConfig | None"], BackendOps]] = {
     "torch": BackendOps(_torch_signature_words, topk.masked_l1_topk_batch),
     "cuda": _cuda_ops,
 }
 
 
-def get_backend(name: str) -> BackendOps:
-    """Resolve a registered backend name to its ``BackendOps``."""
+def register_backend(name: str, ops: BackendOps | Callable[["SLSHConfig | None"], BackendOps]) -> None:
+    """Register a backend: either a plain ``BackendOps`` or a factory
+    ``cfg -> BackendOps`` for backends that bind per-config state (the
+    ``"cuda"`` backend imports its kernel wrappers when first resolved)."""
+    _BACKENDS[name] = ops
+
+
+def get_backend(name: str, cfg: "SLSHConfig | None" = None) -> BackendOps:
+    """Resolve a registered backend name to its ``BackendOps`` (factories
+    are called with ``cfg``); raises ``ValueError`` for unknown names."""
     try:
         entry = _BACKENDS[name]
     except KeyError:
         raise ValueError(
             f"unknown SLSH backend {name!r}; registered: {sorted(_BACKENDS)}"
         ) from None
-    return entry if isinstance(entry, BackendOps) else entry()
+    return entry if isinstance(entry, BackendOps) else entry(cfg)
 
 
 # ----------------------------------------------------------------- tracing
@@ -686,7 +694,7 @@ def build_from_params(
             f"an SLSH index needs n >= 1 and n >= h_max points; got n={n},"
             f" h_max={cfg.h_max}"
         )
-    backend = get_backend(cfg.backend)
+    backend = get_backend(cfg.backend, cfg)
     l_out = outer_params.salts.shape[0]
     ob = _tracing_obs()
     dev = data.device
@@ -1002,7 +1010,7 @@ def query_chunk(
     reranks exactly in f32. Under tracing each stage of a fused chunk runs
     in its ``query.*`` span.
     """
-    backend = get_backend(cfg.backend)
+    backend = get_backend(cfg.backend, cfg)
     fused = backend.query_tail is not None
     ob = _tracing_obs() if fused else None
     dev = queries.device
@@ -1057,7 +1065,7 @@ def query_batch(
     JAX package's one-program staged path does.
     """
     queries = queries.to(torch.float32)
-    backend = get_backend(cfg.backend)
+    backend = get_backend(cfg.backend, cfg)
     if payload is None and _use_payload(cfg, backend):
         payload = make_payload(data, cfg.payload)
 

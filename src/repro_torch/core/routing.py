@@ -120,7 +120,7 @@ def probe_keys(
     """All probe keys of a query batch: ``(Q, L_out, 1 + multiprobe)``,
     from the configured backend's signatures (the keys each cell derives
     from its own family slice, bit for bit)."""
-    backend = pipeline.get_backend(cfg.backend)
+    backend = pipeline.get_backend(cfg.backend, cfg)
     words = backend.signature_words(params, queries)
     return hashing.probe_keys_from_words(params, queries, words, cfg.multiprobe)
 

@@ -70,6 +70,13 @@ def l1_distances(q: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     return (pts - q[None, :]).abs().sum(dim=-1)
 
 
+def cosine_distances(q: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """q: (d,), pts: (C, d) -> (C,) cosine distances (1 - cos similarity)."""
+    qn = q / (torch.linalg.vector_norm(q) + 1e-9)
+    pn = pts / (torch.linalg.vector_norm(pts, dim=-1, keepdim=True) + 1e-9)
+    return 1.0 - pn @ qn
+
+
 def l1_distances_batch(q: torch.Tensor, cands: torch.Tensor) -> torch.Tensor:
     """q: (Q, d), cands: (Q, C, d) -> (Q, C) l1 distances."""
     return (cands - q[:, None, :]).abs().sum(dim=-1)

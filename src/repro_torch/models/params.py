@@ -63,18 +63,37 @@ def param_dtype_defs(defs: dict, param_dtype: str) -> dict:
     }
 
 
+# A leaf of more elements than this is drawn one row of its leading dim
+# (a layer of a stacked leaf) at a time, each row cast to the storage dtype
+# as it is drawn: qwen3-32b's stacked MLP leaves are 33.5 GB in float32, which
+# one card cannot hold beside the rest of its 65.5 GB of bf16 weights. Every
+# smaller leaf is one draw; the bound lies above the largest leaf any other
+# served or trained model draws (phi3.5-moe's 8-layer expert stack, 3.4 B
+# elements), whose numbers a draw in rows would change.
+DRAW_WHOLE_MAX = 1 << 32
+
+
 def _init_leaf(p: PDef, gen: torch.Generator) -> torch.Tensor:
     dev = gen.device
     if p.init == "zeros":
         return torch.zeros(p.shape, dtype=p.dtype, device=dev)
     if p.init == "ones":
         return torch.ones(p.shape, dtype=p.dtype, device=dev)
-    x = torch.randn(p.shape, generator=gen, dtype=torch.float32, device=dev)
     if p.init == "embed":
-        return x.mul_(0.02).to(p.dtype)
-    fan_in = p.shape[-2] if len(p.shape) >= 2 else p.shape[-1]
-    scale = p.scale if p.scale is not None else 1.0 / (fan_in**0.5)
-    return x.mul_(scale).to(p.dtype)
+        scale = 0.02
+    else:
+        fan_in = p.shape[-2] if len(p.shape) >= 2 else p.shape[-1]
+        scale = p.scale if p.scale is not None else 1.0 / (fan_in**0.5)
+
+    def draw(shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float32, device=dev).mul_(scale).to(p.dtype)
+
+    if math.prod(p.shape) <= DRAW_WHOLE_MAX:
+        return draw(p.shape)
+    out = torch.empty(p.shape, dtype=p.dtype, device=dev)
+    for row in out:
+        row.copy_(draw(p.shape[1:]))
+    return out
 
 
 def init_params(defs: dict, gen: torch.Generator, keep=None) -> dict:

@@ -140,7 +140,7 @@ def hash_for_insert(
     """Backend-dispatched outer + inner keys ``(B, L)``, ``(B, L_in)`` for
     one insert batch: the ``pipeline.hash_keys`` of build and query, so a
     streamed point lands in the buckets a rebuild would put it in."""
-    backend = pipeline.get_backend(cfg.backend)
+    backend = pipeline.get_backend(cfg.backend, cfg)
     outer_keys = pipeline.hash_keys(index.outer_params, xs, backend)
     if cfg.use_inner:
         inner_keys = pipeline.hash_keys(index.inner_params, xs, backend)
@@ -223,7 +223,7 @@ def compact(sidx: StreamIndex, cfg: pipeline.SLSHConfig) -> StreamIndex:
     if cfg.use_inner:
         inner_keys, inner_idx = pipeline.build_inner(
             base.inner_params, sidx.store[:n1], outer, heavy, cfg,
-            pipeline.get_backend(cfg.backend),
+            pipeline.get_backend(cfg.backend, cfg),
         )
     else:
         inner_keys, inner_idx = pipeline.empty_inner(l_out, cfg, dev)

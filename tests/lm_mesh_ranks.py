@@ -42,6 +42,8 @@ job (``repro_torch.launch.lm_mesh_job``) and the tests' own steps.
 * ``("stream_shapes", {arch, smoke, prompts, max_len})``: the shapes of the
   stream entering every block (``common.STREAM``) in a prefill of the
   rank's rows, one decode step and the step-0 loss and gradients.
+* ``("planted", {kind, op, **kw})``: the step ``op`` with ``kw`` while
+  ``chip_smoke.mesh_fault(kind)`` plants one of the card phase's faults.
 * ``("xent", {x, head, labels, mask, chunk})``: ``common.chunked_softmax_xent``
   on the rank's rows and block of positions of ``x`` and its block of the
   vocabulary of ``head``; the loss and the reduced gradients of ``x`` (the
@@ -299,9 +301,16 @@ def xent(mesh, x, head, labels, mask, chunk=16) -> dict:
             "grads": {"x": job._np(gx), "head": job._np(gh)}}
 
 
-OPS = dict(job.OPS, grads_kept=grads_kept, moe=moe, cp_decode=cp_decode, shapes=shapes, tp_block=tp_block,
-           moments8=moments8, psum_forms=psum_forms, serve_carried=serve_carried, loss_carried=loss_carried,
-           vocab_gathers=vocab_gathers, stream_shapes=stream_shapes, xent=xent)
+def planted(mesh, kind, op, **kw) -> dict:
+    import chip_smoke  # the repository's root is on the ranks' path (pytest's rootdir)
+
+    with chip_smoke.mesh_fault(kind):
+        return OPS[op](mesh, **kw)
+
+
+OPS = dict(job.OPS, planted=planted, grads_kept=grads_kept, moe=moe, cp_decode=cp_decode, shapes=shapes,
+           tp_block=tp_block, moments8=moments8, psum_forms=psum_forms, serve_carried=serve_carried,
+           loss_carried=loss_carried, vocab_gathers=vocab_gathers, stream_shapes=stream_shapes, xent=xent)
 
 
 def run(j: job.LMMeshJob) -> dict:

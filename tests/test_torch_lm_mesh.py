@@ -55,6 +55,15 @@ this process computes the references) runs every case:
 
 Every row of the spawned world's gradients is put back together along
 every dim a leaf's spec splits (``fsdp`` and ``tensor`` too).
+
+A second world, 1 x 4 as ``chip_smoke.py``'s ``lm_mesh`` phase serves
+mamba2-780m and hymba-1.5b, runs their smoke configs with the phase's own
+references (``chip_smoke.ssm_serve_reference``), jobs and checks: the clean
+runs pass the card's checks, and each of the phase's planted faults
+(``lm_mesh_ranks``' ``planted`` step) moves the logits past the card's
+tolerance on row-passes that count as a catch. The tightened fault rule
+(``chip_smoke.served_checks``, ``fault_caught``) is held on synthetic
+logits and routes.
 """
 from __future__ import annotations
 
@@ -68,6 +77,7 @@ import types
 from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 
+import chip_smoke
 import jax
 import jax.numpy as jnp
 import lm_mesh_ranks
@@ -951,3 +961,115 @@ def test_vocab_parallel_loss_matches_the_plain_loss(world):
                       key=lambda s: s["grads"]["head"],
                       sharding=lambda m: ctx.sharding_for(m, (None, "tensor"), head.shape))
     np.testing.assert_allclose(got_h, gh.numpy(), rtol=0, atol=2.0**-8 * float(gh.abs().max()))
+
+
+# ------------------------------------------------ the SSM families on 1 x 4
+
+
+SSM_FAULT_CASES = [(arch, kind) for arch, faults in chip_smoke.LMM_SSM_FAULTS.items() for kind, _ in faults]
+
+
+def _ssm_steps(arch: str) -> range:
+    """The steps of ``arch``'s served run and of its faults in the 1 x 4 job."""
+    i = 0
+    for a, kinds in chip_smoke.LMM_SSM_FAULTS.items():
+        if a == arch:
+            return range(i, i + 1 + len(kinds))
+        i += 1 + len(kinds)
+    raise KeyError(arch)
+
+
+@pytest.fixture(scope="module")
+def world14(tmp_path_factory):
+    """The 1 x 4 world of the card's SSM serving cases at smoke size, started
+    in the background, and the one-process references it is held to."""
+    d = tmp_path_factory.mktemp("lm_mesh14")
+    refs = {arch: chip_smoke.ssm_serve_reference(torch.device("cpu"), arch, True, str(d))
+            for arch in chip_smoke.LMM_SSM_PROMPT}
+    steps = []
+    for arch, ref in refs.items():
+        def served(decode, ref=ref, arch=arch):
+            return dict(arch=arch, smoke=True, seed=chip_smoke.SEED, prompts=ref["prompts"], max_len=ref["max_len"],
+                        decode=decode, feed=ref["tokens"][:, :decode])
+
+        steps.append(("serve", served(chip_smoke.LMM_SSM_STEPS)))
+        steps += [("planted", dict(kind=kind, op="serve", **served(decode)))
+                  for kind, decode in chip_smoke.LMM_SSM_FAULTS[arch]]
+    job = lm_mesh_job.LMMeshJob(mesh=chip_smoke.LMM_SSM_SERVE_MESH, steps=tuple(steps), device="cpu")
+    pool = ThreadPoolExecutor(1)
+    fut = pool.submit(tmesh.spawn, lm_mesh_ranks.run, 4, store_dir=str(d / "store"), args=(job,), timeout_s=240)
+    yield {"future": fut, "refs": refs}
+    pool.shutdown(wait=True)
+
+
+def _ssm_reports(world14, arch: str) -> list:
+    """Each rank's reports of ``arch``'s cases as ``chip_smoke.lm_mesh_rank``
+    gives them: the served run's, then each fault's."""
+    reports = world14["future"].result(timeout=600)
+    assert [r["rank"] for r in reports] == [0, 1, 2, 3]
+    return [[{"steps": [r["steps"][i]]} for i in _ssm_steps(arch)] for r in reports]
+
+
+@pytest.mark.parametrize("arch", list(chip_smoke.LMM_SSM_PROMPT))
+def test_ssm_serving_on_1x4_passes_the_card_checks(world14, arch):
+    """The card's checks of the served run on 1 x 4 (every pass within the
+    tolerance of the one-process reference, the ranks' tokens equal, held
+    bytes) and of its planted faults (each caught) all pass at smoke size;
+    the cache's positions split over the 4 ranks where the model attends."""
+    ref = world14["refs"][arch]
+    checks, reading = chip_smoke.ssm_serve_results(ref, _ssm_reports(world14, arch), on_card=False)
+    assert [m for ok, m in checks if not ok] == []
+    assert reading["seq_blocks"] == (4 if ref["cfg"].family == "hybrid" else None)
+    assert max(max(e) for e in reading["logits_max_abs_err"]) <= ref["tol"]
+
+
+@pytest.mark.parametrize("arch,kind", SSM_FAULT_CASES)
+def test_each_planted_ssm_fault_moves_the_logits_past_the_card_tolerance(world14, arch, kind):
+    ref = world14["refs"][arch]
+    fi, decode = next((i, d) for i, (k, d) in enumerate(chip_smoke.LMM_SSM_FAULTS[arch]) if k == kind)
+    n = decode + 1
+    reports = _ssm_reports(world14, arch)
+    got, _ = chip_smoke.global_passes([r[1 + fi]["steps"][0] for r in reports], n, chip_smoke.LMM_SSM_BATCH)
+    _, reading = chip_smoke.served_checks(kind, ref["logits"][:n], None, got, None, ref["tol"], ref["cfg"])
+    assert chip_smoke.fault_caught(reading), reading
+    assert max(max(e) for e in reading["logits_max_abs_err"]) > ref["tol"]
+
+
+def _routes(top_e, top_p, n_experts: int = 4) -> list:
+    """One layer's routes (``moe.routes_table``'s form) of rows whose read
+    token took ``top_e[r][0]`` (top_k 1), its router's top-2 ``top_p[r]``."""
+    b = len(top_e)
+    used = np.zeros((b, 1, n_experts), bool)
+    for r, e in enumerate(top_e):
+        used[r, -1, e[0]] = True
+    return [dict(used=used, top_p=np.asarray(top_p, np.float32)[:, None], top_e=np.asarray(top_e)[:, None],
+                 dropped=0)]
+
+
+@pytest.mark.parametrize("case", ["excused_only", "alike_row", "flip_past_tie"])
+def test_a_fault_seen_only_on_excused_row_passes_is_missed(case):
+    """A planted fault counts as caught only where a check of a row-pass
+    that is not excused fails: its routes alike and its logits past the
+    tolerance, or its routes differing past a near tie. Logits far off on
+    row-passes whose flip is a near tie (excused), with too few row-passes
+    alike for the run's own check, are a miss."""
+    cfg = types.SimpleNamespace(top_k=1)
+    ref_logits = [np.zeros((2, 8), np.float32)]
+    ref_routes = [_routes([[0, 1], [2, 3]], [[0.50, 0.49], [0.50, 0.48]])]
+    got_logits = [np.full((2, 8), 3.0, np.float32)]  # every row far off
+    if case == "excused_only":  # both rows took the runner-up, each at a near tie
+        got_routes = [_routes([[1, 0], [3, 2]], [[0.50, 0.49], [0.50, 0.48]])]
+    elif case == "alike_row":  # row 1 routes alike
+        got_routes = [_routes([[1, 0], [2, 3]], [[0.50, 0.49], [0.50, 0.48]])]
+    else:  # row 1 took its runner-up though its reference had no near tie
+        ref_routes = [_routes([[0, 1], [2, 3]], [[0.50, 0.49], [0.90, 0.05]])]
+        got_routes = [_routes([[1, 0], [3, 2]], [[0.50, 0.49], [0.90, 0.05]])]
+    checks, reading = chip_smoke.served_checks("t", ref_logits, ref_routes, got_logits, got_routes, 0.1, cfg)
+    failed = [m for ok, m in checks if not ok]
+    if case == "excused_only":
+        # the run's own check fails (no row-pass routes alike), which counted as a catch before
+        assert failed and all("row-passes route as one process does" in m for m in failed)
+        assert not chip_smoke.fault_caught(reading)
+    else:
+        assert chip_smoke.fault_caught(reading)
+        assert "row 1" in reading["catches"][0]

@@ -167,6 +167,25 @@ def test_init_follows_the_jax_init_rules():
     assert p["wq"].untyped_storage().data_ptr() == lm.layers[1]["wq"].untyped_storage().data_ptr()
 
 
+def test_a_leaf_past_draw_whole_max_is_drawn_one_row_at_a_time(monkeypatch):
+    """A leaf of more than ``DRAW_WHOLE_MAX`` elements is drawn one leading
+    row at a time, each cast to its storage dtype as it is drawn, in the
+    order a loop over the rows would draw them; the next leaf's draw
+    follows; a leaf within the bound is one draw, as it always was."""
+    from repro_torch.models import params as tPM
+
+    defs = {"w": tPM.PDef((3, 4, 5), dtype=torch.bfloat16), "e": tPM.PDef((4, 4), "embed")}
+    whole = tPM.init_params(defs, torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(0)
+    assert torch.equal(whole["w"], (torch.randn((3, 4, 5), generator=g) * 4**-0.5).to(torch.bfloat16))
+    monkeypatch.setattr(tPM, "DRAW_WHOLE_MAX", 20)
+    rows = tPM.init_params(defs, torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(0)
+    want = torch.stack([(torch.randn((4, 5), generator=g) * 4**-0.5).to(torch.bfloat16) for _ in range(3)])
+    assert rows["w"].dtype == torch.bfloat16 and torch.equal(rows["w"], want)
+    assert torch.equal(rows["e"], torch.randn((4, 4), generator=g) * 0.02)
+
+
 # ------------------------------------------------------------ building blocks
 def test_rms_norm_matches_jax():
     rng = np.random.default_rng(0)
